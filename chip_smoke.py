@@ -6,16 +6,27 @@ Phases, each of which fails the run (non-zero exit) if it fails:
 
 1. Require a CUDA device; print the card's name and power limit.
 2. Build the hand-written kernels from ``emr2a_tpu_torch/csrc``.
-3. Kernels: K1 (fused LN+MLP) and K3 (fused LN+attention) against their
-   plain PyTorch versions at the shapes of BioMedCLIP ViT-B/16 at batch 32,
-   with median times over 100 launches (CUDA events).
-4. Main path: a synthetic CT cohort (PNG slices + manifest.jsonl) through
-   the step2 functions with ``BioMedCLIPEncoder.random_init(fast=True)`` at
-   full ViT-B/16 width; checks the artifacts, that every block of every
-   device batch went through both kernels, and that the first slices'
-   embeddings agree with the f32 plain tower on the CPU.
-5. Retrieval: per-patient mean embeddings through the port's cosine top-k.
-6. Throughput of the bf16 tower at batch 128.
+3. Kernels, each against its plain PyTorch version at the main path's
+   shapes, with median times over 100 launches (CUDA events): K1 (fused
+   LN+MLP) and K3 (fused LN+attention) at BioMedCLIP ViT-B/16 batch 32; K2
+   and K4 (their W8A8 variants) at the same shapes; K5 (W8A8 linear) at the
+   PubMedBERT shapes (T = 32 x 256: 768->768, 768->3072, 3072->768) and at
+   T = 32. The W8A8 kernels are also timed against a plain int8 yardstick
+   (their plain versions with ``torch._int_mm`` products).
+4. Main path, bf16: a synthetic CT cohort (PNG slices + manifest.jsonl)
+   through the step2 functions with
+   ``BioMedCLIPEncoder.random_init(fast=True)`` at full ViT-B/16 width;
+   checks the artifacts, that every block of every device batch went
+   through K1 and K3, and that the first slices' embeddings agree with the
+   f32 plain tower on the CPU.
+5. Main path, int8: the same cohort with ``random_init(fast="int8")``;
+   every block of every device batch through K2 and K4, the same checks.
+6. Text: ``encode_batch_texts`` of the int8 encoder's PubMedBERT tower
+   (full width, context 256, a stub character tokenizer) on synthetic
+   clinical texts; every quantized projection through K5; the embeddings
+   of 8 texts against the same tower's plain int8 version on the CPU.
+7. Retrieval: per-patient mean embeddings through the port's cosine top-k.
+8. Throughput of the bf16 and the int8 tower at batch 128, in turns.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -24,6 +35,7 @@ The line before the last is the kernels' JSON record; the last line is
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 import tempfile
@@ -44,6 +56,22 @@ def card_line() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60).stdout
     return out.strip().splitlines()[0]
+
+
+def ptxas_summary(log: str) -> str:
+    """One line per kernel of nvcc's ``-Xptxas -v`` report: registers,
+    shared memory and spills."""
+    lines, name, spill = [], None, ""
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name, spill = m.group(1), ""
+        elif name and "bytes spill" in line:
+            spill = line.split(":", 1)[-1].strip()
+        elif name and "Used" in line:
+            lines.append(f"ptxas {name}: {line.split(':', 1)[-1].strip()}; {spill}")
+            name = None
+    return "\n".join(sorted(set(lines)))
 
 
 def median_ms(fn, iters: int = 100, warmup: int = 5) -> float:
@@ -81,8 +109,29 @@ def compare(name: str, got: torch.Tensor, want: torch.Tensor) -> float:
     return err
 
 
+def int_mm_version(module, fn, weights):
+    """``fn`` (a W8A8 op's plain version in ``module``) with its s8
+    products on ``torch._int_mm`` (cuBLAS int8), as a yardstick only."""
+    col_major = {w.data_ptr(): w.t().contiguous().t() for w in weights}
+
+    def run():
+        plain = module.s8_matmul
+        module.s8_matmul = lambda q, w: torch._int_mm(q, col_major[w.data_ptr()]).float()
+        try:
+            return fn()
+        finally:
+            module.s8_matmul = plain
+    return run
+
+
+def quantize_weight(w: torch.Tensor):
+    from emr2a_tpu_torch.ops.mlp import quantize_weight_int8
+    q, s = quantize_weight_int8(w.float().cpu().numpy())
+    return (torch.from_numpy(q).cuda(), torch.from_numpy(s.reshape(-1)).cuda())
+
+
 def kernel_phase(card: str) -> list:
-    from emr2a_tpu_torch.ops import attention_block, mlp
+    from emr2a_tpu_torch.ops import attention_block, linear_int8, mlp, quant
 
     g = torch.Generator(device="cuda").manual_seed(0)
 
@@ -95,6 +144,12 @@ def kernel_phase(card: str) -> list:
     w1, b1, w2, b2 = rn(d, m, std=0.02), rn(m, std=0.02), rn(m, d, std=0.02), rn(d, std=0.02)
     attn_w = [rn(d, d, std=0.02) if i % 2 == 0 else rn(d, std=0.02) for i in range(8)]
     x2 = x.reshape(B * S, d)
+    # W8A8 weights quantized from the same bf16 values, as fast="int8" does
+    (w1q, w1s), (w2q, w2s) = quantize_weight(w1), quantize_weight(w2)
+    attn_q = []
+    for i in (0, 2, 4, 6):
+        attn_q += [*quantize_weight(attn_w[i]), attn_w[i + 1]]
+    mlp8 = (x2, ln_s, ln_b, w1q, w1s, b1, w2q, w2s, b2)
 
     k1 = lambda: mlp.fused_ln_mlp(x2, ln_s, ln_b, w1, b1, w2, b2)
     k1_ref = lambda: mlp.fused_ln_mlp_reference(x2, ln_s, ln_b, w1, b1, w2, b2)
@@ -102,6 +157,12 @@ def kernel_phase(card: str) -> list:
         x, ln_s, ln_b, *attn_w, num_heads=H, valid_len=valid_len)
     k3_ref = lambda: attention_block.fused_ln_attention_reference(
         x, ln_s, ln_b, *attn_w, num_heads=H, valid_len=valid_len)
+    k2 = lambda: mlp.fused_ln_mlp_int8(*mlp8)
+    k2_ref = lambda: mlp.fused_ln_mlp_int8_reference(*mlp8)
+    k4 = lambda: attention_block.fused_ln_attention_int8(
+        x, ln_s, ln_b, *attn_q, num_heads=H, valid_len=valid_len)
+    k4_ref = lambda: attention_block.fused_ln_attention_int8_reference(
+        x, ln_s, ln_b, *attn_q, num_heads=H, valid_len=valid_len)
     # plain bf16 PyTorch on the same shapes (cuBLAS bf16 products), for scale
     k1_bf16 = lambda: x2 + (mlp.gelu_tanh(torch.nn.functional.layer_norm(
         x2, (d,), ln_s, ln_b, 1e-6) @ w1 + b1) @ w2 + b2)
@@ -116,103 +177,244 @@ def kernel_phase(card: str) -> list:
                           + mask, dim=-1) @ split(v)
         return x + o.transpose(1, 2).reshape(B, S, d) @ attn_w[6] + attn_w[7]
 
+    vit = f"({B}, {S}, {d}), valid_len {valid_len}"
+    cases = [
+        ("fused_ln_mlp", k1, k1_ref, {"plain_bf16_ms": k1_bf16}, "mlp.cu",
+         "emr2a_tpu/ops/mlp.py:75", slice(None), f"T={B * S}, {d}->{m}->{d}"),
+        ("fused_ln_attention", k3, k3_ref, {"plain_bf16_ms": k3_bf16},
+         "attention_block.cu", "emr2a_tpu/ops/attention_block.py:270",
+         slice(0, valid_len), vit),
+        ("fused_ln_mlp_int8", k2, k2_ref,
+         {"int_mm_ms": int_mm_version(mlp, k2_ref, (w1q, w2q))}, "mlp_int8.cu",
+         "emr2a_tpu/ops/mlp.py:194", slice(None), f"T={B * S}, {d}->{m}->{d}"),
+        ("fused_ln_attention_int8", k4, k4_ref,
+         {"int_mm_ms": int_mm_version(attention_block, k4_ref, attn_q[0::3])},
+         "attention_block_int8.cu", "emr2a_tpu/ops/attention_block.py:436",
+         slice(0, valid_len), vit),
+    ]
     records = []
-    for name, fn, ref, bf16, source, replaces, rows in (
-            ("fused_ln_mlp", k1, k1_ref, k1_bf16, "emr2a_tpu_torch/csrc/mlp.cu",
-             "emr2a_tpu/ops/mlp.py:75", slice(None)),
-            ("fused_ln_attention", k3, k3_ref, k3_bf16,
-             "emr2a_tpu_torch/csrc/attention_block.cu",
-             "emr2a_tpu/ops/attention_block.py:270", slice(0, valid_len))):
+    for name, fn, ref, others, source, replaces, rows, shape in cases:
         got = fn()
         torch.cuda.synchronize()
         want = ref()
         got, want = (t.reshape(B, S, d)[:, rows] for t in (got, want))
         err = compare(name, got, want)
-        ms = median_ms(fn)
-        plain_ms = median_ms(ref)
-        plain_bf16_ms = median_ms(bf16)
-        print(f"{name}: kernel {ms:.4f} ms, plain f32-product version "
-              f"{plain_ms:.4f} ms, plain bf16 PyTorch {plain_bf16_ms:.4f} ms "
-              f"(median of 100, {card})", flush=True)
-        records.append({"name": name, "route": "cuda", "source": source,
-                        "replaces": replaces, "max_abs_err": err, "ms": ms,
-                        "plain_ms": plain_ms, "plain_bf16_ms": plain_bf16_ms})
+        rec = {"name": name, "route": "cuda",
+               "source": f"emr2a_tpu_torch/csrc/{source}", "replaces": replaces,
+               "shape": shape, "max_abs_err": err, "ms": median_ms(fn),
+               "plain_ms": median_ms(ref)}
+        rec.update({key: median_ms(f) for key, f in others.items()})
+        print(f"{name}: kernel {rec['ms']:.4f} ms, plain version "
+              f"{rec['plain_ms']:.4f} ms, " + ", ".join(
+                  f"{key[:-3]} {rec[key]:.4f} ms" for key in others)
+              + f" (median of 100, {shape}; {card})", flush=True)
+        records.append(rec)
+
+    # K5 at the PubMedBERT shapes (T = 32 texts x 256 tokens) and at T = 32
+    shapes = []
+    for T, K, N in ((32 * 256, 768, 768), (32 * 256, 768, 3072),
+                    (32 * 256, 3072, 768), (32, 768, 3072)):
+        xt = rn(T, K)
+        wq, ws = quantize_weight(rn(K, N, std=0.02))
+        bias = rn(N, std=0.02)
+        fn = lambda: linear_int8.linear_w8a8(xt, wq, ws, bias)
+        ref = lambda: linear_int8.linear_w8a8_reference(xt, wq, ws, bias)
+        got = fn()
+        torch.cuda.synchronize()
+        err = compare(f"linear_w8a8 T={T} {K}->{N}", got, ref())
+        if not torch.equal(got, ref()):
+            fail(f"linear_w8a8 T={T} {K}->{N}: not bit-identical to its plain version")
+        xq, _ = quant.quantize_rows_s8_reference(xt)
+        w_cm = wq.t().contiguous().t()
+        shape = {"shape": f"T={T}, {K}->{N}", "max_abs_err": err,
+                 "ms": median_ms(fn), "plain_ms": median_ms(ref),
+                 "int_mm_ms": median_ms(int_mm_version(linear_int8, ref, (wq,))),
+                 "int_mm_product_ms": median_ms(lambda: torch._int_mm(xq, w_cm))}
+        print(f"linear_w8a8 T={T} {K}->{N}: kernel {shape['ms']:.4f} ms, plain "
+              f"version {shape['plain_ms']:.4f} ms, int_mm {shape['int_mm_ms']:.4f} ms, "
+              f"the int_mm product alone {shape['int_mm_product_ms']:.4f} ms "
+              f"(median of 100; {card})", flush=True)
+        shapes.append(shape)
+    head = shapes[1]
+    records.append({"name": "linear_w8a8", "route": "cuda",
+                    "source": "emr2a_tpu_torch/csrc/linear_int8.cu",
+                    "replaces": "emr2a_tpu/ops/linear_int8.py:148",
+                    **head, "max_abs_err": max(s["max_abs_err"] for s in shapes),
+                    "shapes": shapes})
+
+    # the shared row quantize: codes and scales equal the plain version's
+    for xq in (x2, torch.randn(B * S, m, generator=g, device="cuda")):
+        q, s = quant.quantize_rows_s8(xq)
+        want_q, want_s = quant.quantize_rows_s8_reference(xq)
+        if not (torch.equal(q, want_q) and torch.equal(s, want_s)):
+            fail(f"quantize_rows_s8 ({xq.dtype}): codes differ from the plain version")
+    print("quantize_rows_s8: codes and scales bit-identical to the plain "
+          "version (bf16 and f32 rows)", flush=True)
     return records
 
 
-def main_path_phase(work: Path, records: list, card: str) -> None:
-    from emr2a_tpu_torch.encoders.biomedclip_encoder import BioMedCLIPEncoder
-    from emr2a_tpu_torch.ops import attention_block, mlp
-    from emr2a_tpu_torch.ops.topk import cosine_topk
-    from emr2a_tpu_torch.pipelines.step2_embeddings import build_embeddings as step2
-    from emr2a_tpu_torch.tools.cohort import write_cohort
+def reset_counts() -> None:
+    from emr2a_tpu_torch.ops import attention_block, linear_int8, mlp, quant
+    mlp.LAUNCHES = mlp.INT8_LAUNCHES = 0
+    attention_block.LAUNCHES = attention_block.INT8_LAUNCHES = 0
+    linear_int8.LAUNCHES = quant.LAUNCHES = 0
 
-    t0 = time.time()
-    manifest_path = write_cohort(work / "cohort")
-    print(f"cohort written in {time.time() - t0:.1f} s", flush=True)
-    encoder = BioMedCLIPEncoder.random_init(seed=0, fast=True, device="cuda")
+
+def read_counts() -> dict:
+    from emr2a_tpu_torch.ops import attention_block, linear_int8, mlp
+    return {"fused_ln_mlp": mlp.LAUNCHES,
+            "fused_ln_attention": attention_block.LAUNCHES,
+            "fused_ln_mlp_int8": mlp.INT8_LAUNCHES,
+            "fused_ln_attention_int8": attention_block.INT8_LAUNCHES,
+            "linear_w8a8": linear_int8.LAUNCHES}
+
+
+def check_full_width(encoder) -> None:
     trunk = encoder.image_model.trunk
+    bert = encoder.text_model.bert
     if not (trunk.config.hidden_size == 768 and len(trunk.blocks) == 12
             and trunk.config.num_heads == 12 and trunk.config.mlp_dim == 3072
             and encoder.config.projection_dim == 512):
         fail("the encoder is not BioMedCLIP ViT-B/16 at full width")
-    device_batches = []
-    encoder.image_model.register_forward_hook(
-        lambda mod, args, out: device_batches.append(args[0].shape[0]))
+    cfg = bert.config
+    if not (cfg.vocab_size == 30522 and cfg.hidden_size == 768
+            and len(bert.blocks) == 12 and cfg.mlp_dim == 3072
+            and encoder.context_length == 256):
+        fail("the text tower is not PubMedBERT-256 at full width")
 
-    manifest = step2.load_manifest(manifest_path)
-    image_paths = step2.load_images(manifest, work)
-    mlp.LAUNCHES = 0
-    attention_block.LAUNCHES = 0
+
+def step2_phase(tag: str, encoder, image_paths: dict, out_dir: Path,
+                kernels: tuple, plain_cpu) -> dict:
+    """Drive step2 with ``encoder``; check the artifacts, that every block
+    of every device batch launched each of ``kernels`` and no other
+    kernel, and the first 8 slices against the f32 plain CPU tower."""
+    from emr2a_tpu_torch.pipelines.step2_embeddings import build_embeddings as step2
+
+    device_batches = []
+    hook = encoder.image_model.register_forward_hook(
+        lambda mod, args, out: device_batches.append(args[0].shape[0]))
     torch.cuda.synchronize()
+    reset_counts()
     t0 = time.time()
     embeddings = step2.encode_images(encoder, image_paths, batch_size=32)
+    torch.cuda.synchronize()
     wall = time.time() - t0
-    launches = {"fused_ln_mlp": mlp.LAUNCHES,
-                "fused_ln_attention": attention_block.LAUNCHES}
-    out_dir = work / "features"
+    launches = read_counts()
+    hook.remove()
     step2.save_embeddings(embeddings, out_dir)
     n_slices = sum(len(p) for p in image_paths.values())
-    print(f"step2: {len(embeddings)} patients, {n_slices} slices, "
+    print(f"step2 {tag}: {len(embeddings)} patients, {n_slices} slices, "
           f"{len(device_batches)} device batches in {wall:.2f} s (host decode "
           f"included); launches {launches}", flush=True)
 
-    for rec in records:
-        rec["launches"] = launches[rec["name"]]
-    expected = 12 * len(device_batches)
     if len(device_batches) != 12 * 2:
-        fail(f"expected 24 device batches (12 patients x 40 slices at batch "
-             f"32), got {len(device_batches)}")
+        fail(f"{tag}: expected 24 device batches (12 patients x 40 slices at "
+             f"batch 32), got {len(device_batches)}")
+    expected = 12 * len(device_batches)
     for name, n in launches.items():
-        if n != expected:
-            fail(f"{name} launched {n} times, expected 12 x "
-                 f"{len(device_batches)} = {expected}")
+        want = expected if name in kernels else 0
+        if n != want:
+            fail(f"{tag}: {name} launched {n} times, expected {want}")
 
     npz = np.load(out_dir / "embeddings.npz")
     meta = json.loads((out_dir / "embeddings_meta.json").read_text())
     if sorted(npz.files) != sorted(image_paths) or meta["embedding_dim"] != 512:
-        fail(f"artifacts: patients {npz.files}, meta {meta}")
+        fail(f"{tag} artifacts: patients {npz.files}, meta {meta}")
     for pid in npz.files:
         e = npz[pid]
-        if e.shape != (40, 512) or not np.isfinite(e).all():
-            fail(f"{pid}: embeddings {e.shape}, finite={np.isfinite(e).all()}")
+        if e.shape != (40, 512) or e.dtype != np.float32 or not np.isfinite(e).all():
+            fail(f"{tag} {pid}: embeddings {e.shape} {e.dtype}, "
+                 f"finite={np.isfinite(e).all()}")
         norms = np.linalg.norm(e, axis=-1)
         if np.abs(norms - 1).max() > 1e-4:
-            fail(f"{pid}: row norms {norms.min()}..{norms.max()}")
+            fail(f"{tag} {pid}: row norms {norms.min()}..{norms.max()}")
 
-    # the first 8 slices against the f32 plain (unfused) tower on the CPU
     first = image_paths[npz.files[0]][:8]
-    plain = BioMedCLIPEncoder.random_init(seed=0, fast=False, device="cpu")
-    want = plain.encode_images(first)
-    got = npz[npz.files[0]][:8]
-    cos = (got * want).sum(-1) / (np.linalg.norm(got, axis=-1)
-                                  * np.linalg.norm(want, axis=-1))
-    print(f"bf16 kernel path vs f32 plain CPU tower, 8 slices: min cosine "
+    want = plain_cpu.encode_images(first)
+    cos = cosines(npz[npz.files[0]][:8], want)
+    print(f"{tag} kernel path vs f32 plain CPU tower, 8 slices: min cosine "
           f"{cos.min():.6f}", flush=True)
     if cos.min() < 0.999:
-        fail(f"embeddings disagree with the f32 plain tower: cosine {cos}")
+        fail(f"{tag} embeddings disagree with the f32 plain tower: cosine {cos}")
+    return {"npz": npz, "launches": launches}
 
-    # retrieval on per-patient means
+
+def cosines(a, b) -> np.ndarray:
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return (a * b).sum(-1) / (np.linalg.norm(a, axis=-1) * np.linalg.norm(b, axis=-1))
+
+
+class CharTokenizer:
+    """A stub PubMedBERT tokenizer: [CLS] = 2, one id per character,
+    [SEP] = 3, padding 0 up to ``max_length``. Nothing is downloaded."""
+
+    def __call__(self, texts, max_length=256, **kw):
+        ids = np.zeros((len(texts), max_length), np.int64)
+        for i, t in enumerate(texts):
+            toks = [2] + [4 + ord(c) % 30000 for c in t[:max_length - 2]] + [3]
+            ids[i, :len(toks)] = toks
+        return {"input_ids": ids, "attention_mask": (ids != 0).astype(np.int64)}
+
+
+def clinical_texts(n: int) -> list:
+    """Synthetic texts in the form of ``render_clinical_text`` (sex, age,
+    fever, symptoms), some long enough to be truncated at 256 tokens."""
+    rng = np.random.RandomState(7)
+    symptoms = ["咳嗽", "气促", "胸痛", "乏力", "咳痰", "呼吸困难", "发热伴寒战"]
+    out = []
+    for i in range(n):
+        parts = [f"性别: {'男' if i % 2 else '女'}", f"年龄: {20 + 3 * i % 70}",
+                 f"发烧: {'是' if rng.rand() < 0.6 else '否'}",
+                 "症状: " + "、".join(rng.choice(symptoms, 1 + i % 4, replace=False))]
+        if i % 9 == 0:
+            parts.append("病史: " + "双肺磨玻璃影，" * (10 + i))
+        out.append("\n".join(parts))
+    return out
+
+
+def text_phase(encoder, plain_cpu, int8_cpu, card: str) -> dict:
+    """encode_batch_texts on the int8 encoder: every quantized projection of
+    every text batch through K5; 8 texts against the same int8 tower's
+    plain version on the CPU (and, printed, the f32 tower)."""
+    from emr2a_tpu_torch.models.layers import Int8Dense
+
+    texts = clinical_texts(64)
+    n_int8 = sum(isinstance(mod, Int8Dense) for mod in encoder.text_model.modules())
+    batches = -(-len(texts) // encoder.max_batch)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.time()
+    got = np.stack(encoder.encode_batch_texts(texts))
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = read_counts()
+    print(f"text: {len(texts)} texts in {batches} batches of at most "
+          f"{encoder.max_batch} x 256 tokens, {wall:.2f} s; {n_int8} int8 "
+          f"projections; launches {launches}", flush=True)
+    if n_int8 != 6 * 12:
+        fail(f"text tower has {n_int8} int8 projections, expected 72")
+    for name, n in launches.items():
+        want = n_int8 * batches if name == "linear_w8a8" else 0
+        if n != want:
+            fail(f"text: {name} launched {n} times, expected {want}")
+    if got.shape != (64, 512) or not np.isfinite(got).all():
+        fail(f"text embeddings {got.shape}, finite={np.isfinite(got).all()}")
+    if np.abs(np.linalg.norm(got, axis=-1) - 1).max() > 1e-4:
+        fail("text embeddings are not unit rows")
+    sample = texts[:8]
+    cos = cosines(got[:8], np.stack(int8_cpu.encode_batch_texts(sample)))
+    cos_f32 = cosines(got[:8], np.stack(plain_cpu.encode_batch_texts(sample)))
+    print(f"text int8 kernel path, 8 texts: min cosine {cos.min():.6f} vs the "
+          f"int8 plain version on the CPU, {cos_f32.min():.6f} vs the f32 "
+          f"tower", flush=True)
+    if cos.min() < 0.999:
+        fail(f"text embeddings disagree with the int8 plain version: {cos}")
+    return {"launches": launches}
+
+
+def retrieval_phase(npz) -> None:
+    from emr2a_tpu_torch.ops.topk import cosine_topk
+
     pids = npz.files
     means = torch.tensor(np.stack([npz[p].mean(0) for p in pids]), device="cuda")
     _, idx = cosine_topk(means, means, k=5)
@@ -226,17 +428,61 @@ def main_path_phase(work: Path, records: list, card: str) -> None:
     print(f"retrieval: every patient retrieves itself first; split-half "
           f"top-1 {hits:.3f} (random weights)", flush=True)
 
-    # tower throughput, bf16 kernel path, batch 128
+
+def throughput_phase(encoders: dict, card: str) -> None:
+    """Each tower at batch 128 on the same pixels, in turns (bf16, int8,
+    int8, bf16)."""
     from emr2a_tpu_torch.ops.preprocess import preprocess_images
+
     batch = torch.randint(0, 256, (128, 224, 224, 3), dtype=torch.uint8,
                           device="cuda",
                           generator=torch.Generator(device="cuda").manual_seed(1))
     with torch.inference_mode():
-        pixels = preprocess_images(batch, encoder.preprocess)
-        ms = median_ms(lambda: encoder.image_model(pixels), iters=30)
-    print(f"tower throughput: {128 / ms * 1e3:.1f} slices/s at batch 128, "
-          f"bf16 kernel path, median {ms:.3f} ms per batch ({card})",
+        pixels = preprocess_images(batch, encoders["bf16"].preprocess)
+        for tag in ("bf16", "int8", "int8", "bf16"):
+            ms = median_ms(lambda: encoders[tag].image_model(pixels), iters=30)
+            print(f"tower throughput: {128 / ms * 1e3:.1f} slices/s at batch "
+                  f"128, {tag} kernel path, median {ms:.3f} ms per batch "
+                  f"({card})", flush=True)
+
+
+def main_path_phase(work: Path, records: list, card: str) -> None:
+    from emr2a_tpu_torch.encoders.biomedclip_encoder import BioMedCLIPEncoder
+    from emr2a_tpu_torch.pipelines.step2_embeddings import build_embeddings as step2
+    from emr2a_tpu_torch.tools.cohort import write_cohort
+
+    t0 = time.time()
+    manifest_path = write_cohort(work / "cohort")
+    print(f"cohort written in {time.time() - t0:.1f} s", flush=True)
+    image_paths = step2.load_images(step2.load_manifest(manifest_path), work)
+    tok = CharTokenizer()
+    t0 = time.time()
+    plain_cpu = BioMedCLIPEncoder.random_init(seed=0, fast=False, device="cpu",
+                                              tokenizer=tok)
+    int8_cpu = BioMedCLIPEncoder.random_init(seed=0, fast="int8", device="cpu",
+                                             tokenizer=tok)
+    encoders = {
+        "bf16": BioMedCLIPEncoder.random_init(seed=0, fast=True, device="cuda",
+                                              tokenizer=tok),
+        "int8": BioMedCLIPEncoder.random_init(seed=0, fast="int8", device="cuda",
+                                              tokenizer=tok, max_batch=32)}
+    print(f"encoders built (random weights, seed 0) in {time.time() - t0:.1f} s",
           flush=True)
+    for enc in encoders.values():
+        check_full_width(enc)
+
+    bf16 = step2_phase("bf16", encoders["bf16"], image_paths, work / "bf16",
+                       ("fused_ln_mlp", "fused_ln_attention"), plain_cpu)
+    int8 = step2_phase("int8", encoders["int8"], image_paths, work / "int8",
+                       ("fused_ln_mlp_int8", "fused_ln_attention_int8"), plain_cpu)
+    text = text_phase(encoders["int8"], plain_cpu, int8_cpu, card)
+    run_of = {"fused_ln_mlp": bf16, "fused_ln_attention": bf16,
+              "fused_ln_mlp_int8": int8, "fused_ln_attention_int8": int8,
+              "linear_w8a8": text}
+    for rec in records:
+        rec["launches"] = run_of[rec["name"]]["launches"][rec["name"]]
+    retrieval_phase(bf16["npz"])
+    throughput_phase(encoders, card)
 
 
 def main() -> int:
@@ -254,7 +500,7 @@ def main() -> int:
     lib = _build.build()
     _build.library()
     print(f"kernels built in {time.time() - t0:.1f} s: {lib.name}", flush=True)
-    print(lib.with_suffix(".log").read_text().strip(), flush=True)
+    print(ptxas_summary(lib.with_suffix(".log").read_text()), flush=True)
 
     records = kernel_phase(card)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:

@@ -38,6 +38,7 @@ def create_encoder(encoder_type: str, device: str = "cuda",
         return BioMedCLIPEncoder(
             model_path=model_path or kwargs.get("biomedclip_config", {}).get("model_path"),
             device=device, mesh=kwargs.get("mesh"),
+            tokenizer=kwargs.get("tokenizer"),
             fast=kwargs.get("fast", False))
 
     if et in SUPPORTED_TYPES:

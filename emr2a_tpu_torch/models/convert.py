@@ -1,16 +1,25 @@
 """Weights into the port: JAX param trees, open_clip checkpoints, and a
 minimal state-dict reader.
 
-- ``params_from_jax(tree)``: a JAX package param tree (numpy leaves, e.g.
-  ``BioMedCLIPImageTower`` params) -> this package's ``state_dict``. The
-  layouts agree by construction (``Dense`` keeps the (in, out) kernel), so
-  the mapping only renames: ``block_i`` -> ``blocks.i`` and a LayerNorm's
-  ``scale`` -> ``weight``.
+- ``params_from_jax(tree)``: a JAX package param tree (numpy or torch
+  leaves, e.g. ``BioMedCLIPImageTower`` params) -> this package's
+  ``state_dict``. The layouts agree by construction (``Dense`` keeps the
+  (in, out) kernel, ``Int8Dense`` the W8A8 ``kernel_q`` / ``kernel_scale``
+  as they are), so the mapping only renames: ``block_i`` -> ``blocks.i``
+  and a LayerNorm's ``scale`` -> ``weight``. ``params_to_jax`` is its
+  inverse.
 - ``convert_biomedclip_image_tower(sd)``: an open_clip BiomedCLIP state dict
   (``visual.trunk.*`` timm ViT with fused qkv, ``visual.head.proj``) -> the
   ``BioMedCLIPImageTower`` state dict. Counterpart of
   ``emr2a_tpu/models/convert.py:convert_biomedclip_image_tower``; torch's
   (out, in) weights are transposed here, once.
+- ``convert_hf_bert(sd)`` and ``convert_biomedclip_text_tower(sd)``: an HF
+  BERT state dict -> ``BertEncoder``'s, and open_clip BiomedCLIP's
+  ``text.*`` -> ``BioMedCLIPTextTower``'s; counterparts of the JAX
+  package's converters of the same names. The text tower pools the cls
+  token and its proj head has no bias, so it drops the checkpoint's BERT
+  pooler and any proj bias, which it never reads (the JAX converter keeps
+  them, and flax ignores them).
 - ``load_state_dict(path)``: safetensors or torch ``.bin`` files, or an
   HF-style directory of them, as numpy arrays.
 """
@@ -29,6 +38,8 @@ _SAFETENSOR_NAMES = ("model.safetensors",)
 
 
 def _to_tensor(leaf) -> torch.Tensor:
+    if isinstance(leaf, torch.Tensor):
+        return leaf
     arr = np.asarray(leaf)
     if arr.dtype.name == "bfloat16":   # ml_dtypes leaves of a bf16 tree
         return torch.from_numpy(arr.astype(np.float32)).to(torch.bfloat16)
@@ -51,6 +62,26 @@ def params_from_jax(tree: Mapping) -> Dict[str, torch.Tensor]:
 
     walk(tree, "")
     return out
+
+
+def params_to_jax(state: Mapping[str, torch.Tensor]) -> Dict:
+    """The inverse of ``params_from_jax``: a state dict of this package ->
+    the JAX package's nested tree (leaves unchanged)."""
+    tree: Dict = {}
+    for key, value in state.items():
+        path = []
+        for part in key.split("."):
+            if part.isdigit() and path and path[-1] == "blocks":
+                path[-1] = f"block_{part}"
+            else:
+                path.append(part)
+        if path[-1] == "weight":                                  # LayerNorm
+            path[-1] = "scale"
+        node = tree
+        for part in path[:-1]:
+            node = node.setdefault(part, {})
+        node[path[-1]] = value
+    return tree
 
 
 # ---------------------------------------------------------------------------
@@ -127,6 +158,63 @@ def convert_biomedclip_image_tower(sd: Mapping[str, np.ndarray],
         "trunk": _timm_vit_tree(sd, num_layers, prefix="visual.trunk."),
         "head_proj": {"kernel": kernel},
     })
+
+
+# ---------------------------------------------------------------------------
+# HF BERT and open_clip BiomedCLIP's text tower
+# ---------------------------------------------------------------------------
+
+def _hf_bert_tree(sd, num_layers: int, prefix: str) -> dict:
+    e = prefix + "embeddings."
+    tree = {
+        "token_embed": {"embedding": sd[e + "word_embeddings.weight"]},
+        "pos_embed": sd[e + "position_embeddings.weight"][None],
+        "type_embed": {"embedding": sd[e + "token_type_embeddings.weight"]},
+        "embed_ln": _ln(sd, e + "LayerNorm"),
+    }
+    for i in range(num_layers):
+        p = f"{prefix}encoder.layer.{i}."
+        tree[f"block_{i}"] = {
+            "attn": {
+                "q_proj": _dense(sd, p + "attention.self.query"),
+                "k_proj": _dense(sd, p + "attention.self.key"),
+                "v_proj": _dense(sd, p + "attention.self.value"),
+                "out_proj": _dense(sd, p + "attention.output.dense"),
+            },
+            "attn_ln": _ln(sd, p + "attention.output.LayerNorm"),
+            "mlp": {"fc1": _dense(sd, p + "intermediate.dense"),
+                    "fc2": _dense(sd, p + "output.dense")},
+            "mlp_ln": _ln(sd, p + "output.LayerNorm"),
+        }
+    if prefix + "pooler.dense.weight" in sd:
+        tree["pooler"] = _dense(sd, prefix + "pooler.dense")
+    return tree
+
+
+def convert_hf_bert(sd: Mapping[str, np.ndarray], num_layers: int,
+                    prefix: str = "") -> Dict[str, torch.Tensor]:
+    """HF ``BertModel`` state dict (numpy) -> ``BertEncoder`` state dict
+    (with ``pooler.*`` when the checkpoint has one: load it into
+    ``BertEncoder(pooling="pooler")``)."""
+    return params_from_jax(_hf_bert_tree(sd, num_layers, prefix))
+
+
+def convert_biomedclip_text_tower(sd: Mapping[str, np.ndarray],
+                                  num_layers: int = 12
+                                  ) -> Dict[str, torch.Tensor]:
+    """open_clip BiomedCLIP state dict (numpy) -> ``BioMedCLIPTextTower``
+    state dict."""
+    bert = _hf_bert_tree(sd, num_layers, prefix="text.transformer.")
+    bert.pop("pooler", None)              # cls pooling never reads it
+    tree = {"bert": bert}
+    if "text.proj.0.weight" in sd:        # MLP proj (open_clip: bias-free)
+        tree["proj_fc1"] = {"kernel": sd["text.proj.0.weight"].T}
+        tree["proj_fc2"] = {"kernel": sd["text.proj.2.weight"].T}
+    elif "text.proj.weight" in sd:
+        tree["proj"] = {"kernel": sd["text.proj.weight"].T}
+    elif "text.proj" in sd:
+        tree["proj"] = {"kernel": sd["text.proj"]}
+    return params_from_jax(tree)
 
 
 # ---------------------------------------------------------------------------

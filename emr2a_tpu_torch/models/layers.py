@@ -19,18 +19,31 @@ so these shapes route differently:
   and raises there.
 - On the CPU every shape with the flag set takes the fused op's plain
   version, whatever its size.
+
+W8A8 params are routed by what they hold, as the JAX package's
+``_QuantRoutingModule`` does: ``load_params`` replaces every ``Dense`` whose
+state arrives as ``kernel_q`` / ``kernel_scale`` (``models/quantize.py``)
+with an ``Int8Dense``, which runs the streaming W8A8 op (K5,
+``ops/linear_int8.py``). A ``TransformerBlock`` whose projections are
+``Int8Dense`` takes the W8A8 fused ops (K4, K2) under the flags, and K5
+through ``MultiHeadAttention`` / ``Mlp`` without them, as
+``emr2a_tpu/models/layers.py:164-265`` does.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Optional
+from typing import Callable, Mapping, Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from emr2a_tpu_torch.ops.attention_block import fused_ln_attention
-from emr2a_tpu_torch.ops.mlp import fused_ln_mlp
+from emr2a_tpu_torch.ops.attention_block import (
+    fused_ln_attention,
+    fused_ln_attention_int8,
+)
+from emr2a_tpu_torch.ops.linear_int8 import linear_w8a8
+from emr2a_tpu_torch.ops.mlp import fused_ln_mlp, fused_ln_mlp_int8
 
 
 def quick_gelu(x: torch.Tensor) -> torch.Tensor:
@@ -68,6 +81,47 @@ class Dense(nn.Module):
         if self.bias is not None:
             y = y + self.bias
         return y
+
+
+class Int8Dense(nn.Module):
+    """A ``Dense`` held in W8A8: ``kernel_q`` int8 (in, out) and
+    ``kernel_scale`` f32 (out,) buffers, the JAX package's layout and names,
+    and a bias in the working dtype. Runs ``linear_w8a8`` (K5), whose output
+    is in the working dtype."""
+
+    def __init__(self, in_features: int, out_features: int,
+                 use_bias: bool = True, dtype: torch.dtype = torch.float32,
+                 device=None):
+        super().__init__()
+        self.dtype = dtype
+        self.register_buffer("kernel_q", torch.zeros(
+            in_features, out_features, dtype=torch.int8, device=device))
+        self.register_buffer("kernel_scale", torch.ones(
+            out_features, dtype=torch.float32, device=device))
+        if use_bias:
+            self.bias = nn.Parameter(torch.zeros(out_features, dtype=dtype,
+                                                 device=device))
+        else:
+            self.register_parameter("bias", None)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return linear_w8a8(x.contiguous(), self.kernel_q, self.kernel_scale,
+                           self.bias, out_dtype=self.dtype)
+
+
+def load_params(module: nn.Module, state: Mapping[str, torch.Tensor]
+                ) -> nn.Module:
+    """``module.load_state_dict(state)`` after replacing every ``Dense``
+    whose kernel arrives quantized (``<name>.kernel_q`` in ``state``) with an
+    ``Int8Dense`` of the same shape and dtype."""
+    for name, sub in list(module.named_modules()):
+        if isinstance(sub, Dense) and f"{name}.kernel_q" in state:
+            parent, _, leaf = name.rpartition(".")
+            setattr(module.get_submodule(parent), leaf, Int8Dense(
+                *sub.kernel.shape, use_bias=sub.bias is not None,
+                dtype=sub.kernel.dtype, device=sub.kernel.device))
+    module.load_state_dict(state)
+    return module
 
 
 class MultiHeadAttention(nn.Module):
@@ -148,27 +202,51 @@ class TransformerBlock(nn.Module):
 
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None,
                 valid_len: Optional[int] = None) -> torch.Tensor:
+        a = self.attn
         if self.fused_attn and x.dim() == 3 and mask is None and self.qkv_bias:
-            a = self.attn
-            x = fused_ln_attention(
-                x, self.ln1.weight, self.ln1.bias,
-                a.q_proj.kernel, a.q_proj.bias, a.k_proj.kernel, a.k_proj.bias,
-                a.v_proj.kernel, a.v_proj.bias, a.out_proj.kernel,
-                a.out_proj.bias, num_heads=self.num_heads, eps=self.ln_eps,
-                valid_len=valid_len)
+            projs = (a.q_proj, a.k_proj, a.v_proj, a.out_proj)
+            if isinstance(a.q_proj, Int8Dense):
+                x = fused_ln_attention_int8(
+                    x, self.ln1.weight, self.ln1.bias,
+                    *(t for p in projs
+                      for t in (p.kernel_q, p.kernel_scale, p.bias)),
+                    num_heads=self.num_heads, eps=self.ln_eps,
+                    valid_len=valid_len)
+            else:
+                x = fused_ln_attention(
+                    x, self.ln1.weight, self.ln1.bias,
+                    *(t for p in projs for t in (p.kernel, p.bias)),
+                    num_heads=self.num_heads, eps=self.ln_eps,
+                    valid_len=valid_len)
         else:
             if valid_len is not None and mask is None:
                 # pre-padded tokens on the unfused path: mask the pad keys
                 key_pos = torch.arange(x.shape[1], device=x.device)
                 mask = torch.where(key_pos < valid_len, 0.0,
                                    torch.finfo(torch.float32).min)
-            x = x + self.attn(self.ln1(x), mask)
+            x = x + a(self.ln1(x), mask)
         if self.fused_mlp and x.dim() == 3:
             B, S, d = x.shape
-            out = fused_ln_mlp(
-                x.reshape(B * S, d), self.ln2.weight, self.ln2.bias,
-                self.mlp.fc1.kernel, self.mlp.fc1.bias,
-                self.mlp.fc2.kernel, self.mlp.fc2.bias, eps=self.ln_eps,
-                activation=self.mlp.activation)
+            fc1, fc2 = self.mlp.fc1, self.mlp.fc2
+            if isinstance(fc1, Int8Dense):
+                out = fused_ln_mlp_int8(
+                    x.reshape(B * S, d), self.ln2.weight, self.ln2.bias,
+                    fc1.kernel_q, fc1.kernel_scale, fc1.bias, fc2.kernel_q,
+                    fc2.kernel_scale, fc2.bias, eps=self.ln_eps,
+                    activation=self.mlp.activation)
+            else:
+                out = fused_ln_mlp(
+                    x.reshape(B * S, d), self.ln2.weight, self.ln2.bias,
+                    fc1.kernel, fc1.bias, fc2.kernel, fc2.bias,
+                    eps=self.ln_eps, activation=self.mlp.activation)
             return out.reshape(B, S, d)
         return x + self.mlp(self.ln2(x))
+
+
+def make_padding_mask(attention_mask: torch.Tensor,
+                      dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """(B, S) 1/0 mask -> additive (B, 1, 1, S): 0 where kept, the f32
+    minimum where padded."""
+    neg = torch.finfo(torch.float32).min
+    return torch.where(attention_mask[:, None, None, :] > 0, 0.0,
+                       neg).to(dtype)

@@ -1,8 +1,9 @@
 """Build and load the port's CUDA kernel library.
 
 The sources under ``emr2a_tpu_torch/csrc`` are compiled once, at first use,
-with ``nvcc`` for ``sm_90a`` into one shared library with a plain C
-interface, which is loaded with ``ctypes``. The library's name carries a
+with ``nvcc`` for ``sm_90a``: one ``nvcc`` per ``.cu`` file, all started
+together, then one link into a shared library with a plain C interface,
+which is loaded with ``ctypes``. The library's name carries a
 hash of the sources and flags, so an edit rebuilds it. Nothing here runs at
 import time: the package imports, and its CPU tests run, where there is no
 ``nvcc`` and no card.
@@ -22,7 +23,7 @@ from pathlib import Path
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _lib = None
 
@@ -65,18 +66,32 @@ def build() -> Path:
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    cu = [str(p) for p in sorted(CSRC_DIR.glob("*.cu"))]
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC_DIR), "-o", tmp, *cu]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-            f"{proc.stdout}\n{proc.stderr}")
-    out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-    os.replace(tmp, out)
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        jobs = []
+        for cu in sorted(CSRC_DIR.glob("*.cu")):
+            obj = Path(tmp) / f"{cu.stem}.o"
+            cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC_DIR), "-c", "-o", str(obj),
+                   str(cu)]
+            jobs.append((cmd, obj, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
+        log = []
+        for cmd, _, proc in jobs:
+            text = proc.communicate()[0]
+            log.append(f"$ {' '.join(cmd)}\n{text}")
+            if proc.returncode != 0:
+                for _, _, other in jobs:
+                    other.communicate()
+                raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log[-1]}")
+        lib = Path(tmp) / out.name
+        cmd = [nvcc, "-shared", "-o", str(lib), *(str(obj) for _, obj, _ in jobs)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}): "
+                               f"{' '.join(cmd)}\n{proc.stdout}\n{proc.stderr}")
+        out.with_suffix(".log").write_text("".join(log))
+        os.replace(lib, out)
     return out
 
 

@@ -5,13 +5,13 @@ the same CLI and artifacts: ``embeddings.npz`` keyed by patient_id with one
 slice-embedding matrix per patient, and ``embeddings_meta.json``
 {num_patients, patients, embedding_dim}. Failed patients are logged and
 skipped. Differences: ``--device`` defaults to ``cuda``; ``--fast`` is the
-bf16 tower on the hand-written CUDA kernels and ``--fast int8`` raises
-until the int8 tower is ported; ``--data_parallel`` raises (one GPU, no
+bf16 tower on the hand-written CUDA kernels (K1, K3) and ``--fast int8``
+the W8A8 tower on theirs (K2, K4); ``--data_parallel`` raises (one GPU, no
 mesh); the JAX compile-cache flag is gone (eager PyTorch has no compile
 step to cache).
 
     python -m emr2a_tpu_torch.pipelines.step2_embeddings.run \\
-        --encoder_type biomedclip --fast --device cuda --model_path <ckpt>
+        --encoder_type biomedclip --fast int8 --device cuda --model_path <ckpt>
 """
 
 from __future__ import annotations
@@ -48,8 +48,8 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--fast", nargs="?", const="bf16", default=None,
                         choices=["bf16", "int8"],
                         help="'--fast' = bf16 tower on the fused CUDA "
-                             "kernels (biomedclip); '--fast int8' is not "
-                             "ported yet")
+                             "kernels (biomedclip); '--fast int8' = W8A8 "
+                             "tower on the int8 kernels")
     return parser
 
 

@@ -1,15 +1,18 @@
-"""Where step2's time goes on one CUDA card, for the bf16 kernel path.
+"""Where step2's time goes on one CUDA card, for the bf16 or the int8
+kernel path.
 
-    python -m emr2a_tpu_torch.tools.profile_tower [--out profile.json]
+    python -m emr2a_tpu_torch.tools.profile_tower [--fast int8] [--out profile.json]
 
 Three measurements, all of BioMedCLIP ViT-B/16 at full width with random
-weights (``BioMedCLIPEncoder.random_init(seed=0, fast=True)``):
+weights (``BioMedCLIPEncoder.random_init(seed=0, fast=True)``, or
+``fast="int8"`` with ``--fast int8``):
 
 1. Tower: ``torch.profiler`` device time per kernel and per forward, at
    batch 32 and 128, over 5 forwards after warm-up; the wall per
    forward from CUDA events over the same count without the profiler; the
    device's busy share (device time over the profiled forwards' own wall);
-   and the rate each kernel reaches from the FLOPs its shapes give.
+   and the rate each kernel reaches from the operations its shapes give
+   (FLOPs for bf16, s8 multiply-adds x 2 for int8).
 2. Step2's stages per slice on a synthetic cohort of 512x512 PNGs: host
    decode (grey and RGB PNGs), host resize to 224, and the device path of
    one batch of 32 (H2D, preprocessing, tower, L2 normalisation, D2H).
@@ -38,10 +41,13 @@ BATCHES = (32, 128)      # step2's device batch, and a saturating one
 ITERS = 5                # profiled forwards per batch
 COHORT = (4, 40)         # patients x 512x512 slices per PNG kind
 
-# demangled kernel name -> (label, FLOPs per launch as a function of
-# (tokens T, batch B, padded sequence S)) at ViT-B: d=768, m=3072, 12 heads
+# demangled kernel name -> (label, operations per launch as a function of
+# (tokens T, batch B, padded sequence S)) at ViT-B: d=768, m=3072, 12 heads;
+# the first pattern that matches names the kernel
 _D, _M, _H = 768, 3072, 12
 _KERNELS = (
+    (r"attention_core_kernel<float>", "attention core, f32 out (K4)",
+     lambda T, B, S: 4 * B * _H * S * S * (_D // _H)),
     (r"attention_core", "attention core (K3)",
      lambda T, B, S: 4 * B * _H * S * S * (_D // _H)),
     (r"gemm_bf16_kernel<0, ?true>", "Q/K/V GEMM + LN (K3)",
@@ -50,7 +56,23 @@ _KERNELS = (
      lambda T, B, S: 2 * T * _D * _M),
     (r"gemm_bf16_kernel<2, ?false>", "fc2 and out-proj GEMM + residual (K1, K3)",
      lambda T, B, S: (2 * T * _M * _D + 2 * T * _D * _D) / 2),
+    (r"gemm_s8_kernel<0>", "Q/K/V s8 GEMM (K4)",
+     lambda T, B, S: 2 * T * _D * 3 * _D),
+    (r"gemm_s8_kernel<1>", "fc1 s8 GEMM + gelu (K2)",
+     lambda T, B, S: 2 * T * _D * _M),
+    (r"gemm_s8_kernel<2>", "fc2 and out-proj s8 GEMM + residual (K2, K4)",
+     lambda T, B, S: (2 * T * _M * _D + 2 * T * _D * _D) / 2),
+    (r"quantize_rows_kernel<__nv_bfloat16, ?true>", "LN + row quantize (K2, K4)",
+     None),
+    (r"quantize_rows_kernel<float, ?false>",
+     "row quantize of f32 h1 and P.V (K2, K4)", None),
 )
+def kernel_label(key: str, T: int, B: int, S: int):
+    """(label, operations per launch or None) of a demangled kernel name."""
+    for pattern, name, ops in _KERNELS:
+        if re.search(pattern, key):
+            return name, ops and ops(T, B, S)
+    return key[:100], None
 
 
 def _self_device_us(evt) -> float:
@@ -97,16 +119,13 @@ def profile_tower(encoder, batch: int, iters: int) -> dict:
         us = _self_device_us(evt)
         if us <= 0:
             continue
-        label, flops = evt.key[:100], None
-        for pattern, name, fn in _KERNELS:
-            if re.search(pattern, evt.key):
-                label, flops = name, fn(batch * S, batch, S)
+        label, ops = kernel_label(evt.key, batch * S, batch, S)
         ms = us / 1e3 / iters
         launches = evt.count / iters
         rows.append({"kernel": label, "ms": ms,
                      "launches": launches,
-                     "tflops": (flops * launches / (ms * 1e-3) / 1e12
-                                if flops else None)})
+                     "tera_ops_per_s": (ops * launches / (ms * 1e-3) / 1e12
+                                        if ops else None)})
     rows.sort(key=lambda r: -r["ms"])
     device_ms = sum(r["ms"] for r in rows)
     for r in rows:
@@ -161,6 +180,8 @@ def step2_wall(encoder, manifest_path: Path) -> dict:
 
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--fast", choices=["bf16", "int8"], default="bf16",
+                        help="the tower's kernel path (default bf16)")
     parser.add_argument("--out", type=Path)
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
@@ -177,16 +198,18 @@ def main(argv=None) -> int:
     from emr2a_tpu_torch.encoders.biomedclip_encoder import BioMedCLIPEncoder
     from emr2a_tpu_torch.tools.cohort import write_cohort
 
-    encoder = BioMedCLIPEncoder.random_init(seed=0, fast=True, device="cuda")
-    result = {"card": card, "tower": [], "iters": ITERS}
+    encoder = BioMedCLIPEncoder.random_init(
+        seed=0, fast="int8" if args.fast == "int8" else True, device="cuda")
+    result = {"card": card, "fast": args.fast, "tower": [], "iters": ITERS}
     for batch in BATCHES:
         prof = profile_tower(encoder, batch, ITERS)
         result["tower"].append(prof)
-        print(f"tower batch {batch}: wall {prof['wall_ms']:.3f} ms/forward, "
+        print(f"tower {args.fast} batch {batch}: wall {prof['wall_ms']:.3f} ms/forward, "
               f"device {prof['device_ms']:.3f} ms/forward, busy share "
               f"{prof['busy_share']:.3f} ({card})", flush=True)
         for r in prof["kernels"]:
-            rate = "" if r["tflops"] is None else f", {r['tflops']:.1f} TFLOP/s"
+            rate = ("" if r["tera_ops_per_s"] is None
+                    else f", {r['tera_ops_per_s']:.1f} TOP/s")
             print(f"  {r['ms']:.3f} ms ({r['share']:.1%}, {r['launches']:g} "
                   f"launches){rate}  {r['kernel']}", flush=True)
 

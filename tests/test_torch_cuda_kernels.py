@@ -1,15 +1,24 @@
-"""K1 and K3 on the card, at shapes beyond the main path's: ragged token
-counts, short and maximal sequences, valid_len edges, and the inputs the
-wrappers must refuse. Each test skips without a CUDA card. On the card
-(the suite's conftest imports JAX, which that machine lacks):
+"""The kernels on the card, at shapes beyond the main path's: K1 and K3
+(bf16) and K2, K4, K5 (W8A8) at ragged token counts including T = 1 and
+T < 32, short and maximal sequences, valid_len edges, all-zero rows, the
+row quantize's codes, the inputs the wrappers must refuse, and the launch
+counters. Each test skips without a CUDA card. On the card (the suite's
+conftest imports JAX, which that machine lacks):
 
     python -m pytest --noconftest tests/test_torch_cuda_kernels.py -q
+
+Tolerances: K1 to K4 against their plain versions at atol = rtol = 1e-2
+and row cosine >= 0.9999 (bf16 outputs; K2 and K4 may flip a rare code
+where an f32 LN or activation value lands on a rounding boundary in
+another summation order). K5 and the row quantize have no such value:
+their codes, sums and rescale are the plain version's exactly, so they are
+held bit for bit.
 """
 
 import pytest
 import torch
 
-from emr2a_tpu_torch.ops import attention_block, mlp
+from emr2a_tpu_torch.ops import attention_block, linear_int8, mlp, quant
 
 
 @pytest.fixture()
@@ -90,3 +99,140 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
         mlp.fused_ln_mlp(*_mlp_args(gen, 64, 192, 512))
     with pytest.raises(ValueError, match="gelu only"):
         mlp.fused_ln_mlp(*margs, activation="quick_gelu")
+
+
+# -- W8A8: the row quantize, K5, K2, K4 ------------------------------------
+
+def _w8(gen, K, N, std=0.02):
+    """int8 codes and column scales of bf16 weights, as fast="int8" makes
+    them."""
+    w = _rn(gen, K, N, std=std).float().cpu().numpy()
+    q, scale = mlp.quantize_weight_int8(w)
+    return torch.from_numpy(q).cuda(), torch.from_numpy(scale.reshape(-1)).cuda()
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("rows,K", [(1, 768), (37, 3072), (6400, 768)])
+def test_quantize_rows_codes_equal_plain(cuda, dtype, rows, K):
+    gen = torch.Generator(device="cuda").manual_seed(rows)
+    x = (torch.randn(rows, K, generator=gen, device="cuda")
+         * torch.exp(torch.randn(rows, 1, generator=gen, device="cuda") * 2)).to(dtype)
+    x[0, :] = 0.0
+    before = quant.LAUNCHES
+    q, s = quant.quantize_rows_s8(x)
+    torch.cuda.synchronize()
+    assert quant.LAUNCHES == before + 1
+    want_q, want_s = quant.quantize_rows_s8_reference(x)
+    assert torch.equal(q, want_q) and torch.equal(s, want_s)
+    assert (q[0] == 0).all()
+
+
+@pytest.mark.parametrize("T,K,N", [(1, 768, 768), (7, 768, 3072), (31, 3072, 768),
+                                   (300, 768, 3072), (8192, 3072, 3072)])
+@pytest.mark.parametrize("use_bias", [True, False])
+def test_linear_w8a8_kernel_equals_plain(cuda, T, K, N, use_bias):
+    gen = torch.Generator(device="cuda").manual_seed(T + K)
+    x = _rn(gen, T, K)
+    wq, ws = _w8(gen, K, N)
+    b = _rn(gen, N, std=0.02) if use_bias else None
+    before = linear_int8.LAUNCHES
+    got = linear_int8.linear_w8a8(x, wq, ws, b)
+    torch.cuda.synchronize()
+    assert linear_int8.LAUNCHES == before + 1
+    want = linear_int8.linear_w8a8_reference(x, wq, ws, b)
+    assert got.dtype == torch.bfloat16 and got.shape == (T, N)
+    assert torch.equal(got, want), (got.float() - want.float()).abs().max()
+
+
+def test_linear_w8a8_leading_axes_and_zero_rows(cuda):
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    x = _rn(gen, 4, 256, 768)
+    x[1, 3] = 0.0
+    wq, ws = _w8(gen, 768, 768)
+    b = _rn(gen, 768, std=0.02)
+    got = linear_int8.linear_w8a8(x, wq, ws, b)
+    torch.cuda.synchronize()
+    assert got.shape == (4, 256, 768)
+    assert torch.equal(got, linear_int8.linear_w8a8_reference(x, wq, ws, b))
+    assert torch.equal(got[1, 3], b)
+
+
+def _mlp8_args(gen, T, d, m):
+    x, s, b = _rn(gen, T, d), (1 + _rn(gen, d, std=0.1).float()).to(torch.bfloat16), \
+        _rn(gen, d, std=0.1)
+    w1q, w1s = _w8(gen, d, m)
+    w2q, w2s = _w8(gen, m, d)
+    return x, s, b, w1q, w1s, _rn(gen, m, std=0.02), w2q, w2s, _rn(gen, d, std=0.02)
+
+
+@pytest.mark.parametrize("T,d,m", [(1, 768, 3072), (7, 768, 3072), (300, 768, 3072),
+                                   (6437, 768, 3072), (129, 256, 512)])
+def test_fused_ln_mlp_int8_kernel_matches_plain(cuda, T, d, m):
+    args = _mlp8_args(torch.Generator(device="cuda").manual_seed(T), T, d, m)
+    args[0][0] = 0.0                                    # an all-zero row
+    before = mlp.INT8_LAUNCHES
+    got = mlp.fused_ln_mlp_int8(*args)
+    torch.cuda.synchronize()
+    assert mlp.INT8_LAUNCHES == before + 1
+    assert torch.isfinite(got).all()
+    _assert_matches(got, mlp.fused_ln_mlp_int8_reference(*args))
+
+
+def _attn8_args(gen, B, S, d):
+    ws = []
+    for _ in range(4):
+        ws += [*_w8(gen, d, d), _rn(gen, d, std=0.02)]
+    return (_rn(gen, B, S, d), (1 + _rn(gen, d, std=0.1).float()).to(torch.bfloat16),
+            _rn(gen, d, std=0.1), *ws)
+
+
+@pytest.mark.parametrize("B,S,d,H,valid_len", [
+    (1, 17, 128, 2, 13), (3, 50, 768, 12, 50), (32, 200, 768, 12, 197),
+    (1, 384, 256, 4, 300), (2, 8, 768, 12, 1),
+])
+def test_fused_ln_attention_int8_kernel_matches_plain(cuda, B, S, d, H, valid_len):
+    args = _attn8_args(torch.Generator(device="cuda").manual_seed(S), B, S, d)
+    args[0][:, S - 1] = 0.0                            # all-zero (padding) rows
+    before = attention_block.INT8_LAUNCHES
+    got = attention_block.fused_ln_attention_int8(*args, num_heads=H,
+                                                  valid_len=valid_len)
+    torch.cuda.synchronize()
+    assert attention_block.INT8_LAUNCHES == before + 1
+    assert torch.isfinite(got).all()
+    want = attention_block.fused_ln_attention_int8_reference(
+        *args, num_heads=H, valid_len=valid_len)
+    _assert_matches(got[:, :valid_len], want[:, :valid_len])
+
+
+def test_int8_wrappers_refuse_what_the_kernels_do_not_take(cuda):
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    x = _rn(gen, 64, 768)
+    wq, ws = _w8(gen, 768, 768)
+    before = linear_int8.LAUNCHES
+    with pytest.raises(TypeError, match="bfloat16"):
+        linear_int8.linear_w8a8(x.float(), wq, ws)
+    with pytest.raises(TypeError, match="int8"):
+        linear_int8.linear_w8a8(x, wq.to(torch.bfloat16), ws)
+    with pytest.raises(TypeError, match="out_dtype"):
+        linear_int8.linear_w8a8(x, wq, ws, out_dtype=torch.float32)
+    with pytest.raises(ValueError, match="contiguous"):
+        linear_int8.linear_w8a8(_rn(gen, 768, 64).t(), wq, ws)
+    w192, s192 = _w8(gen, 768, 192)
+    with pytest.raises(ValueError, match="divisible by 128"):
+        linear_int8.linear_w8a8(x, w192, s192)
+    w48, s48 = _w8(gen, 48, 128)
+    with pytest.raises(ValueError, match="divisible by 32"):
+        linear_int8.linear_w8a8(_rn(gen, 4, 48), w48, s48)
+    assert linear_int8.LAUNCHES == before
+    margs = list(_mlp8_args(gen, 16, 768, 3072))
+    with pytest.raises(TypeError, match="float32"):
+        mlp.fused_ln_mlp_int8(*margs[:4], margs[4].to(torch.bfloat16), *margs[5:])
+    with pytest.raises(ValueError, match="gelu only"):
+        mlp.fused_ln_mlp_int8(*margs, activation="quick_gelu")
+    x, s, b, *ws4 = _attn8_args(gen, 1, 385, 256)
+    with pytest.raises(ValueError, match="up to 384"):
+        attention_block.fused_ln_attention_int8(x, s, b, *ws4, num_heads=4)
+    x, s, b, *ws4 = _attn8_args(gen, 2, 16, 768)
+    with pytest.raises(ValueError, match="contiguous"):
+        attention_block.fused_ln_attention_int8(
+            x.transpose(0, 1), s, b, *ws4, num_heads=12)

@@ -76,7 +76,7 @@ def _encoders(params, fused, fast):
     port_enc = BioMedCLIPEncoder(
         config=BioMedCLIPConfig(vision=ViTConfig(**TINY, **flags),
                                 projection_dim=PROJ),
-        params=params_from_jax(params), device="cpu", fast=fast)
+        params=params_from_jax({"image": params}), device="cpu", fast=fast)
     return jax_enc, port_enc
 
 
@@ -133,16 +133,27 @@ def test_step2_fast_routes_through_fused_ops(jax_image_params):
 
 
 def test_fast_int8_and_text_raise(jax_image_params):
-    with pytest.raises(NotImplementedError, match="int8"):
-        BioMedCLIPEncoder(params=params_from_jax(jax_image_params),
-                          device="cpu", fast="int8")
-    _, port_enc = _encoders(jax_image_params, fused=True, fast=False)
-    with pytest.raises(NotImplementedError, match="text tower"):
-        port_enc.encode_batch_texts(["fever, cough"])
+    """An image-only encoder (no text tree) builds with fast="int8" but
+    has no text side; a text tower without a tokenizer raises as JAX's
+    does; a mesh is refused."""
+    image_only = params_from_jax({"image": jax_image_params})
+    cfg = BioMedCLIPConfig(vision=ViTConfig(**TINY), projection_dim=PROJ)
+    int8 = BioMedCLIPEncoder(config=cfg, params=image_only, device="cpu",
+                             fast="int8")
+    assert int8.text_model is None
+    with pytest.raises(NotImplementedError, match="text-less"):
+        int8.encode_batch_texts(["fever, cough"])
+    from emr2a_tpu_torch.models.text import BertConfig
+    tiny_bert = dict(vocab_size=40, max_length=16, hidden_size=64,
+                     num_layers=1, num_heads=2, mlp_dim=128)
+    no_tok = BioMedCLIPEncoder.random_init(
+        BioMedCLIPConfig(vision=ViTConfig(**TINY), text=BertConfig(**tiny_bert),
+                         projection_dim=PROJ), device="cpu", fast="int8")
+    with pytest.raises(NotImplementedError, match="no tokenizer"):
+        no_tok.encode_batch_texts(["fever, cough"])
     with pytest.raises(ValueError, match="mesh"):
-        BioMedCLIPEncoder(config=port_enc.config,
-                          params=params_from_jax(jax_image_params),
-                          device="cpu", mesh=object())
+        BioMedCLIPEncoder(config=cfg, params=image_only, device="cpu",
+                          mesh=object())
 
 
 def test_step2_cli_fake_encoder_matches_jax(tmp_path):
