@@ -12,7 +12,11 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    and K4 (their W8A8 variants) at the same shapes; K5 (W8A8 linear) at the
    PubMedBERT shapes (T = 32 x 256: 768->768, 768->3072, 3072->768) and at
    T = 32. The W8A8 kernels are also timed against a plain int8 yardstick
-   (their plain versions with ``torch._int_mm`` products).
+   (their plain versions with ``torch._int_mm`` products). K6 (the fused
+   cosine top-k) at 1M x 512, k = 5, q = 1 and 64, in f32, bf16 and int8
+   (int8 bit for bit; f32 and bf16 values within 1e-5, indices equal up to
+   near-ties), beside a library yardstick (``torch.topk(q @ db.T)``; for
+   int8 at q = 64 ``torch._int_mm`` + rescale + ``torch.topk``).
 4. Main path, bf16: a synthetic CT cohort (PNG slices + manifest.jsonl)
    through the step2 functions with
    ``BioMedCLIPEncoder.random_init(fast=True)`` at full ViT-B/16 width;
@@ -26,9 +30,23 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    clinical texts; every quantized projection through K5; the embeddings
    of 8 texts against the same tower's plain int8 version on the CPU.
 7. Retrieval: per-patient mean embeddings through the port's cosine top-k.
-8. Throughput of the bf16 and the int8 tower at batch 128, in turns.
+8. Database: ``database_cli`` build + query of the bf16 step2 embeddings
+   in f32, bf16 and int8, on the card and with ``--cpu``, hits compared;
+   ``use_pallas=True`` f32/bf16 on a padded buffer; the launch counts show
+   K6 (int8 queries, use_pallas). Then the single-query p50 of
+   ``topk_chained`` (256 scans, CUDA events) on a seeded 1M x 512 database
+   in each dtype, f32/bf16 with use_pallas off and on.
+9. CV: ``run_cv_experiments`` from a combined_embeddings.npz, on the card
+   and with ``--device cpu``: the cohort (bf16 step2 slice means, int8
+   text tower rows, concat, 3 folds) and a seeded 4-class set of 1,000
+   patients (512-wide, 5 folds, PCA 96, concat, and late fusion at w_text
+   0.3); folds, neighbours and confusion matrices identical, scores within
+   1e-5.
+10. Throughput of the bf16 and the int8 tower at batch 128, in turns.
 
-The line before the last is the kernels' JSON record; the last line is
+Every kernel record carries its bound (the larger of its bytes over 3.35
+TB/s and its operations over the card's peak for their type). The line
+before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -44,6 +62,25 @@ from pathlib import Path
 
 import numpy as np
 import torch
+
+
+# H100 SXM peaks (NVIDIA's data sheet, dense, 700 W)
+HBM_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12}
+K6_N, K6_DIM, K6_K = 1_000_000, 512, 5
+
+
+def bound(nbytes: float, ops=()) -> dict:
+    """The least time the card could take: the larger of the bytes over
+    the memory rate and the operations over the peak of their type."""
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = sum(n / PEAK_OPS_PER_S[kind] for kind, n in ops)
+    return {"bound_ms": max(t_bytes, t_ops) * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
 
 
 def fail(msg: str) -> None:
@@ -178,22 +215,33 @@ def kernel_phase(card: str) -> list:
         return x + o.transpose(1, 2).reshape(B, S, d) @ attn_w[6] + attn_w[7]
 
     vit = f"({B}, {S}, {d}), valid_len {valid_len}"
+    T = B * S
+    mlp_ops = 4 * T * d * m
+    attn_ops = (8 * T * d * d, 4 * B * H * S * valid_len * (d // H))
+    out_bytes = T * d * 2
     cases = [
         ("fused_ln_mlp", k1, k1_ref, {"plain_bf16_ms": k1_bf16}, "mlp.cu",
-         "emr2a_tpu/ops/mlp.py:75", slice(None), f"T={B * S}, {d}->{m}->{d}"),
+         "emr2a_tpu/ops/mlp.py:75", slice(None), f"T={T}, {d}->{m}->{d}",
+         bound(nbytes(x2, ln_s, ln_b, w1, b1, w2, b2) + out_bytes,
+               [("bf16", mlp_ops)])),
         ("fused_ln_attention", k3, k3_ref, {"plain_bf16_ms": k3_bf16},
          "attention_block.cu", "emr2a_tpu/ops/attention_block.py:270",
-         slice(0, valid_len), vit),
+         slice(0, valid_len), vit,
+         bound(nbytes(x, ln_s, ln_b, *attn_w) + out_bytes,
+               [("bf16", attn_ops[0] + attn_ops[1])])),
         ("fused_ln_mlp_int8", k2, k2_ref,
          {"int_mm_ms": int_mm_version(mlp, k2_ref, (w1q, w2q))}, "mlp_int8.cu",
-         "emr2a_tpu/ops/mlp.py:194", slice(None), f"T={B * S}, {d}->{m}->{d}"),
+         "emr2a_tpu/ops/mlp.py:194", slice(None), f"T={T}, {d}->{m}->{d}",
+         bound(nbytes(*mlp8) + out_bytes, [("int8", mlp_ops)])),
         ("fused_ln_attention_int8", k4, k4_ref,
          {"int_mm_ms": int_mm_version(attention_block, k4_ref, attn_q[0::3])},
          "attention_block_int8.cu", "emr2a_tpu/ops/attention_block.py:436",
-         slice(0, valid_len), vit),
+         slice(0, valid_len), vit,
+         bound(nbytes(x, ln_s, ln_b, *attn_q) + out_bytes,
+               [("int8", attn_ops[0]), ("bf16", attn_ops[1])])),
     ]
     records = []
-    for name, fn, ref, others, source, replaces, rows, shape in cases:
+    for name, fn, ref, others, source, replaces, rows, shape, bnd in cases:
         got = fn()
         torch.cuda.synchronize()
         want = ref()
@@ -202,7 +250,7 @@ def kernel_phase(card: str) -> list:
         rec = {"name": name, "route": "cuda",
                "source": f"emr2a_tpu_torch/csrc/{source}", "replaces": replaces,
                "shape": shape, "max_abs_err": err, "ms": median_ms(fn),
-               "plain_ms": median_ms(ref)}
+               "plain_ms": median_ms(ref), **bnd, "library_ms": None}
         rec.update({key: median_ms(f) for key, f in others.items()})
         print(f"{name}: kernel {rec['ms']:.4f} ms, plain version "
               f"{rec['plain_ms']:.4f} ms, " + ", ".join(
@@ -228,6 +276,8 @@ def kernel_phase(card: str) -> list:
         w_cm = wq.t().contiguous().t()
         shape = {"shape": f"T={T}, {K}->{N}", "max_abs_err": err,
                  "ms": median_ms(fn), "plain_ms": median_ms(ref),
+                 **bound(nbytes(xt, wq, ws, bias) + T * N * 2, [("int8", 2 * T * K * N)]),
+                 "library_ms": None,
                  "int_mm_ms": median_ms(int_mm_version(linear_int8, ref, (wq,))),
                  "int_mm_product_ms": median_ms(lambda: torch._int_mm(xq, w_cm))}
         print(f"linear_w8a8 T={T} {K}->{N}: kernel {shape['ms']:.4f} ms, plain "
@@ -254,19 +304,22 @@ def kernel_phase(card: str) -> list:
 
 
 def reset_counts() -> None:
-    from emr2a_tpu_torch.ops import attention_block, linear_int8, mlp, quant
+    from emr2a_tpu_torch.ops import attention_block, linear_int8, mlp, quant, topk
     mlp.LAUNCHES = mlp.INT8_LAUNCHES = 0
     attention_block.LAUNCHES = attention_block.INT8_LAUNCHES = 0
     linear_int8.LAUNCHES = quant.LAUNCHES = 0
+    topk.LAUNCHES = topk.INT8_LAUNCHES = 0
 
 
 def read_counts() -> dict:
-    from emr2a_tpu_torch.ops import attention_block, linear_int8, mlp
+    from emr2a_tpu_torch.ops import attention_block, linear_int8, mlp, topk
     return {"fused_ln_mlp": mlp.LAUNCHES,
             "fused_ln_attention": attention_block.LAUNCHES,
             "fused_ln_mlp_int8": mlp.INT8_LAUNCHES,
             "fused_ln_attention_int8": attention_block.INT8_LAUNCHES,
-            "linear_w8a8": linear_int8.LAUNCHES}
+            "linear_w8a8": linear_int8.LAUNCHES,
+            "cosine_topk_fused": topk.LAUNCHES,
+            "cosine_topk_fused_int8": topk.INT8_LAUNCHES}
 
 
 def check_full_width(encoder) -> None:
@@ -429,6 +482,276 @@ def retrieval_phase(npz) -> None:
           f"top-1 {hits:.3f} (random weights)", flush=True)
 
 
+def topk_agrees(name: str, got, want, scores, tol: float = 1e-5) -> float:
+    """Values within tol; an index may differ from the plain version's only
+    where the plain scores of the two rows lie within tol of each other.
+    Returns the max abs error of the values."""
+    (gv, gi), (wv, wi) = got, want
+    err = (gv - wv).abs().max().item()
+    if not torch.isfinite(gv).all() or err > tol:
+        fail(f"{name}: values differ from the plain version by {err}")
+    diff = gi != wi
+    if diff.any():
+        picked = scores[diff.nonzero()[:, 0], gi[diff].long()]
+        gap = (picked - wv[diff]).abs().max().item()
+        if gap > tol:
+            fail(f"{name}: {int(diff.sum())} indices differ, not near-ties ({gap})")
+    print(f"{name}: max_abs_err {err}, {int(diff.sum())} indices differ on "
+          f"near-ties", flush=True)
+    return err
+
+
+def topk_kernel_phase(card: str) -> list:
+    """K6 at 1M x 512, k = 5, q = 1 and 64, each storage type, against its
+    plain version and a library yardstick."""
+    from emr2a_tpu_torch.ops import topk
+
+    g = torch.Generator(device="cuda").manual_seed(6)
+    unit = lambda *shape: torch.nn.functional.normalize(
+        torch.randn(*shape, generator=g, device="cuda"), dim=-1)
+    db32 = unit(K6_N, K6_DIM)
+    queries64 = unit(64, K6_DIM)
+    # int8 rows: the DB's recipe (retrieval/database.quantize_rows_int8)
+    amax = db32.abs().amax(dim=1)
+    scales = amax / torch.full_like(amax, 127.0)
+    scales = torch.where(scales == 0, torch.ones_like(scales), scales)
+    codes = torch.clamp(torch.round(db32 / scales[:, None]), -127, 127).to(torch.int8)
+    stores = {"f32": db32, "bf16": db32.to(torch.bfloat16)}
+    shapes = {"cosine_topk_fused": [], "cosine_topk_fused_int8": []}
+    for dtype in ("f32", "bf16", "int8"):
+        for q in (1, 64):
+            queries = queries64[:q].contiguous()
+            ops = 2 * q * K6_N * K6_DIM
+            out_bytes = q * K6_K * 8
+            if dtype == "int8":
+                fn = lambda: topk.cosine_topk_fused_int8(queries, codes, scales, K6_K)
+                ref = lambda: topk.cosine_topk_fused_int8_reference(
+                    queries, codes, scales, K6_K)
+
+                def lib():
+                    qc, qs = topk.quantize_queries_int8(queries)
+                    s32 = torch._int_mm(qc, codes.t())
+                    return torch.topk(s32.float() * qs[:, None] * scales[None, :], K6_K)
+                library = lib if q > 16 else None   # _int_mm needs m > 16
+                bnd = bound(nbytes(codes, scales, queries) + out_bytes, [("int8", ops)])
+            else:
+                db = stores[dtype]
+                qs_ = queries.to(db.dtype)
+                fn = lambda: topk.cosine_topk_fused(queries, db, K6_K)
+                ref = lambda: topk.cosine_topk_fused_reference(queries, db, K6_K)
+                library = lambda: torch.topk(qs_ @ db.T, K6_K)
+                bnd = bound(nbytes(db, qs_) + out_bytes, [(dtype, ops)])
+            name = f"cosine_topk_fused{'_int8' if dtype == 'int8' else ''}"
+            got = fn()
+            torch.cuda.synchronize()
+            want = ref()
+            tag = f"{name} {dtype} q={q}"
+            if dtype == "int8":
+                if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+                    fail(f"{tag}: not bit-identical to its plain version")
+                err = 0.0
+                print(f"{tag}: bit-identical to its plain version", flush=True)
+            else:
+                scores = queries.to(stores[dtype].dtype).float() @ stores[dtype].float().T
+                err = topk_agrees(tag, got, want, scores)
+                del scores
+            rec = {"shape": f"{dtype}, q={q}, n={K6_N}, dim={K6_DIM}, k={K6_K}",
+                   "max_abs_err": err, "ms": median_ms(fn), "plain_ms": median_ms(ref),
+                   **bnd, "library_ms": median_ms(library) if library else None}
+            print(f"{tag}: kernel {rec['ms']:.4f} ms, plain version "
+                  f"{rec['plain_ms']:.4f} ms, library "
+                  + (f"{rec['library_ms']:.4f} ms" if library else "none")
+                  + f", bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}) "
+                  f"(median of 100; {card})", flush=True)
+            shapes[name].append(rec)
+            torch.cuda.empty_cache()
+    records = []
+    for name, recs in shapes.items():
+        records.append({"name": name, "route": "cuda",
+                        "source": "emr2a_tpu_torch/csrc/topk.cu",
+                        "replaces": "emr2a_tpu/ops/topk.py:155", **recs[0],
+                        "max_abs_err": max(r["max_abs_err"] for r in recs),
+                        "shapes": recs})
+    del db32, stores, codes
+    torch.cuda.empty_cache()
+    return records
+
+
+def hits_agree(tag: str, card_rows: list, cpu_rows: list, tol: float) -> None:
+    """Indices, labels and ids identical up to near-ties (a swap of two hits
+    whose CPU scores lie within tol, or a last hit replaced by one within
+    tol); scores within tol."""
+    if [r["query_id"] for r in card_rows] != [r["query_id"] for r in cpu_rows]:
+        fail(f"{tag}: query ids differ")
+    ties = 0
+    for a, b in zip(card_rows, cpu_rows):
+        ga, gb = a["hits"], b["hits"]
+        if len(ga) != len(gb):
+            fail(f"{tag}: {a['query_id']} has {len(ga)} hits on the card, {len(gb)} on the CPU")
+        cpu_score = {h["index"]: h["score"] for h in gb}
+        for j, (ha, hb) in enumerate(zip(ga, gb)):
+            if abs(ha["score"] - hb["score"]) > tol:
+                fail(f"{tag}: {a['query_id']} hit {j} score {ha['score']} vs {hb['score']}")
+            if ha != {**hb, "score": ha["score"]}:
+                ties += 1
+                other = cpu_score.get(ha["index"])
+                if other is None and j < len(ga) - 1 or \
+                        other is not None and abs(other - hb["score"]) > tol:
+                    fail(f"{tag}: {a['query_id']} hit {j}: {ha} on the card, {hb} on the CPU")
+    print(f"{tag}: card and CPU hits agree ({len(card_rows)} queries, {ties} "
+          f"near-tie swaps, scores within {tol})", flush=True)
+
+
+def database_phase(work: Path, emb_path: Path, manifest_path: Path) -> dict:
+    """database_cli build + query on the card and on the CPU in each dtype;
+    use_pallas f32/bf16 on a padded buffer. Returns the launch counts."""
+    from emr2a_tpu_torch.retrieval import database_cli
+    from emr2a_tpu_torch.retrieval.database import ShardedEmbeddingDatabase
+
+    torch.cuda.synchronize()
+    reset_counts()
+    hits = {}
+    for dtype in ("f32", "bf16", "int8"):
+        for dev in ("cuda", "cpu"):
+            d = work / "db" / f"{dtype}_{dev}"
+            flag = ["--cpu"] if dev == "cpu" else []
+            database_cli.main(["build", "--embeddings_path", str(emb_path),
+                               "--manifest_path", str(manifest_path),
+                               "--db", str(d / "db.npz"), "--dtype", dtype, *flag])
+            database_cli.main(["query", "--db", str(d / "db.npz"), "--queries_path",
+                               str(emb_path), "--k", "5", "--dtype", dtype,
+                               "--output", str(d / "hits.jsonl"), *flag])
+            hits[dtype, dev] = [json.loads(line) for line in
+                                (d / "hits.jsonl").read_text().splitlines()]
+    ids, mat = database_cli._load_cases(emb_path)
+    for dtype, tdt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        db = ShardedEmbeddingDatabase(mat, ids=ids, dtype=tdt, use_pallas=True,
+                                      capacity=len(ids) + 4, device="cuda")
+        got = db.topk(mat, 5)
+        db.use_pallas = False
+        want = db.topk(mat, 5)
+        scores = db._queries(mat, True).float() @ db.db[:db.n].float().T
+        topk_agrees(f"database use_pallas {dtype} (padded buffer)", got, want, scores)
+    torch.cuda.synchronize()
+    launches = read_counts()
+    print(f"database: launches {launches}", flush=True)
+    for dtype, tol in (("f32", 1e-5), ("bf16", 1e-5), ("int8", 1e-3)):
+        hits_agree(f"database_cli {dtype}", hits[dtype, "cuda"], hits[dtype, "cpu"], tol)
+    for row in hits["f32", "cuda"]:
+        if row["hits"][0]["patient_id"] != row["query_id"]:
+            fail(f"database: {row['query_id']} did not retrieve itself first")
+    want = {"cosine_topk_fused": 2, "cosine_topk_fused_int8": 1}
+    for name, n in launches.items():
+        if n != want.get(name, 0):
+            fail(f"database: {name} launched {n} times, expected {want.get(name, 0)}")
+    return launches
+
+
+def p50_phase(card: str) -> None:
+    """Single-query p50 of topk_chained (256 scans, CUDA events) on a
+    seeded 1M x 512 database, each dtype; f32/bf16 with use_pallas off and
+    on."""
+    from emr2a_tpu_torch.retrieval.database import ShardedEmbeddingDatabase
+    from emr2a_tpu_torch.retrieval.database_cli import chained_p50_ms
+
+    rng = np.random.default_rng(0)
+    emb = rng.standard_normal((K6_N, K6_DIM), dtype=np.float32)
+    query = emb[123] + 0.1 * rng.standard_normal(K6_DIM, dtype=np.float32)
+    for name, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16),
+                        ("int8", torch.int8)):
+        t0 = time.time()
+        db = ShardedEmbeddingDatabase(emb, dtype=dtype, device="cuda")
+        built = time.time() - t0
+        for use_pallas in ((None,) if name == "int8" else (False, True)):
+            db.use_pallas = bool(use_pallas)
+            ms = chained_p50_ms(db, query, K6_K, 256)
+            _, idx = db.topk_chained(query, K6_K, repeats=2)
+            if int(idx[0, 0]) != 123:
+                fail(f"p50 {name}: the query's source row is not its top hit")
+            path = "K6 int8" if name == "int8" else ("K6" if use_pallas else "plain")
+            print(f"database p50 {name} ({path}): {ms:.4f} ms/query (median of 3 "
+                  f"runs of 256 chained scans, CUDA events; n={K6_N}, dim={K6_DIM}, "
+                  f"k={K6_K}; built in {built:.1f} s; {card})", flush=True)
+        del db
+        torch.cuda.empty_cache()
+
+
+def compare_cv(tag: str, exp_card: Path, exp_cpu: Path) -> None:
+    folds = sorted(p.name for p in exp_cpu.glob("fold_*"))
+    if not folds or folds != sorted(p.name for p in exp_card.glob("fold_*")):
+        fail(f"cv {tag}: folds {folds}")
+    worst = 0.0
+    for fold in folds:
+        a = json.loads((exp_card / fold / "metrics.json").read_text(encoding="utf-8"))
+        b = json.loads((exp_cpu / fold / "metrics.json").read_text(encoding="utf-8"))
+        if set(a) != set(b):
+            fail(f"cv {tag} {fold}: keys differ")
+        for key in b:
+            if key == "all_top_scores":
+                diff = np.abs(np.asarray(a[key]) - np.asarray(b[key])).max()
+                worst = max(worst, float(diff))
+                if diff > 1e-5:
+                    fail(f"cv {tag} {fold}: scores differ by {diff}")
+            elif a[key] != b[key]:
+                fail(f"cv {tag} {fold}: {key} differs between card and CPU")
+    if (exp_card / "summary.csv").read_text() != (exp_cpu / "summary.csv").read_text():
+        fail(f"cv {tag}: summary.csv differs")
+    print(f"cv {tag}: {len(folds)} folds identical on the card and the CPU "
+          f"(scores within {worst:.2e})", flush=True)
+
+
+def cv_phase(work: Path, bf16_npz, manifest_path: Path, text_encoder, card: str) -> None:
+    """run_cv_experiments from a combined_embeddings.npz, on the card and
+    with --device cpu: the cohort and a seeded 1,000-patient set."""
+    from emr2a_tpu_torch.analysis import run_cv_experiments as runner
+    from emr2a_tpu_torch.tools.cohort import LABELS
+
+    cv = work / "cv"
+    cv.mkdir()
+    pids = sorted(bf16_npz.files)
+    text = np.stack(text_encoder.encode_batch_texts(clinical_texts(len(pids))))
+    np.savez_compressed(cv / "cohort.npz", patient_ids=np.asarray(pids),
+                        image_matrix=np.stack([bf16_npz[p].mean(0) for p in pids]),
+                        text_matrix=text)
+    rng = np.random.RandomState(1)
+    n = 1000
+    labels = [LABELS[i % 4] for i in range(n)]
+    centers = rng.randn(2, 4, 512)
+    img = np.stack([centers[0, i % 4] + 8 * rng.randn(512) for i in range(n)])
+    txt = np.stack([centers[1, i % 4] + 9 * rng.randn(512) for i in range(n)])
+    synth_ids = [f"S{i:04d}" for i in range(n)]
+    np.savez_compressed(cv / "synth.npz", patient_ids=np.asarray(synth_ids),
+                        image_matrix=img.astype(np.float32),
+                        text_matrix=txt.astype(np.float32))
+    synth_manifest = cv / "synth_manifest.jsonl"
+    synth_manifest.write_text("".join(
+        json.dumps({"patient_id": p, "label": l}) + "\n"
+        for p, l in zip(synth_ids, labels)), encoding="utf-8")
+    runs = [("cohort", manifest_path, cv / "cohort.npz",
+             ["--fusion", "concat", "--cv_folds", "3"]),
+            ("synth_concat", synth_manifest, cv / "synth.npz",
+             ["--fusion", "concat", "--cv_folds", "5", "--pca_dim", "96"]),
+            ("synth_late", synth_manifest, cv / "synth.npz",
+             ["--fusion", "late", "--w_text", "0.3", "--cv_folds", "5",
+              "--pca_dim", "96"])]
+    for tag, manifest, npz, extra in runs:
+        walls = {}
+        for dev in ("cuda", "cpu"):
+            torch.cuda.synchronize()
+            t0 = time.time()
+            runner.main(["--manifest_path", str(manifest), "--output_dir",
+                         str(cv / dev), "--experiment_id", tag, "--skip_encoding",
+                         "--embeddings_path", str(npz), "--device", dev, *extra])
+            torch.cuda.synchronize()
+            walls[dev] = time.time() - t0
+        compare_cv(tag, cv / "cuda" / f"exp_{tag}", cv / "cpu" / f"exp_{tag}")
+        summary = (cv / "cuda" / f"exp_{tag}" / "summary.csv").read_text().splitlines()
+        top1 = next(line for line in summary if line.startswith("top1,"))
+        print(f"cv {tag}: wall {walls['cuda']:.2f} s with --device cuda, "
+              f"{walls['cpu']:.2f} s with --device cpu (host clock, artifacts "
+              f"included; {card}); {top1}", flush=True)
+
+
 def throughput_phase(encoders: dict, card: str) -> None:
     """Each tower at batch 128 on the same pixels, in turns (bf16, int8,
     int8, bf16)."""
@@ -476,12 +799,17 @@ def main_path_phase(work: Path, records: list, card: str) -> None:
     int8 = step2_phase("int8", encoders["int8"], image_paths, work / "int8",
                        ("fused_ln_mlp_int8", "fused_ln_attention_int8"), plain_cpu)
     text = text_phase(encoders["int8"], plain_cpu, int8_cpu, card)
+    retrieval_phase(bf16["npz"])
+    db = {"launches": database_phase(work, work / "bf16" / "embeddings.npz",
+                                     manifest_path)}
     run_of = {"fused_ln_mlp": bf16, "fused_ln_attention": bf16,
               "fused_ln_mlp_int8": int8, "fused_ln_attention_int8": int8,
-              "linear_w8a8": text}
+              "linear_w8a8": text, "cosine_topk_fused": db,
+              "cosine_topk_fused_int8": db}
     for rec in records:
         rec["launches"] = run_of[rec["name"]]["launches"][rec["name"]]
-    retrieval_phase(bf16["npz"])
+    p50_phase(card)
+    cv_phase(work, bf16["npz"], manifest_path, encoders["int8"], card)
     throughput_phase(encoders, card)
 
 
@@ -502,7 +830,7 @@ def main() -> int:
     print(f"kernels built in {time.time() - t0:.1f} s: {lib.name}", flush=True)
     print(ptxas_summary(lib.with_suffix(".log").read_text()), flush=True)
 
-    records = kernel_phase(card)
+    records = kernel_phase(card) + topk_kernel_phase(card)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         main_path_phase(Path(tmp), records, card)
 

@@ -12,7 +12,7 @@ from typing import List, Optional
 
 import numpy as np
 
-from emr2a_tpu.data.images import load_images_rgb
+from emr2a_tpu_torch.data.images import load_images_rgb
 
 
 class BaseEncoder(ABC):

@@ -31,7 +31,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from emr2a_tpu.data.images import group_by_shape, resize_to
+from emr2a_tpu_torch.data.images import group_by_shape, resize_to
 from emr2a_tpu_torch.encoders.base import BaseEncoder
 from emr2a_tpu_torch.ops.preprocess import PreprocessSpec, preprocess_images
 from emr2a_tpu_torch.ops.similarity import l2_normalize_rows

@@ -12,6 +12,8 @@ the identity. ``jax.image.resize`` (cubic: Keys a=-0.5, antialiased) and
 torch's bicubic (a=-0.75) are different filters, so an input that would
 need the device resize raises ``NotImplementedError`` instead of silently
 differing.
+
+``sample_slice_indices`` is the CV runner's host-side slice sampling.
 """
 
 from __future__ import annotations
@@ -21,7 +23,7 @@ from typing import Tuple
 
 import torch
 
-from emr2a_tpu.data.images import plan_resize
+from emr2a_tpu_torch.data.images import plan_resize
 
 
 @dataclass(frozen=True)
@@ -57,3 +59,26 @@ def preprocess_images(images_u8: torch.Tensor,
     mean = torch.tensor(spec.mean, dtype=torch.float32, device=x.device)
     std = torch.tensor(spec.std, dtype=torch.float32, device=x.device)
     return (x - mean) / std
+
+
+def sample_slice_indices(n_slices: int, sample_n: int, mode: str = "uniform",
+                         seed: int = 42) -> list:
+    """The CV runner's per-patient slice sampling
+    (``emr2a_tpu/ops/preprocess.py:sample_slice_indices``):
+
+    - ``uniform``: stride positions ``range(0, n, n // k)[:k]``;
+    - ``random``: ``np.random.seed(seed)``, then a choice without
+      replacement (unsorted);
+    - fewer slices than sample_n: all of them.
+    """
+    import numpy as np
+
+    if n_slices <= sample_n:
+        return list(range(n_slices))
+    if mode == "uniform":
+        step = n_slices // sample_n
+        return list(range(0, n_slices, step))[:sample_n]
+    if mode == "random":
+        np.random.seed(seed)
+        return np.random.choice(n_slices, size=sample_n, replace=False).tolist()
+    raise ValueError(f"Unknown sampling strategy: {mode}")

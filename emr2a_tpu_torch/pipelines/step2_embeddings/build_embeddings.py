@@ -24,7 +24,7 @@ from typing import Dict, List
 
 import numpy as np
 
-from emr2a_tpu.data.manifest import load_manifest
+from emr2a_tpu_torch.data.manifest import load_manifest
 from emr2a_tpu_torch.encoders import create_encoder
 
 logger = logging.getLogger(__name__)

@@ -138,7 +138,7 @@ def profile_tower(encoder, batch: int, iters: int) -> dict:
 
 
 def stage_costs(encoder, cohort: Path, rgb_cohort: Path, n: int) -> dict:
-    from emr2a_tpu.data.images import load_image_rgb, resize_to
+    from emr2a_tpu_torch.data.images import load_image_rgb, resize_to
 
     spec = encoder.preprocess
     out, decoded = {}, {}

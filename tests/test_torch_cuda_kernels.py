@@ -1,8 +1,10 @@
 """The kernels on the card, at shapes beyond the main path's: K1 and K3
 (bf16) and K2, K4, K5 (W8A8) at ragged token counts including T = 1 and
 T < 32, short and maximal sequences, valid_len edges, all-zero rows, the
-row quantize's codes, the inputs the wrappers must refuse, and the launch
-counters. Each test skips without a CUDA card. On the card (the suite's
+row quantize's codes; K6 (the fused cosine top-k, f32, bf16 and int8) at
+ragged row counts, n_valid < n, k = 1 and k = K_MAX, several query counts
+and widths, and duplicated rows; the inputs the wrappers must refuse, and
+the launch counters. Each test skips without a CUDA card. On the card (the suite's
 conftest imports JAX, which that machine lacks):
 
     python -m pytest --noconftest tests/test_torch_cuda_kernels.py -q
@@ -12,13 +14,16 @@ and row cosine >= 0.9999 (bf16 outputs; K2 and K4 may flip a rare code
 where an f32 LN or activation value lands on a rounding boundary in
 another summation order). K5 and the row quantize have no such value:
 their codes, sums and rescale are the plain version's exactly, so they are
-held bit for bit.
+held bit for bit. K6: the int8 variant is bit-identical (exact s32 sums,
+then the same two rounded multiplies); in f32 and bf16 the values agree
+within 1e-5 (f32 sums in another order) and an index may differ only where
+the plain version scores the two rows within 1e-5 of each other.
 """
 
 import pytest
 import torch
 
-from emr2a_tpu_torch.ops import attention_block, linear_int8, mlp, quant
+from emr2a_tpu_torch.ops import attention_block, linear_int8, mlp, quant, topk
 
 
 @pytest.fixture()
@@ -236,3 +241,95 @@ def test_int8_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     with pytest.raises(ValueError, match="contiguous"):
         attention_block.fused_ln_attention_int8(
             x.transpose(0, 1), s, b, *ws4, num_heads=12)
+
+
+# -- K6: the fused cosine top-k ---------------------------------------------
+
+def _topk_inputs(gen, q, n, dim, dtype):
+    """Unit rows: f32/bf16 storage, or the DB's int8 codes and row scales."""
+    db = torch.nn.functional.normalize(
+        torch.randn(n, dim, generator=gen, device="cuda"), dim=-1)
+    queries = torch.nn.functional.normalize(
+        torch.randn(q, dim, generator=gen, device="cuda"), dim=-1)
+    if dtype == "int8":
+        scales = db.abs().amax(dim=1) / 127.0
+        codes = torch.clamp(torch.round(db / scales[:, None]), -127, 127)
+        return queries, (codes.to(torch.int8), scales)
+    return queries, (db.to(dtype),)
+
+
+def _run_topk(dtype, queries, db, k, n_valid):
+    if dtype == "int8":
+        return (topk.cosine_topk_fused_int8(queries, *db, k, n_valid),
+                topk.cosine_topk_fused_int8_reference(queries, *db, k, n_valid))
+    return (topk.cosine_topk_fused(queries, db[0], k, n_valid),
+            topk.cosine_topk_fused_reference(queries, db[0], k, n_valid))
+
+
+def assert_topk_agrees(got, want, scores, tol=1e-5):
+    """Values within tol; an index may differ from the plain version's only
+    where the plain scores of the two rows lie within tol of each other."""
+    (gv, gi), (wv, wi) = got, want
+    assert gv.shape == wv.shape and gi.dtype == torch.int32
+    torch.testing.assert_close(gv, wv, atol=tol, rtol=0)
+    diff = gi != wi
+    if diff.any():
+        rows = diff.nonzero()[:, 0]
+        picked = scores[rows, gi[diff].long()]
+        assert (picked - wv[diff]).abs().max().item() <= tol
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, "int8"])
+@pytest.mark.parametrize("q,n,dim,k,n_valid", [
+    (1, 5000, 512, 5, None), (7, 1000, 40, 1, 777), (130, 3001, 96, 64, 2999),
+    (64, 20000, 512, 10, None), (3, 64, 1024, 64, None),
+])
+def test_cosine_topk_fused_kernel_matches_plain(cuda, dtype, q, n, dim, k, n_valid):
+    gen = torch.Generator(device="cuda").manual_seed(n + dim)
+    queries, db = _topk_inputs(gen, q, n, dim, dtype)
+    counter = "INT8_LAUNCHES" if dtype == "int8" else "LAUNCHES"
+    before = getattr(topk, counter)
+    got, want = _run_topk(dtype, queries, db, k, n_valid)
+    torch.cuda.synchronize()
+    assert getattr(topk, counter) == before + 1
+    assert got[1].max().item() < (n_valid or n)
+    if dtype == "int8":
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    else:
+        scores = queries.to(dtype).float() @ db[0].float().T
+        assert_topk_agrees(got, want, scores)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, "int8"])
+def test_cosine_topk_fused_ties_go_to_the_lowest_index(cuda, dtype):
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    queries, db = _topk_inputs(gen, 4, 3000, 96, dtype)
+    dups = [5, 700, 701, 1999, 2998]       # four copies of row 5, in other chunks
+    for t in db:
+        t[dups[1:]] = t[dups[0]].clone()
+    queries[:2] = (db[0][dups[0]].float() if dtype != "int8"
+                   else db[0][dups[0]].float() * db[1][dups[0]])
+    (gv, gi), _ = _run_topk(dtype, queries, db, 8, None)
+    torch.cuda.synchronize()
+    for row in range(2):
+        assert gi[row, :5].tolist() == dups
+        assert (gv[row, :5] == gv[row, 0]).all()
+
+
+def test_cosine_topk_fused_refuses_what_the_kernel_does_not_take(cuda):
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    queries, (db,) = _topk_inputs(gen, 2, 500, 96, torch.float32)
+    before = topk.LAUNCHES
+    with pytest.raises(ValueError, match="k must be"):
+        topk.cosine_topk_fused(queries, db, topk.K_MAX + 1)
+    with pytest.raises(ValueError, match="k must be"):
+        topk.cosine_topk_fused(queries, db, 0)
+    with pytest.raises(ValueError, match="valid rows"):
+        topk.cosine_topk_fused(queries, db, 10, n_valid=9)
+    with pytest.raises(ValueError, match="divisible by 8"):
+        topk.cosine_topk_fused(queries[:, :90], db[:, :90].contiguous(), 5)
+    with pytest.raises(ValueError, match="contiguous"):
+        topk.cosine_topk_fused(queries, db.t().contiguous().t(), 5)
+    with pytest.raises(TypeError, match="f32 or bf16"):
+        topk.cosine_topk_fused(queries, db.half(), 5)
+    assert topk.LAUNCHES == before

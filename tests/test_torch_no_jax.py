@@ -1,8 +1,9 @@
-"""The port never loads JAX: in a fresh interpreter, import every module of
-``emr2a_tpu_torch`` and run the fake-encoder step2 CLI, then check that
-neither JAX, jaxlib, flax nor optax was imported, and that of the JAX
-package only its framework-free modules were (config, the data helpers and
-step1's manifest builder), which the port reuses."""
+"""The port never loads JAX, nor any module of the JAX package, nor
+sklearn: in a fresh interpreter, import every module of
+``emr2a_tpu_torch``, run the fake-encoder step2 CLI, the database CLI
+(``build`` and ``query --cpu``) and the CV runner (``--device cpu``, fake
+encoders), then check that no module of jax, jaxlib, flax, optax, sklearn
+or ``emr2a_tpu`` was imported."""
 
 import json
 import os
@@ -15,42 +16,58 @@ import numpy as np
 REPO = Path(__file__).resolve().parent.parent
 
 _PROGRAM = r"""
-import importlib, pkgutil, sys
+import importlib, os, pkgutil, sys
 import emr2a_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(emr2a_tpu_torch.__path__,
                                                "emr2a_tpu_torch.")]
 for name in names:
     importlib.import_module(name)
+manifest, out = sys.argv[1], sys.argv[2]
 from emr2a_tpu_torch.pipelines.step2_embeddings.build_embeddings import main
-main(["--manifest_path", sys.argv[1], "--encoder_type", "fake",
-      "--device", "cpu", "--output_dir", sys.argv[2]])
-reusable = ("emr2a_tpu", "emr2a_tpu.config", "emr2a_tpu.data",
-            "emr2a_tpu.data.images", "emr2a_tpu.data.manifest",
-            "emr2a_tpu.data.native_loader", "emr2a_tpu.pipelines",
-            "emr2a_tpu.pipelines.step1_manifest")
+main(["--manifest_path", manifest, "--encoder_type", "fake",
+      "--device", "cpu", "--output_dir", out])
+from emr2a_tpu_torch.retrieval.database_cli import main as db_main
+db_main(["build", "--embeddings_path", out + "/embeddings.npz",
+         "--manifest_path", manifest, "--db", out + "/db.npz", "--dtype",
+         "int8", "--cpu"])
+db_main(["query", "--db", out + "/db.npz", "--queries_path",
+         out + "/embeddings.npz", "--k", "2", "--dtype", "int8", "--cpu",
+         "--output", out + "/hits.jsonl"])
+from emr2a_tpu_torch.analysis.run_cv_experiments import main as cv_main
+os.chdir(out)
+cv_main(["--manifest_path", manifest, "--output_dir", out + "/cv",
+         "--image_encoder", "fake", "--text_encoder", "fake",
+         "--experiment_id", "nj", "--cv_folds", "2", "--pca_dim", "4",
+         "--device", "cpu"])
 loaded = sorted(
     m for m in sys.modules
-    if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax")
-    or (m.split(".")[0] == "emr2a_tpu" and m not in reusable
-        and not m.startswith("emr2a_tpu.pipelines.step1_manifest.")))
+    if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "sklearn",
+                           "emr2a_tpu"))
 print("MODULES", len(names), "LOADED", ",".join(loaded) or "-")
 """
 
 
 def test_port_imports_no_jax(tmp_path):
     from PIL import Image
-    img = tmp_path / "s0.png"
-    Image.fromarray(np.full((16, 16, 3), 90, np.uint8)).save(img)
+    records = []
+    for p in range(4):
+        img = tmp_path / f"s{p}.png"
+        Image.fromarray(np.full((16, 16, 3), 40 * p + 10, np.uint8)).save(img)
+        records.append({"patient_id": f"P{p}", "label": "AB"[p % 2],
+                        "slices": [str(img)], "meta": {"age": str(30 + p)}})
     manifest = tmp_path / "manifest.jsonl"
-    manifest.write_text(json.dumps({"patient_id": "P1", "slices": [str(img)]})
-                        + "\n", encoding="utf-8")
+    manifest.write_text("".join(json.dumps(r) + "\n" for r in records),
+                        encoding="utf-8")
     env = {**os.environ, "PYTHONPATH": str(REPO)}
     proc = subprocess.run(
         [sys.executable, "-c", _PROGRAM, str(manifest), str(tmp_path / "out")],
-        cwd=REPO, env=env, capture_output=True, text=True, timeout=120)
+        cwd=REPO, env=env, capture_output=True, text=True, timeout=240)
     assert proc.returncode == 0, proc.stderr
     last = proc.stdout.strip().splitlines()[-1]
     n_modules = int(last.split()[1])
-    assert n_modules >= 20, last
+    assert n_modules >= 30, last
     assert last.endswith("LOADED -"), last
     assert np.load(tmp_path / "out" / "embeddings.npz")["P1"].shape == (1, 64)
+    hits = (tmp_path / "out" / "hits.jsonl").read_text().splitlines()
+    assert len(hits) == 4
+    assert (tmp_path / "out" / "cv" / "exp_nj" / "fold_2" / "metrics.json").exists()

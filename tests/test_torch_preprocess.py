@@ -41,3 +41,13 @@ def test_device_resize_is_not_ported(rng):
     images = torch.zeros((1, 300, 300, 3), dtype=torch.uint8)
     with pytest.raises(NotImplementedError, match="resize"):
         port_pre.preprocess_images(images, port_pre.BIOMEDCLIP_PREPROCESS)
+
+
+@pytest.mark.parametrize("n,k,mode", [(40, 4, "uniform"), (41, 4, "random"),
+                                      (3, 4, "uniform"), (3, 4, "random"),
+                                      (10, 3, "uniform"), (100, 7, "random")])
+def test_sample_slice_indices_matches_jax(n, k, mode):
+    assert port_pre.sample_slice_indices(n, k, mode) == \
+        jax_pre.sample_slice_indices(n, k, mode)
+    with pytest.raises(ValueError, match="Unknown sampling"):
+        port_pre.sample_slice_indices(n + 5, k, "every_other")
