@@ -1,0 +1,14 @@
+from emr2a_tpu_torch.judge.audit import VLMAuditModule
+from emr2a_tpu_torch.judge.backends import FakeVLMBackend, VLMBackend
+from emr2a_tpu_torch.judge.parsers import (
+    extract_json_payload,
+    parse_audit_output,
+)
+
+__all__ = [
+    "VLMAuditModule",
+    "VLMBackend",
+    "FakeVLMBackend",
+    "parse_audit_output",
+    "extract_json_payload",
+]

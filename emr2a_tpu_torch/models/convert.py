@@ -21,11 +21,18 @@ minimal state-dict reader.
   pooler and any proj bias, which it never reads (the JAX converter keeps
   them, and flax ignores them).
 - ``load_state_dict(path)``: safetensors or torch ``.bin`` files, or an
-  HF-style directory of them, as numpy arrays.
+  HF-style directory of them (sharded or not), as numpy arrays. Safetensors
+  are read by this module's own reader (``read_safetensors``: the 8-byte
+  header length, the JSON header, one ``torch.frombuffer`` per tensor), so
+  no ``safetensors`` package is needed.
+- The Qwen3-VL tree (``models/qwen3_vl.convert_hf_qwen3_vl``) maps the same
+  way, with ``layer_i`` -> ``layers.i`` and ``deepstack_merger_j`` ->
+  ``deepstack_mergers.j``.
 """
 
 from __future__ import annotations
 
+import json
 import re
 from pathlib import Path
 from typing import Dict, Mapping
@@ -46,14 +53,22 @@ def _to_tensor(leaf) -> torch.Tensor:
     return torch.from_numpy(np.array(arr))
 
 
+# JAX module-list names -> this package's nn.ModuleList names
+_LISTS = (("block", "blocks"), ("layer", "layers"),
+          ("deepstack_merger", "deepstack_mergers"))
+
+
 def params_from_jax(tree: Mapping) -> Dict[str, torch.Tensor]:
     """Flatten a JAX param tree into this package's state-dict names."""
     out: Dict[str, torch.Tensor] = {}
 
     def walk(node: Mapping, prefix: str) -> None:
         for key, value in node.items():
-            m = re.fullmatch(r"block_(\d+)", key)
-            name = f"blocks.{m.group(1)}" if m else key
+            name = key
+            for jax_name, torch_name in _LISTS:
+                m = re.fullmatch(rf"{jax_name}_(\d+)", key)
+                if m:
+                    name = f"{torch_name}.{m.group(1)}"
             if isinstance(value, Mapping):
                 walk(value, f"{prefix}{name}.")
             else:
@@ -70,9 +85,10 @@ def params_to_jax(state: Mapping[str, torch.Tensor]) -> Dict:
     tree: Dict = {}
     for key, value in state.items():
         path = []
+        lists = {torch_name: jax_name for jax_name, torch_name in _LISTS}
         for part in key.split("."):
-            if part.isdigit() and path and path[-1] == "blocks":
-                path[-1] = f"block_{part}"
+            if part.isdigit() and path and path[-1] in lists:
+                path[-1] = f"{lists[path[-1]]}_{part}"
             else:
                 path.append(part)
         if path[-1] == "weight":                                  # LayerNorm
@@ -244,10 +260,44 @@ def load_state_dict(model_path) -> Dict[str, np.ndarray]:
     return _load_torch(path)
 
 
+_SAFETENSORS_DTYPES = {"BF16": torch.bfloat16, "F16": torch.float16,
+                       "F32": torch.float32, "I8": torch.int8,
+                       "I64": torch.int64}
+
+
+def read_safetensors(path) -> Dict[str, torch.Tensor]:
+    """A ``.safetensors`` file as torch tensors, without the safetensors
+    package: an 8-byte little-endian header length, a JSON header of
+    ``{name: {dtype, shape, data_offsets}}`` (plus ``__metadata__``), then
+    the data, offsets relative to its start. Dtypes BF16, F16, F32, I8 and
+    I64; anything else raises."""
+    path = Path(path)
+    with path.open("rb") as f:
+        n = int.from_bytes(f.read(8), "little")
+        header = json.loads(f.read(n))
+        data = bytearray(path.stat().st_size - 8 - n)
+        f.readinto(data)
+    out = {}
+    for name, info in header.items():
+        if name == "__metadata__":
+            continue
+        dtype = _SAFETENSORS_DTYPES.get(info["dtype"])
+        if dtype is None:
+            raise ValueError(f"{path}: {name} has dtype {info['dtype']}, "
+                             f"not one of {sorted(_SAFETENSORS_DTYPES)}")
+        lo, hi = info["data_offsets"]
+        shape = info["shape"]
+        if hi == lo:
+            out[name] = torch.empty(shape, dtype=dtype)
+            continue
+        out[name] = torch.frombuffer(data, dtype=dtype, count=(hi - lo) // dtype.itemsize,
+                                     offset=lo).reshape(shape)
+    return out
+
+
 def _load_safetensors(path: Path) -> Dict[str, np.ndarray]:
-    from safetensors.torch import load_file
     return {k: v.float().numpy() if v.dtype == torch.bfloat16 else v.numpy()
-            for k, v in load_file(str(path)).items()}
+            for k, v in read_safetensors(path).items()}
 
 
 def _load_torch(path: Path) -> Dict[str, np.ndarray]:

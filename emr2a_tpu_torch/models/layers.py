@@ -24,7 +24,9 @@ W8A8 params are routed by what they hold, as the JAX package's
 ``_QuantRoutingModule`` does: ``load_params`` replaces every ``Dense`` whose
 state arrives as ``kernel_q`` / ``kernel_scale`` (``models/quantize.py``)
 with an ``Int8Dense``, which runs the streaming W8A8 op (K5,
-``ops/linear_int8.py``). A ``TransformerBlock`` whose projections are
+``ops/linear_int8.py``), and every one whose state arrives as ``kernel_p4``
+/ ``kernel_scale4`` with an ``Int4Dense``, which runs the W4A8 op (K7,
+``ops/linear_int4.py``). A ``TransformerBlock`` whose projections are
 ``Int8Dense`` takes the W8A8 fused ops (K4, K2) under the flags, and K5
 through ``MultiHeadAttention`` / ``Mlp`` without them, as
 ``emr2a_tpu/models/layers.py:164-265`` does.
@@ -42,6 +44,7 @@ from emr2a_tpu_torch.ops.attention_block import (
     fused_ln_attention,
     fused_ln_attention_int8,
 )
+from emr2a_tpu_torch.ops.linear_int4 import int4_group, linear_w4a8
 from emr2a_tpu_torch.ops.linear_int8 import linear_w8a8
 from emr2a_tpu_torch.ops.mlp import fused_ln_mlp, fused_ln_mlp_int8
 
@@ -109,17 +112,47 @@ class Int8Dense(nn.Module):
                            self.bias, out_dtype=self.dtype)
 
 
+class Int4Dense(nn.Module):
+    """A ``Dense`` held in W4A8: ``kernel_p4`` int8 (in/2, out) packed
+    nibbles and ``kernel_scale4`` f32 (in/group, out) group scales, the JAX
+    package's layout and names (``ops/linear_int4.quantize_weight_int4``,
+    the group of ``int4_group(in)``), and a bias in the working dtype. Runs
+    ``linear_w4a8`` (K7), whose output is in the working dtype."""
+
+    def __init__(self, in_features: int, out_features: int,
+                 use_bias: bool = True, dtype: torch.dtype = torch.float32,
+                 device=None):
+        super().__init__()
+        self.dtype = dtype
+        self.register_buffer("kernel_p4", torch.zeros(
+            in_features // 2, out_features, dtype=torch.int8, device=device))
+        self.register_buffer("kernel_scale4", torch.ones(
+            in_features // int4_group(in_features), out_features,
+            dtype=torch.float32, device=device))
+        if use_bias:
+            self.bias = nn.Parameter(torch.zeros(out_features, dtype=dtype,
+                                                 device=device))
+        else:
+            self.register_parameter("bias", None)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return linear_w4a8(x.contiguous(), self.kernel_p4, self.kernel_scale4,
+                           self.bias, out_dtype=self.dtype)
+
+
 def load_params(module: nn.Module, state: Mapping[str, torch.Tensor]
                 ) -> nn.Module:
     """``module.load_state_dict(state)`` after replacing every ``Dense``
-    whose kernel arrives quantized (``<name>.kernel_q`` in ``state``) with an
-    ``Int8Dense`` of the same shape and dtype."""
+    whose kernel arrives quantized (``<name>.kernel_q`` or
+    ``<name>.kernel_p4`` in ``state``) with an ``Int8Dense`` or an
+    ``Int4Dense`` of the same shape and dtype."""
     for name, sub in list(module.named_modules()):
-        if isinstance(sub, Dense) and f"{name}.kernel_q" in state:
-            parent, _, leaf = name.rpartition(".")
-            setattr(module.get_submodule(parent), leaf, Int8Dense(
-                *sub.kernel.shape, use_bias=sub.bias is not None,
-                dtype=sub.kernel.dtype, device=sub.kernel.device))
+        for leaf_name, cls in (("kernel_q", Int8Dense), ("kernel_p4", Int4Dense)):
+            if isinstance(sub, Dense) and f"{name}.{leaf_name}" in state:
+                parent, _, leaf = name.rpartition(".")
+                setattr(module.get_submodule(parent), leaf, cls(
+                    *sub.kernel.shape, use_bias=sub.bias is not None,
+                    dtype=sub.kernel.dtype, device=sub.kernel.device))
     module.load_state_dict(state)
     return module
 

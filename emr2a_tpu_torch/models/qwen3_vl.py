@@ -1,0 +1,1152 @@
+"""Qwen3-VL in PyTorch: vision tower, text decoder and greedy generation.
+
+Port of ``emr2a_tpu/models/qwen3_vl.py`` with its names, its param layout
+(``Dense`` kernels (in, out), the ``kernel_q`` / ``kernel_p4`` quantized
+entries of ``models/quantize.quantize_qwen_text_params``) and its rounding
+points: f32 norms, f32 rope, f32 attention logits and softmax with the
+probabilities cast to the working dtype. A JAX param tree loads through
+``models/convert.params_from_jax`` (``block_i`` -> ``blocks.i``,
+``layer_i`` -> ``layers.i``, ``deepstack_merger_j`` -> ``deepstack_mergers.j``,
+a norm's ``scale`` -> ``weight``).
+
+Kernels on the path (CUDA tensors; a CPU tensor takes each kernel's plain
+version):
+
+- the vision tower's uniform frame-batched attention -> K8
+  (``ops/vision_flash.frame_flash_attention``). ``attn_impl="auto"`` takes
+  K8 on a CUDA tensor and the einsum path on the CPU (JAX: "scan" on a TPU,
+  "einsum" elsewhere); mixed grids keep the flat masked einsum, as in JAX;
+- the decoder projections route on what the params hold: ``kernel_p4`` ->
+  K7 (``ops/linear_int4``), ``kernel_q`` -> K5 (``ops/linear_int8``), and
+  the fused ``qkv_proj`` / ``gate_up_proj`` layout; an int8 ``lm_head`` ->
+  K5.
+
+Decoder attention is plain PyTorch (XLA einsum in the JAX package, not a
+Pallas kernel). The KV cache is written in place. Out of this port, each
+raising ``NotImplementedError`` that names ROADMAP.md: the int8 KV cache
+(``quantize_kv``), chunked prefill (``chunked_prefill``,
+``auto_prefill_chunk``), sampling (``sample_rows``, ``filtered_log_probs``),
+speculative acceptance (``spec_accept``) and tensor parallelism (``mesh``).
+At batch 1 and a 2k prompt the one-shot prefill's f32 logits take about 0.7
+GB per layer, so nothing needs chunking there.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import Dict, Mapping, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from emr2a_tpu_torch.models.layers import ACTIVATIONS, Dense, Int4Dense, Int8Dense
+from emr2a_tpu_torch.ops.vision_flash import (
+    frame_flash_attention,
+    frame_flash_attention_reference,
+)
+
+_NOT_PORTED = "not ported yet (ROADMAP.md, Queue 1, item 3)"
+
+# ---------------------------------------------------------------------------
+# Configs
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class QwenVisionConfig:
+    depth: int = 27
+    hidden_size: int = 1152
+    intermediate_size: int = 4304
+    num_heads: int = 16
+    in_channels: int = 3
+    patch_size: int = 16
+    temporal_patch_size: int = 2
+    spatial_merge_size: int = 2
+    out_hidden_size: int = 3584
+    num_position_embeddings: int = 2304
+    deepstack_visual_indexes: Tuple[int, ...] = (8, 16, 24)
+    hidden_act: str = "gelu_pytorch_tanh"
+    dtype: torch.dtype = torch.float32
+    # Frame-batched attention: "einsum", "flash" (K8 on a CUDA tensor, its
+    # plain version on the CPU) or "auto" (flash on a CUDA tensor, einsum on
+    # the CPU); JAX's "scan" is accepted and takes the einsum path.
+    attn_impl: str = "auto"
+
+    @property
+    def head_dim(self) -> int:
+        return self.hidden_size // self.num_heads
+
+    @property
+    def patch_dim(self) -> int:
+        return self.in_channels * self.temporal_patch_size * self.patch_size ** 2
+
+
+@dataclass(frozen=True)
+class QwenTextConfig:
+    vocab_size: int = 151936
+    hidden_size: int = 4096
+    num_layers: int = 36
+    num_heads: int = 32
+    num_kv_heads: int = 8
+    head_dim: int = 128
+    intermediate_size: int = 12288
+    rms_norm_eps: float = 1e-6
+    rope_theta: float = 5e6
+    mrope_section: Tuple[int, int, int] = (24, 20, 20)
+    attention_bias: bool = False
+    tie_word_embeddings: bool = True
+    hidden_act: str = "silu"
+    dtype: torch.dtype = torch.float32
+
+
+@dataclass(frozen=True)
+class Qwen3VLConfig:
+    vision: QwenVisionConfig = field(default_factory=QwenVisionConfig)
+    text: QwenTextConfig = field(default_factory=QwenTextConfig)
+    image_token_id: int = 151655
+    video_token_id: int = 151656
+    vision_start_token_id: int = 151652
+
+
+def qwen3_vl_8b_config(dtype: torch.dtype = torch.bfloat16) -> Qwen3VLConfig:
+    """The public Qwen/Qwen3-VL-8B-Instruct geometry (the JAX package's
+    ``scripts/exp_qwen_generate.py`` 8B build): untied lm_head, vision
+    output width 4096."""
+    return Qwen3VLConfig(
+        vision=QwenVisionConfig(out_hidden_size=4096, dtype=dtype),
+        text=QwenTextConfig(tie_word_embeddings=False, dtype=dtype))
+
+
+# ---------------------------------------------------------------------------
+# Shared pieces
+# ---------------------------------------------------------------------------
+
+
+def rms_norm(x, scale, eps):
+    xf = x.float()
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    out = xf * torch.rsqrt(var + eps)
+    return (out * scale.float()).to(x.dtype)
+
+
+class RMSNorm(nn.Module):
+
+    def __init__(self, dim: int, eps: float = 1e-6, dtype=torch.float32, device=None):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(dim, dtype=dtype, device=device))
+
+    def forward(self, x):
+        return rms_norm(x, self.weight, self.eps)
+
+
+class LayerNorm(nn.Module):
+    """``flax.linen.LayerNorm``: f32 statistics with the fast variance
+    E[x^2] - E[x]^2 (clipped at 0), ``(x - mean) * (rsqrt(var + eps) *
+    scale) + bias``, then the working dtype."""
+
+    def __init__(self, dim: int, eps: float = 1e-6, dtype=torch.float32, device=None):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(dim, dtype=dtype, device=device))
+        self.bias = nn.Parameter(torch.zeros(dim, dtype=dtype, device=device))
+
+    def forward(self, x):
+        xf = x.float()
+        mean = xf.mean(dim=-1, keepdim=True)
+        var = torch.clamp((xf * xf).mean(dim=-1, keepdim=True) - mean * mean, min=0.0)
+        mul = torch.rsqrt(var + self.eps) * self.weight.float()
+        return ((xf - mean) * mul + self.bias.float()).to(self.weight.dtype)
+
+
+def _rotate_half(x):
+    half = x.shape[-1] // 2
+    return torch.cat([-x[..., half:], x[..., :half]], dim=-1)
+
+
+def apply_rope(q, k, cos, sin):
+    """q/k: (..., S, H, D); cos/sin broadcastable to (..., S, 1, D); in
+    f32."""
+    qf, kf = q.float(), k.float()
+    cos, sin = cos.float(), sin.float()
+    q_out = qf * cos + _rotate_half(qf) * sin
+    k_out = kf * cos + _rotate_half(kf) * sin
+    return q_out.to(q.dtype), k_out.to(k.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Vision tower
+# ---------------------------------------------------------------------------
+
+
+def vision_rope_cos_sin(grid_thw: Sequence[Tuple[int, int, int]],
+                        head_dim: int, merge_size: int,
+                        theta: float = 10000.0) -> Tuple[np.ndarray, np.ndarray]:
+    """(seq, head_dim) cos/sin for the 2D vision RoPE, tokens in
+    merge-block order (numpy, as the JAX package computes it)."""
+    dim_quarter = head_dim // 4
+    inv_freq = 1.0 / theta ** (np.arange(0, dim_quarter, dtype=np.float32)
+                               * 2 / (head_dim // 2))
+    all_coords = []
+    for t, h, w in grid_thw:
+        mh, mw = h // merge_size, w // merge_size
+        block_rows = np.arange(mh)
+        block_cols = np.arange(mw)
+        intra = np.arange(merge_size)
+        row_idx = (block_rows[:, None, None, None] * merge_size
+                   + intra[None, None, :, None])
+        col_idx = (block_cols[None, :, None, None] * merge_size
+                   + intra[None, None, None, :])
+        row_idx = np.broadcast_to(row_idx, (mh, mw, merge_size, merge_size)).reshape(-1)
+        col_idx = np.broadcast_to(col_idx, (mh, mw, merge_size, merge_size)).reshape(-1)
+        coords = np.stack([row_idx, col_idx], axis=-1)
+        if t > 1:
+            coords = np.tile(coords, (t, 1))
+        all_coords.append(coords)
+    coords = np.concatenate(all_coords, axis=0)
+    freqs = coords[:, :, None].astype(np.float32) * inv_freq[None, None, :]
+    freqs = freqs.reshape(coords.shape[0], -1)
+    emb = np.concatenate([freqs, freqs], axis=-1)
+    return np.cos(emb), np.sin(emb)
+
+
+def interpolated_pos_embed_indices(grid_thw: Sequence[Tuple[int, int, int]],
+                                   num_grid_per_side: int, merge_size: int
+                                   ) -> Tuple[np.ndarray, np.ndarray]:
+    """Bilinear interpolation of the (side x side) learned pos-embed table
+    onto each grid: (4, seq) indices and (4, seq) f32 weights."""
+    idx_list = [[] for _ in range(4)]
+    w_list = [[] for _ in range(4)]
+    for t, h, w in grid_thw:
+        h_idxs = np.linspace(0, num_grid_per_side - 1, h, dtype=np.float32)
+        w_idxs = np.linspace(0, num_grid_per_side - 1, w, dtype=np.float32)
+        h_floor = h_idxs.astype(np.int64)
+        w_floor = w_idxs.astype(np.int64)
+        h_ceil = np.clip(h_floor + 1, None, num_grid_per_side - 1)
+        w_ceil = np.clip(w_floor + 1, None, num_grid_per_side - 1)
+        dh = h_idxs - h_floor
+        dw = w_idxs - w_floor
+        base_h = h_floor * num_grid_per_side
+        base_h_ceil = h_ceil * num_grid_per_side
+        indices = [
+            (base_h[:, None] + w_floor[None]).reshape(-1),
+            (base_h[:, None] + w_ceil[None]).reshape(-1),
+            (base_h_ceil[:, None] + w_floor[None]).reshape(-1),
+            (base_h_ceil[:, None] + w_ceil[None]).reshape(-1),
+        ]
+        weights = [
+            ((1 - dh)[:, None] * (1 - dw)[None]).reshape(-1),
+            ((1 - dh)[:, None] * dw[None]).reshape(-1),
+            (dh[:, None] * (1 - dw)[None]).reshape(-1),
+            (dh[:, None] * dw[None]).reshape(-1),
+        ]
+        for i in range(4):
+            idx_list[i].append(indices[i])
+            w_list[i].append(weights[i])
+    idx = np.stack([np.concatenate(x) for x in idx_list])
+    wts = np.stack([np.concatenate(x) for x in w_list]).astype(np.float32)
+    return idx, wts
+
+
+def vision_segment_mask(grid_thw: Sequence[Tuple[int, int, int]]
+                        ) -> Optional[np.ndarray]:
+    """Additive block-diagonal (seq, seq) mask confining attention to each
+    frame; None for a single segment."""
+    seg_ids = []
+    sid = 0
+    for t, h, w in grid_thw:
+        for _ in range(t):
+            seg_ids.extend([sid] * (h * w))
+            sid += 1
+    if sid <= 1:
+        return None
+    seg = np.asarray(seg_ids)
+    return np.where(seg[:, None] == seg[None, :], 0.0,
+                    -np.inf).astype(np.float32)
+
+
+def permute_to_merge_order(flat: torch.Tensor,
+                           grid_thw: Sequence[Tuple[int, int, int]],
+                           merge_size: int) -> torch.Tensor:
+    """Reorder per-image (t*h*w, D) row-major tokens into merge-block
+    order."""
+    outs = []
+    offset = 0
+    for t, h, w in grid_thw:
+        n = h * w
+        x = flat[offset:offset + n].repeat(t, 1)
+        d = x.shape[-1]
+        x = x.reshape(t, h // merge_size, merge_size, w // merge_size,
+                      merge_size, d)
+        outs.append(x.permute(0, 1, 3, 2, 4, 5).reshape(-1, d))
+        offset += n
+    return torch.cat(outs, dim=0)
+
+
+def resolve_vision_attn_impl(cfg, x: Optional[torch.Tensor] = None) -> str:
+    """The frame-batched attention lowering: ``cfg.attn_impl``, with "auto"
+    taking K8 ("flash") on a CUDA tensor and "einsum" elsewhere. JAX's
+    "scan" (one frame at a time, to cap a TPU's memory) is the einsum path
+    here."""
+    impl = getattr(cfg, "attn_impl", "auto")
+    if impl == "auto":
+        return "flash" if x is not None and x.device.type == "cuda" else "einsum"
+    return "einsum" if impl == "scan" else impl
+
+
+class QwenVisionBlock(nn.Module):
+
+    def __init__(self, cfg: QwenVisionConfig, device=None):
+        super().__init__()
+        self.config = cfg
+        d, kw = cfg.hidden_size, dict(dtype=cfg.dtype, device=device)
+        self.norm1 = LayerNorm(d, 1e-6, **kw)
+        self.norm2 = LayerNorm(d, 1e-6, **kw)
+        self.q_proj = Dense(d, d, **kw)
+        self.k_proj = Dense(d, d, **kw)
+        self.v_proj = Dense(d, d, **kw)
+        self.o_proj = Dense(d, d, **kw)
+        self.fc1 = Dense(d, cfg.intermediate_size, **kw)
+        self.fc2 = Dense(cfg.intermediate_size, d, **kw)
+
+    def forward(self, x, cos, sin, attn_mask=None):
+        """``x`` (seq, d) flat, or (frames, seq_per_frame, d) for uniform
+        frames, whose per-frame attention goes to ``attn_impl``."""
+        cfg = self.config
+        d, S, lead = x.shape[-1], x.shape[-2], tuple(x.shape[:-2])
+        h = self.norm1(x)
+        hd = cfg.head_dim
+        shape = lead + (S, cfg.num_heads, hd)
+        q = self.q_proj(h).reshape(shape)
+        k = self.k_proj(h).reshape(shape)
+        v = self.v_proj(h).reshape(shape)
+        q, k = apply_rope(q, k, cos[:, None, :], sin[:, None, :])
+        impl = (resolve_vision_attn_impl(cfg, x)
+                if attn_mask is None and len(lead) == 1 else "einsum")
+        if impl == "flash":
+            attn = frame_flash_attention(q, k, v, hd ** -0.5)
+        else:
+            attn = frame_flash_attention_reference(q, k, v, hd ** -0.5, attn_mask)
+        x = x + self.o_proj(attn.reshape(lead + (S, d)))
+        h = self.norm2(x)
+        m = self.fc2(ACTIVATIONS[cfg.hidden_act](self.fc1(h)))
+        return x + m
+
+
+class QwenPatchMerger(nn.Module):
+
+    def __init__(self, cfg: QwenVisionConfig, use_postshuffle_norm: bool = False,
+                 device=None):
+        super().__init__()
+        self.config = cfg
+        self.use_postshuffle_norm = use_postshuffle_norm
+        merged = cfg.hidden_size * cfg.spatial_merge_size ** 2
+        kw = dict(dtype=cfg.dtype, device=device)
+        self.norm = LayerNorm(merged if use_postshuffle_norm else cfg.hidden_size, 1e-6, **kw)
+        self.fc1 = Dense(merged, merged, **kw)
+        self.fc2 = Dense(merged, cfg.out_hidden_size, **kw)
+
+    def forward(self, x):
+        merged = self.config.hidden_size * self.config.spatial_merge_size ** 2
+        if self.use_postshuffle_norm:
+            x = self.norm(x.reshape(-1, merged))
+        else:
+            x = self.norm(x).reshape(-1, merged)
+        return self.fc2(F.gelu(self.fc1(x), approximate="none"))
+
+
+class QwenVisionTower(nn.Module):
+    """pixel patches (seq, patch_dim) + grid_thw -> (merged tokens
+    (seq/merge^2, out_hidden), deepstack list, taps)."""
+
+    def __init__(self, cfg: QwenVisionConfig, device=None):
+        super().__init__()
+        self.config = cfg
+        kw = dict(dtype=cfg.dtype, device=device)
+        self.patch_embed = Dense(cfg.patch_dim, cfg.hidden_size, **kw)
+        self.pos_embed = nn.Parameter(torch.empty(
+            cfg.num_position_embeddings, cfg.hidden_size, **kw))
+        self.blocks = nn.ModuleList([QwenVisionBlock(cfg, device)
+                                     for _ in range(cfg.depth)])
+        self.deepstack_mergers = nn.ModuleList([
+            QwenPatchMerger(cfg, True, device)
+            for _ in cfg.deepstack_visual_indexes])
+        self.merger = QwenPatchMerger(cfg, False, device)
+
+    def forward(self, patches: torch.Tensor,
+                grid_thw: Tuple[Tuple[int, int, int], ...],
+                tap_layers: Tuple[int, ...] = ()):
+        cfg = self.config
+        dev = patches.device
+        x = self.patch_embed(patches)
+
+        side = int(cfg.num_position_embeddings ** 0.5)
+        idx, wts = interpolated_pos_embed_indices(grid_thw, side,
+                                                  cfg.spatial_merge_size)
+        idx = torch.from_numpy(idx).to(dev)
+        wts = torch.from_numpy(wts).to(dev)
+        table = self.pos_embed
+        pos = (table[idx[0]] * wts[0][:, None] + table[idx[1]] * wts[1][:, None]
+               + table[idx[2]] * wts[2][:, None] + table[idx[3]] * wts[3][:, None])
+        pos = permute_to_merge_order(pos, grid_thw, cfg.spatial_merge_size)
+        x = x + pos.to(x.dtype)
+
+        cos_np, sin_np = vision_rope_cos_sin(grid_thw, cfg.head_dim,
+                                             cfg.spatial_merge_size)
+        cos, sin = torch.from_numpy(cos_np).to(dev), torch.from_numpy(sin_np).to(dev)
+        # Uniform (h, w) grids attend per frame on an (F, seq_f, d) layout;
+        # mixed layouts keep the flat block-diagonal mask.
+        S_total = x.shape[0]
+        frame_hws = [(h, w) for t, h, w in grid_thw for _ in range(t)]
+        uniform = len(frame_hws) > 1 and len(set(frame_hws)) == 1
+        attn_mask = None
+        if uniform:
+            seq_f = frame_hws[0][0] * frame_hws[0][1]
+            x = x.reshape(len(frame_hws), seq_f, cfg.hidden_size)
+            cos, sin = cos[:seq_f], sin[:seq_f]
+        else:
+            mask_np = vision_segment_mask(grid_thw)
+            if mask_np is not None:
+                attn_mask = torch.from_numpy(mask_np).to(dev)
+
+        deepstack, taps = [], []
+        for i, block in enumerate(self.blocks):
+            x = block(x, cos, sin, attn_mask)
+            if i in cfg.deepstack_visual_indexes:
+                j = cfg.deepstack_visual_indexes.index(i)
+                deepstack.append(self.deepstack_mergers[j](x))
+            if i in tap_layers:
+                taps.append(x.reshape(S_total, cfg.hidden_size))
+        return self.merger(x), deepstack, taps
+
+
+# ---------------------------------------------------------------------------
+# Text model
+# ---------------------------------------------------------------------------
+
+
+def mrope_cos_sin(position_ids: torch.Tensor, inv_freq: np.ndarray,
+                  mrope_section: Tuple[int, int, int]
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """position_ids (3, B, S) -> cos/sin (B, S, head_dim), interleaved
+    t/h/w frequency layout."""
+    inv = torch.from_numpy(inv_freq).to(position_ids.device)
+    freqs = position_ids[..., None].float() * inv[None, None, None, :]
+    freqs_t = freqs[0]
+    half = freqs.shape[-1]
+    idx = np.arange(half)
+    for dim, offset in ((1, 1), (2, 2)):
+        length = mrope_section[dim] * 3
+        sel = (idx >= offset) & (idx < length) & ((idx - offset) % 3 == 0)
+        mask = torch.from_numpy(sel).to(position_ids.device)
+        freqs_t = torch.where(mask[None, None, :], freqs[dim], freqs_t)
+    emb = torch.cat([freqs_t, freqs_t], dim=-1)
+    return torch.cos(emb), torch.sin(emb)
+
+
+def quantize_kv(x):
+    raise NotImplementedError(f"the int8 KV cache is {_NOT_PORTED}")
+
+
+def cache_write(buf: torch.Tensor, fresh: torch.Tensor, cache_pos: int
+                ) -> torch.Tensor:
+    """Write ``fresh`` (B, S, ...) into ``buf`` (B, L, ...) at position
+    ``cache_pos``, in place (JAX: ``dynamic_update_slice`` on an immutable
+    buffer). Per-row offsets (continuous batching) are not ported."""
+    if not isinstance(cache_pos, int):
+        raise NotImplementedError(f"per-row cache offsets are {_NOT_PORTED}")
+    buf[:, cache_pos:cache_pos + fresh.shape[1]] = fresh.to(buf.dtype)
+    return buf
+
+
+class QwenTextDecoderLayer(nn.Module):
+    """Qwen3 decoder layer. ``kinds`` maps a projection name to "dense",
+    "int8" or "int4" (what its params hold); with ``qkv_proj`` /
+    ``gate_up_proj`` in ``kinds`` the fused serving layout is built."""
+
+    def __init__(self, cfg: QwenTextConfig, kinds: Optional[Mapping[str, str]] = None,
+                 device=None):
+        super().__init__()
+        self.config = cfg
+        kinds = dict(kinds or {})
+        d, hd, I = cfg.hidden_size, cfg.head_dim, cfg.intermediate_size
+        nq, nkv = cfg.num_heads * hd, cfg.num_kv_heads * hd
+        kw = dict(dtype=cfg.dtype, device=device)
+        self.input_ln = RMSNorm(d, cfg.rms_norm_eps, **kw)
+        self.post_ln = RMSNorm(d, cfg.rms_norm_eps, **kw)
+        self.q_norm_scale = nn.Parameter(torch.ones(hd, **kw))
+        self.k_norm_scale = nn.Parameter(torch.ones(hd, **kw))
+
+        def make(name, n_in, n_out, bias):
+            cls = {"dense": Dense, "int8": Int8Dense, "int4": Int4Dense}[
+                kinds.get(name, "dense")]
+            return cls(n_in, n_out, use_bias=bias, **kw)
+
+        bias = cfg.attention_bias
+        self.fused_qkv = "qkv_proj" in kinds
+        self.fused_gate_up = "gate_up_proj" in kinds
+        if self.fused_qkv:
+            self.qkv_proj = make("qkv_proj", d, nq + 2 * nkv, bias)
+        else:
+            self.q_proj = make("q_proj", d, nq, bias)
+            self.k_proj = make("k_proj", d, nkv, bias)
+            self.v_proj = make("v_proj", d, nkv, bias)
+        self.o_proj = make("o_proj", nq, d, bias)
+        if self.fused_gate_up:
+            self.gate_up_proj = make("gate_up_proj", d, 2 * I, False)
+        else:
+            self.gate_proj = make("gate_proj", d, I, False)
+            self.up_proj = make("up_proj", d, I, False)
+        self.down_proj = make("down_proj", I, d, False)
+
+    def forward(self, x, cos, sin, cache_kv, cache_pos, attn_mask):
+        """x (B, S, D); cache_kv None or (k, v) of shape (B, L, KV, HD);
+        attn_mask (B, S, L_total) additive f32. Returns (x, new_cache)."""
+        cfg = self.config
+        B, S, d = x.shape
+        hd = cfg.head_dim
+        h = self.input_ln(x)
+        nq, nkv = cfg.num_heads * hd, cfg.num_kv_heads * hd
+        if self.fused_qkv:
+            qkv = self.qkv_proj(h)
+            q, k, v = qkv[..., :nq], qkv[..., nq:nq + nkv], qkv[..., nq + nkv:]
+        else:
+            q, k, v = self.q_proj(h), self.k_proj(h), self.v_proj(h)
+        q = q.reshape(B, S, cfg.num_heads, hd)
+        k = k.reshape(B, S, cfg.num_kv_heads, hd)
+        v = v.reshape(B, S, cfg.num_kv_heads, hd)
+        q = rms_norm(q, self.q_norm_scale, cfg.rms_norm_eps)
+        k = rms_norm(k, self.k_norm_scale, cfg.rms_norm_eps)
+        q, k = apply_rope(q, k, cos[:, :, None, :], sin[:, :, None, :])
+
+        if cache_kv is not None:
+            if len(cache_kv) == 4:
+                raise NotImplementedError(f"the int8 KV cache is {_NOT_PORTED}")
+            ck = cache_write(cache_kv[0], k, cache_pos)
+            cv = cache_write(cache_kv[1], v, cache_pos)
+            k_all, v_all = ck, cv
+            new_cache = (ck, cv)
+        else:
+            k_all, v_all = k, v
+            new_cache = None
+
+        # GQA: decode (small S) against the un-repeated cache; prefill with
+        # the repeated heads, as the JAX package lowers the two.
+        groups = cfg.num_heads // cfg.num_kv_heads
+        scale = hd ** -0.5
+        if S <= 16:
+            q_g = q.reshape(B, S, cfg.num_kv_heads, groups, hd)
+            logits = torch.einsum("bqkgd,blkd->bkgql", q_g.float(),
+                                  k_all.float()) * scale
+            logits = logits + attn_mask[:, None, None, :, :]
+            probs = torch.softmax(logits, dim=-1).to(cfg.dtype)
+            attn = torch.einsum("bkgql,blkd->bqkgd", probs.float(),
+                                v_all.float()).to(cfg.dtype)
+        else:
+            k_rep = torch.repeat_interleave(k_all, groups, dim=2)
+            v_rep = torch.repeat_interleave(v_all, groups, dim=2)
+            logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k_rep.float()) * scale
+            logits = logits + attn_mask[:, None, :, :]
+            probs = torch.softmax(logits, dim=-1).to(cfg.dtype)
+            del logits
+            attn = torch.einsum("bhqk,bkhd->bqhd", probs.float(),
+                                v_rep.float()).to(cfg.dtype)
+        x = x + self.o_proj(attn.reshape(B, S, nq))
+
+        h = self.post_ln(x)
+        I = cfg.intermediate_size
+        if self.fused_gate_up:
+            gu = self.gate_up_proj(h)
+            gate, up = gu[..., :I], gu[..., I:]
+        else:
+            gate, up = self.gate_proj(h), self.up_proj(h)
+        hu = ACTIVATIONS[cfg.hidden_act](gate) * up
+        return x + self.down_proj(hu), new_cache
+
+
+class Embed(nn.Module):
+    """``flax.linen.Embed``: an ``embedding`` table (vocab, d)."""
+
+    def __init__(self, num: int, dim: int, dtype=torch.float32, device=None):
+        super().__init__()
+        self.embedding = nn.Parameter(torch.empty(num, dim, dtype=dtype, device=device))
+
+    def forward(self, ids):
+        return self.embedding[ids]
+
+
+class QwenTextModel(nn.Module):
+
+    def __init__(self, cfg: QwenTextConfig, kinds: Optional[Mapping[str, str]] = None,
+                 device=None):
+        """``kinds``: ``"layers.i.<proj>"`` / ``"lm_head"`` -> "dense",
+        "int8" or "int4"."""
+        super().__init__()
+        self.config = cfg
+        kinds = dict(kinds or {})
+        kw = dict(dtype=cfg.dtype, device=device)
+        self.embed_tokens = Embed(cfg.vocab_size, cfg.hidden_size, **kw)
+        self.layers = nn.ModuleList([
+            QwenTextDecoderLayer(cfg, {k.split(".", 2)[2]: v for k, v in kinds.items()
+                                       if k.startswith(f"layers.{i}.")}, device)
+            for i in range(cfg.num_layers)])
+        self.final_ln = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps, **kw)
+        if not cfg.tie_word_embeddings:
+            cls = Int8Dense if kinds.get("lm_head") == "int8" else Dense
+            self.lm_head = cls(cfg.hidden_size, cfg.vocab_size, use_bias=False, **kw)
+
+    @property
+    def inv_freq(self) -> np.ndarray:
+        cfg = self.config
+        return 1.0 / cfg.rope_theta ** (
+            np.arange(0, cfg.head_dim, 2, dtype=np.float32) / cfg.head_dim)
+
+    def forward(self, inputs_embeds, position_ids, cache=None, cache_pos=0,
+                attn_mask=None, visual_mask=None, deepstack=None,
+                visual_gather_idx=None, return_hidden: bool = False):
+        """inputs_embeds (B, S, D); position_ids (3, B, S); cache: list of
+        per-layer (k, v) or None; attn_mask (B, S, L) additive. Returns
+        (logits or hidden, new_cache)."""
+        cfg = self.config
+        x = inputs_embeds
+        cos, sin = mrope_cos_sin(position_ids, self.inv_freq, cfg.mrope_section)
+        if attn_mask is None:
+            B, S, _ = x.shape
+            q_idx = torch.arange(S, device=x.device)[:, None]
+            k_idx = torch.arange(S, device=x.device)[None, :]
+            attn_mask = torch.where(k_idx <= q_idx, 0.0, float("-inf"))[None]
+            attn_mask = attn_mask.float().expand(B, S, S)
+
+        new_cache = []
+        n_deep = len(deepstack) if deepstack else 0
+        for i, layer in enumerate(self.layers):
+            x, layer_cache = layer(x, cos, sin,
+                                   cache[i] if cache is not None else None,
+                                   cache_pos, attn_mask)
+            new_cache.append(layer_cache)
+            if i < n_deep and visual_mask is not None:
+                ds = deepstack[i]
+                gather_idx = (visual_gather_idx if visual_gather_idx is not None
+                              else visual_gather_indices(visual_mask, ds.shape[0]))
+                add = ds[gather_idx]
+                x = x + torch.where(visual_mask[..., None], add.to(x.dtype),
+                                    torch.zeros((), dtype=x.dtype, device=x.device))
+        x = self.final_ln(x)
+        if return_hidden:
+            return x, new_cache
+        return self.project(x), new_cache
+
+    def project(self, hidden):
+        """Vocabulary projection (callers project only the positions they
+        need)."""
+        if self.config.tie_word_embeddings:
+            return hidden @ self.embed_tokens.embedding.T.to(hidden.dtype)
+        return self.lm_head(hidden)          # an Int8Dense runs K5
+
+
+# ---------------------------------------------------------------------------
+# Full model + generation
+# ---------------------------------------------------------------------------
+
+
+# Per-layer f32 vision attention-logits budget of the one-shot vision
+# forward (heads x frames x seq_f^2 x 4 bytes), the JAX package's value.
+_VISION_TEMP_BUDGET = 1 * 2**30
+
+
+def plan_vision_groups(vision_cfg, grid_thw,
+                       budget: int = None) -> Optional[list]:
+    """Split a many-image forward into image groups whose attention temps
+    fit ``budget`` bytes, or None for the one-shot call:
+    [(img_lo, img_hi, patch_lo, patch_hi), ...]. Only uniform layouts
+    group; vision attention never crosses a frame, so grouping is exact."""
+    if budget is None:
+        budget = _VISION_TEMP_BUDGET
+    if len(grid_thw) <= 1:
+        return None
+    if len({(t, h, w) for t, h, w in grid_thw}) != 1:
+        return None
+    t0, h0, w0 = grid_thw[0]
+    seq_f = h0 * w0
+    per_frame = vision_cfg.num_heads * seq_f * seq_f * 4
+    total_frames = sum(t for t, _, _ in grid_thw)
+    if total_frames * per_frame <= budget:
+        return None
+    frames_per_img = grid_thw[0][0]
+    imgs_per_group = max(1, budget // (per_frame * max(1, frames_per_img)))
+    groups = []
+    patches_per_img = t0 * seq_f
+    for lo in range(0, len(grid_thw), imgs_per_group):
+        hi = min(lo + imgs_per_group, len(grid_thw))
+        groups.append((lo, hi, lo * patches_per_img, hi * patches_per_img))
+    return groups
+
+
+def visual_gather_indices(mask: torch.Tensor, table_len: int) -> torch.Tensor:
+    """(B, S) image-token mask -> indices into the flat batch image-token
+    table (row b's k-th image token reads table[offset_b + k])."""
+    counts = mask.sum(dim=-1)
+    offsets = torch.cumsum(counts, dim=0) - counts
+    idx = torch.cumsum(mask.to(torch.int64), dim=-1) - 1 + offsets[:, None]
+    return torch.clamp(idx, 0, table_len - 1)
+
+
+def linear_kinds(state: Mapping[str, torch.Tensor]) -> Dict[str, str]:
+    """What each projection's params hold, from a state dict's names:
+    ``{"language_model.layers.0.q_proj": "int4", ...}`` for every entry
+    with ``kernel_p4`` ("int4"), ``kernel_q`` ("int8") or ``kernel``
+    ("dense")."""
+    kinds = {}
+    for key in state:
+        for leaf, kind in ((".kernel_p4", "int4"), (".kernel_q", "int8"),
+                           (".kernel", "dense")):
+            if key.endswith(leaf):
+                kinds[key[:-len(leaf)]] = kind
+    return kinds
+
+
+class Qwen3VLModel(nn.Module):
+    """Multimodal forward: ids + optional image patches -> logits."""
+
+    def __init__(self, config: Qwen3VLConfig,
+                 kinds: Optional[Mapping[str, str]] = None, device=None):
+        super().__init__()
+        self.config = config
+        lm = "language_model."
+        self.visual = QwenVisionTower(config.vision, device)
+        self.language_model = QwenTextModel(
+            config.text, {k[len(lm):]: v for k, v in (kinds or {}).items()
+                          if k.startswith(lm)}, device)
+
+    @classmethod
+    def from_params(cls, config: Qwen3VLConfig,
+                    state: Mapping[str, torch.Tensor]) -> "Qwen3VLModel":
+        """The model over ``state`` (this package's names, e.g. from
+        ``params_from_jax``), taking its tensors as they are: no copy, so
+        models built from states that share tensors share memory. Each
+        projection's kind (dense, int8, int4, fused) follows its params.
+        Inference only: no parameter requires a gradient."""
+        model = cls(config, linear_kinds(state), device="meta")
+        model.load_state_dict(dict(state), strict=True, assign=True)
+        return model.requires_grad_(False)
+
+    @classmethod
+    def random_init(cls, config: Qwen3VLConfig, seed: int = 0, device="cuda",
+                    dtype: Optional[torch.dtype] = None) -> "Qwen3VLModel":
+        """Random weights drawn on ``device`` from
+        ``torch.Generator(device).manual_seed(seed)`` (not ``jax.random``'s):
+        kernels, embeddings and the position table N(0, 0.02), biases zero,
+        norm scales one. ``dtype`` defaults to the configs'."""
+        return cls.from_params(config, random_state(config, seed, device, dtype))
+
+    def embed_multimodal(self, input_ids, pixel_patches, grid_thw):
+        """Token embeddings with the image embeddings spliced at the
+        image-token positions: (embeds, visual_mask, deepstack). Many-image
+        prompts run the tower in image groups (``plan_vision_groups``)."""
+        lm = self.language_model
+        embeds = lm.embed_tokens(input_ids).to(lm.config.dtype)
+        if pixel_patches is None:
+            return embeds, None, None
+        groups = plan_vision_groups(self.config.vision, grid_thw)
+        if groups is None:
+            image_embeds, deepstack, _ = self.visual(pixel_patches, grid_thw)
+        else:
+            emb_parts, deep_parts = [], None
+            for img_lo, img_hi, p_lo, p_hi in groups:
+                e, d, _ = self.visual(pixel_patches[p_lo:p_hi],
+                                      grid_thw[img_lo:img_hi])
+                emb_parts.append(e)
+                if deep_parts is None:
+                    deep_parts = [[x] for x in d]
+                else:
+                    for lvl, x in zip(deep_parts, d):
+                        lvl.append(x)
+            image_embeds = torch.cat(emb_parts, dim=0)
+            deepstack = [torch.cat(lvl, dim=0) for lvl in (deep_parts or [])]
+        mask = input_ids == self.config.image_token_id
+        gather_idx = visual_gather_indices(mask, image_embeds.shape[0])
+        spliced = image_embeds[gather_idx].to(embeds.dtype)
+        embeds = torch.where(mask[..., None], spliced, embeds)
+        return embeds, mask, deepstack
+
+    def forward(self, input_ids, position_ids, pixel_patches=None,
+                grid_thw=(), cache=None, cache_pos=0, attn_mask=None,
+                return_hidden: bool = False):
+        embeds, visual_mask, deepstack = self.embed_multimodal(
+            input_ids, pixel_patches, grid_thw)
+        return self.language_model(
+            embeds, position_ids, cache=cache, cache_pos=cache_pos,
+            attn_mask=attn_mask, visual_mask=visual_mask,
+            deepstack=deepstack, return_hidden=return_hidden)
+
+
+def random_state(config: Qwen3VLConfig, seed: int = 0, device="cuda",
+                 dtype: Optional[torch.dtype] = None) -> Dict[str, torch.Tensor]:
+    """A random state dict for ``Qwen3VLModel`` (see ``random_init``),
+    drawn on ``device`` in name order."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    shapes = Qwen3VLModel(config, device="meta").state_dict()
+    state = {}
+    for name, ref in shapes.items():
+        leaf = name.rsplit(".", 1)[-1]
+        dt = dtype or ref.dtype
+        if leaf in ("kernel", "embedding", "pos_embed"):
+            t = torch.randn(ref.shape, generator=gen, device=device) * 0.02
+            state[name] = t.to(dt)
+        elif leaf == "bias":
+            state[name] = torch.zeros(ref.shape, dtype=dt, device=device)
+        else:                                   # norm scales
+            state[name] = torch.ones(ref.shape, dtype=dt, device=device)
+    return state
+
+
+def compute_mrope_position_ids(input_ids: np.ndarray,
+                               grid_thw: Sequence[Tuple[int, int, int]],
+                               image_token_id: int,
+                               merge_size: int = 2) -> np.ndarray:
+    """Host-side M-RoPE position ids (3, B, S): text tokens advance all
+    three axes together; each image block gets t/h/w grid positions.
+    ``grid_thw`` is consumed flat in batch-row-major order."""
+    B, S = input_ids.shape
+    out = np.zeros((3, B, S), dtype=np.int64)
+    img_i = 0
+    for b in range(B):
+        ids = input_ids[b]
+        pos_chunks = []
+        st = 0
+        image_positions = np.where(ids == image_token_id)[0]
+        runs = []
+        if len(image_positions):
+            run_start = image_positions[0]
+            prev = image_positions[0]
+            for p in image_positions[1:]:
+                if p != prev + 1:
+                    runs.append((run_start, prev))
+                    run_start = p
+                prev = p
+            runs.append((run_start, prev))
+        for run_start, run_end in runs:
+            text_len = run_start - st
+            st_idx = pos_chunks[-1].max() + 1 if pos_chunks else 0
+            if text_len > 0:
+                pos_chunks.append(
+                    np.broadcast_to(np.arange(text_len), (3, text_len)) + st_idx)
+                st_idx = pos_chunks[-1].max() + 1
+            t, h, w = grid_thw[img_i]
+            img_i += 1
+            gh, gw = h // merge_size, w // merge_size
+            t_index = np.repeat(np.arange(t), gh * gw)
+            h_index = np.tile(np.repeat(np.arange(gh), gw), t)
+            w_index = np.tile(np.arange(gw), t * gh)
+            pos_chunks.append(np.stack([t_index, h_index, w_index]) + st_idx)
+            st = run_end + 1
+        if st < S:
+            st_idx = pos_chunks[-1].max() + 1 if pos_chunks else 0
+            text_len = S - st
+            pos_chunks.append(
+                np.broadcast_to(np.arange(text_len), (3, text_len)) + st_idx)
+        out[:, b, :] = np.concatenate(pos_chunks, axis=1)
+    return out
+
+
+def sample_rows(*args, **kw):
+    raise NotImplementedError(f"sampling is {_NOT_PORTED}")
+
+
+def filtered_log_probs(*args, **kw):
+    raise NotImplementedError(f"sampling is {_NOT_PORTED}")
+
+
+def spec_accept(*args, **kw):
+    raise NotImplementedError(f"speculative decoding is {_NOT_PORTED}")
+
+
+def chunked_prefill(*args, **kw):
+    raise NotImplementedError(f"chunked prefill is {_NOT_PORTED}")
+
+
+def auto_prefill_chunk(*args, **kw):
+    raise NotImplementedError(f"chunked prefill is {_NOT_PORTED}")
+
+
+def empty_kv_cache(text_cfg, batch: int, max_len: int, kv_dtype: str,
+                   device=None):
+    """Per-layer (k, v) zeros (B, max_len, KV, HD) in the text dtype."""
+    if kv_dtype == "int8":
+        raise NotImplementedError(f"the int8 KV cache is {_NOT_PORTED}")
+    shape = (batch, max_len, text_cfg.num_kv_heads, text_cfg.head_dim)
+    return [(torch.zeros(shape, dtype=text_cfg.dtype, device=device),
+             torch.zeros(shape, dtype=text_cfg.dtype, device=device))
+            for _ in range(text_cfg.num_layers)]
+
+
+class Qwen3VLGenerator:
+    """Prefill + token-by-token greedy decode over a static KV cache. The
+    model holds its params (JAX: ``Qwen3VLGenerator(model, params)``)."""
+
+    def __init__(self, model: Qwen3VLModel, max_new_tokens: int = 1024,
+                 eos_token_id: int = 151645, kv_dtype: str = "bf16",
+                 prefill_chunk: Optional[int] = None, mesh=None):
+        if kv_dtype not in ("bf16", "int8"):
+            raise ValueError(f"kv_dtype must be bf16 or int8: {kv_dtype}")
+        if kv_dtype == "int8":
+            raise NotImplementedError(f"the int8 KV cache is {_NOT_PORTED}")
+        if prefill_chunk is not None:
+            raise NotImplementedError(f"chunked prefill is {_NOT_PORTED}")
+        if mesh is not None:
+            raise NotImplementedError(f"tensor parallelism is {_NOT_PORTED}")
+        self.model = model
+        self.config = model.config
+        self.max_new_tokens = max_new_tokens
+        self.eos_token_id = eos_token_id
+        self.kv_dtype = kv_dtype
+
+    @property
+    def device(self) -> torch.device:
+        return self.model.language_model.final_ln.weight.device
+
+    def device_inputs(self, input_ids, pixel_patches=None, grid_thw=(),
+                      prompt_bucket: int = 128, true_lens=None,
+                      position_ids=None):
+        """The prompt right-padded to the next ``prompt_bucket`` multiple,
+        on the model's device: (ids, position ids, true lengths, patches,
+        padded length)."""
+        dev = self.device
+        ids = np.asarray(input_ids)
+        seq_len = ids.shape[1]
+        if true_lens is None:
+            true_lens = np.full((ids.shape[0],), seq_len, dtype=np.int64)
+        if position_ids is None:
+            position_ids = compute_mrope_position_ids(
+                ids, grid_thw, self.config.image_token_id,
+                self.config.vision.spatial_merge_size)
+        padded_len = -(-seq_len // prompt_bucket) * prompt_bucket
+        if padded_len > seq_len:
+            pad = padded_len - seq_len
+            ids = np.pad(ids, [(0, 0), (0, pad)])
+            position_ids = np.pad(position_ids, [(0, 0), (0, 0), (0, pad)])
+        patches = None
+        if pixel_patches is not None:
+            patches = torch.as_tensor(np.asarray(pixel_patches)).to(
+                dev, self.config.vision.dtype)
+        return (torch.as_tensor(ids, dtype=torch.int64, device=dev),
+                torch.as_tensor(position_ids, dtype=torch.int64, device=dev),
+                torch.as_tensor(np.asarray(true_lens), dtype=torch.int64, device=dev),
+                patches, padded_len)
+
+    def _prefill(self, input_ids, position_ids, true_len, pixel_patches,
+                 grid_thw, padded_len: int, max_len: int):
+        """Causal AND key < true_len (right padding receives no attention).
+        Returns (cache, last-position logits (B, V), next rope position)."""
+        B = input_ids.shape[0]
+        dev = input_ids.device
+        cache = empty_kv_cache(self.config.text, B, max_len, self.kv_dtype, dev)
+        q_idx = torch.arange(padded_len, device=dev)[None, :, None]
+        k_idx = torch.arange(max_len, device=dev)[None, None, :]
+        mask = torch.where((k_idx <= q_idx) & (k_idx < true_len[:, None, None]),
+                           0.0, float("-inf")).float()
+        hidden, cache = self.model(input_ids, position_ids,
+                                   pixel_patches=pixel_patches, grid_thw=grid_thw,
+                                   cache=cache, cache_pos=0, attn_mask=mask,
+                                   return_hidden=True)
+        last_hidden = hidden[torch.arange(B, device=dev), true_len - 1]
+        last_logits = self.model.language_model.project(last_hidden)
+        next_pos_base = position_ids.amax(dim=(0, 2)) + 1
+        return cache, last_logits, next_pos_base
+
+    def _decode_step(self, cache, token, step_i: int, padded_len: int,
+                     max_len: int, true_len, next_pos_base):
+        B = token.shape[0]
+        dev = token.device
+        pos = (next_pos_base + step_i)[None, :, None].expand(3, B, 1)
+        k_idx = torch.arange(max_len, device=dev)[None, None, :]
+        mask = torch.where((k_idx < true_len[:, None, None])
+                           | ((k_idx >= padded_len) & (k_idx <= padded_len + step_i)),
+                           0.0, float("-inf")).float()
+        logits, cache = self.model(token[:, None], pos, cache=cache,
+                                   cache_pos=padded_len + step_i, attn_mask=mask)
+        return logits[:, -1], cache
+
+    @torch.inference_mode()
+    def generate(self, input_ids: np.ndarray,
+                 pixel_patches=None,
+                 grid_thw: Tuple[Tuple[int, int, int], ...] = (),
+                 max_new_tokens: Optional[int] = None,
+                 temperature: float = 0.0, top_p: float = 1.0,
+                 seed: int = 0, prompt_bucket: int = 128,
+                 true_lens: Optional[np.ndarray] = None,
+                 position_ids: Optional[np.ndarray] = None,
+                 chunk: Optional[int] = None) -> np.ndarray:
+        """input_ids (B, S) -> (B, new) token ids, eos-padded after the
+        stop. Prompts are right-padded to the next ``prompt_bucket``
+        multiple; ``true_lens`` / ``position_ids`` serve rows of mixed
+        length. ``chunk=K`` checks every K steps whether every row has
+        stopped and skips the rest: the same tokens as the one-shot loop.
+        Greedy only: ``temperature > 0`` raises."""
+        if temperature > 0:
+            raise NotImplementedError(f"sampling is {_NOT_PORTED}")
+        max_new = max_new_tokens or self.max_new_tokens
+        steps = -(-max_new // chunk) * chunk if chunk else max_new
+        ids_t, pos_t, tl, patches, padded_len = self.device_inputs(
+            input_ids, pixel_patches, grid_thw, prompt_bucket, true_lens,
+            position_ids)
+        max_len = padded_len + steps
+        cache, last_logits, next_pos_base = self._prefill(
+            ids_t, pos_t, tl, patches, tuple(grid_thw), padded_len, max_len)
+        token = torch.argmax(last_logits, dim=-1)
+        done = torch.zeros_like(token, dtype=torch.bool)
+        eos = self.eos_token_id
+        out = []
+        for step_i in range(steps):
+            if chunk and step_i and step_i % chunk == 0 and bool(
+                    (done | (token == eos)).all()):
+                break
+            logits, cache = self._decode_step(cache, token, step_i, padded_len,
+                                              max_len, tl, next_pos_base)
+            nxt = torch.argmax(logits, dim=-1)
+            out.append(token)
+            done = done | (token == eos)
+            token = torch.where(done, torch.full_like(nxt, eos), nxt)
+        tokens = torch.stack(out, dim=1).cpu().numpy()
+        if tokens.shape[1] < max_new:
+            pad = np.full((tokens.shape[0], max_new - tokens.shape[1]), eos,
+                          tokens.dtype)
+            tokens = np.concatenate([tokens, pad], axis=1)
+        return tokens[:, :max_new]
+
+
+# ---------------------------------------------------------------------------
+# Checkpoint conversion
+# ---------------------------------------------------------------------------
+
+
+def _dense(sd, name) -> dict:
+    out = {"kernel": sd[f"{name}.weight"].T}
+    if f"{name}.bias" in sd:
+        out["bias"] = sd[f"{name}.bias"]
+    return out
+
+
+def _ln(sd, name) -> dict:
+    return {"scale": sd[f"{name}.weight"], "bias": sd[f"{name}.bias"]}
+
+
+def convert_hf_qwen3_vl(sd: Dict[str, np.ndarray], vision_depth: int,
+                        text_layers: int) -> Dict:
+    """HF Qwen3VLForConditionalGeneration state dict (numpy) -> the JAX
+    package's param tree (``params_from_jax`` makes it this package's
+    state dict); takes 'model.visual.*' and 'visual.*' prefixes."""
+    prefix = "model." if any(k.startswith("model.visual.") for k in sd) else ""
+    vp = prefix + "visual."
+    tp = prefix + "language_model."
+
+    def merger(base):
+        return {
+            "norm": _ln(sd, base + "norm"),
+            "fc1": _dense(sd, base + "linear_fc1"),
+            "fc2": _dense(sd, base + "linear_fc2"),
+        }
+
+    visual: Dict = {
+        "patch_embed": {
+            "kernel": sd[vp + "patch_embed.proj.weight"].reshape(
+                sd[vp + "patch_embed.proj.weight"].shape[0], -1).T,
+            "bias": sd[vp + "patch_embed.proj.bias"],
+        },
+        "pos_embed": sd[vp + "pos_embed.weight"],
+        "merger": merger(vp + "merger."),
+    }
+    n_deep = len([k for k in sd if "deepstack_merger_list" in k
+                  and k.endswith("linear_fc1.weight")])
+    for j in range(n_deep):
+        visual[f"deepstack_merger_{j}"] = merger(
+            vp + f"deepstack_merger_list.{j}.")
+    for i in range(vision_depth):
+        b = vp + f"blocks.{i}."
+        qkv_w = sd[b + "attn.qkv.weight"]
+        qkv_b = sd.get(b + "attn.qkv.bias")
+        d = qkv_w.shape[1]
+        block = {
+            "norm1": _ln(sd, b + "norm1"),
+            "norm2": _ln(sd, b + "norm2"),
+            "q_proj": {"kernel": qkv_w[:d].T},
+            "k_proj": {"kernel": qkv_w[d:2 * d].T},
+            "v_proj": {"kernel": qkv_w[2 * d:].T},
+            "o_proj": _dense(sd, b + "attn.proj"),
+            "fc1": _dense(sd, b + "mlp.linear_fc1"),
+            "fc2": _dense(sd, b + "mlp.linear_fc2"),
+        }
+        if qkv_b is not None:
+            block["q_proj"]["bias"] = qkv_b[:d]
+            block["k_proj"]["bias"] = qkv_b[d:2 * d]
+            block["v_proj"]["bias"] = qkv_b[2 * d:]
+        visual[f"block_{i}"] = block
+
+    text: Dict = {
+        "embed_tokens": {"embedding": sd[tp + "embed_tokens.weight"]},
+        "final_ln": {"scale": sd[tp + "norm.weight"]},
+    }
+    for i in range(text_layers):
+        b = tp + f"layers.{i}."
+        text[f"layer_{i}"] = {
+            "input_ln": {"scale": sd[b + "input_layernorm.weight"]},
+            "post_ln": {"scale": sd[b + "post_attention_layernorm.weight"]},
+            "q_proj": _dense(sd, b + "self_attn.q_proj"),
+            "k_proj": _dense(sd, b + "self_attn.k_proj"),
+            "v_proj": _dense(sd, b + "self_attn.v_proj"),
+            "o_proj": _dense(sd, b + "self_attn.o_proj"),
+            "q_norm_scale": sd[b + "self_attn.q_norm.weight"],
+            "k_norm_scale": sd[b + "self_attn.k_norm.weight"],
+            "gate_proj": _dense(sd, b + "mlp.gate_proj"),
+            "up_proj": _dense(sd, b + "mlp.up_proj"),
+            "down_proj": _dense(sd, b + "mlp.down_proj"),
+        }
+    lm_head_key = "lm_head.weight"
+    if lm_head_key in sd:
+        text["lm_head"] = {"kernel": sd[lm_head_key].T}
+    return {"visual": visual, "language_model": text}
+
+
+def qwen3_vl_config_from_hf(cfg: Dict, dtype: torch.dtype = torch.float32
+                            ) -> Qwen3VLConfig:
+    v = cfg.get("vision_config", {})
+    t = cfg.get("text_config", {})
+    rope_scaling = t.get("rope_scaling") or {}
+    return Qwen3VLConfig(
+        vision=QwenVisionConfig(
+            depth=v.get("depth", 27),
+            hidden_size=v.get("hidden_size", 1152),
+            intermediate_size=v.get("intermediate_size", 4304),
+            num_heads=v.get("num_heads", 16),
+            patch_size=v.get("patch_size", 16),
+            temporal_patch_size=v.get("temporal_patch_size", 2),
+            spatial_merge_size=v.get("spatial_merge_size", 2),
+            out_hidden_size=v.get("out_hidden_size", 3584),
+            num_position_embeddings=v.get("num_position_embeddings", 2304),
+            deepstack_visual_indexes=tuple(
+                v.get("deepstack_visual_indexes", (8, 16, 24))),
+            hidden_act=v.get("hidden_act", "gelu_pytorch_tanh"),
+            dtype=dtype),
+        text=QwenTextConfig(
+            vocab_size=t.get("vocab_size", 151936),
+            hidden_size=t.get("hidden_size", 4096),
+            num_layers=t.get("num_hidden_layers", 36),
+            num_heads=t.get("num_attention_heads", 32),
+            num_kv_heads=t.get("num_key_value_heads", 8),
+            head_dim=t.get("head_dim", t.get("hidden_size", 4096)
+                           // t.get("num_attention_heads", 32)),
+            intermediate_size=t.get("intermediate_size", 12288),
+            rms_norm_eps=t.get("rms_norm_eps", 1e-6),
+            rope_theta=t.get("rope_theta", 5e6),
+            mrope_section=tuple(rope_scaling.get("mrope_section",
+                                                 (24, 20, 20))),
+            attention_bias=t.get("attention_bias", False),
+            # text_config's flag wins over the top-level one
+            tie_word_embeddings=t.get(
+                "tie_word_embeddings", cfg.get("tie_word_embeddings", True)),
+            dtype=dtype),
+        image_token_id=cfg.get("image_token_id", 151655),
+        video_token_id=cfg.get("video_token_id", 151656),
+        vision_start_token_id=cfg.get("vision_start_token_id", 151652))

@@ -13,6 +13,7 @@ import time: the package imports, and its CPU tests run, where there is no
 
 from __future__ import annotations
 
+import functools
 import hashlib
 import os
 import shutil
@@ -106,12 +107,27 @@ def library():
 
 def kernel_function(name: str, argtypes: list):
     """One C entry point of the library with its ctypes signature set;
-    every entry point returns a ``cudaError_t`` as int."""
-    import ctypes
-    fn = getattr(library(), name)
-    fn.argtypes = argtypes
-    fn.restype = ctypes.c_int
+    every entry point returns a ``cudaError_t`` as int. Looked up once per
+    name: the decode loop calls the wrappers hundreds of times a token."""
+    fn = _functions.get(name)
+    if fn is None:
+        import ctypes
+        fn = getattr(library(), name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        _functions[name] = fn
     return fn
+
+
+_functions: dict = {}
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    """The SM count of CUDA device ``index``, for the grids the wrappers
+    size to the card."""
+    import torch
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def check(err: int, what: str) -> None:

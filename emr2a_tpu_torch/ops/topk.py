@@ -27,7 +27,6 @@ both, ``1 <= k <= K_MAX`` and ``k <= n_valid``, else ``ValueError``.
 
 from __future__ import annotations
 
-import functools
 from typing import Optional, Tuple
 
 import torch
@@ -127,11 +126,6 @@ def _check(queries, database, k, n_valid) -> int:
     return n_valid
 
 
-@functools.lru_cache(maxsize=None)
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
 def _launch(queries, database, db_scales, dtype_code, k, n_valid):
     nq, dim = queries.shape
     if dim % 8 or dim > DIM_MAX:
@@ -139,7 +133,7 @@ def _launch(queries, database, db_scales, dtype_code, k, n_valid):
                          f"{DIM_MAX}, got {dim}")
     dev = database.device
     # two chunks per SM fill the card at q = 1; every chunk gets ROWS_MIN rows
-    chunks = max(1, min(2 * _sm_count(dev.index or 0), -(-n_valid // ROWS_MIN)))
+    chunks = max(1, min(2 * _build.sm_count(dev.index or 0), -(-n_valid // ROWS_MIN)))
     rows_per_chunk = -(-n_valid // chunks)
     cand_val = torch.empty((chunks, nq, k), dtype=torch.float32, device=dev)
     cand_idx = torch.empty((chunks, nq, k), dtype=torch.int32, device=dev)

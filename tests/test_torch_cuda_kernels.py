@@ -3,8 +3,12 @@
 T < 32, short and maximal sequences, valid_len edges, all-zero rows, the
 row quantize's codes; K6 (the fused cosine top-k, f32, bf16 and int8) at
 ragged row counts, n_valid < n, k = 1 and k = K_MAX, several query counts
-and widths, and duplicated rows; the inputs the wrappers must refuse, and
-the launch counters. Each test skips without a CUDA card. On the card (the suite's
+and widths, and duplicated rows; K7 (the W4A8 linear) at T = 1 to 2048 on
+both of its designs (GEMV up to 16 rows, GEMM above), duplicate and
+all-zero rows, and the card's int4 quantizer against the numpy one; K8 and
+K9 (the per-frame attention kernel) at ragged S, head dims 8 to 128 and
+duplicate keys; the inputs the wrappers must refuse, and the launch
+counters. Each test skips without a CUDA card. On the card (the suite's
 conftest imports JAX, which that machine lacks):
 
     python -m pytest --noconftest tests/test_torch_cuda_kernels.py -q
@@ -17,13 +21,17 @@ their codes, sums and rescale are the plain version's exactly, so they are
 held bit for bit. K6: the int8 variant is bit-identical (exact s32 sums,
 then the same two rounded multiplies); in f32 and bf16 the values agree
 within 1e-5 (f32 sums in another order) and an index may differ only where
-the plain version scores the two rows within 1e-5 of each other.
+the plain version scores the two rows within 1e-5 of each other. K7 is
+bit-identical too (exact s32 group sums, the same rounded rescale in group
+order). K8 and K9 round unnormalised probabilities to bf16 where the plain
+version rounds normalised ones: atol = rtol = 1e-2 and row cosine >= 0.9999.
 """
 
 import pytest
 import torch
 
-from emr2a_tpu_torch.ops import attention_block, linear_int8, mlp, quant, topk
+from emr2a_tpu_torch.ops import (attention, attention_block, linear_int4, linear_int8,
+                                 mlp, quant, topk, vision_flash)
 
 
 @pytest.fixture()
@@ -333,3 +341,122 @@ def test_cosine_topk_fused_refuses_what_the_kernel_does_not_take(cuda):
     with pytest.raises(TypeError, match="f32 or bf16"):
         topk.cosine_topk_fused(queries, db.half(), 5)
     assert topk.LAUNCHES == before
+
+
+# -- K7: the W4A8 linear ----------------------------------------------------
+
+def _w4(gen, K, N, std=0.02):
+    """Packed int4 weights and group scales of bf16 weights, quantized on the
+    card (the twin of the numpy recipe)."""
+    return linear_int4.quantize_weight_int4_torch(_rn(gen, K, N, std=std).float())
+
+
+@pytest.mark.parametrize("T,K,N", [(1, 4096, 4096), (1, 4096, 1024), (1, 4096, 12288),
+                                   (1, 12288, 4096), (2, 256, 384),
+                                   (5, 4096, 12288), (16, 12288, 4096), (17, 4096, 1024),
+                                   (300, 256, 128), (2048, 4096, 4096)])
+@pytest.mark.parametrize("use_bias", [True, False])
+def test_linear_w4a8_kernel_equals_plain(cuda, T, K, N, use_bias):
+    gen = torch.Generator(device="cuda").manual_seed(T + K + N)
+    x = _rn(gen, T, K)
+    if T > 2:
+        x[1] = x[0]                      # duplicate rows give identical outputs
+        x[2] = 0.0                       # an all-zero row
+    wp, ws = _w4(gen, K, N)
+    b = _rn(gen, N, std=0.02) if use_bias else None
+    before = linear_int4.LAUNCHES
+    got = linear_int4.linear_w4a8(x, wp, ws, b)
+    torch.cuda.synchronize()
+    assert linear_int4.LAUNCHES == before + 1
+    want = linear_int4.linear_w4a8_reference(x, wp, ws, b)
+    assert got.dtype == torch.bfloat16 and got.shape == (T, N)
+    assert torch.equal(got, want), (got.float() - want.float()).abs().max()
+    if T > 2:
+        assert torch.equal(got[0], got[1])
+
+
+def test_quantize_weight_int4_torch_equals_numpy(cuda):
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    w = _rn(gen, 4096, 1536, std=0.02).float()
+    w[:128, 7] = 0.0                     # a zero group
+    w[128:256, 9] = 3.5 * torch.tensor([1.0, -1.0], device="cuda").repeat(64)  # ties
+    wp, ws = linear_int4.quantize_weight_int4_torch(w)
+    np_p, np_s = linear_int4.quantize_weight_int4(w.cpu().numpy())
+    assert torch.equal(wp.cpu(), torch.from_numpy(np_p))
+    assert torch.equal(ws.cpu(), torch.from_numpy(np_s))
+
+
+def test_linear_w4a8_refuses_what_the_kernel_does_not_take(cuda):
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    x = _rn(gen, 4, 512)
+    wp, ws = _w4(gen, 512, 256)
+    before = linear_int4.LAUNCHES
+    with pytest.raises(TypeError, match="bfloat16"):
+        linear_int4.linear_w4a8(x.float(), wp, ws)
+    with pytest.raises(TypeError, match="out_dtype"):
+        linear_int4.linear_w4a8(x, wp, ws, out_dtype=torch.float32)
+    w64 = linear_int4.quantize_weight_int4_torch(_rn(gen, 512, 256).float(), group=64)
+    with pytest.raises(ValueError, match="group 128"):
+        linear_int4.linear_w4a8(x, *w64)
+    w192 = _w4(gen, 512, 192)
+    with pytest.raises(ValueError, match="divisible by 128"):
+        linear_int4.linear_w4a8(x, *w192)
+    with pytest.raises(ValueError, match="contiguous"):
+        linear_int4.linear_w4a8(_rn(gen, 512, 4).t(), wp, ws)
+    assert linear_int4.LAUNCHES == before
+
+
+# -- K8 and K9: the per-frame attention kernel ------------------------------
+
+def _assert_attention_close(got, want):
+    """bf16 outputs; the kernel rounds unnormalised probabilities to bf16
+    where the plain version rounds normalised ones: atol = rtol = 1e-2 and
+    row cosine >= 0.9999, as for K1 to K4."""
+    assert torch.isfinite(got.float()).all()
+    _assert_matches(got, want)
+
+
+@pytest.mark.parametrize("F,S,H,hd", [(7, 1024, 16, 72), (2, 197, 4, 72), (1, 1, 2, 64),
+                                      (3, 65, 2, 128), (2, 130, 3, 8), (1, 256, 16, 72)])
+def test_frame_flash_attention_kernel_matches_plain(cuda, F, S, H, hd):
+    gen = torch.Generator(device="cuda").manual_seed(S + hd)
+    q, k, v = (_rn(gen, F, S, H, hd) for _ in range(3))
+    k[0, S // 2] = k[0, 0]               # duplicate keys
+    scale = hd ** -0.5
+    before = vision_flash.LAUNCHES
+    got = vision_flash.frame_flash_attention(q, k, v, scale)
+    torch.cuda.synchronize()
+    assert vision_flash.LAUNCHES == before + 1
+    _assert_attention_close(got, vision_flash.frame_flash_attention_reference(q, k, v, scale))
+
+
+@pytest.mark.parametrize("B,S,H,D", [(32, 197, 12, 64), (2, 100, 2, 32), (3, 50, 1, 16),
+                                     (1, 128, 2, 72)])
+def test_fused_attention_kernel_matches_plain(cuda, B, S, H, D):
+    gen = torch.Generator(device="cuda").manual_seed(B * S)
+    q, k, v = (_rn(gen, B, S, H, D) for _ in range(3))
+    k = (k.float() + 5.0).to(torch.bfloat16)     # large keys: no mass may leak
+    before = attention.LAUNCHES
+    got = attention.fused_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert attention.LAUNCHES == before + 1
+    _assert_attention_close(got, attention.fused_attention_reference(q, k, v))
+
+
+def test_attention_kernel_refuses_what_it_does_not_take(cuda):
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    q = _rn(gen, 2, 16, 2, 72)
+    before = vision_flash.LAUNCHES
+    with pytest.raises(TypeError, match="bfloat16"):
+        vision_flash.frame_flash_attention(q.float(), q.float(), q.float(), 0.1)
+    with pytest.raises(ValueError, match="divisible by 8"):
+        vision_flash.frame_flash_attention(q[..., :68].contiguous(),
+                                           q[..., :68].contiguous(),
+                                           q[..., :68].contiguous(), 0.1)
+    big = _rn(gen, 1, 8, 1, 136)
+    with pytest.raises(ValueError, match="at most 128"):
+        attention.fused_attention(big, big, big)
+    with pytest.raises(ValueError, match="contiguous"):
+        vision_flash.frame_flash_attention(q.transpose(1, 2), q.transpose(1, 2),
+                                           q.transpose(1, 2), 0.1)
+    assert vision_flash.LAUNCHES == before

@@ -1,9 +1,11 @@
 """The port never loads JAX, nor any module of the JAX package, nor
-sklearn: in a fresh interpreter, import every module of
-``emr2a_tpu_torch``, run the fake-encoder step2 CLI, the database CLI
-(``build`` and ``query --cpu``) and the CV runner (``--device cpu``, fake
-encoders), then check that no module of jax, jaxlib, flax, optax, sklearn
-or ``emr2a_tpu`` was imported."""
+sklearn, transformers or safetensors (the card's machine lacks the last
+three): in a fresh interpreter, import every module of ``emr2a_tpu_torch``,
+run the fake-encoder step2 CLI, the database CLI (``build`` and ``query
+--cpu``), the CV runner (``--device cpu``, fake encoders) and the step4 CLI
+on its fold files (``--model_path fake``, ``--device cpu``), then check
+that no module of jax, jaxlib, flax, optax, sklearn, transformers,
+safetensors or ``emr2a_tpu`` was imported."""
 
 import json
 import os
@@ -39,10 +41,14 @@ cv_main(["--manifest_path", manifest, "--output_dir", out + "/cv",
          "--image_encoder", "fake", "--text_encoder", "fake",
          "--experiment_id", "nj", "--cv_folds", "2", "--pca_dim", "4",
          "--device", "cpu"])
+from emr2a_tpu_torch.pipelines.step4_vlm_review.run import main as step4_main
+step4_main(["--exp_dir", out + "/cv/exp_nj", "--manifest_path", manifest,
+            "--output_dir", out + "/step4", "--model_path", "fake",
+            "--device", "cpu", "--max_samples", "3"])
 loaded = sorted(
     m for m in sys.modules
     if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "sklearn",
-                           "emr2a_tpu"))
+                           "transformers", "safetensors", "emr2a_tpu"))
 print("MODULES", len(names), "LOADED", ",".join(loaded) or "-")
 """
 
@@ -71,3 +77,6 @@ def test_port_imports_no_jax(tmp_path):
     hits = (tmp_path / "out" / "hits.jsonl").read_text().splitlines()
     assert len(hits) == 4
     assert (tmp_path / "out" / "cv" / "exp_nj" / "fold_2" / "metrics.json").exists()
+    details = (tmp_path / "out" / "step4" / "vlm_audit_details.jsonl").read_text()
+    assert len(details.splitlines()) == 3
+    assert (tmp_path / "out" / "step4" / "vlm_audit_summary.json").exists()
