@@ -68,6 +68,23 @@ Phases, each of which fails the run (non-zero exit) if it fails:
     int4 judge: 4 cases, 64 new tokens, both artifacts, every case through
     K7 and K8. A stub word-level tokenizer stands in for Qwen's.
 
+13. Layer breakdown (``tools/layer_breakdown.main``, in-process, ViT-B/16
+    block at B = 96): ``--what tune --merge_batch`` (K3m + K1), ``--what
+    tune`` (K3 + K1), ``--what tune --act_bf16`` (K3 + K1's bf16 gelu) and
+    ``--what int8block --act_bf16`` (K4 + K2's bf16 gelu); each run's launch
+    counts equal its step calls (K3m only under ``--merge_batch``, K3 there
+    0), and each prints its ms/iter.
+
+Phase 3 also holds K3m (the merged-batch LN+attention block, block_b 4) at
+(32, 200, 768) and (128, 197, 768), valid_len 197, against its plain
+version and bit for bit against K3, timed beside K3 and the plain bf16
+yardstick, and K1 and K2 with act_dtype=bf16 against their plain versions.
+The main path starts from raw data: step1 builds the manifest from the
+cohort's CSVs and folders (every patient matched, slices in natural order,
+the hand-written manifest's patients), step2 and the later phases read it,
+and step3 (``--test_size 0.3``) runs on the card and with ``--device cpu``,
+whose ``retrieval_results.json`` must be equal.
+
 Every kernel record carries its bound (the larger of its bytes over 3.35
 TB/s and its operations over the card's peak for their type). The line
 before the last is the kernels' JSON record; the last line is
@@ -241,6 +258,13 @@ def kernel_phase(card: str) -> list:
                           + mask, dim=-1) @ split(v)
         return x + o.transpose(1, 2).reshape(B, S, d) @ attn_w[6] + attn_w[7]
 
+    bf = torch.bfloat16
+    k1_act = lambda: mlp.fused_ln_mlp(x2, ln_s, ln_b, w1, b1, w2, b2, act_dtype=bf)
+    k1_act_ref = lambda: mlp.fused_ln_mlp_reference(x2, ln_s, ln_b, w1, b1, w2, b2,
+                                                    act_dtype=bf)
+    k2_act = lambda: mlp.fused_ln_mlp_int8(*mlp8, act_dtype=bf)
+    k2_act_ref = lambda: mlp.fused_ln_mlp_int8_reference(*mlp8, act_dtype=bf)
+
     vit = f"({B}, {S}, {d}), valid_len {valid_len}"
     T = B * S
     mlp_ops = 4 * T * d * m
@@ -266,6 +290,13 @@ def kernel_phase(card: str) -> list:
          slice(0, valid_len), vit,
          bound(nbytes(x, ln_s, ln_b, *attn_q) + out_bytes,
                [("int8", attn_ops[0]), ("bf16", attn_ops[1])])),
+        ("fused_ln_mlp act_dtype=bf16", k1_act, k1_act_ref, {}, "mlp.cu",
+         "emr2a_tpu/ops/mlp.py:75", slice(None), f"T={T}, {d}->{m}->{d}, bf16 gelu",
+         bound(nbytes(x2, ln_s, ln_b, w1, b1, w2, b2) + out_bytes,
+               [("bf16", mlp_ops)])),
+        ("fused_ln_mlp_int8 act_dtype=bf16", k2_act, k2_act_ref, {}, "mlp_int8.cu",
+         "emr2a_tpu/ops/mlp.py:194", slice(None), f"T={T}, {d}->{m}->{d}, bf16 gelu",
+         bound(nbytes(*mlp8) + out_bytes, [("int8", mlp_ops)])),
     ]
     records = []
     for name, fn, ref, others, source, replaces, rows, shape, bnd in cases:
@@ -284,6 +315,13 @@ def kernel_phase(card: str) -> list:
                   f"{key[:-3]} {rec[key]:.4f} ms" for key in others)
               + f" (median of 100, {shape}; {card})", flush=True)
         records.append(rec)
+    for rec in records:
+        if rec["name"].endswith("act_dtype=bf16"):
+            rec["gelu_epilogue_bit_identical_values"] = GELU_VALUES
+
+    gelu_epilogue_check()
+    records.append(merged_attention_record(card, x, ln_s, ln_b, attn_w, H, valid_len,
+                                           k3_bf16, g))
 
     # K5 at the PubMedBERT shapes (T = 32 texts x 256 tokens) and at T = 32,
     # timed; at every shape the int8 judge gives it, bit-identity only but
@@ -345,11 +383,128 @@ def kernel_phase(card: str) -> list:
     return records
 
 
+GELU_VALUES = 400_000      # a multiple of the GEMMs' 128-column tile
+
+
+def gelu_epilogue_check() -> None:
+    """K1's and K2's gelu epilogues against ``gelu_tanh_bf16`` bit for bit,
+    on the 400,000 values ``tests/test_torch_act_dtype.py`` holds to XLA.
+    Each kernel entry is called with its fc1 weights zero and b1 = those
+    values, so that its fc1 output is b1 exactly and its h1 scratch (read
+    back here) is the epilogue's gelu of them: K1's in bf16, K2's in f32.
+    With act_bf16 off the same scratch must differ (the f32 gelu), so the
+    flag reaches the epilogue. These calls bypass the wrappers and their
+    launch counts."""
+    import ctypes
+    from emr2a_tpu_torch.ops import _build, mlp
+
+    v = torch.from_numpy((np.random.RandomState(3).randn(GELU_VALUES) * 3)
+                         .astype(np.float32)).to(torch.bfloat16)
+    want = mlp.gelu_tanh_bf16(v.float())            # plain, on the CPU
+    T, d, m = 8, 128, GELU_VALUES
+    dev, bf = torch.device("cuda"), torch.bfloat16
+    x = torch.randn(T, d, device=dev).to(bf)
+    ln_s, ln_b = torch.ones(d, device=dev, dtype=bf), torch.zeros(d, device=dev, dtype=bf)
+    b1, b2 = v.to(dev), torch.zeros(d, device=dev, dtype=bf)
+    stream = torch.cuda.current_stream().cuda_stream
+    p, i = ctypes.c_void_p, ctypes.c_int
+    ptrs = lambda *ts: [t.data_ptr() for t in ts]
+
+    k1 = _build.kernel_function("emr2a_fused_ln_mlp", mlp._argtypes())
+    w1, w2 = torch.zeros(d, m, device=dev, dtype=bf), torch.zeros(m, d, device=dev, dtype=bf)
+    k2 = _build.kernel_function("emr2a_fused_ln_mlp_int8",
+                                [p] * 15 + [i, i, i, i, ctypes.c_float, p])
+    w1q, w2q = (torch.zeros(d, m, device=dev, dtype=torch.int8),
+                torch.zeros(m, d, device=dev, dtype=torch.int8))
+    w1s, w2s = torch.ones(m, device=dev), torch.ones(d, device=dev)
+    h1s = {}
+    for act_bf16 in (1, 0):
+        h1 = torch.empty(T, m, device=dev, dtype=bf)
+        _build.check(k1(*ptrs(x, ln_s, ln_b, w1, b1, w2, b2, h1, torch.empty_like(x)),
+                        T, d, m, act_bf16, 1e-6, stream), "fused_ln_mlp")
+        h1_8 = torch.empty(T, m, device=dev)
+        scratch = (torch.empty(T, d, device=dev, dtype=torch.int8), torch.empty(T, device=dev),
+                   h1_8, torch.empty(T, m, device=dev, dtype=torch.int8),
+                   torch.empty(T, device=dev), torch.empty_like(x))
+        _build.check(k2(*ptrs(x, ln_s, ln_b, w1q, w1s, b1, w2q, w2s, b2, *scratch),
+                        T, d, m, act_bf16, 1e-6, stream), "fused_ln_mlp_int8")
+        torch.cuda.synchronize()
+        h1s[act_bf16] = (h1.cpu(), h1_8.cpu())
+    for name, got, exact, f32 in (
+            ("fused_ln_mlp", h1s[1][0], want.to(bf), h1s[0][0]),
+            ("fused_ln_mlp_int8", h1s[1][1], want, h1s[0][1])):
+        bad = (got != exact.expand_as(got)).sum().item()
+        if bad:
+            fail(f"{name} act_dtype=bf16: the gelu epilogue differs from "
+                 f"gelu_tanh_bf16 at {bad} of {got.numel()} values")
+        if torch.equal(got, f32):
+            fail(f"{name}: act_bf16 does not change the gelu epilogue")
+        print(f"{name} act_dtype=bf16: gelu epilogue bit-identical to gelu_tanh_bf16 "
+              f"on {GELU_VALUES} values x {T} rows; the f32 epilogue differs at "
+              f"{(got != f32).sum().item()} of them", flush=True)
+
+
+def merged_attention_record(card: str, x, ln_s, ln_b, attn_w, H: int, valid_len: int,
+                            k3_bf16_32, g) -> dict:
+    """K3m (block_b 4) at K3's timing shape, x (32, 200, 768), and at the
+    tower's throughput batch, (128, 197, 768): against its plain version at
+    K3's tolerance and bit for bit against K3, timed beside K3, the plain
+    version and the plain bf16 yardstick (at the first shape K3's)."""
+    from emr2a_tpu_torch.ops import attention_block
+
+    d, block_b = x.shape[-1], 4
+    shapes = []
+    for xs in (x, (torch.randn(128, 197, d, generator=g, device="cuda")).to(torch.bfloat16)):
+        Bs, Ss = xs.shape[:2]
+        fn = lambda: attention_block.fused_ln_attention(
+            xs, ln_s, ln_b, *attn_w, num_heads=H, valid_len=valid_len, block_b=block_b,
+            merge_batch=True)
+        k3 = lambda: attention_block.fused_ln_attention(
+            xs, ln_s, ln_b, *attn_w, num_heads=H, valid_len=valid_len)
+        ref = lambda: attention_block.fused_ln_attention_merged_reference(
+            xs, ln_s, ln_b, *attn_w, num_heads=H, valid_len=valid_len, block_b=block_b)
+        got = fn()
+        torch.cuda.synchronize()
+        tag = f"fused_ln_attention merge_batch ({Bs}, {Ss}, {d}) block_b {block_b}"
+        err = compare(tag, got[:, :valid_len], ref()[:, :valid_len])
+        if not torch.equal(got, k3()):
+            fail(f"{tag}: not bit-identical to K3 on the same inputs")
+        if Bs == x.shape[0]:
+            yardstick = k3_bf16_32
+        else:
+            def yardstick():
+                h = torch.nn.functional.layer_norm(xs, (d,), ln_s, ln_b, 1e-6)
+                q, k, v = (h @ attn_w[i] + attn_w[i + 1] for i in (0, 2, 4))
+                split = lambda t: t.reshape(Bs, Ss, H, d // H).transpose(1, 2)
+                mask = torch.zeros(Ss, device="cuda", dtype=torch.bfloat16)
+                mask[valid_len:] = float("-inf")
+                o = torch.softmax(split(q) @ split(k).transpose(-1, -2) * (d // H) ** -0.5
+                                  + mask, dim=-1) @ split(v)
+                return xs + o.transpose(1, 2).reshape(Bs, Ss, d) @ attn_w[6] + attn_w[7]
+        ops = 8 * Bs * Ss * d * d + 4 * Bs * Ss * valid_len * d
+        rec = {"shape": f"({Bs}, {Ss}, {d}), valid_len {valid_len}, block_b {block_b}",
+               "max_abs_err": err, "bit_identical_to_k3": True, "ms": median_ms(fn),
+               "k3_ms": median_ms(k3), "plain_ms": median_ms(ref),
+               "plain_bf16_ms": median_ms(yardstick),
+               **bound(nbytes(xs, ln_s, ln_b, *attn_w) + Bs * Ss * d * 2, [("bf16", ops)]),
+               "library_ms": None}
+        print(f"{tag}: bit-identical to K3; kernel {rec['ms']:.4f} ms, K3 {rec['k3_ms']:.4f} "
+              f"ms, plain version {rec['plain_ms']:.4f} ms, plain bf16 "
+              f"{rec['plain_bf16_ms']:.4f} ms, bound {rec['bound_ms']:.4f} ms "
+              f"({rec['bound_by']}) (median of 100; {card})", flush=True)
+        shapes.append(rec)
+    return {"name": "fused_ln_attention_merged", "route": "cuda",
+            "source": "emr2a_tpu_torch/csrc/attention_block.cu",
+            "replaces": "emr2a_tpu/ops/attention_block.py:179", **shapes[0],
+            "max_abs_err": max(r["max_abs_err"] for r in shapes), "shapes": shapes}
+
+
 def reset_counts() -> None:
     from emr2a_tpu_torch.ops import (attention, attention_block, linear_int4,
                                      linear_int8, mlp, quant, topk, vision_flash)
     mlp.LAUNCHES = mlp.INT8_LAUNCHES = 0
     attention_block.LAUNCHES = attention_block.INT8_LAUNCHES = 0
+    attention_block.MERGED_LAUNCHES = 0
     linear_int8.LAUNCHES = quant.LAUNCHES = 0
     topk.LAUNCHES = topk.INT8_LAUNCHES = 0
     linear_int4.LAUNCHES = vision_flash.LAUNCHES = attention.LAUNCHES = 0
@@ -360,6 +515,7 @@ def read_counts() -> dict:
                                      linear_int8, mlp, topk, vision_flash)
     return {"fused_ln_mlp": mlp.LAUNCHES,
             "fused_ln_attention": attention_block.LAUNCHES,
+            "fused_ln_attention_merged": attention_block.MERGED_LAUNCHES,
             "fused_ln_mlp_int8": mlp.INT8_LAUNCHES,
             "fused_ln_attention_int8": attention_block.INT8_LAUNCHES,
             "linear_w8a8": linear_int8.LAUNCHES,
@@ -1202,14 +1358,67 @@ def judge_phase(work: Path, manifest_path: Path, card: str) -> dict:
     return {"runs": runs, "step4": step4}
 
 
-def main_path_phase(work: Path, records: list, card: str) -> None:
-    from emr2a_tpu_torch.encoders.biomedclip_encoder import BioMedCLIPEncoder
-    from emr2a_tpu_torch.pipelines.step2_embeddings import build_embeddings as step2
+def step1_phase(work: Path) -> Path:
+    """The synthetic cohort on disk, then the port's step1 on its raw tree
+    (Case_csv + CT_2D_image_core): every patient matched, the cohort's
+    patients, labels and slices in natural order. Returns step1's
+    manifest, which the later phases read."""
+    from emr2a_tpu_torch.pipelines.step1_manifest import build_manifest as step1
     from emr2a_tpu_torch.tools.cohort import write_cohort
 
     t0 = time.time()
-    manifest_path = write_cohort(work / "cohort")
+    written = write_cohort(work / "cohort")
     print(f"cohort written in {time.time() - t0:.1f} s", flush=True)
+    t0 = time.time()
+    step1.main(["--data_root", str(work / "cohort"), "--out_dir", str(work / "step1"),
+                "--relative_paths", "false"])
+    wall = time.time() - t0
+    manifest_path = work / "step1" / "manifest.jsonl"
+    want = [json.loads(line) for line in written.read_text(encoding="utf-8").splitlines()]
+    got = [json.loads(line) for line in manifest_path.read_text(encoding="utf-8").splitlines()]
+    by_id = {r["patient_id"]: r for r in got}
+    if sorted(by_id) != sorted(r["patient_id"] for r in want) or len(got) != len(want):
+        fail(f"step1: patients {sorted(by_id)}")
+    for r in want:
+        g = by_id[r["patient_id"]]
+        if g["label"] != r["label"] or g["slices"] != r["slices"] or g["match_by"] != "name":
+            fail(f"step1: {r['patient_id']} differs from the cohort's record")
+    missing = [f for f in ("missing_in_fs.csv", "missing_in_csv.csv")
+               if (work / "step1" / f).exists()]
+    if missing:
+        fail(f"step1: unmatched patients ({missing})")
+    print(f"step1: {len(got)} patients matched from the raw tree in {wall:.2f} s "
+          f"(host); slices in natural order ({Path(got[0]['slices'][9]).name}, "
+          f"{Path(got[0]['slices'][10]).name}); meta keys {sorted(got[0]['meta'])}",
+          flush=True)
+    return manifest_path
+
+
+def step3_phase(work: Path, emb_path: Path, manifest_path: Path) -> None:
+    """The port's step3 on step2's embeddings, on the card and with
+    --device cpu: the two retrieval_results.json must be equal."""
+    from emr2a_tpu_torch.pipelines.step3_retrieval import evaluate_retrieval as step3
+
+    for dev in ("cuda", "cpu"):
+        step3.main(["--manifest_path", str(manifest_path), "--embeddings_path",
+                    str(emb_path), "--output_dir", str(work / "step3" / dev),
+                    "--test_size", "0.3", "--device", dev])
+    card, cpu = ((work / "step3" / dev / "retrieval_results.json").read_text(encoding="utf-8")
+                 for dev in ("cuda", "cpu"))
+    if card != cpu:
+        fail("step3: retrieval_results.json differs between the card and the CPU")
+    res = json.loads(card)
+    if set(res) != {"image_top1", "image_top3", "image_top5", "image_weighted"}:
+        fail(f"step3: keys {sorted(res)}")
+    print(f"step3: retrieval_results.json equal on the card and the CPU: {res} "
+          f"(random weights)", flush=True)
+
+
+def main_path_phase(work: Path, records: list, card: str) -> None:
+    from emr2a_tpu_torch.encoders.biomedclip_encoder import BioMedCLIPEncoder
+    from emr2a_tpu_torch.pipelines.step2_embeddings import build_embeddings as step2
+
+    manifest_path = step1_phase(work)
     image_paths = step2.load_images(step2.load_manifest(manifest_path), work)
     tok = CharTokenizer()
     t0 = time.time()
@@ -1231,6 +1440,7 @@ def main_path_phase(work: Path, records: list, card: str) -> None:
                        ("fused_ln_mlp", "fused_ln_attention"), plain_cpu)
     int8 = step2_phase("int8", encoders["int8"], image_paths, work / "int8",
                        ("fused_ln_mlp_int8", "fused_ln_attention_int8"), plain_cpu)
+    step3_phase(work, work / "bf16" / "embeddings.npz", manifest_path)
     text = text_phase(encoders["int8"], plain_cpu, int8_cpu, card)
     retrieval_phase(bf16["npz"])
     db = {"launches": database_phase(work, work / "bf16" / "embeddings.npz",
@@ -1263,6 +1473,46 @@ def main_path_phase(work: Path, records: list, card: str) -> None:
               f"{r['peak_gib']:.2f} GiB, tree {r['tree_gib']:.2f} GiB ({card})", flush=True)
 
 
+LAYER_BREAKDOWN_RUNS = (
+    # (flags, the kernels each step call launches once, the record that
+    # takes its launches from the run and the counter it reads)
+    (["--what", "tune", "--merge_batch"], ("fused_ln_attention_merged", "fused_ln_mlp"),
+     ("fused_ln_attention_merged", "fused_ln_attention_merged")),
+    (["--what", "tune"], ("fused_ln_attention", "fused_ln_mlp"), None),
+    (["--what", "tune", "--act_bf16"], ("fused_ln_attention", "fused_ln_mlp"),
+     ("fused_ln_mlp act_dtype=bf16", "fused_ln_mlp")),
+    (["--what", "int8block", "--act_bf16"], ("fused_ln_attention_int8", "fused_ln_mlp_int8"),
+     ("fused_ln_mlp_int8 act_dtype=bf16", "fused_ln_mlp_int8")),
+)
+
+
+def layer_breakdown_phase(records: list, card: str) -> None:
+    """The layer-breakdown entry point in-process at B = 96: each run's
+    launch counts, read just after it, equal its step calls for its kernels
+    and 0 for every other; the records of K3m and the act_dtype=bf16
+    variants take their launches from these runs."""
+    from emr2a_tpu_torch.tools import layer_breakdown
+
+    by_name = {r["name"]: r for r in records}
+    for flags, kernels, record in LAYER_BREAKDOWN_RUNS:
+        torch.cuda.synchronize()
+        reset_counts()
+        results = layer_breakdown.main([*flags, "--batch", "96"])
+        torch.cuda.synchronize()
+        launches = read_counts()
+        (tag, res), = results.items()
+        check_launches(f"layer_breakdown {' '.join(flags)}", launches,
+                       {k: res["calls"] for k in kernels})
+        print(f"layer_breakdown {' '.join(flags)} --batch 96: {tag} {res['ms']:.4f} "
+              f"ms/iter ({res['calls']} step calls, CUDA events, least of "
+              f"{layer_breakdown.REPEATS} chains of 20; launches {launches}; {card})",
+              flush=True)
+        if record:
+            name, counter = record
+            by_name[name]["launches"] = launches[counter]
+            by_name[name]["layer_breakdown_ms_per_iter"] = res["ms"]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("FAIL: no CUDA device (torch.cuda.is_available() is False)",
@@ -1283,6 +1533,7 @@ def main() -> int:
     records = kernel_phase(card) + topk_kernel_phase(card) + judge_kernel_phase(card)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         main_path_phase(Path(tmp), records, card)
+    layer_breakdown_phase(records, card)
 
     print(card)
     print(json.dumps({"kernels": records}))

@@ -26,14 +26,14 @@
 
 using namespace emr2a;
 
-// qkv: scratch (3, B*S, d); attn: scratch (B*S, d).
-extern "C" int emr2a_fused_ln_attention(const void* x, const void* ln_scale,
-                                        const void* ln_bias, const void* wq, const void* bq,
-                                        const void* wk, const void* bk, const void* wv,
-                                        const void* bv, const void* wo, const void* bo,
-                                        void* qkv, void* attn, void* out, int B, int S, int d,
-                                        int num_heads, int valid_len, float eps,
-                                        void* stream) {
+// The three launches over B items; Q, K and V go to qkv + z * plane.
+static int emr2a_fused_ln_attention_planes(const void* x, const void* ln_scale,
+                                           const void* ln_bias, const void* wq, const void* bq,
+                                           const void* wk, const void* bk, const void* wv,
+                                           const void* bv, const void* wo, const void* bo,
+                                           void* qkv, size_t plane, void* attn, void* out,
+                                           int B, int S, int d, int num_heads, int valid_len,
+                                           float eps, void* stream) {
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   const int T = B * S;
   bf16* qkv_b = static_cast<bf16*>(qkv);
@@ -50,7 +50,7 @@ extern "C" int emr2a_fused_ln_attention(const void* x, const void* ln_scale,
   p1.bias[0] = static_cast<const bf16*>(bq);
   p1.bias[1] = static_cast<const bf16*>(bk);
   p1.bias[2] = static_cast<const bf16*>(bv);
-  for (int z = 0; z < 3; ++z) p1.out[z] = qkv_b + (size_t)z * T * d;
+  for (int z = 0; z < 3; ++z) p1.out[z] = qkv_b + z * plane;
   p1.ln_scale = static_cast<const bf16*>(ln_scale);
   p1.ln_bias = static_cast<const bf16*>(ln_bias);
   p1.eps = eps;
@@ -60,7 +60,7 @@ extern "C" int emr2a_fused_ln_attention(const void* x, const void* ln_scale,
   cudaError_t err = launch_gemm<EPI_BIAS, true>(p1, 3, st);
   if (err != cudaSuccess) return static_cast<int>(err);
 
-  err = launch_attention_core<bf16>(qkv_b, qkv_b + (size_t)T * d, qkv_b + (size_t)2 * T * d,
+  err = launch_attention_core<bf16>(qkv_b, qkv_b + plane, qkv_b + 2 * plane,
                                     static_cast<bf16*>(attn), B, S, d, num_heads, valid_len, st);
   if (err != cudaSuccess) return static_cast<int>(err);
 
@@ -74,4 +74,56 @@ extern "C" int emr2a_fused_ln_attention(const void* x, const void* ln_scale,
   p2.N = d;
   p2.K = d;
   return static_cast<int>(launch_gemm<EPI_BIAS_RESIDUAL, false>(p2, 1, st));
+}
+
+// qkv: scratch (3, B*S, d); attn: scratch (B*S, d).
+extern "C" int emr2a_fused_ln_attention(const void* x, const void* ln_scale,
+                                        const void* ln_bias, const void* wq, const void* bq,
+                                        const void* wk, const void* bk, const void* wv,
+                                        const void* bv, const void* wo, const void* bo,
+                                        void* qkv, void* attn, void* out, int B, int S, int d,
+                                        int num_heads, int valid_len, float eps,
+                                        void* stream) {
+  return emr2a_fused_ln_attention_planes(x, ln_scale, ln_bias, wq, bq, wk, bk, wv, bv, wo, bo,
+                                         qkv, (size_t)B * S * d, attn, out, B, S, d, num_heads,
+                                         valid_len, eps, stream);
+}
+
+// K3m: the same function on the schedule of the TPU kernel's merged-batch
+// variant (emr2a_tpu/ops/attention_block.py:_attn_block_kernel_merged, which
+// fused_ln_attention(..., merge_batch=True) selects): items in groups of
+// block_b; per group, LN and the Q/K/V projections run once over the group's
+// block_b*S rows, the attention core per item, then the out-projection with
+// bias and residual over the group's rows. The TPU variant keeps a group's
+// tile in VMEM; here a group's Q/K/V and attention output live in a bounded
+// scratch that every group reuses, (3, G*S, d) + (G*S, d) bf16 with
+// G = min(block_b, B), instead of K3's (3, B*S, d) + (B*S, d). A short last
+// group takes the place of the TPU kernel's batch padding. Each output
+// element's K-loop and each item's attention are K3's, so the result is K3's
+// bit for bit.
+//
+// Bound: as K3, compute-bound on the projections. The schedule costs
+// 3 * ceil(B / block_b) launches of GEMMs with M = block_b*S rows (800 at
+// ViT-B, block_b 4: 7 row tiles of 128 against K3's 200 at B = 128), so it is
+// expected slower than K3; a single persistent launch that keeps a group's
+// Q/K/V on chip is the redesign queued for it.
+extern "C" int emr2a_fused_ln_attention_merged(
+    const void* x, const void* ln_scale, const void* ln_bias, const void* wq, const void* bq,
+    const void* wk, const void* bk, const void* wv, const void* bv, const void* wo,
+    const void* bo, void* qkv, void* attn, void* out, int B, int S, int d, int num_heads,
+    int valid_len, int block_b, float eps, void* stream) {
+  if (block_b < 1 || B < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const int G = block_b < B ? block_b : B;
+  const size_t plane = (size_t)G * S * d;   // one projection's scratch
+  const size_t item = (size_t)S * d;
+  for (int b0 = 0; b0 < B; b0 += G) {
+    const int nb = B - b0 < G ? B - b0 : G;
+    const bf16* xg = static_cast<const bf16*>(x) + b0 * item;
+    bf16* og = static_cast<bf16*>(out) + b0 * item;
+    int err = emr2a_fused_ln_attention_planes(xg, ln_scale, ln_bias, wq, bq, wk, bk, wv, bv, wo,
+                                              bo, qkv, plane, attn, og, nb, S, d, num_heads,
+                                              valid_len, eps, stream);
+    if (err != 0) return err;
+  }
+  return 0;
 }

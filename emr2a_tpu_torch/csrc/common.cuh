@@ -33,4 +33,27 @@ __device__ __forceinline__ float gelu_tanh(float v) {
   return v * (0.5f * (1.0f + tanhf(k0 * (v + 0.044715f * (v * v * v)))));
 }
 
+__device__ __forceinline__ float round_bf16(float v) {
+  return __bfloat162float(__float2bfloat16(v));
+}
+
+// jax.nn.gelu(approximate=True) of a bf16 value evaluated in bf16, as XLA
+// evaluates it (act_dtype=bfloat16 in emr2a_tpu/ops/mlp.py): the constants
+// rounded to bf16, every op computed in f32 and rounded to bf16, but the
+// last product, v * c, which is exact in f32 (two bf16 operands) and is
+// rounded by the caller to the output type.
+__device__ __forceinline__ float gelu_tanh_bf16(float v) {
+  const float k0 = 0.796875f;             // bf16(sqrt(2 / pi))
+  const float k1 = 0.044677734375f;       // bf16(0.044715)
+  float c = round_bf16(__fmul_rn(v, v));
+  c = round_bf16(__fmul_rn(c, v));
+  c = round_bf16(__fmul_rn(c, k1));
+  c = round_bf16(__fadd_rn(v, c));
+  c = round_bf16(__fmul_rn(c, k0));
+  c = round_bf16(tanhf(c));
+  c = round_bf16(__fadd_rn(c, 1.0f));
+  c = round_bf16(__fmul_rn(c, 0.5f));
+  return __fmul_rn(v, c);
+}
+
 }  // namespace emr2a

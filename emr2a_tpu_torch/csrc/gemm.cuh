@@ -14,6 +14,8 @@
 //   EPI_BIAS           bf16(acc + bias)                  (Q/K/V projections)
 //   EPI_BIAS_GELU      bf16(gelu_tanh(acc + bias))       (MLP fc1)
 //   EPI_BIAS_RESIDUAL  residual + bf16(acc + bias)       (fc2 / out-proj)
+//   EPI_BIAS_GELU_BF16 bf16(gelu_tanh_bf16(bf16(acc + bias)))
+//                                                        (fc1, act_dtype=bf16)
 //
 // Design: 128x128 block tile, 32-deep k-steps, 8 warps each owning a 32x64
 // sub-tile of 16x16x16 wmma fragments with f32 accumulation. The next
@@ -28,7 +30,7 @@
 
 namespace emr2a {
 
-enum Epilogue { EPI_BIAS = 0, EPI_BIAS_GELU = 1, EPI_BIAS_RESIDUAL = 2 };
+enum Epilogue { EPI_BIAS = 0, EPI_BIAS_GELU = 1, EPI_BIAS_RESIDUAL = 2, EPI_BIAS_GELU_BF16 = 3 };
 
 constexpr int GEMM_BM = 128;
 constexpr int GEMM_BN = 128;
@@ -208,6 +210,7 @@ gemm_bf16_kernel(GemmParams p) {
         for (int t = 0; t < 8; ++t) {
           float v = cs[r * 16 + c + t] + __bfloat162float(bv.h[t]);
           if (EPI == EPI_BIAS_GELU) v = gelu_tanh(v);
+          if (EPI == EPI_BIAS_GELU_BF16) v = gelu_tanh_bf16(round_bf16(v));
           o.h[t] = __float2bfloat16(v);
           if (EPI == EPI_BIAS_RESIDUAL)
             o.h[t] = __float2bfloat16(__bfloat162float(res.h[t]) + __bfloat162float(o.h[t]));

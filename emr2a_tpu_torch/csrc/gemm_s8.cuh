@@ -15,6 +15,7 @@
 //   EPI_S8_BF16       out bf16 = bf16(y)                         (K5, K4 Q/K/V)
 //   EPI_S8_GELU_F32   out f32  = gelu_tanh(y)                    (K2 fc1)
 //   EPI_S8_RESIDUAL   out bf16 = residual + bf16(y)              (K2 fc2, K4 out-proj)
+//   EPI_S8_GELU_BF16  out f32  = gelu_tanh_bf16(bf16(y))         (K2 fc1, act_dtype=bf16)
 //
 // Design: 128x128 block tile, 32-deep k-steps, 8 warps each owning a 32x64
 // sub-tile of 16x16x16 wmma s8 fragments with s32 accumulation; the next
@@ -32,7 +33,7 @@
 
 namespace emr2a {
 
-enum EpilogueS8 { EPI_S8_BF16 = 0, EPI_S8_GELU_F32 = 1, EPI_S8_RESIDUAL = 2 };
+enum EpilogueS8 { EPI_S8_BF16 = 0, EPI_S8_GELU_F32 = 1, EPI_S8_RESIDUAL = 2, EPI_S8_GELU_BF16 = 3 };
 
 constexpr int S8_BM = 128;
 constexpr int S8_BN = 128;
@@ -153,6 +154,12 @@ __global__ void __launch_bounds__(S8_THREADS) gemm_s8_kernel(GemmS8Params p) {
           float4* dst = reinterpret_cast<float4*>(static_cast<float*>(out) + at);
           dst[0] = make_float4(gelu_tanh(y[0]), gelu_tanh(y[1]), gelu_tanh(y[2]), gelu_tanh(y[3]));
           dst[1] = make_float4(gelu_tanh(y[4]), gelu_tanh(y[5]), gelu_tanh(y[6]), gelu_tanh(y[7]));
+        } else if (EPI == EPI_S8_GELU_BF16) {
+#pragma unroll
+          for (int t = 0; t < 8; ++t) y[t] = gelu_tanh_bf16(round_bf16(y[t]));
+          float4* dst = reinterpret_cast<float4*>(static_cast<float*>(out) + at);
+          dst[0] = make_float4(y[0], y[1], y[2], y[3]);
+          dst[1] = make_float4(y[4], y[5], y[6], y[7]);
         } else {
           Vec8 o, res;
           if (EPI == EPI_S8_RESIDUAL) res.u = *reinterpret_cast<const uint4*>(p.residual + at);

@@ -4,7 +4,9 @@
 //   y = x + fc2(gelu_tanh(fc1(LN(x))))
 // with f32 LN statistics, the LN output rounded to bf16, fc1 + b1 and the
 // tanh gelu in f32, the activation rounded to bf16, fc2 accumulated in f32,
-// + b2 rounded to bf16, then the residual add.
+// + b2 rounded to bf16, then the residual add. With act_bf16 (JAX's
+// act_dtype=bfloat16) fc1 + b1 is rounded to bf16 and the gelu is evaluated
+// in bf16 (gelu_tanh_bf16 in common.cuh); the f32 path is unchanged.
 //
 // Bound on the H100: at ViT-B (T = B*200, d = 768, m = 3072) the block is
 // 4*T*d*m FLOPs against ~4*T*d + 2*T*m bytes, i.e. compute-bound on the
@@ -25,7 +27,7 @@ extern "C" const char* emr2a_error_string(int err) {
 extern "C" int emr2a_fused_ln_mlp(const void* x, const void* ln_scale, const void* ln_bias,
                                   const void* w1, const void* b1, const void* w2,
                                   const void* b2, void* h1, void* out, int T, int d,
-                                  int m, float eps, void* stream) {
+                                  int m, int act_bf16, float eps, void* stream) {
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   GemmParams p1 = {};
   p1.a = static_cast<const bf16*>(x);
@@ -38,7 +40,8 @@ extern "C" int emr2a_fused_ln_mlp(const void* x, const void* ln_scale, const voi
   p1.M = T;
   p1.N = m;
   p1.K = d;
-  cudaError_t err = launch_gemm<EPI_BIAS_GELU, true>(p1, 1, st);
+  cudaError_t err = act_bf16 ? launch_gemm<EPI_BIAS_GELU_BF16, true>(p1, 1, st)
+                             : launch_gemm<EPI_BIAS_GELU, true>(p1, 1, st);
   if (err != cudaSuccess) return static_cast<int>(err);
 
   GemmParams p2 = {};

@@ -7,6 +7,9 @@
 //   h1  = gelu_tanh((q1 @ W1q) * s_row * s_col + b1)       s32 products, f32
 //   q2  = q8(h1)                        over the whole f32 row of m values
 //   y   = x + bf16((q2 @ W2q) * s_row * s_col + b2)
+// With act_bf16 (JAX's act_dtype=bfloat16) the fc1 value is rounded to bf16
+// and the gelu evaluated in bf16 (gelu_tanh_bf16 in common.cuh), carried
+// back to f32 before the row quantize; the f32 path is unchanged.
 //
 // Bound on the H100: at ViT-B (T = B*200, d = 768, m = 3072) the products are
 // 4*T*d*m integer operations, compute-bound on the tensor cores; the f32 h1
@@ -28,8 +31,8 @@ extern "C" int emr2a_fused_ln_mlp_int8(const void* x, const void* ln_scale,
                                        const void* ln_bias, const void* w1, const void* w1_scale,
                                        const void* b1, const void* w2, const void* w2_scale,
                                        const void* b2, void* hq, void* hs, void* h1, void* q2,
-                                       void* s2, void* out, int T, int d, int m, float eps,
-                                       void* stream) {
+                                       void* s2, void* out, int T, int d, int m,
+                                       int act_bf16, float eps, void* stream) {
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   QuantParams qp = {};
   qp.x = x;
@@ -53,7 +56,8 @@ extern "C" int emr2a_fused_ln_mlp_int8(const void* x, const void* ln_scale,
   p1.M = T;
   p1.N = m;
   p1.K = d;
-  err = launch_gemm_s8<EPI_S8_GELU_F32>(p1, 1, st);
+  err = act_bf16 ? launch_gemm_s8<EPI_S8_GELU_BF16>(p1, 1, st)
+                 : launch_gemm_s8<EPI_S8_GELU_F32>(p1, 1, st);
   if (err != cudaSuccess) return static_cast<int>(err);
 
   QuantParams qp2 = {};

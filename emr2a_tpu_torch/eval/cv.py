@@ -14,9 +14,12 @@ confusion-matrix PNG. Differences:
   works in f32).
 - The folds come from ``stratified_kfold``, a numpy copy of sklearn's
   ``StratifiedKFold(shuffle=True)`` fold assignment, seeded through
-  ``np.random.RandomState``: the same folds, without sklearn.
+  ``np.random.RandomState``: the same folds, without sklearn. Step3's
+  hold-out split has its copy beside it, ``train_test_split``.
 - The confusion PNG needs matplotlib; where it does not import, one warning
   names the PNG that was not written and every other artifact is the same.
+  It is drawn with matplotlib alone (JAX's uses seaborn, which imports
+  pandas).
 """
 
 from __future__ import annotations
@@ -26,6 +29,7 @@ import json
 import logging
 import re
 import warnings
+from math import ceil
 from pathlib import Path
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -99,6 +103,86 @@ def stratified_kfold(labels: Sequence, n_splits: int, seed: int
     indices = np.arange(n)
     return [(indices[test_folds != i], indices[test_folds == i])
             for i in range(n_splits)]
+
+
+def _approximate_mode(class_counts: np.ndarray, n_draws: int,
+                      rng: np.random.RandomState) -> np.ndarray:
+    """sklearn's ``_approximate_mode``: per-class draws, floored shares
+    topped up by largest remainder, ties broken by ``rng.choice``."""
+    continuous = class_counts / class_counts.sum() * n_draws
+    floored = np.floor(continuous)
+    need_to_add = int(n_draws - floored.sum())
+    if need_to_add > 0:
+        remainder = continuous - floored
+        for value in np.sort(np.unique(remainder))[::-1]:
+            (inds,) = np.where(remainder == value)
+            add_now = min(len(inds), need_to_add)
+            inds = rng.choice(inds, size=add_now, replace=False)
+            floored[inds] += 1
+            need_to_add -= add_now
+            if need_to_add == 0:
+                break
+    return floored.astype(int)
+
+
+def _stratified_shuffle_split(y: np.ndarray, n_train: int, n_test: int,
+                              rng: np.random.RandomState
+                              ) -> Tuple[np.ndarray, np.ndarray]:
+    """The first split of sklearn's ``StratifiedShuffleSplit._iter_indices``."""
+    classes, y_indices, class_counts = np.unique(
+        y, return_inverse=True, return_counts=True)
+    y_indices = y_indices.reshape(-1)
+    n_classes = classes.shape[0]
+    if np.min(class_counts) < 2:
+        raise ValueError(
+            "The least populated classes in y have only 1 member, which is too "
+            "few. The minimum number of groups for any class cannot be less "
+            "than 2. Classes with too few members are: %s"
+            % (classes[class_counts < 2].tolist()))
+    if n_train < n_classes:
+        raise ValueError("The train_size = %d should be greater or equal to "
+                         "the number of classes = %d" % (n_train, n_classes))
+    if n_test < n_classes:
+        raise ValueError("The test_size = %d should be greater or equal to "
+                         "the number of classes = %d" % (n_test, n_classes))
+    class_indices = np.split(np.argsort(y_indices, kind="stable"),
+                             np.cumsum(class_counts)[:-1])
+    n_i = _approximate_mode(class_counts, n_train, rng)
+    t_i = _approximate_mode(class_counts - n_i, n_test, rng)
+    train, test = [], []
+    for i in range(n_classes):
+        permutation = rng.permutation(class_counts[i])
+        perm_indices = class_indices[i].take(permutation, mode="clip")
+        train.extend(perm_indices[:n_i[i]])
+        test.extend(perm_indices[n_i[i]:n_i[i] + t_i[i]])
+    return rng.permutation(train), rng.permutation(test)
+
+
+def train_test_split(*arrays, stratify, test_size: float,
+                     random_state: int) -> list:
+    """``sklearn.model_selection.train_test_split(*arrays, test_size=...,
+    random_state=..., stratify=...)`` in numpy, for the case step3 takes: a
+    float ``test_size`` in (0, 1) (the test count rounds up) and an integer
+    seed. The same indices and errors as ``StratifiedShuffleSplit`` gives
+    them. Returns the lists [a_train, a_test, b_train, b_test, ...]."""
+    n_samples = len(arrays[0])
+    if any(len(a) != n_samples for a in arrays):
+        raise ValueError(f"Found input variables with inconsistent numbers "
+                         f"of samples: {[len(a) for a in arrays]}")
+    if not 0 < test_size < 1:
+        raise ValueError(f"test_size={test_size} should be either positive and "
+                         f"smaller than the number of samples {n_samples} or a "
+                         f"float in the (0, 1) range")
+    n_test = ceil(test_size * n_samples)
+    n_train = n_samples - n_test
+    if n_train == 0:
+        raise ValueError(f"With n_samples={n_samples}, test_size={test_size} "
+                         f"and train_size=None, the resulting train set will be "
+                         f"empty. Adjust any of the aforementioned parameters.")
+    train, test = _stratified_shuffle_split(
+        np.asarray(stratify), n_train, n_test, np.random.RandomState(random_state))
+    return [part for a in arrays
+            for part in ([a[i] for i in train], [a[i] for i in test])]
 
 
 class CVRetrievalEvaluator:
@@ -378,26 +462,17 @@ class CVRetrievalEvaluator:
         for key in avg:
             avg[key] /= len(results["fold_results"])
 
-        try:
-            import seaborn as sns
-        except ImportError:  # matplotlib alone
-            sns = None
-
+        # matplotlib alone: seaborn's heatmap (JAX's) would import pandas
         fig, axes = plt.subplots(1, 2, figsize=(12, 5))
         for ax, (key, title) in zip(axes, [("top1", "Confusion Matrix (Top1)"),
                                            ("vote", "Confusion Matrix (Vote)")]):
-            if sns is not None:
-                sns.heatmap(avg[key], annot=True, fmt=".1f", cmap="Blues",
-                            xticklabels=labels, yticklabels=labels, ax=ax)
-            else:
-                im = ax.imshow(avg[key], cmap="Blues")
-                ax.set_xticks(range(n), labels)
-                ax.set_yticks(range(n), labels)
-                for i in range(n):
-                    for j in range(n):
-                        ax.text(j, i, f"{avg[key][i, j]:.1f}",
-                                ha="center", va="center")
-                fig.colorbar(im, ax=ax)
+            im = ax.imshow(avg[key], cmap="Blues")
+            ax.set_xticks(range(n), labels)
+            ax.set_yticks(range(n), labels)
+            for i in range(n):
+                for j in range(n):
+                    ax.text(j, i, f"{avg[key][i, j]:.1f}", ha="center", va="center")
+            fig.colorbar(im, ax=ax)
             ax.set_title(title)
             ax.set_xlabel("Predicted")
             ax.set_ylabel("True")

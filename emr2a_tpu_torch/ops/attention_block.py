@@ -17,15 +17,25 @@ accumulated in f32, + bo rounded, then the residual add.
 Rows at or past ``valid_len`` are padding kept across layers by the caller
 (``models/vit.py``): they are masked as keys and their outputs are junk.
 
-The TPU kernel's ``merge_batch`` variant (``_attn_block_kernel_merged``) is
-a scheduling variant of the same function; this port computes the function
-and has no such switch. ``head_group`` and ``block_b`` are TPU VMEM tiling
-knobs and have no counterpart here.
+``fused_ln_attention`` takes the JAX signature. ``head_group`` (how many
+heads share the TPU kernel's logits scratch in VMEM) has no counterpart
+here and is ignored. ``merge_batch=True`` selects K3m, the TPU kernel's
+merged-batch variant (``_attn_block_kernel_merged``): the same function,
+scheduled by groups of ``block_b`` items, LN and the Q/K/V projections run
+once over a group's ``block_b * S`` rows, the attention per item, the
+out-projection over the group's rows. Its plain version,
+``fused_ln_attention_merged_reference``, follows that schedule and equals
+K3's plain version exactly; on the card K3m (``csrc/attention_block.cu``,
+``emr2a_fused_ln_attention_merged``) runs the group schedule in a bounded
+scratch and equals K3 bit for bit. ``block_b`` matters only with
+``merge_batch``; a ``block_b`` above B takes one group, and a short last
+group takes the place of the TPU kernel's batch padding (the outputs are
+the same).
 
-A CPU tensor goes to ``fused_ln_attention_reference``; a CUDA tensor goes to
-the CUDA kernel in ``csrc/attention_block.cu`` (bf16, head dim 64,
+A CPU tensor goes to the plain version; a CUDA tensor goes to the CUDA
+kernel in ``csrc/attention_block.cu`` (bf16, head dim 64, d % 128 == 0,
 sequence at most 384), or the call raises. ``LAUNCHES`` counts the calls
-that went to the kernel.
+that went to K3, ``MERGED_LAUNCHES`` those that went to K3m.
 
 The W8A8 variant, K4 (``fused_ln_attention_int8``, port of
 ``emr2a_tpu/ops/attention_block.py:fused_ln_attention_int8``), runs the
@@ -58,6 +68,7 @@ KERNEL_HEAD_DIM = 64
 KERNEL_MAX_SEQ = 384   # ATT_MAX_SP in csrc/attention_core.cuh
 
 LAUNCHES = 0
+MERGED_LAUNCHES = 0
 INT8_LAUNCHES = 0
 
 
@@ -84,6 +95,41 @@ def fused_ln_attention_reference(x, ln_scale, ln_bias, wq, bq, wk, bk, wv, bv,
     return x + y.to(x.dtype)
 
 
+def fused_ln_attention_merged_reference(x, ln_scale, ln_bias, wq, bq, wk, bk,
+                                        wv, bv, wo, bo, num_heads: int,
+                                        eps: float = 1e-6, block_b: int = 1,
+                                        valid_len: Optional[int] = None
+                                        ) -> torch.Tensor:
+    """Plain PyTorch version of K3m, on the TPU kernel's schedule: items in
+    groups of ``block_b``, LN and the projections over each group's rows at
+    once, the attention per item; K3's rounding points."""
+    B, S, d = x.shape
+    if d % num_heads:
+        raise ValueError(f"hidden {d} not divisible by num_heads {num_heads}")
+    if block_b < 1:
+        raise ValueError(f"block_b must be >= 1, got {block_b}")
+    hd = d // num_heads
+    valid_len = S if valid_len is None else min(valid_len, S)
+    groups = []
+    for b0 in range(0, B, block_b):
+        xg = x[b0:b0 + block_b]
+        rows = xg.shape[0] * S
+        h = layer_norm_f32(xg.reshape(rows, d), ln_scale, ln_bias,
+                           eps).to(x.dtype).float()
+
+        def proj(w, b):
+            y = torch.matmul(h, w.float()) + b.float()
+            return y.to(x.dtype).reshape(-1, S, num_heads, hd).float()
+
+        q, k, v = proj(wq, bq), proj(wk, bk), proj(wv, bv)
+        attn = torch.cat([_sdpa(q[i:i + 1], k[i:i + 1], v[i:i + 1], valid_len,
+                                x.dtype) for i in range(xg.shape[0])])
+        y = torch.matmul(attn.to(x.dtype).reshape(rows, d).float(),
+                         wo.float()) + bo.float()
+        groups.append(xg + y.reshape(xg.shape).to(x.dtype))
+    return torch.cat(groups) if groups else x.clone()
+
+
 def _sdpa(q, k, v, valid_len: int, dtype) -> torch.Tensor:
     """f32 q/k/v (B, S, H, hd) holding ``dtype`` values -> the f32 P.V of
     the kernels: f32 logits and softmax, keys at or past ``valid_len`` given
@@ -100,11 +146,21 @@ def _sdpa(q, k, v, valid_len: int, dtype) -> torch.Tensor:
 
 def fused_ln_attention(x: torch.Tensor, ln_scale, ln_bias, wq, bq, wk, bk,
                        wv, bv, wo, bo, num_heads: int, eps: float = 1e-6,
-                       valid_len: Optional[int] = None) -> torch.Tensor:
+                       head_group: int = 6, block_b: int = 1,
+                       valid_len: Optional[int] = None,
+                       merge_batch: bool = False) -> torch.Tensor:
     """x (B, S, d) -> x + out_proj(attention(LN(x))); weights (d, d) in
     (in, out) layout. ``valid_len`` (default S) limits which rows act as
-    keys."""
+    keys. ``merge_batch`` selects K3m with groups of ``block_b`` items;
+    ``head_group`` is ignored (module docstring)."""
+    if merge_batch and block_b < 1:
+        raise ValueError(f"block_b must be >= 1, got {block_b}")
     if x.device.type == "cpu":
+        if merge_batch:
+            return fused_ln_attention_merged_reference(
+                x, ln_scale, ln_bias, wq, bq, wk, bk, wv, bv, wo, bo,
+                num_heads=num_heads, eps=eps, block_b=block_b,
+                valid_len=valid_len)
         return fused_ln_attention_reference(
             x, ln_scale, ln_bias, wq, bq, wk, bk, wv, bv, wo, bo,
             num_heads=num_heads, eps=eps, valid_len=valid_len)
@@ -129,18 +185,29 @@ def fused_ln_attention(x: torch.Tensor, ln_scale, ln_bias, wq, bq, wk, bk,
     if B == 0:
         return x.clone()
 
-    fn = _build.kernel_function("emr2a_fused_ln_attention", _argtypes())
-    qkv = torch.empty((3, B * S, d), dtype=x.dtype, device=x.device)
-    attn = torch.empty((B * S, d), dtype=x.dtype, device=x.device)
+    # K3's scratch holds all B items; K3m's one group, reused by every group
+    rows = S * (min(block_b, B) if merge_batch else B)
+    qkv = torch.empty((3, rows, d), dtype=x.dtype, device=x.device)
+    attn = torch.empty((rows, d), dtype=x.dtype, device=x.device)
     out = torch.empty_like(x)
     stream = torch.cuda.current_stream(x.device).cuda_stream
+    ptrs = [t.data_ptr() for t in (*named.values(), qkv, attn, out)]
     with torch.cuda.device(x.device):
-        err = fn(*(t.data_ptr() for t in named.values()),
-                 qkv.data_ptr(), attn.data_ptr(), out.data_ptr(),
-                 B, S, d, num_heads, valid_len, float(eps), stream)
-    _build.check(err, "fused_ln_attention")
-    global LAUNCHES
-    LAUNCHES += 1
+        if merge_batch:
+            fn = _build.kernel_function("emr2a_fused_ln_attention_merged",
+                                        _argtypes(merged=True))
+            err = fn(*ptrs, B, S, d, num_heads, valid_len, block_b,
+                     float(eps), stream)
+        else:
+            fn = _build.kernel_function("emr2a_fused_ln_attention", _argtypes())
+            err = fn(*ptrs, B, S, d, num_heads, valid_len, float(eps), stream)
+    global LAUNCHES, MERGED_LAUNCHES
+    if merge_batch:
+        _build.check(err, "fused_ln_attention (merge_batch)")
+        MERGED_LAUNCHES += 1
+    else:
+        _build.check(err, "fused_ln_attention")
+        LAUNCHES += 1
     return out
 
 
@@ -157,10 +224,10 @@ def _check_kernel_shape(S: int, d: int, num_heads: int) -> None:
                          f"{KERNEL_MAX_SEQ}, got {S}")
 
 
-def _argtypes():
+def _argtypes(merged: bool = False):
     import ctypes
     p, i = ctypes.c_void_p, ctypes.c_int
-    return [p] * 14 + [i] * 5 + [ctypes.c_float, p]
+    return [p] * 14 + [i] * (6 if merged else 5) + [ctypes.c_float, p]
 
 
 # ---------------------------------------------------------------------------
@@ -199,9 +266,11 @@ def fused_ln_attention_int8_reference(x, ln_scale, ln_bias, wq_q, wq_s, bq,
 def fused_ln_attention_int8(x: torch.Tensor, ln_scale, ln_bias, wq_q, wq_s, bq,
                             wk_q, wk_s, bk, wv_q, wv_s, bv, wo_q, wo_s, bo,
                             num_heads: int, eps: float = 1e-6,
+                            head_group: int = 6, block_b: int = 1,
                             valid_len: Optional[int] = None) -> torch.Tensor:
     """x (B, S, d) -> x + out_proj(attention(LN(x))) in W8A8; w*_q (d, d)
-    int8 in (in, out) layout, w*_s (d,) f32 column scales (or (1, d))."""
+    int8 in (in, out) layout, w*_s (d,) f32 column scales (or (1, d)).
+    ``head_group`` and ``block_b`` (TPU VMEM knobs) are ignored."""
     if x.device.type == "cpu":
         return fused_ln_attention_int8_reference(
             x, ln_scale, ln_bias, wq_q, wq_s, bq, wk_q, wk_s, bk, wv_q, wv_s,

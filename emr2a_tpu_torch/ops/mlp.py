@@ -35,6 +35,26 @@ product rescaled + b2, rounded to ``x.dtype``, then the residual add. A CPU
 tensor goes to ``fused_ln_mlp_int8_reference``; a CUDA tensor goes to
 ``csrc/mlp_int8.cu`` (bf16 activations), or the call raises.
 ``INT8_LAUNCHES`` counts the calls that went to that kernel.
+
+Both take JAX's keywords ``tile`` and ``act_dtype``. ``tile`` is the TPU
+kernel's token tile in VMEM; it has no counterpart here and is ignored.
+``act_dtype=torch.bfloat16`` (JAX's ``jnp.bfloat16``) moves the rounding
+points of the activation: K1 rounds fc1 + b1 to bf16 and evaluates the
+gelu on that bf16 value, rounded to ``x.dtype``; K2 evaluates the gelu of
+bf16(fc1 value) and carries it back to f32 before the row quantize. The
+bf16 gelu is evaluated as XLA evaluates ``jax.nn.gelu`` on a bf16 array
+(``gelu_tanh_bf16``): the constants rounded to bf16, every op computed in
+f32 and rounded to bf16, but the last product, which is exact in f32 and
+is rounded to the output type (XLA elides that rounding when the result is
+converted to f32 next). On the JAX package's CPU interpret mode this gives
+its values bit for bit on the same bf16 input (``tests/test_torch_act_dtype.py``
+holds 400,000 values exactly); through the whole block the two differ only
+by the products' summation order, which may move a value across a bf16
+rounding boundary (``tests/test_torch_act_dtype.py``: bit for bit in bf16 on
+its inputs, atol 2e-3 in f32). The card's kernels evaluate the same sequence
+(``csrc/common.cuh``; ``chip_smoke.py`` holds their gelu epilogues to
+``gelu_tanh_bf16`` bit for bit on the same 400,000 values); they take
+``gelu`` only.
 """
 
 from __future__ import annotations
@@ -61,6 +81,42 @@ def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
         math.sqrt(2.0 / math.pi) * (x + 0.044715 * x ** 3))))
 
 
+def gelu_tanh_bf16(v: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu(v, approximate=True)`` of bf16 values (given in any
+    float type) as XLA evaluates it in bf16: returns f32, whose only
+    rounding left is the caller's cast to the output type."""
+    r = lambda t: t.to(torch.bfloat16).float()
+    v = r(v)
+    c = r(v * v)
+    c = r(c * v)
+    c = r(c * _BF16_K1)
+    c = r(v + c)
+    c = r(c * _BF16_K0)
+    c = r(torch.tanh(c))
+    c = r(c + 1.0)
+    c = r(c * 0.5)
+    return v * c
+
+
+# the constants of jax.nn.gelu(approximate=True) rounded to bf16
+_BF16_K0 = 0.796875          # sqrt(2 / pi)
+_BF16_K1 = 0.044677734375    # 0.044715
+
+ACT_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def _activate(h: torch.Tensor, activation: str, act_dtype) -> torch.Tensor:
+    """The f32 value ``h`` through the activation evaluated in
+    ``act_dtype``; f32 out."""
+    if act_dtype not in ACT_DTYPES:
+        raise ValueError(f"act_dtype must be one of {ACT_DTYPES}, got {act_dtype}")
+    if act_dtype == torch.float32:
+        return _kernel_activation(activation)(h)
+    if activation == "gelu":
+        return gelu_tanh_bf16(h)
+    return _kernel_activation(activation)(h.to(torch.bfloat16)).float()
+
+
 def layer_norm_f32(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
                    eps: float) -> torch.Tensor:
     """LN with f32 statistics (two passes, as the TPU kernels compute
@@ -79,13 +135,14 @@ def _kernel_activation(name: str):
 
 
 def fused_ln_mlp_reference(x, ln_scale, ln_bias, w1, b1, w2, b2,
-                           eps: float = 1e-6,
-                           activation: str = "gelu") -> torch.Tensor:
+                           eps: float = 1e-6, activation: str = "gelu",
+                           tile: int = 512,
+                           act_dtype=torch.float32) -> torch.Tensor:
     """Plain PyTorch version of the kernel, with its rounding points:
-    products in f32 from ``x.dtype`` operands."""
+    products in f32 from ``x.dtype`` operands. ``tile`` is ignored."""
     h = layer_norm_f32(x, ln_scale, ln_bias, eps).to(x.dtype)
     h1 = torch.matmul(h.float(), w1.float()) + b1.float()
-    h1 = _kernel_activation(activation)(h1).to(x.dtype)
+    h1 = _activate(h1, activation, act_dtype).to(x.dtype)
     y = torch.matmul(h1.float(), w2.float()) + b2.float()
     return x + y.to(x.dtype)
 
@@ -114,13 +171,19 @@ def check_cuda_operands(named: dict, device) -> None:
 
 
 def fused_ln_mlp(x: torch.Tensor, ln_scale, ln_bias, w1, b1, w2, b2,
-                 eps: float = 1e-6, activation: str = "gelu") -> torch.Tensor:
-    """x (T, d) -> x + fc2(act(fc1(LN(x)))); w1 (d, m), w2 (m, d)."""
+                 eps: float = 1e-6, activation: str = "gelu", tile: int = 512,
+                 act_dtype=torch.float32) -> torch.Tensor:
+    """x (T, d) -> x + fc2(act(fc1(LN(x)))); w1 (d, m), w2 (m, d).
+    ``tile`` (a TPU VMEM knob) is ignored; ``act_dtype`` is float32 or
+    bfloat16 (module docstring)."""
     if x.device.type == "cpu":
         return fused_ln_mlp_reference(x, ln_scale, ln_bias, w1, b1, w2, b2,
-                                      eps=eps, activation=activation)
+                                      eps=eps, activation=activation,
+                                      act_dtype=act_dtype)
     if x.device.type != "cuda":
         raise ValueError(f"no kernel for device {x.device}")
+    if act_dtype not in ACT_DTYPES:
+        raise ValueError(f"act_dtype must be one of {ACT_DTYPES}, got {act_dtype}")
     if activation != "gelu":
         raise ValueError(f"the CUDA kernel evaluates gelu only, got "
                          f"{activation!r}")
@@ -150,7 +213,8 @@ def fused_ln_mlp(x: torch.Tensor, ln_scale, ln_bias, w1, b1, w2, b2,
     with torch.cuda.device(x.device):
         err = fn(x.data_ptr(), ln_scale.data_ptr(), ln_bias.data_ptr(),
                  w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
-                 h1.data_ptr(), out.data_ptr(), T, d, m, float(eps), stream)
+                 h1.data_ptr(), out.data_ptr(), T, d, m,
+                 int(act_dtype == torch.bfloat16), float(eps), stream)
     _build.check(err, "fused_ln_mlp")
     global LAUNCHES
     LAUNCHES += 1
@@ -160,7 +224,7 @@ def fused_ln_mlp(x: torch.Tensor, ln_scale, ln_bias, w1, b1, w2, b2,
 def _argtypes():
     import ctypes
     p, i = ctypes.c_void_p, ctypes.c_int
-    return [p] * 9 + [i, i, i, ctypes.c_float, p]
+    return [p] * 9 + [i, i, i, i, ctypes.c_float, p]
 
 
 # ---------------------------------------------------------------------------
@@ -181,13 +245,15 @@ def quantize_weight_int8(w) -> tuple:
 
 def fused_ln_mlp_int8_reference(x, ln_scale, ln_bias, w1_q, w1_scale, b1,
                                 w2_q, w2_scale, b2, eps: float = 1e-6,
-                                activation: str = "gelu") -> torch.Tensor:
-    """Plain PyTorch version of K2, with the TPU kernel's rounding points."""
+                                activation: str = "gelu", tile: int = 256,
+                                act_dtype=torch.float32) -> torch.Tensor:
+    """Plain PyTorch version of K2, with the TPU kernel's rounding points.
+    ``tile`` is ignored."""
     h = layer_norm_f32(x, ln_scale, ln_bias, eps)
     q1, s1 = quantize_rows_s8_reference(h)
     h1 = (s8_matmul(q1, w1_q) * s1 * w1_scale.reshape(1, -1).float()
           + b1.float())
-    h1 = _kernel_activation(activation)(h1)
+    h1 = _activate(h1, activation, act_dtype)
     q2, s2 = quantize_rows_s8_reference(h1)
     y = (s8_matmul(q2, w2_q) * s2 * w2_scale.reshape(1, -1).float()
          + b2.float())
@@ -196,15 +262,19 @@ def fused_ln_mlp_int8_reference(x, ln_scale, ln_bias, w1_q, w1_scale, b1,
 
 def fused_ln_mlp_int8(x: torch.Tensor, ln_scale, ln_bias, w1_q, w1_scale, b1,
                       w2_q, w2_scale, b2, eps: float = 1e-6,
-                      activation: str = "gelu") -> torch.Tensor:
+                      activation: str = "gelu", tile: int = 256,
+                      act_dtype=torch.float32) -> torch.Tensor:
     """x (T, d) -> x + fc2(act(fc1(LN(x)))) in W8A8; w1_q (d, m) and w2_q
-    (m, d) int8, scales (m,) and (d,) f32 (or (1, N))."""
+    (m, d) int8, scales (m,) and (d,) f32 (or (1, N)). ``tile`` (a TPU
+    VMEM knob) is ignored; ``act_dtype`` is float32 or bfloat16."""
     if x.device.type == "cpu":
         return fused_ln_mlp_int8_reference(
             x, ln_scale, ln_bias, w1_q, w1_scale, b1, w2_q, w2_scale, b2,
-            eps=eps, activation=activation)
+            eps=eps, activation=activation, act_dtype=act_dtype)
     if x.device.type != "cuda":
         raise ValueError(f"no kernel for device {x.device}")
+    if act_dtype not in ACT_DTYPES:
+        raise ValueError(f"act_dtype must be one of {ACT_DTYPES}, got {act_dtype}")
     if activation != "gelu":
         raise ValueError(f"the CUDA kernel evaluates gelu only, got "
                          f"{activation!r}")
@@ -231,7 +301,7 @@ def fused_ln_mlp_int8(x: torch.Tensor, ln_scale, ln_bias, w1_q, w1_scale, b1,
     import ctypes
     p, i = ctypes.c_void_p, ctypes.c_int
     fn = _build.kernel_function("emr2a_fused_ln_mlp_int8",
-                                [p] * 15 + [i, i, i, ctypes.c_float, p])
+                                [p] * 15 + [i, i, i, i, ctypes.c_float, p])
     hq = torch.empty((T, d), dtype=torch.int8, device=dev)
     hs = torch.empty((T,), dtype=torch.float32, device=dev)
     h1 = torch.empty((T, m), dtype=torch.float32, device=dev)
@@ -242,7 +312,8 @@ def fused_ln_mlp_int8(x: torch.Tensor, ln_scale, ln_bias, w1_q, w1_scale, b1,
     with torch.cuda.device(dev):
         err = fn(*(t.data_ptr() for t in (
             x, ln_scale, ln_bias, w1_q, w1_scale, b1, w2_q, w2_scale, b2,
-            hq, hs, h1, q2, s2, out)), T, d, m, float(eps), stream)
+            hq, hs, h1, q2, s2, out)), T, d, m,
+            int(act_dtype == torch.bfloat16), float(eps), stream)
     _build.check(err, "fused_ln_mlp_int8")
     global INT8_LAUNCHES
     INT8_LAUNCHES += 1

@@ -7,8 +7,10 @@ and widths, and duplicated rows; K7 (the W4A8 linear) at T = 1 to 2048 on
 both of its designs (GEMV up to 16 rows, GEMM above), duplicate and
 all-zero rows, and the card's int4 quantizer against the numpy one; K8 and
 K9 (the per-frame attention kernel) at ragged S, head dims 8 to 128 and
-duplicate keys; the inputs the wrappers must refuse, and the launch
-counters. Each test skips without a CUDA card. On the card (the suite's
+duplicate keys; K3m (the merged-batch LN+attention block) bit for bit
+against K3 at B = 1, 5, 128 and block_b 1, 3, 4, 8, at valid_len < S, S = 1
+and S = 384; K1 and K2 with act_dtype=bf16; the inputs the wrappers must
+refuse, and the launch counters. Each test skips without a CUDA card. On the card (the suite's
 conftest imports JAX, which that machine lacks):
 
     python -m pytest --noconftest tests/test_torch_cuda_kernels.py -q
@@ -112,6 +114,130 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
         mlp.fused_ln_mlp(*_mlp_args(gen, 64, 192, 512))
     with pytest.raises(ValueError, match="gelu only"):
         mlp.fused_ln_mlp(*margs, activation="quick_gelu")
+
+
+# -- K3m: the merged-batch schedule of K3 ------------------------------------
+
+@pytest.mark.parametrize("B", [1, 5, 128])
+@pytest.mark.parametrize("block_b", [1, 3, 4, 8])
+def test_merged_attention_kernel_equals_k3_bit_for_bit(cuda, B, block_b):
+    args = _attn_args(torch.Generator(device="cuda").manual_seed(B), B, 197, 768)
+    before = attention_block.MERGED_LAUNCHES, attention_block.LAUNCHES
+    got = attention_block.fused_ln_attention(*args, num_heads=12, valid_len=197,
+                                             block_b=block_b, merge_batch=True)
+    torch.cuda.synchronize()
+    assert (attention_block.MERGED_LAUNCHES, attention_block.LAUNCHES) == \
+        (before[0] + 1, before[1])
+    want = attention_block.fused_ln_attention(*args, num_heads=12, valid_len=197)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    if B == 5:
+        _assert_matches(got, attention_block.fused_ln_attention_merged_reference(
+            *args, num_heads=12, valid_len=197, block_b=block_b))
+
+
+@pytest.mark.parametrize("B,S,d,H,valid_len,block_b", [
+    (6, 200, 768, 12, 150, 4), (5, 1, 768, 12, 1, 2), (3, 384, 256, 4, 384, 2),
+    (4, 384, 768, 12, 300, 3)])
+def test_merged_attention_kernel_edges(cuda, B, S, d, H, valid_len, block_b):
+    args = _attn_args(torch.Generator(device="cuda").manual_seed(S + B), B, S, d)
+    got = attention_block.fused_ln_attention(*args, num_heads=H, valid_len=valid_len,
+                                             block_b=block_b, merge_batch=True)
+    torch.cuda.synchronize()
+    want = attention_block.fused_ln_attention(*args, num_heads=H, valid_len=valid_len)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    _assert_matches(got[:, :valid_len], attention_block.fused_ln_attention_merged_reference(
+        *args, num_heads=H, valid_len=valid_len, block_b=block_b)[:, :valid_len])
+
+
+def test_merged_attention_refuses_what_the_kernel_does_not_take(cuda):
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    before = attention_block.MERGED_LAUNCHES
+    x, s, b, *ws = _attn_args(gen, 2, 16, 768)
+    with pytest.raises(ValueError, match="block_b"):
+        attention_block.fused_ln_attention(x, s, b, *ws, num_heads=12, block_b=0,
+                                           merge_batch=True)
+    with pytest.raises(ValueError, match="head dim 64"):
+        attention_block.fused_ln_attention(x, s, b, *ws, num_heads=8, block_b=2,
+                                           merge_batch=True)
+    with pytest.raises(TypeError, match="bfloat16"):
+        attention_block.fused_ln_attention(x.float(), s, b, *ws, num_heads=12,
+                                           block_b=2, merge_batch=True)
+    x, s, b, *ws = _attn_args(gen, 1, 385, 256)
+    with pytest.raises(ValueError, match="up to 384"):
+        attention_block.fused_ln_attention(x, s, b, *ws, num_heads=4, block_b=2,
+                                           merge_batch=True)
+    x, s, b, *ws = _attn_args(gen, 1, 16, 192)
+    with pytest.raises(ValueError, match="divisible by 128"):
+        attention_block.fused_ln_attention(x, s, b, *ws, num_heads=3, block_b=2,
+                                           merge_batch=True)
+    assert attention_block.MERGED_LAUNCHES == before
+
+
+# -- K1 and K2 with act_dtype=bf16 -------------------------------------------
+
+@pytest.mark.parametrize("T", [1, 300, 6400])
+def test_act_bf16_kernels_match_plain(cuda, T):
+    gen = torch.Generator(device="cuda").manual_seed(T)
+    args = _mlp_args(gen, T, 768, 3072)
+    before = mlp.LAUNCHES
+    got = mlp.fused_ln_mlp(*args, act_dtype=torch.bfloat16, tile=256)
+    torch.cuda.synchronize()
+    assert mlp.LAUNCHES == before + 1
+    _assert_matches(got, mlp.fused_ln_mlp_reference(*args, act_dtype=torch.bfloat16))
+    assert torch.equal(mlp.fused_ln_mlp(*args, act_dtype=torch.float32), mlp.fused_ln_mlp(*args))
+    args8 = _mlp8_args(gen, T, 768, 3072)
+    before = mlp.INT8_LAUNCHES
+    got = mlp.fused_ln_mlp_int8(*args8, act_dtype=torch.bfloat16, tile=256)
+    torch.cuda.synchronize()
+    assert mlp.INT8_LAUNCHES == before + 1
+    _assert_matches(got, mlp.fused_ln_mlp_int8_reference(*args8, act_dtype=torch.bfloat16))
+    with pytest.raises(ValueError, match="act_dtype"):
+        mlp.fused_ln_mlp_int8(*args8, act_dtype=torch.float16)
+
+
+def test_act_bf16_gelu_epilogues_equal_gelu_tanh_bf16_bit_for_bit(cuda):
+    """The kernel entries with fc1 weights zero and b1 = the values, so that
+    the h1 scratch is the epilogue's gelu of b1: K1's (bf16) and K2's (f32)
+    equal ``gelu_tanh_bf16`` exactly with act_bf16 and differ without."""
+    import ctypes
+
+    import numpy as np
+
+    from emr2a_tpu_torch.ops import _build
+    T, d, m, bf = 4, 128, 400_000, torch.bfloat16
+    v = torch.from_numpy((np.random.RandomState(3).randn(m) * 3).astype(np.float32)).to(bf)
+    want = mlp.gelu_tanh_bf16(v.float())
+    x = _rn(torch.Generator(device="cuda").manual_seed(0), T, d)
+    ln_s, ln_b = torch.ones(d, device=cuda, dtype=bf), torch.zeros(d, device=cuda, dtype=bf)
+    b1, b2 = v.to(cuda), torch.zeros(d, device=cuda, dtype=bf)
+    stream = torch.cuda.current_stream().cuda_stream
+    p, i = ctypes.c_void_p, ctypes.c_int
+    ptrs = lambda *ts: [t.data_ptr() for t in ts]
+    k1 = _build.kernel_function("emr2a_fused_ln_mlp", mlp._argtypes())
+    k2 = _build.kernel_function("emr2a_fused_ln_mlp_int8",
+                                [p] * 15 + [i, i, i, i, ctypes.c_float, p])
+    w1, w2 = torch.zeros(d, m, device=cuda, dtype=bf), torch.zeros(m, d, device=cuda, dtype=bf)
+    w1q, w2q = w1.to(torch.int8), w2.to(torch.int8)
+    w1s, w2s = torch.ones(m, device=cuda), torch.ones(d, device=cuda)
+    got = {}
+    for act_bf16 in (1, 0):
+        h1, h1_8 = torch.empty(T, m, device=cuda, dtype=bf), torch.empty(T, m, device=cuda)
+        _build.check(k1(*ptrs(x, ln_s, ln_b, w1, b1, w2, b2, h1, torch.empty_like(x)),
+                        T, d, m, act_bf16, 1e-6, stream), "fused_ln_mlp")
+        scratch = (torch.empty(T, d, device=cuda, dtype=torch.int8),
+                   torch.empty(T, device=cuda), h1_8,
+                   torch.empty(T, m, device=cuda, dtype=torch.int8),
+                   torch.empty(T, device=cuda), torch.empty_like(x))
+        _build.check(k2(*ptrs(x, ln_s, ln_b, w1q, w1s, b1, w2q, w2s, b2, *scratch),
+                        T, d, m, act_bf16, 1e-6, stream), "fused_ln_mlp_int8")
+        torch.cuda.synchronize()
+        got[act_bf16] = (h1.cpu(), h1_8.cpu())
+    assert torch.equal(got[1][0], want.to(bf).expand(T, m))
+    assert torch.equal(got[1][1], want.expand(T, m))
+    assert not torch.equal(got[0][0], got[1][0])
+    assert not torch.equal(got[0][1], got[1][1])
 
 
 # -- W8A8: the row quantize, K5, K2, K4 ------------------------------------

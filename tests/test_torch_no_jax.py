@@ -1,11 +1,14 @@
 """The port never loads JAX, nor any module of the JAX package, nor
-sklearn, transformers or safetensors (the card's machine lacks the last
-three): in a fresh interpreter, import every module of ``emr2a_tpu_torch``,
-run the fake-encoder step2 CLI, the database CLI (``build`` and ``query
---cpu``), the CV runner (``--device cpu``, fake encoders) and the step4 CLI
-on its fold files (``--model_path fake``, ``--device cpu``), then check
-that no module of jax, jaxlib, flax, optax, sklearn, transformers,
-safetensors or ``emr2a_tpu`` was imported."""
+sklearn, pandas, transformers or safetensors (the card's machine lacks the
+last four): in a fresh interpreter, import every module of
+``emr2a_tpu_torch``, run the step1 CLI on a raw CSV + folder tree, the
+fake-encoder step2 CLI, the step3 CLI (``--device cpu``), the database CLI
+(``build`` and ``query --cpu``), the CV runner (``--device cpu``, fake
+encoders), the step4 CLI on its fold files (``--model_path fake``,
+``--device cpu``) and the layer-breakdown tool (``--device cpu``, ``tune
+--merge_batch``), then check that no module of jax, jaxlib, flax, optax,
+sklearn, pandas, transformers, safetensors or ``emr2a_tpu`` was
+imported."""
 
 import json
 import os
@@ -24,10 +27,16 @@ names = [m.name for m in pkgutil.walk_packages(emr2a_tpu_torch.__path__,
                                                "emr2a_tpu_torch.")]
 for name in names:
     importlib.import_module(name)
-manifest, out = sys.argv[1], sys.argv[2]
+manifest, out, data_root = sys.argv[1], sys.argv[2], sys.argv[3]
+from emr2a_tpu_torch.pipelines.step1_manifest.build_manifest import main as step1_main
+step1_main(["--data_root", data_root, "--out_dir", out + "/step1"])
 from emr2a_tpu_torch.pipelines.step2_embeddings.build_embeddings import main
 main(["--manifest_path", manifest, "--encoder_type", "fake",
       "--device", "cpu", "--output_dir", out])
+from emr2a_tpu_torch.pipelines.step3_retrieval.evaluate_retrieval import main as step3_main
+step3_main(["--manifest_path", manifest, "--embeddings_path",
+            out + "/embeddings.npz", "--output_dir", out + "/step3",
+            "--test_size", "0.5", "--device", "cpu"])
 from emr2a_tpu_torch.retrieval.database_cli import main as db_main
 db_main(["build", "--embeddings_path", out + "/embeddings.npz",
          "--manifest_path", manifest, "--db", out + "/db.npz", "--dtype",
@@ -45,10 +54,14 @@ from emr2a_tpu_torch.pipelines.step4_vlm_review.run import main as step4_main
 step4_main(["--exp_dir", out + "/cv/exp_nj", "--manifest_path", manifest,
             "--output_dir", out + "/step4", "--model_path", "fake",
             "--device", "cpu", "--max_samples", "3"])
+from emr2a_tpu_torch.tools.layer_breakdown import main as lb_main
+lb_main(["--device", "cpu", "--what", "tune", "--merge_batch", "--batch", "1",
+         "--iters", "1"])
 loaded = sorted(
     m for m in sys.modules
     if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "sklearn",
-                           "transformers", "safetensors", "emr2a_tpu"))
+                           "pandas", "transformers", "safetensors",
+                           "emr2a_tpu"))
 print("MODULES", len(names), "LOADED", ",".join(loaded) or "-")
 """
 
@@ -64,9 +77,19 @@ def test_port_imports_no_jax(tmp_path):
     manifest = tmp_path / "manifest.jsonl"
     manifest.write_text("".join(json.dumps(r) + "\n" for r in records),
                         encoding="utf-8")
+    data_root = tmp_path / "data"
+    (data_root / "Case_csv").mkdir(parents=True)
+    for label in ("Bacterial", "Viral", "PJP", "Normal"):
+        (data_root / "Case_csv" / f"{label}.csv").write_text(
+            f"name,sex\n{label}_0,M\n", encoding="utf-8")
+        pdir = data_root / "CT_2D_image_core" / label / f"{label}_0"
+        pdir.mkdir(parents=True)
+        for s in (10, 2):
+            Image.fromarray(np.zeros((8, 8, 3), np.uint8)).save(pdir / f"slice_{s}.png")
     env = {**os.environ, "PYTHONPATH": str(REPO)}
     proc = subprocess.run(
-        [sys.executable, "-c", _PROGRAM, str(manifest), str(tmp_path / "out")],
+        [sys.executable, "-c", _PROGRAM, str(manifest), str(tmp_path / "out"),
+         str(data_root)],
         cwd=REPO, env=env, capture_output=True, text=True, timeout=240)
     assert proc.returncode == 0, proc.stderr
     last = proc.stdout.strip().splitlines()[-1]
@@ -80,3 +103,8 @@ def test_port_imports_no_jax(tmp_path):
     details = (tmp_path / "out" / "step4" / "vlm_audit_details.jsonl").read_text()
     assert len(details.splitlines()) == 3
     assert (tmp_path / "out" / "step4" / "vlm_audit_summary.json").exists()
+    step1 = (tmp_path / "out" / "step1" / "manifest.jsonl").read_text(encoding="utf-8")
+    assert len(step1.splitlines()) == 4 and "slice_2.png" in step1
+    step3 = json.loads((tmp_path / "out" / "step3" / "retrieval_results.json").read_text())
+    assert "image_top1" in step3
+    assert "merge=True" in proc.stdout

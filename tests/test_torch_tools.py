@@ -51,3 +51,33 @@ def test_profiler_names_every_kernel(key, label):
     if "s8 GEMM (K4)" in label:
         assert ops == 2 * 6400 * 768 * 3 * 768
     assert kernel_label("elementwise_kernel", 1, 1, 1) == ("elementwise_kernel", None)
+
+
+def test_step1_on_the_cohort_tree_gives_its_manifest(tmp_path):
+    """The raw tree (Case_csv + CT_2D_image_core) through the port's step1
+    gives the cohort manifest's patients, labels and slices in natural
+    order (slice_2 before slice_10), and the JAX package's step1 bytes."""
+    import json
+
+    from emr2a_tpu.pipelines.step1_manifest import build_manifest as jax_step1
+    from emr2a_tpu_torch.pipelines.step1_manifest import build_manifest as step1
+
+    root = tmp_path / "cohort"
+    manifest = write_cohort(root, n_patients=8, n_slices=11)
+    want = [json.loads(l) for l in manifest.read_text(encoding="utf-8").splitlines()]
+    args = ["--data_root", str(root), "--relative_paths", "false"]
+    step1.main(args + ["--out_dir", str(tmp_path / "port")])
+    jax_step1.main(args + ["--out_dir", str(tmp_path / "jax")])
+    got_text = (tmp_path / "port" / "manifest.jsonl").read_text(encoding="utf-8")
+    assert got_text == (tmp_path / "jax" / "manifest.jsonl").read_text(encoding="utf-8")
+    got = {r["patient_id"]: r for r in map(json.loads, got_text.splitlines())}
+    assert sorted(got) == [r["patient_id"] for r in want]
+    for r in want:
+        assert got[r["patient_id"]]["label"] == r["label"]
+        assert got[r["patient_id"]]["slices"] == r["slices"]
+        assert got[r["patient_id"]]["match_by"] == "name"
+    assert [s.rsplit("/", 1)[-1] for s in got["P000"]["slices"]][1:3] == \
+        ["slice_1.png", "slice_2.png"]
+    assert set(got["P001"]["meta"]) == {"sex", "age", "fever", "symptom"}
+    assert not (tmp_path / "port" / "missing_in_fs.csv").exists()
+    assert not (tmp_path / "port" / "missing_in_csv.csv").exists()
