@@ -15,10 +15,16 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    4096->4096, 4096->1024, 4096->12288, 12288->4096; T = 1, 4096->12288
    also timed). The W8A8 kernels are also timed against a plain int8 yardstick
    (their plain versions with ``torch._int_mm`` products). K6 (the fused
-   cosine top-k) at 1M x 512, k = 5, q = 1 and 64, in f32, bf16 and int8
-   (int8 bit for bit; f32 and bf16 values within 1e-5, indices equal up to
-   near-ties), beside a library yardstick (``torch.topk(q @ db.T)``; for
-   int8 at q = 64 ``torch._int_mm`` + rescale + ``torch.topk``).
+   cosine top-k) at 1M x 512, k = 5, q = 1, 4, 8, 16, 32 and 64, in f32,
+   bf16 and int8, on both of its scans (the streaming scan and the tile
+   scan, forced in turn), and at k = 100, q = 64 (the tile scan), each
+   against its plain version (int8 bit for bit; f32 and bf16 values within
+   1e-5, indices equal up to near-ties), beside a library yardstick
+   (``torch.topk(q @ db.T)``; for int8 at q > 16 ``torch._int_mm`` +
+   rescale + ``torch.topk``); the crossover (the least q from which the
+   tile scan is faster, chained, at every larger q) is printed beside the
+   wrapper's. K6, K8 and K9 carry the median and quartiles of 100 single
+   launches and the least of 3 chains of 20 back-to-back launches.
 4. Main path, bf16: a synthetic CT cohort (PNG slices + manifest.jsonl)
    through the step2 functions with
    ``BioMedCLIPEncoder.random_init(fast=True)`` at full ViT-B/16 width;
@@ -37,7 +43,10 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    ``use_pallas=True`` f32/bf16 on a padded buffer; the launch counts show
    K6 (int8 queries, use_pallas). Then the single-query p50 of
    ``topk_chained`` (256 scans, CUDA events) on a seeded 1M x 512 database
-   in each dtype, f32/bf16 with use_pallas off and on.
+   in each dtype, f32/bf16 with use_pallas off and on, and a batched
+   ``topk`` of 64 queries at k = 5 and k = 100 on it (use_pallas for
+   f32/bf16), against the plain scan, whose launch counts must show K6's
+   tile scan.
 9. CV: ``run_cv_experiments`` from a combined_embeddings.npz, on the card
    and with ``--device cpu``: the cohort (bf16 step2 slice means, int8
    text tower rows, concat, 3 folds) and a seeded 4-class set of 1,000
@@ -167,6 +176,42 @@ def median_ms(fn, iters: int = 100, warmup: int = 5) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return float(np.median(times))
+
+
+def timings(fn, iters: int = 100, warmup: int = 5, chain: int = 20, chains: int = 3) -> dict:
+    """The median and quartiles of ``iters`` launches, each timed alone
+    between two CUDA events (with the wrapper's host work), and the least
+    of ``chains`` chains of ``chain`` back-to-back launches between two
+    events, per launch."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(iters):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    chained = []
+    for _ in range(chains):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(chain):
+            fn()
+        end.record()
+        end.synchronize()
+        chained.append(start.elapsed_time(end) / chain)
+    q1, med, q3 = (float(x) for x in np.percentile(times, [25, 50, 75]))
+    return {"ms": med, "ms_q1": q1, "ms_q3": q3, "chained_ms": min(chained)}
+
+
+def timing_text(t: dict) -> str:
+    return (f"{t['ms']:.4f} ms (quartiles {t['ms_q1']:.4f}-{t['ms_q3']:.4f}; chained "
+            f"{t['chained_ms']:.4f})")
 
 
 def compare(name: str, got: torch.Tensor, want: torch.Tensor) -> float:
@@ -506,7 +551,7 @@ def reset_counts() -> None:
     attention_block.LAUNCHES = attention_block.INT8_LAUNCHES = 0
     attention_block.MERGED_LAUNCHES = 0
     linear_int8.LAUNCHES = quant.LAUNCHES = 0
-    topk.LAUNCHES = topk.INT8_LAUNCHES = 0
+    topk.LAUNCHES = topk.INT8_LAUNCHES = topk.TILE_LAUNCHES = 0
     linear_int4.LAUNCHES = vision_flash.LAUNCHES = attention.LAUNCHES = 0
 
 
@@ -521,6 +566,7 @@ def read_counts() -> dict:
             "linear_w8a8": linear_int8.LAUNCHES,
             "cosine_topk_fused": topk.LAUNCHES,
             "cosine_topk_fused_int8": topk.INT8_LAUNCHES,
+            "cosine_topk tile scan": topk.TILE_LAUNCHES,
             "linear_w4a8": linear_int4.LAUNCHES,
             "frame_flash_attention": vision_flash.LAUNCHES,
             "fused_attention": attention.LAUNCHES}
@@ -705,78 +751,130 @@ def topk_agrees(name: str, got, want, scores, tol: float = 1e-5) -> float:
     return err
 
 
-def topk_kernel_phase(card: str) -> list:
-    """K6 at 1M x 512, k = 5, q = 1 and 64, each storage type, against its
-    plain version and a library yardstick."""
-    from emr2a_tpu_torch.ops import topk
+K6_QS = (1, 4, 8, 16, 32, 64)
+K6_CODE = {"f32": 0, "bf16": 1, "int8": 2}
 
-    g = torch.Generator(device="cuda").manual_seed(6)
+
+def k6_inputs(seed: int = 6):
+    """Seeded unit rows at 1M x 512 in each storage type (the int8 DB's
+    recipe for the codes) and 64 unit queries."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
     unit = lambda *shape: torch.nn.functional.normalize(
         torch.randn(*shape, generator=g, device="cuda"), dim=-1)
     db32 = unit(K6_N, K6_DIM)
     queries64 = unit(64, K6_DIM)
-    # int8 rows: the DB's recipe (retrieval/database.quantize_rows_int8)
     amax = db32.abs().amax(dim=1)
     scales = amax / torch.full_like(amax, 127.0)
     scales = torch.where(scales == 0, torch.ones_like(scales), scales)
     codes = torch.clamp(torch.round(db32 / scales[:, None]), -127, 127).to(torch.int8)
-    stores = {"f32": db32, "bf16": db32.to(torch.bfloat16)}
-    shapes = {"cosine_topk_fused": [], "cosine_topk_fused_int8": []}
-    for dtype in ("f32", "bf16", "int8"):
-        for q in (1, 64):
-            queries = queries64[:q].contiguous()
-            ops = 2 * q * K6_N * K6_DIM
-            out_bytes = q * K6_K * 8
-            if dtype == "int8":
-                fn = lambda: topk.cosine_topk_fused_int8(queries, codes, scales, K6_K)
-                ref = lambda: topk.cosine_topk_fused_int8_reference(
-                    queries, codes, scales, K6_K)
+    return {"f32": db32, "bf16": db32.to(torch.bfloat16), "int8": (codes, scales)}, queries64
 
-                def lib():
-                    qc, qs = topk.quantize_queries_int8(queries)
-                    s32 = torch._int_mm(qc, codes.t())
-                    return torch.topk(s32.float() * qs[:, None] * scales[None, :], K6_K)
-                library = lib if q > 16 else None   # _int_mm needs m > 16
-                bnd = bound(nbytes(codes, scales, queries) + out_bytes, [("int8", ops)])
-            else:
-                db = stores[dtype]
-                qs_ = queries.to(db.dtype)
-                fn = lambda: topk.cosine_topk_fused(queries, db, K6_K)
-                ref = lambda: topk.cosine_topk_fused_reference(queries, db, K6_K)
-                library = lambda: torch.topk(qs_ @ db.T, K6_K)
-                bnd = bound(nbytes(db, qs_) + out_bytes, [(dtype, ops)])
-            name = f"cosine_topk_fused{'_int8' if dtype == 'int8' else ''}"
-            got = fn()
-            torch.cuda.synchronize()
-            want = ref()
-            tag = f"{name} {dtype} q={q}"
-            if dtype == "int8":
-                if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
-                    fail(f"{tag}: not bit-identical to its plain version")
-                err = 0.0
-                print(f"{tag}: bit-identical to its plain version", flush=True)
-            else:
-                scores = queries.to(stores[dtype].dtype).float() @ stores[dtype].float().T
-                err = topk_agrees(tag, got, want, scores)
-                del scores
-            rec = {"shape": f"{dtype}, q={q}, n={K6_N}, dim={K6_DIM}, k={K6_K}",
-                   "max_abs_err": err, "ms": median_ms(fn), "plain_ms": median_ms(ref),
-                   **bnd, "library_ms": median_ms(library) if library else None}
-            print(f"{tag}: kernel {rec['ms']:.4f} ms, plain version "
-                  f"{rec['plain_ms']:.4f} ms, library "
-                  + (f"{rec['library_ms']:.4f} ms" if library else "none")
-                  + f", bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}) "
-                  f"(median of 100; {card})", flush=True)
-            shapes[name].append(rec)
-            torch.cuda.empty_cache()
+
+def k6_check(tag: str, dtype: str, got, want, queries, store) -> float:
+    """int8 bit for bit; f32/bf16 values within 1e-5 and indices equal up
+    to near-ties. Returns the max abs error."""
+    if dtype == "int8":
+        if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+            fail(f"{tag}: not bit-identical to its plain version")
+        print(f"{tag}: bit-identical to its plain version", flush=True)
+        return 0.0
+    scores = queries.to(store.dtype).float() @ store.float().T
+    err = topk_agrees(tag, got, want, scores)
+    del scores
+    return err
+
+
+def topk_kernel_phase(card: str) -> list:
+    """K6 at 1M x 512, k = 5, q in K6_QS, each storage type: both scans
+    (the streaming scan and the tile scan, forced through TILE_MIN_Q)
+    against the plain version, timed beside the library yardstick; the
+    crossover; k = 100 at q = 64 against the plain version."""
+    from emr2a_tpu_torch.ops import topk
+
+    stores, queries64 = k6_inputs()
+    shapes = {"cosine_topk_fused": [], "cosine_topk_fused_int8": []}
+    default_min_q = dict(topk.TILE_MIN_Q)
+    crossover = {}
+    try:
+        for dtype in ("f32", "bf16", "int8"):
+            code = K6_CODE[dtype]
+            faster = {}
+            for qn, k in [(q, K6_K) for q in K6_QS] + [(64, 100)]:
+                queries = queries64[:qn].contiguous()
+                ops = 2 * qn * K6_N * K6_DIM
+                out_bytes = qn * k * 8
+                if dtype == "int8":
+                    codes, scales = stores["int8"]
+                    fn = lambda: topk.cosine_topk_fused_int8(queries, codes, scales, k)
+                    ref = lambda: topk.cosine_topk_fused_int8_reference(queries, codes, scales, k)
+
+                    def lib():
+                        qc, qs = topk.quantize_queries_int8(queries)
+                        s32 = torch._int_mm(qc, codes.t())
+                        return torch.topk(s32.float() * qs[:, None] * scales[None, :], k)
+                    library = lib if qn > 16 else None   # _int_mm needs m > 16
+                    bnd = bound(nbytes(codes, scales, queries) + out_bytes, [("int8", ops)])
+                    store = None
+                else:
+                    store = stores[dtype]
+                    qs_ = queries.to(store.dtype)
+                    fn = lambda: topk.cosine_topk_fused(queries, store, k)
+                    ref = lambda: topk.cosine_topk_fused_reference(queries, store, k)
+                    library = lambda: torch.topk(qs_ @ store.T, k)
+                    bnd = bound(nbytes(store, qs_) + out_bytes, [(dtype, ops)])
+                name = f"cosine_topk_fused{'_int8' if dtype == 'int8' else ''}"
+                want = ref()
+                rec = {"shape": f"{dtype}, q={qn}, n={K6_N}, dim={K6_DIM}, k={k}"}
+                paths = ("tile",) if k > topk.SCAN_K_MAX else ("stream", "tile")
+                for path in paths:
+                    topk.TILE_MIN_Q[code] = 1 if path == "tile" else 10 ** 9
+                    before = topk.TILE_LAUNCHES
+                    got = fn()
+                    torch.cuda.synchronize()
+                    if (topk.TILE_LAUNCHES - before == 1) != (path == "tile"):
+                        fail(f"{name} {dtype} q={qn}: the {path} scan was not taken")
+                    tag = f"{name} {dtype} q={qn} k={k} {path} scan"
+                    err = k6_check(tag, dtype, got, want,
+                                   queries if dtype != "int8" else None, store)
+                    rec[f"{path}_max_abs_err"] = err
+                    rec[path] = timings(fn)
+                topk.TILE_MIN_Q[code] = default_min_q[code]
+                chosen = "tile" if qn >= default_min_q[code] or k > topk.SCAN_K_MAX else "stream"
+                rec.update({"path": chosen, "max_abs_err": rec[f"{chosen}_max_abs_err"],
+                            **rec[chosen],
+                            "plain_ms": median_ms(ref) if qn in (1, 64) and k == K6_K else None,
+                            **bnd, "library_ms": median_ms(library) if library else None})
+                if len(paths) == 2:
+                    faster[qn] = rec["tile"]["chained_ms"] < rec["stream"]["chained_ms"]
+                print(f"{name} {dtype} q={qn} k={k}: "
+                      + "; ".join(f"{p_} scan {timing_text(rec[p_])}" for p_ in paths)
+                      + f"; wrapper takes the {chosen} scan; plain version "
+                      + (f"{rec['plain_ms']:.4f} ms" if rec["plain_ms"] else "not timed")
+                      + ", library "
+                      + (f"{rec['library_ms']:.4f} ms" if library else "none")
+                      + f", bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}) ({card})",
+                      flush=True)
+                shapes[name].append(rec)
+                torch.cuda.empty_cache()
+            # the least q from which the tile scan is faster (chained) at every larger q
+            crossover[dtype] = next((q for q in K6_QS if all(faster[x] for x in K6_QS if x >= q)),
+                                    None)
+            print(f"K6 crossover {dtype}: the tile scan is faster (chained) from q = "
+                  f"{crossover[dtype]} on (the wrapper takes it from q = "
+                  f"{default_min_q[code]}); {card}", flush=True)
+    finally:
+        topk.TILE_MIN_Q.update(default_min_q)
     records = []
     for name, recs in shapes.items():
+        first = {k_: v for k_, v in recs[0].items() if k_ not in ("stream", "tile")}
         records.append({"name": name, "route": "cuda",
                         "source": "emr2a_tpu_torch/csrc/topk.cu",
-                        "replaces": "emr2a_tpu/ops/topk.py:155", **recs[0],
+                        "replaces": "emr2a_tpu/ops/topk.py:155", **first,
                         "max_abs_err": max(r["max_abs_err"] for r in recs),
+                        "crossover_q": {d: crossover[d] for d in crossover
+                                        if (d == "int8") == name.endswith("int8")},
                         "shapes": recs})
-    del db32, stores, codes
+    del stores
     torch.cuda.empty_cache()
     return records
 
@@ -809,6 +907,7 @@ def hits_agree(tag: str, card_rows: list, cpu_rows: list, tol: float) -> None:
 def database_phase(work: Path, emb_path: Path, manifest_path: Path) -> dict:
     """database_cli build + query on the card and on the CPU in each dtype;
     use_pallas f32/bf16 on a padded buffer. Returns the launch counts."""
+    from emr2a_tpu_torch.ops import topk
     from emr2a_tpu_torch.retrieval import database_cli
     from emr2a_tpu_torch.retrieval.database import ShardedEmbeddingDatabase
 
@@ -844,23 +943,30 @@ def database_phase(work: Path, emb_path: Path, manifest_path: Path) -> dict:
     for row in hits["f32", "cuda"]:
         if row["hits"][0]["patient_id"] != row["query_id"]:
             fail(f"database: {row['query_id']} did not retrieve itself first")
-    want = {"cosine_topk_fused": 2, "cosine_topk_fused_int8": 1}
-    for name, n in launches.items():
-        if n != want.get(name, 0):
-            fail(f"database: {name} launched {n} times, expected {want.get(name, 0)}")
+    # the tile scan where the wrapper's crossover sends these query counts
+    tile = sum(len(ids) >= topk.TILE_MIN_Q[c] for c in (0, 1, 2))
+    check_launches("database", launches, {"cosine_topk_fused": 2, "cosine_topk_fused_int8": 1,
+                                          "cosine_topk tile scan": tile})
     return launches
 
 
-def p50_phase(card: str) -> None:
+def p50_phase(card: str) -> dict:
     """Single-query p50 of topk_chained (256 scans, CUDA events) on a
     seeded 1M x 512 database, each dtype; f32/bf16 with use_pallas off and
-    on."""
+    on. Then a batched topk of 64 queries at k = 5 and k = 100 on the same
+    database through K6 (use_pallas for f32/bf16), held against the plain
+    scan (f32/bf16: the database's own XLA-path counterpart; int8: K6's
+    plain version, bit for bit); the launch counts must show the tile scan.
+    Returns those launch counts."""
+    from emr2a_tpu_torch.ops import topk
     from emr2a_tpu_torch.retrieval.database import ShardedEmbeddingDatabase
     from emr2a_tpu_torch.retrieval.database_cli import chained_p50_ms
 
     rng = np.random.default_rng(0)
     emb = rng.standard_normal((K6_N, K6_DIM), dtype=np.float32)
     query = emb[123] + 0.1 * rng.standard_normal(K6_DIM, dtype=np.float32)
+    batch = emb[:64] + 0.1 * rng.standard_normal((64, K6_DIM), dtype=np.float32)
+    batched = {}
     for name, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16),
                         ("int8", torch.int8)):
         t0 = time.time()
@@ -876,8 +982,35 @@ def p50_phase(card: str) -> None:
             print(f"database p50 {name} ({path}): {ms:.4f} ms/query (median of 3 "
                   f"runs of 256 chained scans, CUDA events; n={K6_N}, dim={K6_DIM}, "
                   f"k={K6_K}; built in {built:.1f} s; {card})", flush=True)
+        db.use_pallas = name != "int8"
+        torch.cuda.synchronize()
+        reset_counts()
+        got = {k: db.topk(batch, k) for k in (K6_K, 100)}
+        torch.cuda.synchronize()
+        launches = read_counts()
+        kernel = "cosine_topk_fused_int8" if name == "int8" else "cosine_topk_fused"
+        check_launches(f"database batched {name}", launches,
+                       {kernel: 2, "cosine_topk tile scan": 2})
+        q = db._queries(batch, True)
+        for k, res in got.items():
+            tag = f"database batched topk {name}, 64 queries, k={k} (tile scan)"
+            if name == "int8":
+                want = topk.cosine_topk_fused_int8_reference(q, db.db, db.db_scales, k, db.n)
+                if not (torch.equal(res[0], want[0]) and torch.equal(res[1], want[1])):
+                    fail(f"{tag}: not bit-identical to the plain version")
+                print(f"{tag}: bit-identical to the plain version", flush=True)
+            else:
+                db.use_pallas = False
+                want = db.topk(batch, k)
+                db.use_pallas = True
+                topk_agrees(tag, res, want, q.float() @ db.db[:db.n].float().T)
+            if (res[1][:, 0].cpu() != torch.arange(64, dtype=torch.int32)).any():
+                fail(f"{tag}: a query's source row is not its top hit")
+        batched[name] = launches
+        print(f"database batched {name}: launches {launches}", flush=True)
         del db
         torch.cuda.empty_cache()
+    return batched
 
 
 def compare_cv(tag: str, exp_card: Path, exp_cpu: Path) -> None:
@@ -1087,14 +1220,15 @@ def judge_kernel_phase(card: str) -> list:
         rec = {"name": name, "route": "cuda",
                "source": "emr2a_tpu_torch/csrc/frame_attention.cu",
                "replaces": replaces, "shape": f"(F|B, S, H, hd) = {shape}",
-               "max_abs_err": err, "ms": median_ms(fn), "plain_ms": median_ms(ref),
-               **bound(4 * nbytes(q), [("bf16", 4 * F_ * H * S * S * hd)]),
-               "library_ms": median_ms(lambda: sdpa(q.transpose(1, 2), k.transpose(1, 2),
-                                                     v.transpose(1, 2), scale=scale))}
-        print(f"{name} {shape}: kernel {rec['ms']:.4f} ms, plain version "
+               "max_abs_err": err, **timings(fn), "plain_ms": median_ms(ref),
+               **bound(4 * nbytes(q), [("bf16", 4 * F_ * H * S * S * hd)])}
+        lib = timings(lambda: sdpa(q.transpose(1, 2), k.transpose(1, 2),
+                                   v.transpose(1, 2), scale=scale))
+        rec.update({"library_ms": lib["ms"], "library_chained_ms": lib["chained_ms"]})
+        print(f"{name} {shape}: kernel {timing_text(rec)}, plain version "
               f"{rec['plain_ms']:.4f} ms, scaled_dot_product_attention "
-              f"{rec['library_ms']:.4f} ms, bound {rec['bound_ms']:.4f} ms "
-              f"({rec['bound_by']}) (median of 100; {card})", flush=True)
+              f"{timing_text(lib)}, bound {rec['bound_ms']:.4f} ms "
+              f"({rec['bound_by']}) (medians of 100; {card})", flush=True)
         records.append(rec)
     torch.cuda.empty_cache()
     return records
@@ -1452,7 +1586,14 @@ def main_path_phase(work: Path, records: list, card: str) -> None:
     for rec in records:
         rec["launches"] = run_of.get(rec["name"], {"launches": {rec["name"]: 0}})[
             "launches"][rec["name"]]
-    p50_phase(card)
+    batched = p50_phase(card)
+    for rec in records:
+        if rec["name"] in ("cosine_topk_fused", "cosine_topk_fused_int8"):
+            rec["launches_by_path"] = {
+                "database_cli": rec["launches"],
+                **{f"database batched {d}": c[rec["name"]] for d, c in batched.items()
+                   if c[rec["name"]]}}
+            rec["launches"] = sum(rec["launches_by_path"].values())
     cv_phase(work, bf16["npz"], manifest_path, encoders["int8"], card)
     throughput_phase(encoders, card)
     del encoders, plain_cpu, int8_cpu

@@ -8,8 +8,10 @@ image_matrix, text_matrix}), clinical text rendered from the manifest's
 meta, and per-patient slice sampling with mean pooling. The CV math runs
 in ``eval/cv.py`` on ``--device`` (default ``cuda``; ``--device cpu`` asks
 for the CPU). Encoders come from the port's factory, which raises for a
-family not ported yet; ``--vlm_review`` raises ``NotImplementedError``
-until the step4 judge is ported (ROADMAP.md Queue 1).
+family not ported yet; ``--vlm_review`` raises ``NotImplementedError``:
+the step4 judge is ported, but the review module it drives
+(``emr2a_tpu/judge/review.py``, ``VLMReviewModule``) is not yet
+(ROADMAP.md Queue 1 item 2).
 
     python -m emr2a_tpu_torch.analysis.run_cv_experiments \
         --experiment_id demo --skip_encoding \
@@ -232,8 +234,9 @@ def run_experiment(args, config: BaseConfig, experiment_id: str,
                    enable_vlm_review: bool = False) -> Dict:
     if enable_vlm_review:
         raise NotImplementedError(
-            "--vlm_review needs the step4 Qwen3-VL judge, which is not ported "
-            "to emr2a_tpu_torch yet (ROADMAP.md Queue 1, the step4 judge)")
+            "--vlm_review needs judge/review.py (VLMReviewModule), which is "
+            "not ported to emr2a_tpu_torch yet (ROADMAP.md Queue 1 item 2); "
+            "the step4 judge itself is ported")
     logger.info("Running experiment: %s", experiment_id)
     manifest = load_manifest(args.manifest_path)
     logger.info("Loaded %d records from manifest", len(manifest))

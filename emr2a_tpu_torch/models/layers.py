@@ -4,21 +4,22 @@ Port of ``emr2a_tpu/models/layers.py``. Dense projections keep the JAX
 package's (in, out) ``kernel`` layout (``Dense``), so the fused kernels take
 the module's weights as they are, with no transpose per call.
 
-Routing of ``TransformerBlock``: with ``fused_attn`` / ``fused_mlp`` set, a
-3-D input goes through the fused ops (``ops/attention_block.py``,
-``ops/mlp.py``) whenever the attention has no external mask and has q/k/v
-biases, the conditions of ``emr2a_tpu/models/layers.py:145-146``. The JAX
-package also gates on a model of the TPU's VMEM; the port has no such gate,
-so these shapes route differently:
-
-- d=1024, mlp 4096 (ViT-L class) bf16 MLP: JAX runs the unfused einsum MLP
-  (exact erf gelu, weights over its VMEM budget); the port runs the fused
-  op (tanh gelu).
-- ViT-L/14 at 336 px (S=577) attention: JAX runs the einsum path; the port
-  sends it to the fused op, whose CUDA kernel takes sequences up to 384
-  and raises there.
-- On the CPU every shape with the flag set takes the fused op's plain
-  version, whatever its size.
+Routing of ``TransformerBlock``, the reference's rule
+(``emr2a_tpu/models/layers.py:145-153,207-220``): with ``fused_attn`` set, a
+3-D input without an external mask, with q/k/v biases, takes the fused
+attention op (``ops/attention_block.py``) only where the port's copy of
+``pick_fused_attn_params`` returns a configuration (weight itemsize 1 for
+``Int8Dense`` projections, else 2); with ``fused_mlp`` set, a 3-D input
+takes the fused MLP op (``ops/mlp.py``) only where ``2 d mlp itemsize +
+256 (mlp + d) 4 < 14 MiB`` (itemsize 1 for int8, else 2). Both rules model
+a TPU core's VMEM; the port keeps them so that every shape takes the
+reference's function: the fused MLP's tanh gelu or the unfused MLP's erf
+gelu, and the unfused attention with the ``valid_len`` key mask where the
+rule refuses (ViT-L/336 at S = 577, a 1024 x 4096 bf16 MLP). The chosen
+``block_b`` / ``head_group`` are not passed on: the CUDA kernels have no
+such knobs (a recorded divergence). The rule admits some shapes that the
+CUDA attention kernels refuse (S > 384, e.g. ViT-B at S = 577); no ported
+entry point reaches them.
 
 W8A8 params are routed by what they hold, as the JAX package's
 ``_QuantRoutingModule`` does: ``load_params`` replaces every ``Dense`` whose
@@ -41,8 +42,10 @@ import torch.nn.functional as F
 from torch import nn
 
 from emr2a_tpu_torch.ops.attention_block import (
+    VMEM_BUDGET_BYTES,
     fused_ln_attention,
     fused_ln_attention_int8,
+    pick_fused_attn_params,
 )
 from emr2a_tpu_torch.ops.linear_int4 import int4_group, linear_w4a8
 from emr2a_tpu_torch.ops.linear_int8 import linear_w8a8
@@ -205,14 +208,23 @@ class Mlp(nn.Module):
         return self.fc2(ACTIVATIONS[self.activation](self.fc1(x)))
 
 
+def fused_mlp_fits(d: int, mlp_dim: int, weight_itemsize: int) -> bool:
+    """The reference's residency rule for the fused MLP
+    (``emr2a_tpu/models/layers.py:214-220``): both weights and a 256-row f32
+    tile of the hidden and output under 14 MiB."""
+    return (2 * d * mlp_dim * weight_itemsize
+            + 256 * (mlp_dim + d) * 4) < VMEM_BUDGET_BYTES
+
+
 class TransformerBlock(nn.Module):
     """Pre-LN block: x + attn(ln1(x)); x + mlp(ln2(x)).
 
     ``fused_attn`` / ``fused_mlp`` route each half through its fused op
-    (see the module docstring); the fused MLP evaluates gelu in the tanh
-    approximation. ``valid_len`` (a forward argument) marks the rows that
-    are real when the caller keeps its token axis pre-padded: later rows
-    are masked as keys and are junk as outputs.
+    where the reference's rule admits the shape (see the module docstring);
+    the fused MLP evaluates gelu in the tanh approximation. ``valid_len`` (a
+    forward argument) marks the rows that are real when the caller keeps
+    its token axis pre-padded: later rows are masked as keys and are junk
+    as outputs.
     """
 
     def __init__(self, hidden_size: int, num_heads: int, mlp_dim: int,
@@ -222,6 +234,7 @@ class TransformerBlock(nn.Module):
                  device=None):
         super().__init__()
         self.num_heads = num_heads
+        self.mlp_dim = mlp_dim
         self.ln_eps = ln_eps
         self.qkv_bias = qkv_bias
         self.fused_mlp = fused_mlp
@@ -236,9 +249,12 @@ class TransformerBlock(nn.Module):
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None,
                 valid_len: Optional[int] = None) -> torch.Tensor:
         a = self.attn
-        if self.fused_attn and x.dim() == 3 and mask is None and self.qkv_bias:
+        w8 = isinstance(a.q_proj, Int8Dense)
+        if (self.fused_attn and x.dim() == 3 and mask is None and self.qkv_bias
+                and pick_fused_attn_params(x.shape[-1], x.shape[1], self.num_heads,
+                                           weight_itemsize=1 if w8 else 2)):
             projs = (a.q_proj, a.k_proj, a.v_proj, a.out_proj)
-            if isinstance(a.q_proj, Int8Dense):
+            if w8:
                 x = fused_ln_attention_int8(
                     x, self.ln1.weight, self.ln1.bias,
                     *(t for p in projs
@@ -258,9 +274,11 @@ class TransformerBlock(nn.Module):
                 mask = torch.where(key_pos < valid_len, 0.0,
                                    torch.finfo(torch.float32).min)
             x = x + a(self.ln1(x), mask)
-        if self.fused_mlp and x.dim() == 3:
+        fc1, fc2 = self.mlp.fc1, self.mlp.fc2
+        if (self.fused_mlp and x.dim() == 3
+                and fused_mlp_fits(x.shape[-1], self.mlp_dim,
+                                   1 if isinstance(fc1, Int8Dense) else 2)):
             B, S, d = x.shape
-            fc1, fc2 = self.mlp.fc1, self.mlp.fc2
             if isinstance(fc1, Int8Dense):
                 out = fused_ln_mlp_int8(
                     x.reshape(B * S, d), self.ln2.weight, self.ln2.bias,

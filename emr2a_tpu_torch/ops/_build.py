@@ -78,11 +78,11 @@ def build() -> Path:
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                 text=True)))
         log = []
-        for cmd, _, proc in jobs:
+        for j, (cmd, _, proc) in enumerate(jobs):
             text = proc.communicate()[0]
             log.append(f"$ {' '.join(cmd)}\n{text}")
             if proc.returncode != 0:
-                for _, _, other in jobs:
+                for _, _, other in jobs[j + 1:]:
                     other.communicate()
                 raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log[-1]}")
         lib = Path(tmp) / out.name

@@ -46,6 +46,13 @@ quantized per row; q/k/v = (acc * row scale) * column scale + b, rounded to
 row unrounded; the out-proj rescaled + bo, rounded, then the residual add.
 A CUDA tensor goes to ``csrc/attention_block_int8.cu`` (same limits as K3),
 or the call raises. ``INT8_LAUNCHES`` counts the calls that went to it.
+
+``fused_attn_vmem_bytes`` and ``pick_fused_attn_params`` are the port's
+copies of the JAX package's routing rule (the same functions of
+``emr2a_tpu/ops/attention_block.py``, a model of one TPU core's VMEM):
+``models/layers.TransformerBlock`` takes the fused op only where the rule
+returns a configuration, so the port routes every shape as the reference
+does.
 """
 
 from __future__ import annotations
@@ -70,6 +77,45 @@ KERNEL_MAX_SEQ = 384   # ATT_MAX_SP in csrc/attention_core.cuh
 LAUNCHES = 0
 MERGED_LAUNCHES = 0
 INT8_LAUNCHES = 0
+
+# The JAX package's working VMEM budget (emr2a_tpu/ops/attention_block.py)
+VMEM_BUDGET_BYTES = 14 * 1024 * 1024
+
+
+def _divisor_at_most(n: int, cap: int) -> int:
+    return next(g for g in range(min(cap, n), 0, -1) if n % g == 0)
+
+
+def fused_attn_vmem_bytes(d: int, S: int, num_heads: int, head_group: int,
+                          block_b: int, itemsize: int = 2,
+                          weight_itemsize: Optional[int] = None) -> int:
+    """The JAX package's VMEM estimate of one TPU grid step of the fused
+    block: four d x d weights, the k/v pad scratch, the double-buffered
+    in/out tiles, the f32 logits scratch, and for W8A8 weights the stack
+    temporaries."""
+    sq = -(-S // 8) * 8
+    sp = -(-sq // 128) * 128
+    hg = _divisor_at_most(num_heads, head_group)
+    total = (4 * d * d * (weight_itemsize or itemsize) + 2 * sp * d * itemsize
+             + 4 * block_b * sq * d * itemsize + hg * sq * sp * 4)
+    if weight_itemsize == 1:
+        total += block_b * sq * d * 5
+    return total
+
+
+def pick_fused_attn_params(d: int, S: int, num_heads: int,
+                           budget: int = VMEM_BUDGET_BYTES,
+                           weight_itemsize: int = 2):
+    """The largest (block_b, head_group) within the budget, batch blocking
+    first, as the JAX package picks it; None where even (1, 1) exceeds it,
+    and the caller then takes the unfused path."""
+    for block_b in (4, 2, 1):
+        for head_group in (6, 4, 3, 2, 1):
+            hg = _divisor_at_most(num_heads, head_group)
+            if fused_attn_vmem_bytes(d, S, num_heads, hg, block_b,
+                                     weight_itemsize=weight_itemsize) <= budget:
+                return block_b, hg
+    return None
 
 
 def fused_ln_attention_reference(x, ln_scale, ln_bias, wq, bq, wk, bk, wv, bv,

@@ -21,8 +21,25 @@ has no other route there: ``torch.matmul`` takes no s8 operands on CUDA and
 
 A CPU tensor goes to the ``*_reference`` plain version; a CUDA tensor goes
 to ``csrc/topk.cu`` (dim % 8 == 0, dim <= 1024), or the call raises. On
-both, ``1 <= k <= K_MAX`` and ``k <= n_valid``, else ``ValueError``.
-``LAUNCHES`` and ``INT8_LAUNCHES`` count the calls that went to the kernel.
+both, any ``1 <= k <= n_valid``, else ``ValueError``, as the JAX scans take
+any k.
+
+K6 has two scans on the card, both hand-written: the streaming scan (the
+queries in registers, one warp-reduced dot product per row; k at most
+``SCAN_K_MAX``) and the tile scan (a tile of up to 64 queries in shared
+memory, DB tiles through a cp.async ring, scores by mma.sync for bf16 and
+s8, register-tiled FFMA for f32; any k). The wrapper takes the tile scan
+from ``TILE_MIN_Q[storage]`` queries on, or for ``k > SCAN_K_MAX``. The
+crossover, measured by ``chip_smoke.py`` at 1M x 512, k = 5, q in
+{1, 4, 8, 16, 32, 64} on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md,
+section 6): in f32 the tile scan is faster from q = 8 (it is bound by
+FFMA, the streaming scan by bytes); in bf16 and int8 it matches the
+streaming scan at q = 1 to 4 and wins from q = 8. So q = 1 keeps the
+streaming scan, and the tile scan starts at q = 8 (f32) and q = 4 (bf16,
+int8).
+``LAUNCHES`` and ``INT8_LAUNCHES`` count the calls that went to the kernel
+(either scan); ``TILE_LAUNCHES`` counts those of them that took the tile
+scan.
 """
 
 from __future__ import annotations
@@ -37,12 +54,15 @@ from emr2a_tpu_torch.ops.quant import s8_matmul
 from emr2a_tpu_torch.ops.similarity import l2_normalize_rows
 
 NEG_INF = -3.4e38   # the mask value of emr2a_tpu/ops/topk.py
-K_MAX = 64          # TOPK_KMAX in csrc/topk.cu
+SCAN_K_MAX = 64     # TOPK_KMAX in csrc/topk.cu: the streaming scan's lists
 DIM_MAX = 1024      # TOPK_DIM_MAX
-ROWS_MIN = 256      # fewest rows a chunk of the scan is given
+ROWS_MIN = 256      # fewest rows a chunk of the streaming scan is given
+# queries from which the tile scan is taken, by storage type (dtype code)
+TILE_MIN_Q = {0: 8, 1: 4, 2: 4}
 
 LAUNCHES = 0
 INT8_LAUNCHES = 0
+TILE_LAUNCHES = 0
 
 
 def topk_scores(scores: torch.Tensor, k: int
@@ -119,8 +139,8 @@ def _check(queries, database, k, n_valid) -> int:
     n_valid = n if n_valid is None else int(n_valid)
     if not 0 < n_valid <= n:
         raise ValueError(f"n_valid must be in [1, {n}], got {n_valid}")
-    if not 1 <= k <= K_MAX:
-        raise ValueError(f"k must be in [1, {K_MAX}], got {k}")
+    if k < 1:
+        raise ValueError(f"k must be at least 1, got {k}")
     if k > n_valid:
         raise ValueError(f"k={k} exceeds the {n_valid} valid rows")
     return n_valid
@@ -132,26 +152,40 @@ def _launch(queries, database, db_scales, dtype_code, k, n_valid):
         raise ValueError(f"the kernel needs dim divisible by 8 and at most "
                          f"{DIM_MAX}, got {dim}")
     dev = database.device
-    # two chunks per SM fill the card at q = 1; every chunk gets ROWS_MIN rows
-    chunks = max(1, min(2 * _build.sm_count(dev.index or 0), -(-n_valid // ROWS_MIN)))
-    rows_per_chunk = -(-n_valid // chunks)
+    sms = _build.sm_count(dev.index or 0)
+    tile = nq >= TILE_MIN_Q[dtype_code] or k > SCAN_K_MAX
+
+    import ctypes
+    p, i = ctypes.c_void_p, ctypes.c_int
+    if tile:
+        plan = _build.kernel_function("emr2a_cosine_topk_tc_chunks", [i] * 6)
+        chunks = plan(dtype_code, nq, n_valid, dim, k, sms)
+        if chunks < 1:
+            raise ValueError(f"the tile scan refuses nq={nq}, n_valid={n_valid}, "
+                             f"dim={dim}, k={k}")
+    else:
+        # two chunks per SM fill the card at q = 1; every chunk gets ROWS_MIN rows
+        chunks = max(1, min(2 * sms, -(-n_valid // ROWS_MIN)))
     cand_val = torch.empty((chunks, nq, k), dtype=torch.float32, device=dev)
     cand_idx = torch.empty((chunks, nq, k), dtype=torch.int32, device=dev)
     out_val = torch.empty((nq, k), dtype=torch.float32, device=dev)
     out_idx = torch.empty((nq, k), dtype=torch.int32, device=dev)
-
-    import ctypes
-    p, i = ctypes.c_void_p, ctypes.c_int
-    fn = _build.kernel_function("emr2a_cosine_topk", [p, p, p] + [i] * 7
-                                + [p] * 5)
-    stream = torch.cuda.current_stream(dev).cuda_stream
+    operands = (queries.data_ptr(), database.data_ptr(),
+                None if db_scales is None else db_scales.data_ptr(),
+                dtype_code, nq, n_valid, dim, k)
+    scratch = (cand_val.data_ptr(), cand_idx.data_ptr(), out_val.data_ptr(),
+               out_idx.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
     with torch.cuda.device(dev):
-        err = fn(queries.data_ptr(), database.data_ptr(),
-                 None if db_scales is None else db_scales.data_ptr(),
-                 dtype_code, nq, n_valid, dim, k, chunks, rows_per_chunk,
-                 cand_val.data_ptr(), cand_idx.data_ptr(), out_val.data_ptr(),
-                 out_idx.data_ptr(), stream)
+        if tile:
+            fn = _build.kernel_function("emr2a_cosine_topk_tc", [p, p, p] + [i] * 7 + [p] * 5)
+            err = fn(*operands, sms, chunks, *scratch)
+        else:
+            fn = _build.kernel_function("emr2a_cosine_topk", [p, p, p] + [i] * 7 + [p] * 5)
+            err = fn(*operands, chunks, -(-n_valid // chunks), *scratch)
     _build.check(err, "cosine_topk_fused")
+    if tile:
+        global TILE_LAUNCHES
+        TILE_LAUNCHES += 1
     return out_val, out_idx
 
 

@@ -12,10 +12,14 @@ to the working dtype, then P.V.
 
 A CPU tensor goes to ``frame_flash_attention_reference``; a CUDA tensor goes
 to ``csrc/frame_attention.cu`` (bf16, contiguous, hd a multiple of 8 up to
-128) or the call raises. The kernel streams K and V in tiles with an online
-softmax and rounds the unnormalised probabilities to bf16, so it agrees with
-the plain version to bf16's precision, not bit for bit. It masks the keys
-past S by bounds, so JAX's ``pad_multiple`` has no counterpart.
+128) or the call raises. The kernel streams K and V through a 3-stage
+cp.async ring of 64-key tiles with an online softmax (``ex2.approx``, the
+scale folded into one FFMA), 32 query rows a warp (256 a block from
+S = 512) on mma.sync with ldmatrix fragments, and rounds the unnormalised
+probabilities to bf16, so
+it agrees with the plain version to bf16's precision, not bit for bit. It
+masks the keys past S by bounds, so JAX's ``pad_multiple`` has no
+counterpart.
 ``LAUNCHES`` counts the calls that went to the kernel.
 """
 

@@ -11,8 +11,7 @@ lives on one device (``device``, default ``cuda``) in its storage dtype:
   ``use_pallas=True``, the fused kernel K6 (``ops/topk.cosine_topk_fused``);
 - ``torch.int8``: per-row codes and f32 scales (``quantize_rows_int8``), and
   the scan is always K6's int8 variant (``cosine_topk_fused_int8``), on the
-  card the kernel and on the CPU its plain version. ``k`` is then at most
-  ``ops/topk.K_MAX``.
+  card the kernel and on the CPU its plain version, for any k.
 
 Reserving ``capacity`` keeps the buffer's shape: ``add_cases`` writes the
 new rows in place (an in-place update, where JAX donates the buffer); past

@@ -31,7 +31,7 @@ returns each measurement's ms and the number of step calls it made, so a
 caller can hold the kernels' launch counts against it.
 
 The 224x224 uint8 images of ``full``, ``stem`` and ``batches`` need no
-device resize; an input that did would raise (``ops/preprocess.py``).
+device resize (``ops/preprocess.py``), so those stages time none.
 """
 
 from __future__ import annotations

@@ -2,8 +2,9 @@
 (bf16) and K2, K4, K5 (W8A8) at ragged token counts including T = 1 and
 T < 32, short and maximal sequences, valid_len edges, all-zero rows, the
 row quantize's codes; K6 (the fused cosine top-k, f32, bf16 and int8) at
-ragged row counts, n_valid < n, k = 1 and k = K_MAX, several query counts
-and widths, and duplicated rows; K7 (the W4A8 linear) at T = 1 to 2048 on
+ragged row counts, n_valid < n, k = 1 to 1000, several query counts and
+widths, and duplicated rows, on both of its scans (the tile scan forced
+at every q); K7 (the W4A8 linear) at T = 1 to 2048 on
 both of its designs (GEMV up to 16 rows, GEMM above), duplicate and
 all-zero rows, and the card's int4 quantizer against the numpy one; K8 and
 K9 (the per-frame attention kernel) at ragged S, head dims 8 to 128 and
@@ -450,12 +451,60 @@ def test_cosine_topk_fused_ties_go_to_the_lowest_index(cuda, dtype):
         assert (gv[row, :5] == gv[row, 0]).all()
 
 
+_CODE = {torch.float32: 0, torch.bfloat16: 1, "int8": 2}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, "int8"])
+@pytest.mark.parametrize("q,n,dim,k,n_valid", [
+    (8, 5000, 64, 1, None), (16, 3001, 512, 5, 2999), (64, 20000, 1024, 64, 19000),
+    (100, 4097, 512, 65, None), (64, 3000, 64, 1000, 2500), (100, 1500, 1024, 1000, None),
+    (8, 777, 40, 5, 700), (16, 129, 512, 129, None),
+])
+def test_cosine_topk_tile_scan_matches_plain(cuda, monkeypatch, dtype, q, n, dim, k, n_valid):
+    """K6's tile scan (tensor cores for bf16 and s8, FFMA for f32), forced
+    at every q: ragged n, n_valid < n, k past the streaming scan's 64 up to
+    1000 and up to n_valid."""
+    monkeypatch.setitem(topk.TILE_MIN_Q, _CODE[dtype], 1)
+    gen = torch.Generator(device="cuda").manual_seed(n + dim + k)
+    queries, db = _topk_inputs(gen, q, n, dim, dtype)
+    before = topk.TILE_LAUNCHES
+    got, want = _run_topk(dtype, queries, db, k, n_valid)
+    torch.cuda.synchronize()
+    assert topk.TILE_LAUNCHES == before + 1
+    assert got[1].shape == (q, k) and got[1].max().item() < (n_valid or n)
+    if dtype == "int8":
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    else:
+        scores = queries.to(dtype).float() @ db[0].float().T
+        assert_topk_agrees(got, want, scores)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, "int8"])
+@pytest.mark.parametrize("k", [5, 70])
+def test_cosine_topk_tile_scan_ties_go_to_the_lowest_index(cuda, monkeypatch, dtype, k):
+    """Equal rows in other tiles and chunks of the tile scan: the lowest
+    index first, at a k inside and past the streaming scan's lists."""
+    monkeypatch.setitem(topk.TILE_MIN_Q, _CODE[dtype], 1)
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    queries, db = _topk_inputs(gen, 20, 40000, 512, dtype)
+    dups = [5, 127, 128, 20001, 39998]      # one tile edge, other chunks
+    for t in db:
+        t[dups[1:]] = t[dups[0]].clone()
+    queries[:3] = (db[0][dups[0]].float() if dtype != "int8"
+                   else db[0][dups[0]].float() * db[1][dups[0]])
+    (gv, gi), _ = _run_topk(dtype, queries, db, k, None)
+    torch.cuda.synchronize()
+    for row in range(3):
+        assert gi[row, :5].tolist() == dups
+        assert (gv[row, :5] == gv[row, 0]).all()
+
+
 def test_cosine_topk_fused_refuses_what_the_kernel_does_not_take(cuda):
     gen = torch.Generator(device="cuda").manual_seed(4)
     queries, (db,) = _topk_inputs(gen, 2, 500, 96, torch.float32)
     before = topk.LAUNCHES
-    with pytest.raises(ValueError, match="k must be"):
-        topk.cosine_topk_fused(queries, db, topk.K_MAX + 1)
+    with pytest.raises(ValueError, match="valid rows"):
+        topk.cosine_topk_fused(queries, db, 501)
     with pytest.raises(ValueError, match="k must be"):
         topk.cosine_topk_fused(queries, db, 0)
     with pytest.raises(ValueError, match="valid rows"):
@@ -543,7 +592,8 @@ def _assert_attention_close(got, want):
 
 
 @pytest.mark.parametrize("F,S,H,hd", [(7, 1024, 16, 72), (2, 197, 4, 72), (1, 1, 2, 64),
-                                      (3, 65, 2, 128), (2, 130, 3, 8), (1, 256, 16, 72)])
+                                      (3, 65, 2, 128), (2, 130, 3, 8), (1, 256, 16, 72),
+                                      (1, 1000, 16, 72), (2, 1024, 4, 128), (1, 129, 3, 40)])
 def test_frame_flash_attention_kernel_matches_plain(cuda, F, S, H, hd):
     gen = torch.Generator(device="cuda").manual_seed(S + hd)
     q, k, v = (_rn(gen, F, S, H, hd) for _ in range(3))
@@ -557,7 +607,7 @@ def test_frame_flash_attention_kernel_matches_plain(cuda, F, S, H, hd):
 
 
 @pytest.mark.parametrize("B,S,H,D", [(32, 197, 12, 64), (2, 100, 2, 32), (3, 50, 1, 16),
-                                     (1, 128, 2, 72)])
+                                     (1, 128, 2, 72), (4, 197, 12, 128), (2, 257, 2, 64)])
 def test_fused_attention_kernel_matches_plain(cuda, B, S, H, D):
     gen = torch.Generator(device="cuda").manual_seed(B * S)
     q, k, v = (_rn(gen, B, S, H, D) for _ in range(3))

@@ -320,7 +320,7 @@ def test_vlm_review_and_unported_encoders_raise(dataset, tmp_path, monkeypatch):
     base = ["--manifest_path", str(dataset), "--output_dir", str(tmp_path / "out"),
             "--image_encoder", "fake", "--text_encoder", "fake",
             "--experiment_id", "vr", "--device", "cpu"]
-    with pytest.raises(NotImplementedError, match="step4"):
+    with pytest.raises(NotImplementedError, match=r"judge/review\.py"):
         port_runner.main(base + ["--vlm_review"])
     with pytest.raises(NotImplementedError, match="not yet ported"):
         port_runner.load_or_encode_embeddings(

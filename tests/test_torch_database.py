@@ -67,6 +67,16 @@ def test_dtypes_match_jax(rng, dtype):
     assert int(tdb.topk(extra[:1], 1)[1][0, 0]) == 400
 
 
+@pytest.mark.parametrize("k", [65, 100])
+def test_int8_topk_large_k_matches_jax(rng, k):
+    """The int8 database answers any k, as JAX's int8 scan does: k past the
+    streaming scan's 64, on a buffer with reserved capacity (n_valid < n)."""
+    emb = rng.randn(300, 64).astype(np.float32)
+    queries = emb[:8] + 0.05 * rng.randn(8, 64).astype(np.float32)
+    jdb, tdb = _pair(emb, "int8", capacity=320)
+    _assert_same(jdb.topk(queries, k), tdb.topk(queries, k), "int8")
+
+
 def test_search_metadata_single_vector_and_k_clamp(rng):
     db = rng.randn(40, 16).astype(np.float32)
     labels = [f"L{i % 4}" for i in range(40)]

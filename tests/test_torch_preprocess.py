@@ -1,5 +1,7 @@
-"""Port preprocessing against ``emr2a_tpu.ops.preprocess`` on inputs that
-need no resize (the only inputs the step2 engine hands it)."""
+"""Port preprocessing against ``emr2a_tpu.ops.preprocess``: inputs that
+need no resize (the only inputs the step2 engine hands it), and the device
+resize (``jax.image.resize(..., antialias=True)``) when downscaling,
+upscaling and resizing exactly, bicubic and bilinear."""
 
 import dataclasses
 
@@ -37,10 +39,40 @@ def test_preprocess_matches_jax(rng, h, w, resize):
     np.testing.assert_allclose(got.numpy(), want, atol=1e-6)
 
 
-def test_device_resize_is_not_ported(rng):
-    images = torch.zeros((1, 300, 300, 3), dtype=torch.uint8)
-    with pytest.raises(NotImplementedError, match="resize"):
-        port_pre.preprocess_images(images, port_pre.BIOMEDCLIP_PREPROCESS)
+@pytest.mark.parametrize("h,w,fields", [
+    (300, 400, dict()),                                      # downscale, bicubic
+    (150, 150, dict()),                                      # upscale, bicubic
+    (300, 260, dict(shortest_edge=False, method="bilinear")),  # exact, bilinear
+    (180, 333, dict(shortest_edge=False)),                   # exact, bicubic
+])
+def test_device_resize_matches_jax(rng, h, w, fields):
+    """The device resize against ``jax.image.resize(antialias=True)``
+    through JAX's ``preprocess_images``, within 2e-5 in pixel units (the
+    outputs times the spec's std). The port's weight matrices equal JAX's
+    eager ones within 1e-7 (the test below); under ``jit`` XLA reassociates
+    the f32 sample positions (an ulp of 3e-5 at 300 pixels), which moves
+    JAX's own weights by up to 1.1e-5."""
+    jax_spec = jax_pre.PreprocessSpec(**fields)
+    port_spec = port_pre.PreprocessSpec(**fields)
+    images = (rng.rand(2, h, w, 3) * 255).astype(np.uint8)
+    want = np.asarray(jax_pre.preprocess_images(jnp.asarray(images), jax_spec))
+    got = port_pre.preprocess_images(torch.from_numpy(images), port_spec)
+    assert got.dtype == torch.float32 and got.shape == want.shape == (2, 224, 224, 3)
+    std = np.asarray(port_spec.std, np.float32)
+    np.testing.assert_allclose(got.numpy() * std, want * std, rtol=0, atol=2e-5)
+
+
+@pytest.mark.parametrize("n_in,n_out", [(300, 224), (150, 224), (7, 3), (224, 224)])
+@pytest.mark.parametrize("method", ["bicubic", "bilinear"])
+def test_resize_weights_match_jax(n_in, n_out, method):
+    """One axis's weight matrix against JAX's eager ``compute_weight_mat``
+    (f32, within 1e-6)."""
+    from jax._src.image.scale import _kernels, compute_weight_mat
+    import jax.image
+    kind = jax.image.ResizeMethod.CUBIC if method == "bicubic" else jax.image.ResizeMethod.LINEAR
+    want = compute_weight_mat(n_in, n_out, n_out / n_in, 0.0, _kernels[kind], True)
+    got = port_pre.resize_weights(n_in, n_out, method)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=1e-6)
 
 
 @pytest.mark.parametrize("n,k,mode", [(40, 4, "uniform"), (41, 4, "random"),

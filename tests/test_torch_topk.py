@@ -118,12 +118,59 @@ def test_cosine_topk_fused_int8_matches_the_jax_int8_db(rng):
 
 
 def test_cosine_topk_fused_k_limits(rng):
-    db = torch.from_numpy(_unit(rng.randn(100, 16)))
-    q = db[:2]
-    for k in (0, port_topk.K_MAX + 1):
-        with pytest.raises(ValueError, match="k must be"):
-            port_topk.cosine_topk_fused(q, db, k)
+    """Any 1 <= k <= n_valid, as the JAX scans take any k: k = 65 and 100
+    (past the streaming scan's lists) equal JAX's Pallas kernel in interpret
+    mode (indices exact, values within 1e-5); k = 0 and k > n_valid raise."""
+    db = _unit(rng.randn(300, 16))
+    q = db[:2] + 0.01
+    for k in (65, 100):
+        want_v, want_i = jax_topk.cosine_topk_pallas(
+            jnp.asarray(q), jnp.asarray(db), k, tile=128, interpret=True)
+        got_v, got_i = port_topk.cosine_topk_fused(torch.from_numpy(q),
+                                                   torch.from_numpy(db), k)
+        assert got_v.shape == (2, k) and got_i[:, 0].tolist() == [0, 1]
+        np.testing.assert_array_equal(got_i.numpy(), np.asarray(want_i))
+        np.testing.assert_allclose(got_v.numpy(), np.asarray(want_v), rtol=1e-4, atol=1e-5)
+    dbt = torch.from_numpy(db)
+    with pytest.raises(ValueError, match="k must be"):
+        port_topk.cosine_topk_fused(dbt[:2], dbt, 0)
     with pytest.raises(ValueError, match="valid rows"):
-        port_topk.cosine_topk_fused(q, db, 11, n_valid=10)
-    v, i = port_topk.cosine_topk_fused(q, db[:port_topk.K_MAX], port_topk.K_MAX)
-    assert v.shape == (2, port_topk.K_MAX) and i[:, 0].tolist() == [0, 1]
+        port_topk.cosine_topk_fused(dbt[:2], dbt, 11, n_valid=10)
+    with pytest.raises(ValueError, match="valid rows"):
+        port_topk.cosine_topk_fused(dbt[:2], dbt[:70], 71)
+
+
+@pytest.mark.parametrize("k,dtype", [(65, "bfloat16"), (100, "float32"), (100, "bfloat16")])
+def test_cosine_topk_fused_large_k_matches_pallas_interpret(rng, k, dtype):
+    """k past the streaming scan's 64 on a tail-padded DB with n_valid < n:
+    equal to the Pallas kernel over the first n_valid rows (indices exact,
+    values within rtol 1e-4, atol 1e-5)."""
+    qs = _unit(rng.randn(5, 40))
+    db = _unit(rng.randn(340, 40))
+    db[300:] = qs[0]                   # the best rows, all masked
+    want_v, want_i = jax_topk.cosine_topk_pallas(
+        jnp.asarray(qs), jnp.asarray(db[:300], dtype=getattr(jnp, dtype)), k,
+        tile=128, interpret=True)
+    got_v, got_i = port_topk.cosine_topk_fused(
+        torch.from_numpy(qs), torch.from_numpy(db).to(getattr(torch, dtype)), k, n_valid=300)
+    np.testing.assert_array_equal(got_i.numpy(), np.asarray(want_i))
+    np.testing.assert_allclose(got_v.numpy(), np.asarray(want_v), rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("k", [65, 100])
+def test_cosine_topk_fused_int8_large_k_matches_the_jax_int8_db(rng, k):
+    """The int8 variant at k past 64 against JAX's int8 database scan:
+    indices identical, values within 1e-6."""
+    from emr2a_tpu.retrieval.database import (
+        ShardedEmbeddingDatabase as JaxDB,
+        quantize_rows_int8,
+    )
+    emb = _unit(rng.randn(300, 48))
+    queries = _unit(emb[:6] + 0.1 * rng.randn(6, 48))
+    jdb = JaxDB(emb, dtype=jnp.int8, normalize=False)
+    want_v, want_i = jdb.topk(queries, k, normalize=False)
+    codes, scales = quantize_rows_int8(emb)
+    got_v, got_i = port_topk.cosine_topk_fused_int8(
+        torch.from_numpy(queries), torch.from_numpy(codes), torch.from_numpy(scales), k)
+    np.testing.assert_array_equal(got_i.numpy(), np.asarray(want_i))
+    np.testing.assert_allclose(got_v.numpy(), np.asarray(want_v), rtol=0, atol=1e-6)
