@@ -9,12 +9,14 @@ Phases, each of which fails the run (non-zero exit) if it fails:
 3. Kernels, each against its plain PyTorch version at the main path's
    shapes, with median times over 100 launches (CUDA events): K1 (fused
    LN+MLP) and K3 (fused LN+attention) at BioMedCLIP ViT-B/16 batch 32; K2
-   and K4 (their W8A8 variants) at the same shapes; K5 (W8A8 linear) at the
-   PubMedBERT shapes (T = 32 x 256: 768->768, 768->3072, 3072->768) and at
-   T = 32, and bit for bit at the int8 judge's eight (T = 2048 and T = 1 on
-   4096->4096, 4096->1024, 4096->12288, 12288->4096; T = 1, 4096->12288
-   also timed). The W8A8 kernels are also timed against a plain int8 yardstick
-   (their plain versions with ``torch._int_mm`` products). K6 (the fused
+   and K4 (their W8A8 variants) at the same shapes; K5 (W8A8 linear) bit
+   for bit at the PubMedBERT shapes (T = 32 x 256: 768->768, 768->3072,
+   3072->768), at T = 32, and at the int8 judge's eight (T = 2048 and T = 1
+   on 4096->4096, 4096->1024, 4096->12288, 12288->4096), each timed by
+   ``tools/time_linears.py`` (single quartiles and chained) beside cuBLAS
+   bf16 on the dequantized weight. K2, K4 and K5 are also timed against a
+   plain int8 yardstick (their plain versions with ``torch._int_mm``
+   products). K6 (the fused
    cosine top-k) at 1M x 512, k = 5, q = 1, 4, 8, 16, 32 and 64, in f32,
    bf16 and int8, on both of its scans (the streaming scan and the tile
    scan, forced in turn), and at k = 100, q = 64 (the tile scan), each
@@ -55,9 +57,8 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    1e-5.
 10. Throughput of the bf16 and the int8 tower at batch 128, in turns.
 11. Judge kernels: K7 (W4A8 linear) at the 8B's four projection shapes,
-    T = 1 and T = 2048, bit for bit against its plain version, beside
-    cuBLAS bf16 on the dequantized weight and (T = 2048) the plain version
-    with ``torch._int_mm`` products; the card's int8 and int4 weight
+    T = 1 and T = 2048, bit for bit against its plain version, timed as K5
+    beside cuBLAS bf16 on the dequantized weight; the card's int8 and int4 weight
     quantizers against the numpy ones on a 4096 x 12288 matrix; K8 (per-frame
     vision attention) at (7, 1024, 16, 72) and K9 (the same kernel's second
     entry) at ViT-B (32, 197, 12, 64) against their plain versions
@@ -67,7 +68,9 @@ Phases, each of which fails the run (non-zero exit) if it fails:
     in bf16, int8 and int4 (``QwenVLBackend``): one 7-image audit request
     of the cohort each, with every vision block on K8 and every decoder
     projection on K5 (int8) or K7 (int4); prefill and decode times (CUDA
-    events) and peak memory. Then the same weights cut to 2 vision blocks
+    events) and peak memory; the K5 / K7 calls of one more decode step and
+    the device launches their kernel library issued for them: one GEMV
+    launch a call, with no separate row quantize. Then the same weights cut to 2 vision blocks
     and 2 text layers, last-position prefill logits on the card against
     the plain versions on the CPU (cosine >= 0.9998 and max abs error <=
     0.2 in bf16, >= 0.997 and <= 0.75 in int8 and int4; the CPU's greedy
@@ -113,6 +116,8 @@ from pathlib import Path
 
 import numpy as np
 import torch
+
+from emr2a_tpu_torch.tools.time_linears import timing_text, timings
 
 
 # H100 SXM peaks (NVIDIA's data sheet, dense, 700 W)
@@ -178,42 +183,6 @@ def median_ms(fn, iters: int = 100, warmup: int = 5) -> float:
     return float(np.median(times))
 
 
-def timings(fn, iters: int = 100, warmup: int = 5, chain: int = 20, chains: int = 3) -> dict:
-    """The median and quartiles of ``iters`` launches, each timed alone
-    between two CUDA events (with the wrapper's host work), and the least
-    of ``chains`` chains of ``chain`` back-to-back launches between two
-    events, per launch."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(iters):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    chained = []
-    for _ in range(chains):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(chain):
-            fn()
-        end.record()
-        end.synchronize()
-        chained.append(start.elapsed_time(end) / chain)
-    q1, med, q3 = (float(x) for x in np.percentile(times, [25, 50, 75]))
-    return {"ms": med, "ms_q1": q1, "ms_q3": q3, "chained_ms": min(chained)}
-
-
-def timing_text(t: dict) -> str:
-    return (f"{t['ms']:.4f} ms (quartiles {t['ms_q1']:.4f}-{t['ms_q3']:.4f}; chained "
-            f"{t['chained_ms']:.4f})")
-
-
 def compare(name: str, got: torch.Tensor, want: torch.Tensor) -> float:
     """assert_close at atol = rtol = 1e-2 and per-row cosine >= 0.9999;
     returns the max abs error."""
@@ -248,6 +217,31 @@ def int_mm_version(module, fn, weights):
     return run
 
 
+def linear_record(kernel: str, card: str, extra=()) -> dict:
+    """K5 (``"k5"``) or K7 (``"k7"``) at ``tools/time_linears``'s shapes
+    (and ``extra``): each bit for bit against its plain version, with its
+    single and chained times, the plain version's and cuBLAS bf16's on the
+    dequantized weight. The record's head is the T = 1, 4096->12288 decode
+    shape for K7 and PubMedBERT's T = 8192, 768->3072 for K5."""
+    from emr2a_tpu_torch.tools import time_linears
+    shapes = []
+    for shape in (*time_linears.shapes_of(kernel), *extra):
+        try:
+            shapes.append(time_linears.shape_record(kernel, *shape))
+        except AssertionError as e:
+            fail(str(e))
+    name = {"k5": "linear_w8a8", "k7": "linear_w4a8"}[kernel]
+    head = next(r for r in shapes if r["shape"] == (
+        "T=8192, 768->3072" if kernel == "k5" else "T=1, 4096->12288"))
+    print(f"{name}: bit-identical to its plain version at {len(shapes)} shapes ({card})",
+          flush=True)
+    return {"name": name, "route": "cuda",
+            "source": f"emr2a_tpu_torch/csrc/{'linear_int8' if kernel == 'k5' else 'linear_int4'}.cu",
+            "replaces": ("emr2a_tpu/ops/linear_int8.py:148" if kernel == "k5"
+                         else "emr2a_tpu/ops/linear_int4.py:184"),
+            **head, "max_abs_err": 0.0, "shapes": shapes}
+
+
 def quantize_weight(w: torch.Tensor):
     """W8A8 codes and column scales, quantized on the card (the same bytes
     as the numpy recipe, checked in the judge kernel phase)."""
@@ -257,7 +251,7 @@ def quantize_weight(w: torch.Tensor):
 
 
 def kernel_phase(card: str) -> list:
-    from emr2a_tpu_torch.ops import attention_block, linear_int8, mlp, quant
+    from emr2a_tpu_torch.ops import attention_block, mlp, quant
 
     g = torch.Generator(device="cuda").manual_seed(0)
 
@@ -368,54 +362,12 @@ def kernel_phase(card: str) -> list:
     records.append(merged_attention_record(card, x, ln_s, ln_b, attn_w, H, valid_len,
                                            k3_bf16, g))
 
-    # K5 at the PubMedBERT shapes (T = 32 texts x 256 tokens) and at T = 32,
-    # timed; at every shape the int8 judge gives it, bit-identity only but
-    # for the decode's 4096 -> 12288, also timed: its prefill (T = 2048, the
-    # padded 2,016-token prompt) and its decode (T = 1) on the q/o, k/v,
-    # gate/up and down projections
-    shapes, errs = [], []
-    judge = [(T, K, N) for T in (2048, 1) for K, N in (
-        (4096, 4096), (4096, 1024), (4096, 12288), (12288, 4096))]
-    for T, K, N in ((32 * 256, 768, 768), (32 * 256, 768, 3072),
-                    (32 * 256, 3072, 768), (32, 768, 3072), *judge):
-        timed = (T, K, N) not in judge or (T, K, N) == (1, 4096, 12288)
-        xt = rn(T, K)
-        wq, ws = quantize_weight(rn(K, N, std=0.02))
-        bias = rn(N, std=0.02)
-        fn = lambda: linear_int8.linear_w8a8(xt, wq, ws, bias)
-        ref = lambda: linear_int8.linear_w8a8_reference(xt, wq, ws, bias)
-        got = fn()
-        torch.cuda.synchronize()
-        want = ref()
-        err = compare(f"linear_w8a8 T={T} {K}->{N}", got, want)
-        if not torch.equal(got, want):
-            fail(f"linear_w8a8 T={T} {K}->{N}: not bit-identical to its plain version")
-        errs.append(err)
-        if not timed:
-            print(f"linear_w8a8 T={T} {K}->{N}: bit-identical to its plain version "
-                  f"(the int8 judge's shape; not timed)", flush=True)
-            continue
-        xq, _ = quant.quantize_rows_s8_reference(xt)
-        w_cm = wq.t().contiguous().t()
-        shape = {"shape": f"T={T}, {K}->{N}", "max_abs_err": err,
-                 "ms": median_ms(fn), "plain_ms": median_ms(ref),
-                 **bound(nbytes(xt, wq, ws, bias) + T * N * 2, [("int8", 2 * T * K * N)]),
-                 "library_ms": None}
-        if T > 16:          # torch._int_mm needs more than 16 rows
-            shape["int_mm_ms"] = median_ms(int_mm_version(linear_int8, ref, (wq,)))
-            shape["int_mm_product_ms"] = median_ms(lambda: torch._int_mm(xq, w_cm))
-        print(f"linear_w8a8 T={T} {K}->{N}: kernel {shape['ms']:.4f} ms, plain "
-              f"version {shape['plain_ms']:.4f} ms, " + (
-                  f"int_mm {shape['int_mm_ms']:.4f} ms, the int_mm product alone "
-                  f"{shape['int_mm_product_ms']:.4f} ms" if T > 16 else "no int_mm yardstick")
-              + f", bound {shape['bound_ms']:.4f} ms ({shape['bound_by']}) "
-              f"(median of 100; {card})", flush=True)
-        shapes.append(shape)
-    head = shapes[1]
-    records.append({"name": "linear_w8a8", "route": "cuda",
-                    "source": "emr2a_tpu_torch/csrc/linear_int8.cu",
-                    "replaces": "emr2a_tpu/ops/linear_int8.py:148",
-                    **head, "max_abs_err": max(errs), "shapes": shapes})
+    # K5 at every shape the int8 judge gives it (the decoder's q/o, k/v,
+    # gate/up and down projections at its prefill, T = 2048, and its decode,
+    # T = 1), at the PubMedBERT shapes (T = 32 texts x 256 tokens) and at
+    # T = 32: bit for bit, single and chained times beside cuBLAS bf16 on the
+    # dequantized weight (tools/time_linears.py)
+    records.append(linear_record("k5", card, extra=((32, 768, 3072),)))
 
     # the shared row quantize: codes and scales equal the plain version's
     for xq in (x2, torch.randn(B * S, m, generator=g, device="cuda")):
@@ -1127,20 +1079,6 @@ CONTROL_OF = {"bf16": "int8", "int8": "int4", "int4": "int8"}
 STEP4_CASES, STEP4_NEW_TOKENS = 4, 64
 
 
-def w4_int_mm(x, wp, ws):
-    """K7's plain version with its s8 group products on ``torch._int_mm``
-    (cuBLAS int8), as a yardstick only."""
-    from emr2a_tpu_torch.ops import linear_int4, quant
-    xq, xs = quant.quantize_rows_s8_reference(x)
-    w = linear_int4.unpack_int4(wp, 128)
-    y = torch.zeros((x.shape[0], wp.shape[1]), device=x.device)
-    for g in range(ws.shape[0]):
-        sl = slice(g * 128, (g + 1) * 128)
-        acc = torch._int_mm(xq[:, sl].contiguous(), w[sl].t().contiguous().t())
-        y = y + acc.float() * ws[g]
-    return (y * xs).to(torch.bfloat16)
-
-
 def judge_kernel_phase(card: str) -> list:
     """K7 at the 8B projection shapes, the card's weight quantizers, K8 at
     the judge's vision shape and K9 at ViT-B."""
@@ -1152,52 +1090,20 @@ def judge_kernel_phase(card: str) -> list:
     def rn(*shape, std=1.0):
         return (torch.randn(*shape, generator=g, device="cuda") * std).to(torch.bfloat16)
 
-    shapes = []
-    for K, N in ((4096, 4096), (4096, 1024), (4096, 12288), (12288, 4096)):
-        w = rn(K, N, std=0.02)
-        wp, ws = linear_int4.quantize_weight_int4_torch(w.float())
-        if (K, N) == (4096, 12288):
-            # the card's quantizers give the numpy recipes' bytes
-            np_p, np_s = linear_int4.quantize_weight_int4(w.float().cpu().numpy())
-            q8, s8 = quantize_weight_int8_torch(w.float())
-            np_q8, np_s8 = mlp.quantize_weight_int8(w.float().cpu().numpy())
-            if not (np.array_equal(wp.cpu().numpy(), np_p) and np.array_equal(ws.cpu().numpy(), np_s)
-                    and np.array_equal(q8.cpu().numpy(), np_q8)
-                    and np.array_equal(s8.cpu().numpy(), np_s8)):
-                fail("the card's weight quantizers differ from the numpy recipes")
-            print("quantize_weight_int4/int8 on the card: bytes equal the numpy "
-                  "recipes' (4096 x 12288)", flush=True)
-        w_deq = (linear_int4.unpack_int4(wp, 128).float()
-                 * ws.repeat_interleave(128, dim=0)).to(torch.bfloat16)
-        for T in (1, 2048):
-            x = rn(T, K)
-            fn = lambda: linear_int4.linear_w4a8(x, wp, ws)
-            ref = lambda: linear_int4.linear_w4a8_reference(x, wp, ws)
-            got = fn()
-            torch.cuda.synchronize()
-            tag = f"linear_w4a8 T={T} {K}->{N}"
-            if not torch.equal(got, ref()):
-                fail(f"{tag}: not bit-identical to its plain version "
-                     f"({(got.float() - ref().float()).abs().max().item()})")
-            iters = 100 if T == 1 else 20
-            rec = {"shape": f"T={T}, {K}->{N}", "max_abs_err": 0.0,
-                   "ms": median_ms(fn), "plain_ms": median_ms(ref, iters=iters),
-                   **bound(nbytes(x, wp, ws) + T * N * 2, [("int8", 2 * T * K * N)]),
-                   "library_ms": None,
-                   "bf16_matmul_ms": median_ms(lambda: x @ w_deq)}
-            if T > 16:
-                rec["int_mm_ms"] = median_ms(lambda: w4_int_mm(x, wp, ws), iters=iters)
-            print(f"{tag}: bit-identical; kernel {rec['ms']:.4f} ms, plain version "
-                  f"{rec['plain_ms']:.4f} ms, bf16 matmul {rec['bf16_matmul_ms']:.4f} ms"
-                  + (f", int_mm plain {rec['int_mm_ms']:.4f} ms" if T > 16 else "")
-                  + f", bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}) "
-                  f"(median of 100, plain versions of {iters}; {card})", flush=True)
-            shapes.append(rec)
-        del w, wp, ws, w_deq
-    records = [{"name": "linear_w4a8", "route": "cuda",
-                "source": "emr2a_tpu_torch/csrc/linear_int4.cu",
-                "replaces": "emr2a_tpu/ops/linear_int4.py:184",
-                **shapes[4], "shapes": shapes}]
+    # the card's quantizers give the numpy recipes' bytes
+    w = rn(4096, 12288, std=0.02).float()
+    wp, ws = linear_int4.quantize_weight_int4_torch(w)
+    np_p, np_s = linear_int4.quantize_weight_int4(w.cpu().numpy())
+    q8, s8 = quantize_weight_int8_torch(w)
+    np_q8, np_s8 = mlp.quantize_weight_int8(w.cpu().numpy())
+    if not (np.array_equal(wp.cpu().numpy(), np_p) and np.array_equal(ws.cpu().numpy(), np_s)
+            and np.array_equal(q8.cpu().numpy(), np_q8)
+            and np.array_equal(s8.cpu().numpy(), np_s8)):
+        fail("the card's weight quantizers differ from the numpy recipes")
+    print("quantize_weight_int4/int8 on the card: bytes equal the numpy "
+          "recipes' (4096 x 12288)", flush=True)
+    del w, wp, ws, q8, s8
+    records = [linear_record("k7", card)]
 
     sdpa = torch.nn.functional.scaled_dot_product_attention
     for name, module, shape, replaces in (
@@ -1274,6 +1180,22 @@ def judge_bounds(model, prec: str, padded: int, grids, max_len: int) -> dict:
             "decode": bound(nbytes(*lm.values()) + cache)}
 
 
+def decode_step_kernels(step) -> dict:
+    """The K5 / K7 wrapper calls one call of ``step`` (a decode step) makes,
+    and the device launches their kernel library issues for them, by kind
+    (``ops/linear_int8.device_launches``)."""
+    from emr2a_tpu_torch.ops import linear_int4, linear_int8
+    torch.cuda.synchronize()
+    calls = linear_int8.LAUNCHES, linear_int4.LAUNCHES
+    before = linear_int8.device_launches()
+    step()
+    torch.cuda.synchronize()
+    after = linear_int8.device_launches()
+    return {"linear_w8a8 calls": linear_int8.LAUNCHES - calls[0],
+            "linear_w4a8 calls": linear_int4.LAUNCHES - calls[1],
+            **{kind: after[kind] - before[kind] for kind in after}}
+
+
 def judge_request(prec: str, backend, request: dict, card: str) -> dict:
     """One audit request through ``backend.generate`` with the counts reset
     just before; then prefill and decode timed with CUDA events."""
@@ -1307,7 +1229,7 @@ def judge_request(prec: str, backend, request: dict, card: str) -> dict:
     with torch.inference_mode():
         ids_t, pos_t, tl, patches_t, padded = gen.device_inputs(
             np.asarray([ids]), patches, tuple(grids), backend.prompt_bucket)
-        max_len = padded + DECODE_TOKENS
+        max_len = padded + DECODE_TOKENS + 1     # one more step, profiled
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
         torch.cuda.synchronize()
         ev[0].record()
@@ -1320,6 +1242,8 @@ def judge_request(prec: str, backend, request: dict, card: str) -> dict:
             token = torch.argmax(logits, dim=-1)
         ev[2].record()
         ev[2].synchronize()
+        kernels = decode_step_kernels(lambda: gen._decode_step(
+            cache, token, DECODE_TOKENS, padded, max_len, tl, npb))
     if not torch.isfinite(logits.float()).all():
         fail(f"judge {prec}: non-finite logits")
     tree = sum(t.numel() * t.element_size() for t in
@@ -1330,7 +1254,12 @@ def judge_request(prec: str, backend, request: dict, card: str) -> dict:
            "prefill_bound": bounds["prefill"], "decode_bound": bounds["decode"],
            "prompt_tokens": len(ids), "padded": padded, "wall_s": wall,
            "peak_gib": peak / 2**30, "tree_gib": tree / 2**30, "launches": launches,
-           "forwards": n_text[0]}
+           "forwards": n_text[0], "decode_kernels_per_token": kernels}
+    if kernel and not (kernels[f"{kernel} calls"] >= n_proj
+                       and kernels[f"{kernel} GEMV"] == kernels[f"{kernel} calls"]
+                       and sum(kernels.values()) == 2 * kernels[f"{kernel} calls"]):
+        fail(f"judge {prec}: a decode step's device kernels {kernels}: each {kernel} call "
+             f"should be one GEMV launch")
     print(f"judge {prec}: {len(request['images'])} images, {len(ids)} prompt tokens "
           f"(bucket {padded}); generate {DECODE_TOKENS} tokens in {wall:.2f} s "
           f"(host clock, {n_text[0]} decoder forwards); prefill "
@@ -1339,7 +1268,8 @@ def judge_request(prec: str, backend, request: dict, card: str) -> dict:
           f"ms/token (bound {bounds['decode']['bound_ms']:.3f}, bytes) (CUDA events, "
           f"{DECODE_TOKENS} steps); peak memory {out['peak_gib']:.2f} GiB with the "
           f"three trees resident (this tree {out['tree_gib']:.2f} GiB); launches "
-          f"{launches} ({card})", flush=True)
+          f"{launches}; one more decode step's K5/K7 calls and device launches "
+          f"{kernels} ({card})", flush=True)
     return out
 
 

@@ -14,7 +14,7 @@
 //
 // Bound on the H100: at ViT-B (B x 200 x 768, 12 heads of 64) the four
 // projections are ~8/9 of the operations, compute-bound on the tensor cores.
-// Design: five launches, built from the pieces of K3 and K5: (1) quant.cuh's
+// Design: five launches, built from the pieces of K3 and K2: (1) quant.cuh's
 // row pass fuses the LayerNorm and quantizes its f32 output; (2) one s8 GEMM
 // launch (gemm_s8.cuh) with blockIdx.z picking Wq/Wk/Wv writes bf16 Q/K/V;
 // (3) the attention core of K3 (attention_core.cuh) in its f32-output

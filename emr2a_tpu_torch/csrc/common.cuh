@@ -1,5 +1,5 @@
 // Helpers shared by the port's kernels: the bf16 type, 16-byte vectors,
-// warp reductions and the tanh gelu.
+// warp reductions, the tanh gelu and the s8/int4 byte transposes.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -54,6 +54,28 @@ __device__ __forceinline__ float gelu_tanh_bf16(float v) {
   c = round_bf16(__fadd_rn(c, 1.0f));
   c = round_bf16(__fmul_rn(c, 0.5f));
   return __fmul_rn(v, c);
+}
+
+// the 4x4 byte transpose: byte i of c[j] is byte j of w_i, so c[j] holds
+// column j of the four byte rows w0..w3
+__device__ __forceinline__ void transpose4x4(uint32_t w0, uint32_t w1, uint32_t w2, uint32_t w3,
+                                             uint32_t* c) {
+  const uint32_t t0 = __byte_perm(w0, w1, 0x5140);
+  const uint32_t t1 = __byte_perm(w2, w3, 0x5140);
+  const uint32_t t2 = __byte_perm(w0, w1, 0x7362);
+  const uint32_t t3 = __byte_perm(w2, w3, 0x7362);
+  c[0] = __byte_perm(t0, t1, 0x5410);
+  c[1] = __byte_perm(t0, t1, 0x7632);
+  c[2] = __byte_perm(t2, t3, 0x5410);
+  c[3] = __byte_perm(t2, t3, 0x7632);
+}
+
+// the four low (or, after >> 4, high) nibbles of a packed int4 word as s8
+// bytes (4-bit two's complement, sign-extended per byte): each byte
+// 0x80 | (nibble ^ 8) minus 8 borrows from no other byte, and the xor with
+// 0x80 leaves nibble - 16 * (nibble >= 8) in two's complement
+__device__ __forceinline__ uint32_t sext_nibbles(uint32_t w) {
+  return (((w & 0x0F0F0F0Fu) ^ 0x88888888u) - 0x08080808u) ^ 0x80808080u;
 }
 
 }  // namespace emr2a

@@ -1,6 +1,6 @@
 // s8 x s8 -> s32 tensor-core GEMM written by hand for Hopper (sm_90a), the
-// product of the W8A8 kernels K2 (mlp_int8.cu), K4 (attention_block_int8.cu)
-// and K5 (linear_int8.cu).
+// product of the W8A8 kernels K2 (mlp_int8.cu) and K4
+// (attention_block_int8.cu). K5 and K7 have their own (gemm_s8_wgmma.cuh).
 //
 //   y[z] = ((float)(A @ B[z]) * a_scale[row]) * b_scale[z][col] + bias[z][col]
 //                                                    z = blockIdx.z < 3
@@ -12,7 +12,7 @@
 // emr2a_tpu/ops/linear_int8.py:_s8_dot and the fused int8 kernels compute it.
 //
 // Epilogues:
-//   EPI_S8_BF16       out bf16 = bf16(y)                         (K5, K4 Q/K/V)
+//   EPI_S8_BF16       out bf16 = bf16(y)                         (K4 Q/K/V)
 //   EPI_S8_GELU_F32   out f32  = gelu_tanh(y)                    (K2 fc1)
 //   EPI_S8_RESIDUAL   out bf16 = residual + bf16(y)              (K2 fc2, K4 out-proj)
 //   EPI_S8_GELU_BF16  out f32  = gelu_tanh_bf16(bf16(y))         (K2 fc1, act_dtype=bf16)

@@ -1,0 +1,512 @@
+// The prefill path of the two quantized linears, K5 (W8A8, linear_int8.cu) and
+// K7 (W4A8, linear_int4.cu), for T > 16 rows: an s8 tensor-core GEMM on
+// Hopper's wgmma, fed by TMA through an mbarrier ring. The rows are quantized
+// first by quant.cuh's row pass (x codes (T, K) s8 and scales (T,) f32).
+//
+// Bound on the H100: the 2*T*K*N s8 operations over 1,979 TOP/s (T = 2,048
+// at the judge's widths; T = 8,192 at PubMedBERT's).
+//
+// Layout, and why the operands are swapped. For 8-bit types wgmma takes both
+// operands K-major only. The x codes (T, K) are K-major; the weights are
+// stored (K, N) with N contiguous (the JAX package's kernel_q and the packed
+// w_p), which is N-major. Rather than keep a second, transposed copy of every
+// weight on the card (the int8 decoder alone is 9.87 GiB), the block computes
+// Y^T = W^T X^T: the weight tile is wgmma's A operand, taken from registers,
+// and the x codes are its B operand, read from shared memory. Each thread
+// builds its A fragments from the TMA-loaded weight tile: shared loads of
+// its columns from four k rows, a byte transpose (transpose4x4, as in the
+// GEMV) and, for int4, sext_nibbles of the low and high nibbles.
+// The M rows of a warp's A fragment are permuted so that a thread's
+// fragment rows (rows g and g + 8 of each m64 tile it takes) are
+// consecutive weight columns: one shared load a k row gives them all, and
+// the epilogue writes them as consecutive outputs.
+//
+// Block: 128 weight columns x BT token rows, 384 threads. Warpgroup 2 is the
+// producer, its registers handed to the consumers by setmaxnreg (40 and
+// 232 a thread, where the launch gives each 168): one lane issues the TMA
+// loads of each stage (x codes: BT rows x 128 bytes; weights:
+// 128 rows x 128 columns in s8, or one group's 64 packed byte rows), both
+// with the 128-byte swizzle, into a ring of 4 stages with a full and an
+// empty mbarrier each. Warpgroups 0 and 1 are the consumers, each issuing per
+// stage 4 k-steps of wgmma m64nNTk32 s8 x s8 -> s32 on each of its m64 tiles:
+// - K5 (two m64 tiles a warpgroup, 4 columns a thread): the warpgroups split
+//   the tokens, BT = 2 NT, NT = 128 where 256-row blocks still fill the
+//   card, else 64;
+// - K7 (one m64 tile, 2 columns a thread): its f32 group sums double the
+//   registers a thread holds, so the warpgroups split the columns instead,
+//   64 each, over BT = NT = 192 token rows where those blocks still fill
+//   the card, else 128.
+// A stage is released when its wgmma group has completed; the next stage's
+// weight words are read meanwhile.
+// - K5: the s32 sums run over all of K; the epilogue computes
+//   ((f32(acc) * x_scale) * w_scale) + bias, as linear_w8a8_reference.
+// - K7: a stage is one 128-deep group; after its wgmma group completes, each
+//   thread folds the s32 tile into f32 sums in group order, y + f32(acc_g) *
+//   w_scale[g] (each one rounded multiply and one rounded add), then the
+//   epilogue applies the row scale and the bias, as linear_w4a8_reference.
+// Rows past T and k past K are TMA's zero fill. Bit-identical to the plain
+// versions.
+#pragma once
+
+#include <cuda.h>
+#include <dlfcn.h>
+
+#include "common.cuh"
+
+namespace emr2a {
+
+constexpr int WG_BM = 128;       // weight columns of a block (two m64 tiles)
+constexpr int WG_BK = 128;       // k of a stage (K7: one group)
+constexpr int WG_STAGES = 4;
+constexpr int WG_CONSUMERS = 256;                // two consumer warpgroups
+constexpr int WG_THREADS = WG_CONSUMERS + 128;   // and a producer warpgroup
+
+struct WgmmaParams {
+  const float* x_scale;   // (T,)
+  const float* w_scale;   // (N,) K5; (K / 128, N) K7
+  const bf16* bias;       // (N,) or null
+  bf16* out;              // (T, N)
+  int T, K, N;
+};
+
+// the token rows of a block: MT m64 tiles and NT token rows (wgmma's N) a
+// consumer warpgroup (see gemm_s8_wgmma_kernel)
+template <int MT, int NT>
+__host__ __device__ constexpr int wg_block_rows() { return MT == 2 ? 2 * NT : NT; }
+template <bool W4>
+__host__ __device__ constexpr int wg_w_rows() { return W4 ? WG_BK / 2 : WG_BK; }
+template <bool W4, int MT, int NT>
+constexpr size_t wg_smem() {
+  return 1024 + static_cast<size_t>(WG_STAGES) *
+                    (wg_block_rows<MT, NT>() * WG_BK + wg_w_rows<W4>() * WG_BM) +
+         2 * WG_STAGES * 8;
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_u32(bar)), "r"(count));
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(smem_u32(bar)) : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  uint32_t done = 0;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_u32(bar)), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, int c0, int c1,
+                                            uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3}], [%4];" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// the byte at (row, col) of a tile stored by TMA with the 128-byte swizzle:
+// 16-byte chunk col / 16 of row r sits at chunk (col / 16) ^ (r % 8)
+__device__ __forceinline__ int swz128(int row, int col) {
+  return row * 128 + ((((col >> 4) ^ row) & 7) << 4) + (col & 15);
+}
+
+// wgmma's shared-memory descriptor of a K-major tile with the 128-byte
+// swizzle: 8-row core groups 1024 bytes apart
+__device__ __forceinline__ uint64_t wg_desc(const void* p) {
+  const uint64_t addr = smem_u32(p);
+  return ((addr & 0x3FFFF) >> 4) | (1ull << 16) | (static_cast<uint64_t>(1024 >> 4) << 32) |
+         (1ull << 62);
+}
+
+__device__ __forceinline__ void reg_fence(int& r) { asm volatile("" : "+r"(r)::"memory"); }
+
+// D (64 x N s32) (+)= A (64 x 32 s8, registers) x B (32 x N s8, shared);
+// accumulate = 0 ignores D's old value
+template <int N>
+__device__ __forceinline__ void wgmma_s8(int* d, const uint32_t* a, uint64_t desc, int accumulate);
+
+template <>
+__device__ __forceinline__ void wgmma_s8<64>(int* d, const uint32_t* a, uint64_t desc,
+                                            int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(accumulate));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_s8<128>(int* d, const uint32_t* a, uint64_t desc,
+                                            int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(accumulate));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_s8<192>(int* d, const uint32_t* a, uint64_t desc,
+                                            int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %101, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n192k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95}, "
+      "{%96, %97, %98, %99}, %100, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63]),
+        "+r"(d[64]), "+r"(d[65]), "+r"(d[66]), "+r"(d[67]), "+r"(d[68]), "+r"(d[69]), "+r"(d[70]), "+r"(d[71]),
+        "+r"(d[72]), "+r"(d[73]), "+r"(d[74]), "+r"(d[75]), "+r"(d[76]), "+r"(d[77]), "+r"(d[78]), "+r"(d[79]),
+        "+r"(d[80]), "+r"(d[81]), "+r"(d[82]), "+r"(d[83]), "+r"(d[84]), "+r"(d[85]), "+r"(d[86]), "+r"(d[87]),
+        "+r"(d[88]), "+r"(d[89]), "+r"(d[90]), "+r"(d[91]), "+r"(d[92]), "+r"(d[93]), "+r"(d[94]), "+r"(d[95])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(accumulate));
+}
+
+// A thread's weight words of one stage: with MT = 2 m64 tiles a warpgroup,
+// 4 consecutive columns (col .. col + 3), one 32-bit word a k row; with MT =
+// 1, 2 columns, one 16-bit load a k row, rows paired into words. s8: k-step
+// s (0..3) takes rows 32 s + 4 tq + i and 32 s + 16 + 4 tq + i. int4: byte
+// rows 32 s + 4 tq + i (+ 16) for s = 0, 1 hold k-steps s (low nibbles) and
+// s + 2 (high). Rows are read in the order i ^ (tq & 2), which puts the four
+// tq of a warp on distinct banks.
+template <bool W4, int MT>
+__host__ __device__ constexpr int wg_raw_words() { return (W4 ? 2 : 4) * 2 * (MT == 2 ? 4 : 2); }
+
+template <bool W4, int MT>
+__device__ __forceinline__ void wg_load_words(const int8_t* tile, int tq, int col,
+                                              uint32_t (&raw)[wg_raw_words<W4, MT>()]) {
+  const int sw = tq & 2;
+#pragma unroll
+  for (int s = 0; s < (W4 ? 2 : 4); ++s)
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int r0 = 32 * s + 16 * half + 4 * tq;
+      uint32_t v[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int8_t* q = tile + swz128(r0 + (i ^ sw), col);
+        v[i] = MT == 2 ? *reinterpret_cast<const uint32_t*>(q)
+                       : *reinterpret_cast<const uint16_t*>(q);
+      }
+      // v[i] holds row i ^ sw
+      const uint32_t r[4] = {sw ? v[2] : v[0], sw ? v[3] : v[1], sw ? v[0] : v[2],
+                             sw ? v[1] : v[3]};
+      if constexpr (MT == 2) {
+        const int o = (s * 2 + half) * 4;
+#pragma unroll
+        for (int i = 0; i < 4; ++i) raw[o + i] = r[i];
+      } else {
+        const int o = (s * 2 + half) * 2;
+        raw[o] = r[0] | (r[1] << 16);        // rows 0, 1: bytes c0 c1 c0 c1
+        raw[o + 1] = r[2] | (r[3] << 16);    // rows 2, 3
+      }
+    }
+}
+
+// RAW words -> A fragments a[k-step][m tile][4]: the fragment rows g and
+// g + 8 of m tile m are columns col + 2m and col + 2m + 1
+template <bool W4, int MT>
+__device__ __forceinline__ void wg_fragments(const uint32_t (&raw)[wg_raw_words<W4, MT>()],
+                                             uint32_t (&a)[4][MT][4]) {
+#pragma unroll
+  for (int s = 0; s < (W4 ? 2 : 4); ++s)
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      uint32_t c[2 * MT];   // c[j]: column col + j, four consecutive k
+      if constexpr (MT == 2) {
+        const int o = (s * 2 + half) * 4;
+        transpose4x4(raw[o], raw[o + 1], raw[o + 2], raw[o + 3], c);
+      } else {
+        const int o = (s * 2 + half) * 2;
+        c[0] = __byte_perm(raw[o], raw[o + 1], 0x6420);
+        c[1] = __byte_perm(raw[o], raw[o + 1], 0x7531);
+      }
+#pragma unroll
+      for (int m = 0; m < MT; ++m)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const uint32_t word = c[2 * m + h];
+          if (W4) {
+            a[s][m][2 * half + h] = sext_nibbles(word);
+            a[s + 2][m][2 * half + h] = sext_nibbles(word >> 4);
+          } else {
+            a[s][m][2 * half + h] = word;
+          }
+        }
+    }
+}
+
+// MT m64 tiles of weight columns and NT token rows a consumer warpgroup:
+// MT = 2 (K5), the two warpgroups take token rows t0 .. + NT - 1 and
+// t0 + NT .. of the block's 2 NT; MT = 1 (K7, whose f32 group sums double
+// the registers a thread holds), they take columns 0-63 and 64-127 of the
+// block's NT token rows.
+template <bool W4, int MT, int NT>
+__global__ void __launch_bounds__(WG_THREADS, 1)
+gemm_s8_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
+                     const __grid_constant__ CUtensorMap wmap, WgmmaParams p) {
+  extern __shared__ uint8_t wg_smem_raw[];
+  uint8_t* base = wg_smem_raw + ((1024 - (smem_u32(wg_smem_raw) & 1023)) & 1023);
+  constexpr int BT = wg_block_rows<MT, NT>();
+  constexpr int XB = BT * WG_BK, WB = wg_w_rows<W4>() * WG_BM, SB = XB + WB;
+  uint64_t* full = reinterpret_cast<uint64_t*>(base + WG_STAGES * SB);
+  uint64_t* empty = full + WG_STAGES;
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int n0 = blockIdx.x * WG_BM, t0 = blockIdx.y * BT;
+  const int nk = (p.K + WG_BK - 1) / WG_BK;
+  if (tid == 0) {
+    for (int s = 0; s < WG_STAGES; ++s) {
+      mbar_init(full + s, 1);
+      mbar_init(empty + s, WG_CONSUMERS / 32);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp >= WG_CONSUMERS / 32) {
+    // the producer warpgroup: one lane issues the loads; its registers go
+    // to the consumers
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;");
+    if (tid == WG_CONSUMERS) {
+      for (int kb = 0; kb < nk; ++kb) {
+        const int s = kb % WG_STAGES;
+        if (kb >= WG_STAGES) mbar_wait(empty + s, ((kb / WG_STAGES) - 1) & 1);
+        mbar_expect_tx(full + s, SB);
+        tma_load_2d(base + s * SB, &xmap, kb * WG_BK, t0, full + s);
+        tma_load_2d(base + s * SB + XB, &wmap, n0, kb * wg_w_rows<W4>(), full + s);
+      }
+    }
+    return;
+  }
+  // 232 registers a consumer thread: ptxas compiles the code past this
+  // point for them (at the launch's 168, K5's 128-row warpgroups spilled
+  // and ran 2.4 times slower on the card)
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;");
+
+  const int wg = warp >> 2, wl = warp & 3, gq = lane >> 2, tq = lane & 3;
+  // this thread's 2 MT weight columns in the tile, and its warpgroup's first
+  // token row
+  const int col = MT == 2 ? wl * 32 + gq * 4 : wg * 64 + wl * 16 + gq * 2;
+  const int tw = t0 + (MT == 2 ? wg * NT : 0);
+  constexpr int R = NT / 2;           // accumulators a thread, per m64 tile
+  int acc[MT][R];
+  float y[MT][W4 ? R : 1];
+#pragma unroll
+  for (int m = 0; m < MT; ++m) {
+#pragma unroll
+    for (int i = 0; i < R; ++i) acc[m][i] = 0;
+#pragma unroll
+    for (int i = 0; i < (W4 ? R : 1); ++i) y[m][i] = 0.f;
+  }
+  auto w_tile = [&](int kb) {
+    return reinterpret_cast<const int8_t*>(base + (kb % WG_STAGES) * SB + XB);
+  };
+  // stage kb's wgmma group: 4 k-steps x MT m64 tiles
+  auto issue = [&](int kb, const uint32_t (&a)[4][MT][4]) {
+    const uint8_t* xb = base + (kb % WG_STAGES) * SB + (MT == 2 ? wg * NT * WG_BK : 0);
+#pragma unroll
+    for (int m = 0; m < MT; ++m)
+#pragma unroll
+      for (int i = 0; i < R; ++i) reg_fence(acc[m][i]);
+    asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks)
+#pragma unroll
+      for (int m = 0; m < MT; ++m)
+        wgmma_s8<NT>(acc[m], a[ks][m], wg_desc(xb + ks * 32), W4 ? ks > 0 : 1);
+    asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+  };
+  auto release = [&](int kb) {
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty + kb % WG_STAGES);
+  };
+  auto wait_full = [&](int kb) { mbar_wait(full + kb % WG_STAGES, (kb / WG_STAGES) & 1); };
+
+  // Each stage waits for its own wgmma group (K7 folds the group's s32
+  // tile; holding a second set of fragments or accumulators in flight
+  // spilled); the next stage's weight words are read from shared memory
+  // while the group runs.
+  uint32_t raw[wg_raw_words<W4, MT>()];
+  uint32_t a[4][MT][4];
+  wait_full(0);
+  wg_load_words<W4, MT>(w_tile(0), tq, col, raw);
+  wg_fragments<W4, MT>(raw, a);
+  for (int kb = 0; kb < nk; ++kb) {
+    issue(kb, a);
+    if (kb + 1 < nk) {
+      wait_full(kb + 1);
+      wg_load_words<W4, MT>(w_tile(kb + 1), tq, col, raw);
+    }
+    asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+#pragma unroll
+    for (int m = 0; m < MT; ++m)
+#pragma unroll
+      for (int i = 0; i < R; ++i) reg_fence(acc[m][i]);
+    release(kb);
+    if constexpr (W4) {
+      // fold group kb into the f32 sums, in group order
+      float wsc[2 * MT];
+#pragma unroll
+      for (int c = 0; c < 2 * MT; ++c) wsc[c] = p.w_scale[static_cast<size_t>(kb) * p.N + n0 + col + c];
+#pragma unroll
+      for (int m = 0; m < MT; ++m)
+#pragma unroll
+        for (int i = 0; i < R; ++i)
+          y[m][i] = __fadd_rn(y[m][i], __fmul_rn(__int2float_rn(acc[m][i]), wsc[2 * m + ((i >> 1) & 1)]));
+    }
+    if (kb + 1 < nk) wg_fragments<W4, MT>(raw, a);
+  }
+
+  // epilogue: the thread holds, for tokens tw + 8 j + 2 tq + e (e = 0, 1),
+  // the columns col + 2m + h in acc[m][4 j + 2 h + e] (K7: in y[m][...])
+  float wsc[2 * MT], bsc[2 * MT];
+#pragma unroll
+  for (int c = 0; c < 2 * MT; ++c) {
+    wsc[c] = W4 ? 0.f : p.w_scale[n0 + col + c];
+    bsc[c] = p.bias != nullptr ? __bfloat162float(p.bias[n0 + col + c]) : 0.f;
+  }
+#pragma unroll
+  for (int j = 0; j < NT / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int t = tw + 8 * j + 2 * tq + e;
+      if (t >= p.T) continue;
+      const float xs = p.x_scale[t];
+      uint32_t pk[MT];
+#pragma unroll
+      for (int m = 0; m < MT; ++m) {
+        float v[2];
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int i = 4 * j + 2 * h + e;
+          float r = W4 ? __fmul_rn(y[m][W4 ? i : 0], xs)
+                       : __fmul_rn(__fmul_rn(__int2float_rn(acc[m][i]), xs), wsc[2 * m + h]);
+          if (p.bias != nullptr) r = __fadd_rn(r, bsc[2 * m + h]);
+          v[h] = r;
+        }
+        __nv_bfloat162 b2 = __floats2bfloat162_rn(v[0], v[1]);
+        pk[m] = *reinterpret_cast<uint32_t*>(&b2);
+      }
+      bf16* dst = p.out + static_cast<size_t>(t) * p.N + n0 + col;
+      if constexpr (MT == 2)
+        *reinterpret_cast<uint2*>(dst) = make_uint2(pk[0], pk[1]);
+      else
+        *reinterpret_cast<uint32_t*>(dst) = pk[0];
+    }
+}
+
+// cuTensorMapEncodeTiled, from the driver that the runtime has loaded
+using EncodeTiledFn = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                   const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                   const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                   CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+inline EncodeTiledFn encode_tiled_fn() {
+  static const EncodeTiledFn fn = [] {
+    void* lib = dlopen("libcuda.so.1", RTLD_NOW | RTLD_GLOBAL);
+    return lib ? reinterpret_cast<EncodeTiledFn>(dlsym(lib, "cuTensorMapEncodeTiled")) : nullptr;
+  }();
+  return fn;
+}
+
+// a (rows, cols) u8 matrix, row stride cols bytes, as boxes of box_rows x 128
+// bytes with the 128-byte swizzle; out-of-range elements read as 0
+inline cudaError_t encode_u8_map(CUtensorMap* map, const void* ptr, int rows, int cols,
+                                 int box_rows) {
+  EncodeTiledFn fn = encode_tiled_fn();
+  if (fn == nullptr) return cudaErrorSharedObjectSymbolNotFound;
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols)};
+  const cuuint32_t box[2] = {128u, static_cast<cuuint32_t>(box_rows)};
+  const cuuint32_t elem[2] = {1u, 1u};
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<void*>(ptr), dims,
+                        strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+template <bool W4, int MT, int NT>
+inline cudaError_t launch_wgmma(const CUtensorMap& xmap, const CUtensorMap& wmap,
+                                const WgmmaParams& p, cudaStream_t st) {
+  static bool sized = false;   // the attribute is set once
+  if (!sized) {
+    cudaError_t err = cudaFuncSetAttribute(gemm_s8_wgmma_kernel<W4, MT, NT>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           static_cast<int>(wg_smem<W4, MT, NT>()));
+    if (err != cudaSuccess) return err;
+    sized = true;
+  }
+  constexpr int BT = wg_block_rows<MT, NT>();
+  dim3 grid(p.N / WG_BM, (p.T + BT - 1) / BT);
+  gemm_s8_wgmma_kernel<W4, MT, NT><<<grid, WG_THREADS, wg_smem<W4, MT, NT>(), st>>>(xmap, wmap,
+                                                                                    p);
+  return cudaGetLastError();
+}
+
+// xq (T, K) s8 codes; w (K, N) s8 or (K / 2, N) packed int4. Rules the
+// callers check: K % 32 == 0 (K7: K % 128 == 0), N % 128 == 0, T >= 1,
+// 16-byte aligned pointers. A block takes the wider token tile (K5: 256
+// rows, K7: 192) where those blocks still fill the card (sms of them), else
+// 128 rows.
+template <bool W4>
+inline cudaError_t launch_gemm_s8_wgmma(const int8_t* xq, const int8_t* w, const WgmmaParams& p,
+                                        int sms, cudaStream_t st) {
+  if (p.T < 1 || p.K % (W4 ? WG_BK : 32) || p.N % WG_BM) return cudaErrorInvalidValue;
+  constexpr int WIDE = W4 ? 192 : 256;
+  const bool wide = (p.N / WG_BM) * ((p.T + WIDE - 1) / WIDE) >= sms;
+  CUtensorMap xmap, wmap;
+  cudaError_t err = encode_u8_map(&xmap, xq, p.T, p.K, wide ? WIDE : 128);
+  if (err == cudaSuccess) err = encode_u8_map(&wmap, w, W4 ? p.K / 2 : p.K, p.N, wg_w_rows<W4>());
+  if (err != cudaSuccess) return err;
+  if constexpr (W4) {
+    return wide ? launch_wgmma<W4, 1, 192>(xmap, wmap, p, st)
+                : launch_wgmma<W4, 1, 128>(xmap, wmap, p, st);
+  } else {
+    return wide ? launch_wgmma<W4, 2, 128>(xmap, wmap, p, st)
+                : launch_wgmma<W4, 2, 64>(xmap, wmap, p, st);
+  }
+}
+
+}  // namespace emr2a

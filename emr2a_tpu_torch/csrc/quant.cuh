@@ -1,5 +1,7 @@
 // Per-row symmetric s8 quantize, shared by the W8A8 kernels (K2 mlp_int8.cu,
-// K4 attention_block_int8.cu, K5 linear_int8.cu).
+// K4 attention_block_int8.cu, K5 linear_int8.cu) and K7 (linear_int4.cu); the
+// decode GEMV of K5 and K7 (linear_gemv.cuh) quantizes its rows in shared
+// memory with the same row_scale and quantize_code.
 //
 // Port of emr2a_tpu/ops/quant.py:quantize_rows_s8, which every int8 path of
 // the JAX package uses:
@@ -52,6 +54,11 @@ __device__ __forceinline__ void load8(const float* p, float* v) {
   const float4 b = reinterpret_cast<const float4*>(p)[1];
   v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
   v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
+}
+
+// a row's scale from its amax: the 1e-12 floor, then the multiply by 1/127
+__device__ __forceinline__ float row_scale(float amax) {
+  return __fmul_rn(fmaxf(amax, 1e-12f), INV127);
 }
 
 __device__ __forceinline__ int8_t quantize_code(float v, float inv) {
@@ -110,7 +117,7 @@ __global__ void __launch_bounds__(QUANT_THREADS) quantize_rows_kernel(QuantParam
     for (int t = 0; t < 8; ++t) amax = fmaxf(amax, fabsf(v[t]));
   }
   amax = warp_max(amax);
-  const float scale = __fmul_rn(fmaxf(amax, 1e-12f), INV127);
+  const float scale = row_scale(amax);
   const float inv = __frcp_rn(scale);
   int8_t* q = p.q + (size_t)row * K;
   for (int k = lane * 8; k < K; k += 256) {

@@ -3,10 +3,11 @@
 The sources under ``emr2a_tpu_torch/csrc`` are compiled once, at first use,
 with ``nvcc`` for ``sm_90a``: one ``nvcc`` per ``.cu`` file, all started
 together, then one link into a shared library with a plain C interface,
-which is loaded with ``ctypes``. The library's name carries a
-hash of the sources and flags, so an edit rebuilds it. Nothing here runs at
-import time: the package imports, and its CPU tests run, where there is no
-``nvcc`` and no card.
+which is loaded with ``ctypes``. The TMA descriptors' encoder is taken from
+the loaded driver with ``dlsym``, so nothing links against ``libcuda``. The
+library's name carries a hash of the sources and flags, so an edit rebuilds
+it. Nothing here runs at import time: the package imports, and its CPU
+tests run, where there is no ``nvcc`` and no card.
 
     python -m emr2a_tpu_torch.ops._build      # build now, print the path
 """
@@ -86,7 +87,7 @@ def build() -> Path:
                     other.communicate()
                 raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log[-1]}")
         lib = Path(tmp) / out.name
-        cmd = [nvcc, "-shared", "-o", str(lib), *(str(obj) for _, obj, _ in jobs)]
+        cmd = [nvcc, "-shared", "-o", str(lib), *(str(obj) for _, obj, _ in jobs), "-ldl"]
         proc = subprocess.run(cmd, capture_output=True, text=True)
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc link failed ({proc.returncode}): "

@@ -16,7 +16,9 @@ kernel's ``_w4_dot``. (K5 rounds ``acc * x_scale * w_scale`` instead.)
 - ``linear_w4a8_reference`` is the plain version. ``linear_w4a8`` takes a
   CPU tensor there; a CUDA tensor goes to ``csrc/linear_int4.cu`` (bf16 in
   and out, group 128, K and N divisible by 128) or the call raises. The
-  kernel is bit-identical to the plain version. The JAX package's tile
+  kernel is bit-identical to the plain version: up to 16 rows one launch (a
+  GEMV that quantizes the rows itself), above that the row quantize and an
+  s8 wgmma GEMM. The JAX package's tile
   choice (``tile_n``, ``_pick_tiles_w4``) and ``interpret`` have no
   counterpart. ``LAUNCHES`` counts the calls that went to the kernel.
 """
@@ -28,7 +30,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from emr2a_tpu_torch.ops import _build
+from emr2a_tpu_torch.ops.linear_int8 import launch_linear
 from emr2a_tpu_torch.ops.mlp import check_cuda_tensor
 from emr2a_tpu_torch.ops.quant import quantize_rows_s8_reference
 
@@ -166,19 +168,7 @@ def linear_w4a8(x: torch.Tensor, w_p: torch.Tensor, w_scale: torch.Tensor,
     if T == 0:
         return out
 
-    import ctypes
-    p, i = ctypes.c_void_p, ctypes.c_int
-    fn = _build.kernel_function("emr2a_linear_w4a8", [p] * 7 + [i] * 4 + [p])
-    # one scratch for the row quantize: codes (T, K) s8, then scales (T,) f32
-    # (T * K is a multiple of 128, so the scales stay aligned)
-    scratch = torch.empty((T * K + 4 * T,), dtype=torch.int8, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    with torch.cuda.device(dev):
-        err = fn(x.data_ptr(), w_p.data_ptr(), w_scale.data_ptr(),
-                 None if bias is None else bias.data_ptr(), scratch.data_ptr(),
-                 scratch.data_ptr() + T * K, out.data_ptr(), T, K, N,
-                 _build.sm_count(dev.index or 0), stream)
-    _build.check(err, "linear_w4a8")
+    launch_linear("linear_w4a8", x, w_p, w_scale, bias, out, T, K, N)
     global LAUNCHES
     LAUNCHES += 1
     return out

@@ -18,11 +18,16 @@ the fused path), and the ViT blocks without the fused flags.
 
 A CPU tensor goes to ``linear_w8a8_reference``; a CUDA tensor goes to
 ``csrc/linear_int8.cu`` (bf16 in and out, K % 32 == 0, N % 128 == 0), or
-the call raises. ``LAUNCHES`` counts the calls that went to the kernel.
+the call raises. The kernel has two designs, chosen by T: up to 16 rows a
+weight-streaming GEMV that quantizes the rows itself (one launch), above
+that the row quantize and an s8 wgmma GEMM (two launches). ``LAUNCHES``
+counts the calls that went to the kernel. ``launch_linear`` is the host
+side both quantized linears share (K7 in ``ops/linear_int4.py``).
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
@@ -36,7 +41,9 @@ from emr2a_tpu_torch.ops.quant import (
 )
 
 LAUNCHES = 0
-KERNEL_BK = 32   # S8_BK in csrc/gemm_s8.cuh: K must be a multiple of it
+KERNEL_BK = 32        # K must be a multiple of it
+GEMV_STRIP = 128      # columns of a GEMV block, one counter each
+_workspaces: dict = {}
 
 
 def quantize_rows(x: torch.Tensor):
@@ -55,6 +62,69 @@ def linear_w8a8_reference(x, w_q, w_scale, bias=None,
     if bias is not None:
         y = y + bias.float()
     return y.to(out_dtype).reshape(*lead, N)
+
+
+@functools.lru_cache(maxsize=None)
+def scratch_bytes(w4: bool, T: int, K: int, N: int, sms: int) -> int:
+    """The scratch bytes ``launch_linear`` hands the kernel at (T, K, N)."""
+    import ctypes
+    fn = _build.library().emr2a_linear_scratch_bytes
+    fn.argtypes = [ctypes.c_int] * 5
+    fn.restype = ctypes.c_longlong
+    return int(fn(int(w4), T, K, N, sms))
+
+
+DEVICE_LAUNCH_KINDS = ("linear_w8a8 GEMV", "linear_w4a8 GEMV", "row quantize",
+                       "linear_w8a8 wgmma GEMM", "linear_w4a8 wgmma GEMM")
+
+
+def device_launches() -> dict:
+    """The device launches the two quantized linears' kernel library has
+    issued so far, by kind (``DEVICE_LAUNCH_KINDS``): a call of up to 16
+    rows is one GEMV launch, a longer one a row quantize and a GEMM."""
+    import ctypes
+    fn = _build.library().emr2a_linear_launches
+    fn.argtypes = [ctypes.c_int]
+    fn.restype = ctypes.c_longlong
+    return {kind: int(fn(i)) for i, kind in enumerate(DEVICE_LAUNCH_KINDS)}
+
+
+def workspace(device: torch.device, stream: int, nbytes: int, strips: int):
+    """The scratch (at least ``nbytes``) and the GEMV's per-strip counters
+    (at least ``strips``) of the kernels launched on ``stream`` of CUDA
+    ``device`` (with its index), kept from call to call: launches on one
+    stream run one after another, so each finds its scratch free and the
+    counters at zero (the last block of each strip sets its counter back
+    to 0). Each stream has its own."""
+    key = (device.index, stream)
+    ws = _workspaces.get(key)
+    if ws is None or ws[0].numel() < nbytes or ws[1].numel() < strips:
+        old = (0, 0) if ws is None else (ws[0].numel(), ws[1].numel())
+        ws = (torch.empty((max(nbytes, old[0]),), dtype=torch.int8, device=device),
+              torch.zeros((max(strips, old[1], 1024),), dtype=torch.int32, device=device))
+        _workspaces[key] = ws
+    return ws
+
+
+def launch_linear(name: str, x: torch.Tensor, w: torch.Tensor, w_scale: torch.Tensor,
+                  bias: Optional[torch.Tensor], out: torch.Tensor, T: int, K: int,
+                  N: int) -> None:
+    """Call ``emr2a_<name>`` (``linear_w8a8`` or ``linear_w4a8``) on checked
+    CUDA operands: x (T, K) bf16, the weights, their scales, the bias or
+    None, out (T, N) bf16, with the stream's workspace."""
+    import ctypes
+    p, i = ctypes.c_void_p, ctypes.c_int
+    dev = x.device
+    sms = _build.sm_count(dev.index or 0)
+    fn = _build.kernel_function("emr2a_" + name, [p] * 7 + [i] * 4 + [p])
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    scratch, counters = workspace(dev, stream, scratch_bytes(name == "linear_w4a8", T, K, N, sms),
+                                  N // GEMV_STRIP)
+    with torch.cuda.device(dev):
+        err = fn(x.data_ptr(), w.data_ptr(), w_scale.data_ptr(),
+                 None if bias is None else bias.data_ptr(), scratch.data_ptr(),
+                 counters.data_ptr(), out.data_ptr(), T, K, N, sms, stream)
+    _build.check(err, name)
 
 
 def linear_w8a8(x: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Tensor,
@@ -86,17 +156,7 @@ def linear_w8a8(x: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Tensor,
     if T == 0:
         return out
 
-    import ctypes
-    p, i = ctypes.c_void_p, ctypes.c_int
-    fn = _build.kernel_function("emr2a_linear_w8a8", [p] * 7 + [i] * 3 + [p])
-    xq = torch.empty((T, K), dtype=torch.int8, device=dev)
-    xs = torch.empty((T,), dtype=torch.float32, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    with torch.cuda.device(dev):
-        err = fn(x.data_ptr(), w_q.data_ptr(), w_scale.data_ptr(),
-                 None if bias is None else bias.data_ptr(), xq.data_ptr(),
-                 xs.data_ptr(), out.data_ptr(), T, K, N, stream)
-    _build.check(err, "linear_w8a8")
+    launch_linear("linear_w8a8", x, w_q, w_scale, bias, out, T, K, N)
     global LAUNCHES
     LAUNCHES += 1
     return out

@@ -34,10 +34,11 @@ import torch
 # kernel name pattern -> group; the first pattern that matches names it
 _GROUPS = (
     (r"frame_attention_kernel", "K8 vision attention"),
-    (r"w4_gemv", "K7 GEMV (T <= 16)"),
-    (r"w4_gemm", "K7 GEMM"),
-    (r"gemm_s8_kernel", "K5 s8 GEMM"),
-    (r"quantize_rows_kernel", "row quantize (K5, K7)"),
+    (r"linear_gemv_kernel<\d+, true>", "K7 GEMV (T <= 16)"),
+    (r"linear_gemv_kernel<\d+, false>", "K5 GEMV (T <= 16)"),
+    (r"gemm_s8_wgmma_kernel<true", "K7 wgmma GEMM"),
+    (r"gemm_s8_wgmma_kernel<false", "K5 wgmma GEMM"),
+    (r"quantize_rows_kernel", "row quantize (K5, K7 at T > 16)"),
     (r"(?i)softmax", "softmax"),
     (r"gemm|gemv|xmma|cutlass|nvjet|cublas|splitK", "cuBLAS products"),
 )

@@ -4,9 +4,11 @@ T < 32, short and maximal sequences, valid_len edges, all-zero rows, the
 row quantize's codes; K6 (the fused cosine top-k, f32, bf16 and int8) at
 ragged row counts, n_valid < n, k = 1 to 1000, several query counts and
 widths, and duplicated rows, on both of its scans (the tile scan forced
-at every q); K7 (the W4A8 linear) at T = 1 to 2048 on
-both of its designs (GEMV up to 16 rows, GEMM above), duplicate and
-all-zero rows, and the card's int4 quantizer against the numpy one; K8 and
+at every q); K7 (the W4A8 linear) and K5 at T = 1 to
+8,192 on both of their designs (GEMV up to 16 rows, one launch with the row
+quantize inside, by the kernel library's own launch counts; the wgmma
+GEMM above), K = 12,288 with N = 1,024, duplicate and all-zero rows, leading
+axes, and the card's int4 quantizer against the numpy one; K8 and
 K9 (the per-frame attention kernel) at ragged S, head dims 8 to 128 and
 duplicate keys; K3m (the merged-batch LN+attention block) bit for bit
 against K3 at B = 1, 5, 128 and block_b 1, 3, 4, 8, at valid_len < S, S = 1
@@ -267,12 +269,22 @@ def test_quantize_rows_codes_equal_plain(cuda, dtype, rows, K):
     assert (q[0] == 0).all()
 
 
-@pytest.mark.parametrize("T,K,N", [(1, 768, 768), (7, 768, 3072), (31, 3072, 768),
-                                   (300, 768, 3072), (8192, 3072, 3072)])
+# K5's and K7's two designs: the GEMV up to 16 rows (one launch, the rows
+# quantized inside it), the wgmma GEMM above; K = 160 leaves a partial
+# 128-deep stage (TMA's zero fill) and a partial GEMV segment
+@pytest.mark.parametrize("T,K,N", [(1, 768, 768), (2, 768, 3072), (7, 768, 3072),
+                                   (15, 3072, 768), (16, 4096, 1024), (17, 768, 768),
+                                   (31, 3072, 768), (300, 768, 3072), (1100, 4096, 1024),
+                                   (2048, 4096, 4096), (8192, 3072, 3072), (1, 12288, 1024),
+                                   (16, 12288, 1024), (1, 4096, 12288), (3, 160, 256),
+                                   (40, 160, 256)])
 @pytest.mark.parametrize("use_bias", [True, False])
 def test_linear_w8a8_kernel_equals_plain(cuda, T, K, N, use_bias):
     gen = torch.Generator(device="cuda").manual_seed(T + K)
     x = _rn(gen, T, K)
+    if T > 2:
+        x[1] = x[0]                      # duplicate rows give identical outputs
+        x[2] = 0.0                       # an all-zero row
     wq, ws = _w8(gen, K, N)
     b = _rn(gen, N, std=0.02) if use_bias else None
     before = linear_int8.LAUNCHES
@@ -282,19 +294,41 @@ def test_linear_w8a8_kernel_equals_plain(cuda, T, K, N, use_bias):
     want = linear_int8.linear_w8a8_reference(x, wq, ws, b)
     assert got.dtype == torch.bfloat16 and got.shape == (T, N)
     assert torch.equal(got, want), (got.float() - want.float()).abs().max()
+    if T > 2:
+        assert torch.equal(got[0], got[1])
+    stream = torch.cuda.current_stream().cuda_stream
+    assert not linear_int8.workspace(x.device, stream, 0, N // 128)[1].any()   # left at zero
 
 
-def test_linear_w8a8_leading_axes_and_zero_rows(cuda):
+@pytest.mark.parametrize("T", [1, 16, 17, 256])
+def test_linear_w8a8_leading_axes_and_zero_rows(cuda, T):
     gen = torch.Generator(device="cuda").manual_seed(5)
-    x = _rn(gen, 4, 256, 768)
-    x[1, 3] = 0.0
+    x = _rn(gen, 4, T, 768)
+    x[1, T - 1] = 0.0
     wq, ws = _w8(gen, 768, 768)
     b = _rn(gen, 768, std=0.02)
     got = linear_int8.linear_w8a8(x, wq, ws, b)
     torch.cuda.synchronize()
-    assert got.shape == (4, 256, 768)
+    assert got.shape == (4, T, 768)
     assert torch.equal(got, linear_int8.linear_w8a8_reference(x, wq, ws, b))
-    assert torch.equal(got[1, 3], b)
+    assert torch.equal(got[1, T - 1], b)
+
+
+@pytest.mark.parametrize("kind", ["w8a8", "w4a8"])
+def test_quantized_linears_launch_once_up_to_16_rows(cuda, kind):
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    K, N = 4096, 1024
+    w, ws = _w8(gen, K, N) if kind == "w8a8" else _w4(gen, K, N)
+    op = linear_int8.linear_w8a8 if kind == "w8a8" else linear_int4.linear_w4a8
+    gemv, gemm = f"linear_{kind} GEMV", f"linear_{kind} wgmma GEMM"
+    for T, want in ((1, {gemv: 1}), (16, {gemv: 1}), (17, {"row quantize": 1, gemm: 1})):
+        x = _rn(gen, T, K)
+        before = linear_int8.device_launches()
+        op(x, w, ws)
+        torch.cuda.synchronize()
+        after = linear_int8.device_launches()
+        launched = {k: after[k] - before[k] for k in after if after[k] != before[k]}
+        assert launched == want, (T, launched)
 
 
 def _mlp8_args(gen, T, d, m):
@@ -363,6 +397,12 @@ def test_int8_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     w48, s48 = _w8(gen, 48, 128)
     with pytest.raises(ValueError, match="divisible by 32"):
         linear_int8.linear_w8a8(_rn(gen, 4, 48), w48, s48)
+    with pytest.raises(ValueError, match="shape"):
+        linear_int8.linear_w8a8(x, wq, ws, _rn(gen, 128))
+    with pytest.raises(ValueError, match="aligned"):
+        linear_int8.linear_w8a8(_rn(gen, 2 * 768 + 1)[1:].reshape(2, 768), wq, ws)
+    with pytest.raises(ValueError, match="device"):
+        linear_int8.linear_w8a8(x.cpu().to("meta"), wq, ws)
     assert linear_int8.LAUNCHES == before
     margs = list(_mlp8_args(gen, 16, 768, 3072))
     with pytest.raises(TypeError, match="float32"):
@@ -527,9 +567,11 @@ def _w4(gen, K, N, std=0.02):
 
 
 @pytest.mark.parametrize("T,K,N", [(1, 4096, 4096), (1, 4096, 1024), (1, 4096, 12288),
-                                   (1, 12288, 4096), (2, 256, 384),
-                                   (5, 4096, 12288), (16, 12288, 4096), (17, 4096, 1024),
-                                   (300, 256, 128), (2048, 4096, 4096)])
+                                   (1, 12288, 4096), (2, 256, 384), (1, 12288, 1024),
+                                   (5, 4096, 12288), (15, 4096, 1024), (16, 12288, 4096),
+                                   (16, 12288, 1024), (17, 4096, 1024), (31, 4096, 1024),
+                                   (300, 256, 128), (1100, 4096, 1024), (2048, 4096, 4096),
+                                   (2048, 12288, 4096)])
 @pytest.mark.parametrize("use_bias", [True, False])
 def test_linear_w4a8_kernel_equals_plain(cuda, T, K, N, use_bias):
     gen = torch.Generator(device="cuda").manual_seed(T + K + N)
@@ -548,6 +590,22 @@ def test_linear_w4a8_kernel_equals_plain(cuda, T, K, N, use_bias):
     assert torch.equal(got, want), (got.float() - want.float()).abs().max()
     if T > 2:
         assert torch.equal(got[0], got[1])
+    stream = torch.cuda.current_stream().cuda_stream
+    assert not linear_int8.workspace(x.device, stream, 0, N // 128)[1].any()   # left at zero
+
+
+@pytest.mark.parametrize("T", [1, 16, 17, 256])
+def test_linear_w4a8_leading_axes_and_zero_rows(cuda, T):
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    x = _rn(gen, 3, T, 1024)
+    x[2, 0] = 0.0
+    wp, ws = _w4(gen, 1024, 512)
+    b = _rn(gen, 512, std=0.02)
+    got = linear_int4.linear_w4a8(x, wp, ws, b)
+    torch.cuda.synchronize()
+    assert got.shape == (3, T, 512)
+    assert torch.equal(got, linear_int4.linear_w4a8_reference(x, wp, ws, b))
+    assert torch.equal(got[2, 0], b)
 
 
 def test_quantize_weight_int4_torch_equals_numpy(cuda):
@@ -578,6 +636,14 @@ def test_linear_w4a8_refuses_what_the_kernel_does_not_take(cuda):
         linear_int4.linear_w4a8(x, *w192)
     with pytest.raises(ValueError, match="contiguous"):
         linear_int4.linear_w4a8(_rn(gen, 512, 4).t(), wp, ws)
+    with pytest.raises(ValueError, match="shape"):
+        linear_int4.linear_w4a8(x, wp, ws[:, :128])
+    with pytest.raises(ValueError, match="shape"):
+        linear_int4.linear_w4a8(x, wp, ws, _rn(gen, 128))
+    with pytest.raises(ValueError, match="aligned"):
+        linear_int4.linear_w4a8(_rn(gen, 4 * 512 + 1)[1:].reshape(4, 512), wp, ws)
+    with pytest.raises(ValueError, match="device"):
+        linear_int4.linear_w4a8(x.cpu().to("meta"), wp, ws)
     assert linear_int4.LAUNCHES == before
 
 
