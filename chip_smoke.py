@@ -5,16 +5,25 @@
 Phases, each of which fails the run (non-zero exit) if it fails:
 
 1. Require a CUDA device; print the card's name and power limit.
-2. Build the hand-written kernels from ``emr2a_tpu_torch/csrc``.
+2. Build the hand-written kernels from ``emr2a_tpu_torch/csrc``; print
+   ptxas's registers, shared memory and spills per kernel, and the
+   attention core's residency (blocks and warps an SM).
 3. Kernels, each against its plain PyTorch version at the main path's
    shapes, with median times over 100 launches (CUDA events): K1 (fused
-   LN+MLP) and K3 (fused LN+attention) at BioMedCLIP ViT-B/16 batch 32; K2
-   and K4 (their W8A8 variants) at the same shapes; K5 (W8A8 linear) bit
+   LN+MLP, also with act_dtype=bf16), K3 (fused LN+attention), K3m (its
+   merged-batch schedule, block_b 4, bit for bit against K3) and K4 (its
+   W8A8 variant) through ``tools/time_blocks.py`` at step2's batch of 32
+   (T = 6,400; (32, 200, 768)), the layer breakdown's B = 96 and the
+   tower's batch of 128 at S = 197, single, chained and in a CUDA graph,
+   beside plain bf16 PyTorch (K4: its plain version on ``torch._int_mm``)
+   and the bound; K3 and K4 at (2, 577, 768), valid_len 570, against their
+   plain versions and K3m there bit for bit against K3; K2 (K1's W8A8
+   variant, also with act_dtype=bf16) at T = 6,400; K5 (W8A8 linear) bit
    for bit at the PubMedBERT shapes (T = 32 x 256: 768->768, 768->3072,
    3072->768), at T = 32, and at the int8 judge's eight (T = 2048 and T = 1
    on 4096->4096, 4096->1024, 4096->12288, 12288->4096), each timed by
    ``tools/time_linears.py`` (single quartiles and chained) beside cuBLAS
-   bf16 on the dequantized weight. K2, K4 and K5 are also timed against a
+   bf16 on the dequantized weight. K2 and K5 are also timed against a
    plain int8 yardstick (their plain versions with ``torch._int_mm``
    products). K6 (the fused
    cosine top-k) at 1M x 512, k = 5, q = 1, 4, 8, 16, 32 and 64, in f32,
@@ -87,11 +96,8 @@ Phases, each of which fails the run (non-zero exit) if it fails:
     counts equal its step calls (K3m only under ``--merge_batch``, K3 there
     0), and each prints its ms/iter.
 
-Phase 3 also holds K3m (the merged-batch LN+attention block, block_b 4) at
-(32, 200, 768) and (128, 197, 768), valid_len 197, against its plain
-version and bit for bit against K3, timed beside K3 and the plain bf16
-yardstick, and K1 and K2 with act_dtype=bf16 against their plain versions.
-The main path starts from raw data: step1 builds the manifest from the
+Phase 3 also holds K1's and K2's bf16 gelu epilogues bit for bit against
+``gelu_tanh_bf16`` on 400,000 values. The main path starts from raw data: step1 builds the manifest from the
 cohort's CSVs and folders (every patient matched, slices in natural order,
 the hand-written manifest's patients), step2 and the later phases read it,
 and step3 (``--test_size 0.3``) runs on the card and with ``--device cpu``,
@@ -117,26 +123,10 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from emr2a_tpu_torch.tools.time_blocks import bound, close, nbytes
 from emr2a_tpu_torch.tools.time_linears import timing_text, timings
 
-
-# H100 SXM peaks (NVIDIA's data sheet, dense, 700 W)
-HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS_PER_S = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12}
 K6_N, K6_DIM, K6_K = 1_000_000, 512, 5
-
-
-def bound(nbytes: float, ops=()) -> dict:
-    """The least time the card could take: the larger of the bytes over
-    the memory rate and the operations over the peak of their type."""
-    t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = sum(n / PEAK_OPS_PER_S[kind] for kind, n in ops)
-    return {"bound_ms": max(t_bytes, t_ops) * 1e3,
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
-
-
-def nbytes(*tensors) -> int:
-    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
 
 
 def fail(msg: str) -> None:
@@ -167,6 +157,21 @@ def ptxas_summary(log: str) -> str:
     return "\n".join(sorted(set(lines)))
 
 
+def core_occupancy(log: str) -> str:
+    """The attention core's residency from ptxas's register count and its
+    64 KB of shared memory a block (``csrc/attention_core.cuh``)."""
+    m = re.search(r"Compiling entry function '\w*attention_core_kernel\w*'.*?Used (\d+) registers",
+                  log, re.S)
+    if not m:
+        fail("no ptxas report of the attention core")
+    regs = -(-int(m.group(1)) // 8) * 8
+    threads, smem = 256, 64 * 1024
+    blocks = min(65536 // (regs * threads), 233472 // (smem + 1024), 2048 // threads)
+    return (f"attention core: {m.group(1)} registers a thread (ptxas), {smem} B of shared "
+            f"memory and {threads // 32} warps a block: {blocks} blocks, {blocks * threads // 32} "
+            f"warps an SM")
+
+
 def median_ms(fn, iters: int = 100, warmup: int = 5) -> float:
     for _ in range(warmup):
         fn()
@@ -184,37 +189,14 @@ def median_ms(fn, iters: int = 100, warmup: int = 5) -> float:
 
 
 def compare(name: str, got: torch.Tensor, want: torch.Tensor) -> float:
-    """assert_close at atol = rtol = 1e-2 and per-row cosine >= 0.9999;
-    returns the max abs error."""
-    got = got.float().reshape(-1, got.shape[-1])
-    want = want.float().reshape(-1, want.shape[-1])
-    if not torch.isfinite(got).all():
-        fail(f"{name}: non-finite output")
+    """atol = rtol = 1e-2 and per-row cosine >= 0.9999
+    (``time_blocks.close``); returns the max abs error."""
     try:
-        torch.testing.assert_close(got, want, atol=1e-2, rtol=1e-2)
+        err = close(got, want)
     except AssertionError as e:
         fail(f"{name} disagrees with its plain version: {e}")
-    cos = torch.nn.functional.cosine_similarity(got, want, dim=-1).min().item()
-    if cos < 0.9999:
-        fail(f"{name}: min row cosine {cos} < 0.9999")
-    err = (got - want).abs().max().item()
-    print(f"{name}: max_abs_err {err} min_row_cos {cos}", flush=True)
+    print(f"{name}: max_abs_err {err}", flush=True)
     return err
-
-
-def int_mm_version(module, fn, weights):
-    """``fn`` (a W8A8 op's plain version in ``module``) with its s8
-    products on ``torch._int_mm`` (cuBLAS int8), as a yardstick only."""
-    col_major = {w.data_ptr(): w.t().contiguous().t() for w in weights}
-
-    def run():
-        plain = module.s8_matmul
-        module.s8_matmul = lambda q, w: torch._int_mm(q, col_major[w.data_ptr()]).float()
-        try:
-            return fn()
-        finally:
-            module.s8_matmul = plain
-    return run
 
 
 def linear_record(kernel: str, card: str, extra=()) -> dict:
@@ -250,117 +232,116 @@ def quantize_weight(w: torch.Tensor):
     return q, s.reshape(-1)
 
 
+BLOCK_RECORDS = (
+    # (time_blocks kernel, record name, source, the TPU kernel it replaces)
+    ("k1", "fused_ln_mlp", "mlp.cu", "emr2a_tpu/ops/mlp.py:75"),
+    ("k3", "fused_ln_attention", "attention_block.cu", "emr2a_tpu/ops/attention_block.py:270"),
+    ("k3m", "fused_ln_attention_merged", "attention_block.cu",
+     "emr2a_tpu/ops/attention_block.py:179"),
+    ("k4", "fused_ln_attention_int8", "attention_block_int8.cu",
+     "emr2a_tpu/ops/attention_block.py:436"),
+    ("k1_bf16_gelu", "fused_ln_mlp act_dtype=bf16", "mlp.cu", "emr2a_tpu/ops/mlp.py:75"),
+)
+LONG_SEQ = (2, 577, 768, 12, 570)   # ViT-B width at S = 577, which the routing rule admits
+
+
+def block_phase(card: str) -> list:
+    """K1 (and its bf16 gelu), K3, K3m and K4 through ``tools/time_blocks``:
+    each against its plain version at the main path's shapes (K3m bit for
+    bit against K3), single, chained and CUDA-graph times beside the
+    yardstick and the bound; the record's head is its first shape."""
+    from emr2a_tpu_torch.tools import time_blocks
+
+    try:
+        blocks = time_blocks.block_records(tuple(k for k, *_ in BLOCK_RECORDS))
+    except AssertionError as e:
+        fail(f"block kernels: {e}")
+    records = []
+    for kernel, name, source, replaces in BLOCK_RECORDS:
+        shapes = blocks[kernel]
+        records.append({"name": name, "route": "cuda", "source": f"emr2a_tpu_torch/csrc/{source}",
+                        "replaces": replaces, **shapes[0],
+                        "max_abs_err": max(r["max_abs_err"] for r in shapes), "shapes": shapes})
+        print(f"{name}: {len(shapes)} shapes against the plain version"
+              + (", bit-identical to K3" if kernel == "k3m" else "") + f" ({card})", flush=True)
+    records[-1]["gelu_epilogue_bit_identical_values"] = GELU_VALUES
+    return records
+
+
+def long_sequence_check() -> None:
+    """K3 and K4 at LONG_SEQ (K/V streamed through the attention core's
+    slots) against their plain versions; K3m bit for bit against K3."""
+    from emr2a_tpu_torch.ops import attention_block
+
+    B, S, d, H, valid_len = LONG_SEQ
+    g = torch.Generator(device="cuda").manual_seed(577)
+    rn = lambda *shape, std=1.0: (torch.randn(*shape, generator=g, device="cuda")
+                                  * std).to(torch.bfloat16)
+    x = rn(B, S, d)
+    ln = ((1.0 + rn(d, std=0.1).float()).to(torch.bfloat16), rn(d, std=0.1))
+    w = [rn(d, d, std=0.02) if i % 2 == 0 else rn(d, std=0.02) for i in range(8)]
+    wq = []
+    for i in (0, 2, 4, 6):
+        wq += [*quantize_weight(w[i]), w[i + 1]]
+    tag = f"({B}, {S}, {d}), valid_len {valid_len}"
+    k3 = attention_block.fused_ln_attention(x, *ln, *w, num_heads=H, valid_len=valid_len)
+    k3m = attention_block.fused_ln_attention(x, *ln, *w, num_heads=H, valid_len=valid_len,
+                                             block_b=1, merge_batch=True)
+    k4 = attention_block.fused_ln_attention_int8(x, *ln, *wq, num_heads=H, valid_len=valid_len)
+    torch.cuda.synchronize()
+    compare(f"fused_ln_attention {tag}", k3[:, :valid_len],
+            attention_block.fused_ln_attention_reference(
+                x, *ln, *w, num_heads=H, valid_len=valid_len)[:, :valid_len])
+    compare(f"fused_ln_attention_int8 {tag}", k4[:, :valid_len],
+            attention_block.fused_ln_attention_int8_reference(
+                x, *ln, *wq, num_heads=H, valid_len=valid_len)[:, :valid_len])
+    if not torch.equal(k3m, k3):
+        fail(f"fused_ln_attention merge_batch {tag}: not bit-identical to K3")
+    print(f"fused_ln_attention merge_batch {tag}: bit-identical to K3", flush=True)
+
+
 def kernel_phase(card: str) -> list:
-    from emr2a_tpu_torch.ops import attention_block, mlp, quant
+    from emr2a_tpu_torch.ops import mlp, quant
+    from emr2a_tpu_torch.tools.time_blocks import int_mm_version
+
+    records = block_phase(card)
+    long_sequence_check()
+    gelu_epilogue_check()
 
     g = torch.Generator(device="cuda").manual_seed(0)
 
     def rn(*shape, std=1.0):
         return (torch.randn(*shape, generator=g, device="cuda") * std).to(torch.bfloat16)
 
-    B, S, d, m, H, valid_len = 32, 200, 768, 3072, 12, 197
-    x = rn(B, S, d)
+    B, S, d, m = 32, 200, 768, 3072
+    T = B * S
+    x2 = rn(T, d)
     ln_s, ln_b = (1.0 + rn(d, std=0.1).float()).to(torch.bfloat16), rn(d, std=0.1)
     w1, b1, w2, b2 = rn(d, m, std=0.02), rn(m, std=0.02), rn(m, d, std=0.02), rn(d, std=0.02)
-    attn_w = [rn(d, d, std=0.02) if i % 2 == 0 else rn(d, std=0.02) for i in range(8)]
-    x2 = x.reshape(B * S, d)
     # W8A8 weights quantized from the same bf16 values, as fast="int8" does
     (w1q, w1s), (w2q, w2s) = quantize_weight(w1), quantize_weight(w2)
-    attn_q = []
-    for i in (0, 2, 4, 6):
-        attn_q += [*quantize_weight(attn_w[i]), attn_w[i + 1]]
     mlp8 = (x2, ln_s, ln_b, w1q, w1s, b1, w2q, w2s, b2)
-
-    k1 = lambda: mlp.fused_ln_mlp(x2, ln_s, ln_b, w1, b1, w2, b2)
-    k1_ref = lambda: mlp.fused_ln_mlp_reference(x2, ln_s, ln_b, w1, b1, w2, b2)
-    k3 = lambda: attention_block.fused_ln_attention(
-        x, ln_s, ln_b, *attn_w, num_heads=H, valid_len=valid_len)
-    k3_ref = lambda: attention_block.fused_ln_attention_reference(
-        x, ln_s, ln_b, *attn_w, num_heads=H, valid_len=valid_len)
-    k2 = lambda: mlp.fused_ln_mlp_int8(*mlp8)
-    k2_ref = lambda: mlp.fused_ln_mlp_int8_reference(*mlp8)
-    k4 = lambda: attention_block.fused_ln_attention_int8(
-        x, ln_s, ln_b, *attn_q, num_heads=H, valid_len=valid_len)
-    k4_ref = lambda: attention_block.fused_ln_attention_int8_reference(
-        x, ln_s, ln_b, *attn_q, num_heads=H, valid_len=valid_len)
-    # plain bf16 PyTorch on the same shapes (cuBLAS bf16 products), for scale
-    k1_bf16 = lambda: x2 + (mlp.gelu_tanh(torch.nn.functional.layer_norm(
-        x2, (d,), ln_s, ln_b, 1e-6) @ w1 + b1) @ w2 + b2)
-
-    def k3_bf16():
-        h = torch.nn.functional.layer_norm(x, (d,), ln_s, ln_b, 1e-6)
-        q, k, v = (h @ attn_w[i] + attn_w[i + 1] for i in (0, 2, 4))
-        split = lambda t: t.reshape(B, S, H, d // H).transpose(1, 2)
-        mask = torch.zeros(S, device="cuda", dtype=torch.bfloat16)
-        mask[valid_len:] = float("-inf")
-        o = torch.softmax(split(q) @ split(k).transpose(-1, -2) * (d // H) ** -0.5
-                          + mask, dim=-1) @ split(v)
-        return x + o.transpose(1, 2).reshape(B, S, d) @ attn_w[6] + attn_w[7]
-
-    bf = torch.bfloat16
-    k1_act = lambda: mlp.fused_ln_mlp(x2, ln_s, ln_b, w1, b1, w2, b2, act_dtype=bf)
-    k1_act_ref = lambda: mlp.fused_ln_mlp_reference(x2, ln_s, ln_b, w1, b1, w2, b2,
-                                                    act_dtype=bf)
-    k2_act = lambda: mlp.fused_ln_mlp_int8(*mlp8, act_dtype=bf)
-    k2_act_ref = lambda: mlp.fused_ln_mlp_int8_reference(*mlp8, act_dtype=bf)
-
-    vit = f"({B}, {S}, {d}), valid_len {valid_len}"
-    T = B * S
     mlp_ops = 4 * T * d * m
-    attn_ops = (8 * T * d * d, 4 * B * H * S * valid_len * (d // H))
-    out_bytes = T * d * 2
-    cases = [
-        ("fused_ln_mlp", k1, k1_ref, {"plain_bf16_ms": k1_bf16}, "mlp.cu",
-         "emr2a_tpu/ops/mlp.py:75", slice(None), f"T={T}, {d}->{m}->{d}",
-         bound(nbytes(x2, ln_s, ln_b, w1, b1, w2, b2) + out_bytes,
-               [("bf16", mlp_ops)])),
-        ("fused_ln_attention", k3, k3_ref, {"plain_bf16_ms": k3_bf16},
-         "attention_block.cu", "emr2a_tpu/ops/attention_block.py:270",
-         slice(0, valid_len), vit,
-         bound(nbytes(x, ln_s, ln_b, *attn_w) + out_bytes,
-               [("bf16", attn_ops[0] + attn_ops[1])])),
-        ("fused_ln_mlp_int8", k2, k2_ref,
-         {"int_mm_ms": int_mm_version(mlp, k2_ref, (w1q, w2q))}, "mlp_int8.cu",
-         "emr2a_tpu/ops/mlp.py:194", slice(None), f"T={T}, {d}->{m}->{d}",
-         bound(nbytes(*mlp8) + out_bytes, [("int8", mlp_ops)])),
-        ("fused_ln_attention_int8", k4, k4_ref,
-         {"int_mm_ms": int_mm_version(attention_block, k4_ref, attn_q[0::3])},
-         "attention_block_int8.cu", "emr2a_tpu/ops/attention_block.py:436",
-         slice(0, valid_len), vit,
-         bound(nbytes(x, ln_s, ln_b, *attn_q) + out_bytes,
-               [("int8", attn_ops[0]), ("bf16", attn_ops[1])])),
-        ("fused_ln_mlp act_dtype=bf16", k1_act, k1_act_ref, {}, "mlp.cu",
-         "emr2a_tpu/ops/mlp.py:75", slice(None), f"T={T}, {d}->{m}->{d}, bf16 gelu",
-         bound(nbytes(x2, ln_s, ln_b, w1, b1, w2, b2) + out_bytes,
-               [("bf16", mlp_ops)])),
-        ("fused_ln_mlp_int8 act_dtype=bf16", k2_act, k2_act_ref, {}, "mlp_int8.cu",
-         "emr2a_tpu/ops/mlp.py:194", slice(None), f"T={T}, {d}->{m}->{d}, bf16 gelu",
-         bound(nbytes(*mlp8) + out_bytes, [("int8", mlp_ops)])),
-    ]
-    records = []
-    for name, fn, ref, others, source, replaces, rows, shape, bnd in cases:
+    bnd = bound(nbytes(*mlp8) + T * d * 2, [("int8", mlp_ops)])
+    shape = f"T={T}, {d}->{m}->{d}"
+    for name, act in (("fused_ln_mlp_int8", torch.float32),
+                      ("fused_ln_mlp_int8 act_dtype=bf16", torch.bfloat16)):
+        fn = lambda: mlp.fused_ln_mlp_int8(*mlp8, act_dtype=act)
+        ref = lambda: mlp.fused_ln_mlp_int8_reference(*mlp8, act_dtype=act)
         got = fn()
         torch.cuda.synchronize()
-        want = ref()
-        got, want = (t.reshape(B, S, d)[:, rows] for t in (got, want))
-        err = compare(name, got, want)
-        rec = {"name": name, "route": "cuda",
-               "source": f"emr2a_tpu_torch/csrc/{source}", "replaces": replaces,
-               "shape": shape, "max_abs_err": err, "ms": median_ms(fn),
-               "plain_ms": median_ms(ref), **bnd, "library_ms": None}
-        rec.update({key: median_ms(f) for key, f in others.items()})
-        print(f"{name}: kernel {rec['ms']:.4f} ms, plain version "
-              f"{rec['plain_ms']:.4f} ms, " + ", ".join(
-                  f"{key[:-3]} {rec[key]:.4f} ms" for key in others)
+        err = compare(name, got, ref())
+        rec = {"name": name, "route": "cuda", "source": "emr2a_tpu_torch/csrc/mlp_int8.cu",
+               "replaces": "emr2a_tpu/ops/mlp.py:194", "shape": shape, "max_abs_err": err,
+               "ms": median_ms(fn), "plain_ms": median_ms(ref), **bnd, "library_ms": None}
+        if act == torch.float32:
+            rec["int_mm_ms"] = median_ms(int_mm_version(mlp, ref, (w1q, w2q)))
+        else:
+            rec["gelu_epilogue_bit_identical_values"] = GELU_VALUES
+        print(f"{name}: kernel {rec['ms']:.4f} ms, plain version {rec['plain_ms']:.4f} ms"
+              + (f", int_mm {rec['int_mm_ms']:.4f} ms" if "int_mm_ms" in rec else "")
               + f" (median of 100, {shape}; {card})", flush=True)
         records.append(rec)
-    for rec in records:
-        if rec["name"].endswith("act_dtype=bf16"):
-            rec["gelu_epilogue_bit_identical_values"] = GELU_VALUES
-
-    gelu_epilogue_check()
-    records.append(merged_attention_record(card, x, ln_s, ln_b, attn_w, H, valid_len,
-                                           k3_bf16, g))
 
     # K5 at every shape the int8 judge gives it (the decoder's q/o, k/v,
     # gate/up and down projections at its prefill, T = 2048, and its decode,
@@ -370,7 +351,7 @@ def kernel_phase(card: str) -> list:
     records.append(linear_record("k5", card, extra=((32, 768, 3072),)))
 
     # the shared row quantize: codes and scales equal the plain version's
-    for xq in (x2, torch.randn(B * S, m, generator=g, device="cuda")):
+    for xq in (x2, torch.randn(T, m, generator=g, device="cuda")):
         q, s = quant.quantize_rows_s8(xq)
         want_q, want_s = quant.quantize_rows_s8_reference(xq)
         if not (torch.equal(q, want_q) and torch.equal(s, want_s)):
@@ -439,61 +420,6 @@ def gelu_epilogue_check() -> None:
         print(f"{name} act_dtype=bf16: gelu epilogue bit-identical to gelu_tanh_bf16 "
               f"on {GELU_VALUES} values x {T} rows; the f32 epilogue differs at "
               f"{(got != f32).sum().item()} of them", flush=True)
-
-
-def merged_attention_record(card: str, x, ln_s, ln_b, attn_w, H: int, valid_len: int,
-                            k3_bf16_32, g) -> dict:
-    """K3m (block_b 4) at K3's timing shape, x (32, 200, 768), and at the
-    tower's throughput batch, (128, 197, 768): against its plain version at
-    K3's tolerance and bit for bit against K3, timed beside K3, the plain
-    version and the plain bf16 yardstick (at the first shape K3's)."""
-    from emr2a_tpu_torch.ops import attention_block
-
-    d, block_b = x.shape[-1], 4
-    shapes = []
-    for xs in (x, (torch.randn(128, 197, d, generator=g, device="cuda")).to(torch.bfloat16)):
-        Bs, Ss = xs.shape[:2]
-        fn = lambda: attention_block.fused_ln_attention(
-            xs, ln_s, ln_b, *attn_w, num_heads=H, valid_len=valid_len, block_b=block_b,
-            merge_batch=True)
-        k3 = lambda: attention_block.fused_ln_attention(
-            xs, ln_s, ln_b, *attn_w, num_heads=H, valid_len=valid_len)
-        ref = lambda: attention_block.fused_ln_attention_merged_reference(
-            xs, ln_s, ln_b, *attn_w, num_heads=H, valid_len=valid_len, block_b=block_b)
-        got = fn()
-        torch.cuda.synchronize()
-        tag = f"fused_ln_attention merge_batch ({Bs}, {Ss}, {d}) block_b {block_b}"
-        err = compare(tag, got[:, :valid_len], ref()[:, :valid_len])
-        if not torch.equal(got, k3()):
-            fail(f"{tag}: not bit-identical to K3 on the same inputs")
-        if Bs == x.shape[0]:
-            yardstick = k3_bf16_32
-        else:
-            def yardstick():
-                h = torch.nn.functional.layer_norm(xs, (d,), ln_s, ln_b, 1e-6)
-                q, k, v = (h @ attn_w[i] + attn_w[i + 1] for i in (0, 2, 4))
-                split = lambda t: t.reshape(Bs, Ss, H, d // H).transpose(1, 2)
-                mask = torch.zeros(Ss, device="cuda", dtype=torch.bfloat16)
-                mask[valid_len:] = float("-inf")
-                o = torch.softmax(split(q) @ split(k).transpose(-1, -2) * (d // H) ** -0.5
-                                  + mask, dim=-1) @ split(v)
-                return xs + o.transpose(1, 2).reshape(Bs, Ss, d) @ attn_w[6] + attn_w[7]
-        ops = 8 * Bs * Ss * d * d + 4 * Bs * Ss * valid_len * d
-        rec = {"shape": f"({Bs}, {Ss}, {d}), valid_len {valid_len}, block_b {block_b}",
-               "max_abs_err": err, "bit_identical_to_k3": True, "ms": median_ms(fn),
-               "k3_ms": median_ms(k3), "plain_ms": median_ms(ref),
-               "plain_bf16_ms": median_ms(yardstick),
-               **bound(nbytes(xs, ln_s, ln_b, *attn_w) + Bs * Ss * d * 2, [("bf16", ops)]),
-               "library_ms": None}
-        print(f"{tag}: bit-identical to K3; kernel {rec['ms']:.4f} ms, K3 {rec['k3_ms']:.4f} "
-              f"ms, plain version {rec['plain_ms']:.4f} ms, plain bf16 "
-              f"{rec['plain_bf16_ms']:.4f} ms, bound {rec['bound_ms']:.4f} ms "
-              f"({rec['bound_by']}) (median of 100; {card})", flush=True)
-        shapes.append(rec)
-    return {"name": "fused_ln_attention_merged", "route": "cuda",
-            "source": "emr2a_tpu_torch/csrc/attention_block.cu",
-            "replaces": "emr2a_tpu/ops/attention_block.py:179", **shapes[0],
-            "max_abs_err": max(r["max_abs_err"] for r in shapes), "shapes": shapes}
 
 
 def reset_counts() -> None:
@@ -1599,7 +1525,9 @@ def main() -> int:
     lib = _build.build()
     _build.library()
     print(f"kernels built in {time.time() - t0:.1f} s: {lib.name}", flush=True)
-    print(ptxas_summary(lib.with_suffix(".log").read_text()), flush=True)
+    log = lib.with_suffix(".log").read_text()
+    print(ptxas_summary(log), flush=True)
+    print(core_occupancy(log), flush=True)
 
     records = kernel_phase(card) + topk_kernel_phase(card) + judge_kernel_phase(card)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:

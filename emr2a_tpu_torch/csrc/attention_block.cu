@@ -1,8 +1,8 @@
-// Fused LN -> QKV -> attention -> out-proj -> residual block for Hopper
-// (sm_90a).
+// Fused LN -> QKV -> attention -> out-proj -> residual block (K3) for
+// Hopper (sm_90a).
 //
-// Replaces emr2a_tpu/ops/attention_block.py:fused_ln_attention (the Pallas
-// kernel _attn_block_kernel):
+// Replaces emr2a_tpu/ops/attention_block.py:270 fused_ln_attention (the
+// Pallas kernel _attn_block_kernel at :102, pallas_call at :313):
 //   h = LN(x)                      f32 statistics, rounded to bf16
 //   q/k/v = h @ W + b              f32 accumulation, rounded to bf16
 //   p = softmax(q k^T * hd^-0.5 + mask)   f32 logits and softmax; keys at or
@@ -11,69 +11,76 @@
 //   y = x + bf16(o @ Wo + bo)
 //
 // Bound on the H100: at ViT-B (B x 200 x 768, 12 heads of 64) the four
-// projections are ~8/9 of the FLOPs and compute-bound; the attention core is
-// small (S = 200) and its K/V per head (200 x 64 bf16 each) fit in shared
-// memory. Design: three launches. The Q/K/V projections are one launch of
-// the hand-written GEMM (gemm.cuh) with the LayerNorm fused into its operand
-// load and blockIdx.z picking Wq/Wk/Wv; the attention core (attention_core.cuh) holds one
-// head's K and V in shared memory and gives each warp 16 query rows whose
-// whole logits row stays on chip; the out-projection GEMM fuses bias and
-// residual. Not yet done: Q/K/V and the attention output make one round trip
-// through device memory each; keeping them on chip is the first optimisation
-// queued for this kernel.
+// projections are ~8/9 of the operations and bound by the tensor cores
+// ((32, 200, 768): 34 us at 989 TFLOP/s). Design: four launches. The LN row
+// pass of gemm.cuh writes h into the attention-output scratch; the Q/K/V
+// projections are one launch of the TMA-fed wgmma GEMM (gemm.cuh) with
+// three weight maps (z = 0, 1, 2 picks Wq/Wk/Wv) and the bias in its
+// epilogue; the attention core (attention_core.cuh) takes any sequence
+// length and overwrites h with the attention output; the out-projection
+// GEMM fuses bias and residual. Q/K/V and the attention output each make
+// one round trip through device memory (at (32, 200, 768): 39 and 9.8 MB).
 #include "attention_core.cuh"
 #include "gemm.cuh"
 
 using namespace emr2a;
 
-// The three launches over B items; Q, K and V go to qkv + z * plane.
+// The TMA maps of the four (d, d) weights: Wq, Wk, Wv, Wo.
+static cudaError_t encode_weight_maps(CUtensorMap* wmap, const void* wq, const void* wk,
+                                      const void* wv, const void* wo, int d) {
+  const void* w[4] = {wq, wk, wv, wo};
+  cudaError_t err = cudaSuccess;
+  for (int i = 0; i < 4 && err == cudaSuccess; ++i) err = encode_gemm_b(&wmap[i], w[i], d, d);
+  return err;
+}
+
+// The four launches over B items; Q, K and V go to qkv + z * plane; attn
+// holds h until the core overwrites it, so one map serves both products.
 static int emr2a_fused_ln_attention_planes(const void* x, const void* ln_scale,
-                                           const void* ln_bias, const void* wq, const void* bq,
-                                           const void* wk, const void* bk, const void* wv,
-                                           const void* bv, const void* wo, const void* bo,
-                                           void* qkv, size_t plane, void* attn, void* out,
-                                           int B, int S, int d, int num_heads, int valid_len,
-                                           float eps, void* stream) {
-  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+                                           const void* ln_bias, const CUtensorMap* wmap,
+                                           const void* bq, const void* bk, const void* bv,
+                                           const void* bo, void* qkv, size_t plane, void* attn,
+                                           void* out, int B, int S, int d, int num_heads,
+                                           int valid_len, float eps, cudaStream_t st) {
   const int T = B * S;
   bf16* qkv_b = static_cast<bf16*>(qkv);
+  bf16* h = static_cast<bf16*>(attn);
   if (valid_len > S) valid_len = S;
-  const int sp = (S + 15) / 16 * 16;
-  if (sp > ATT_MAX_SP || d != num_heads * ATT_HD || valid_len < 1)
-    return static_cast<int>(cudaErrorInvalidValue);
+  if (d != num_heads * ATT_HD || valid_len < 1) return static_cast<int>(cudaErrorInvalidValue);
+
+  cudaError_t err = launch_layer_norm_rows(static_cast<const bf16*>(x),
+                                           static_cast<const bf16*>(ln_scale),
+                                           static_cast<const bf16*>(ln_bias), h, T, d, eps, st);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  CUtensorMap amap;
+  err = encode_gemm_a(&amap, h, T, d);
+  if (err != cudaSuccess) return static_cast<int>(err);
 
   GemmParams p1 = {};
-  p1.a = static_cast<const bf16*>(x);
-  p1.b[0] = static_cast<const bf16*>(wq);
-  p1.b[1] = static_cast<const bf16*>(wk);
-  p1.b[2] = static_cast<const bf16*>(wv);
   p1.bias[0] = static_cast<const bf16*>(bq);
   p1.bias[1] = static_cast<const bf16*>(bk);
   p1.bias[2] = static_cast<const bf16*>(bv);
   for (int z = 0; z < 3; ++z) p1.out[z] = qkv_b + z * plane;
-  p1.ln_scale = static_cast<const bf16*>(ln_scale);
-  p1.ln_bias = static_cast<const bf16*>(ln_bias);
-  p1.eps = eps;
   p1.M = T;
   p1.N = d;
   p1.K = d;
-  cudaError_t err = launch_gemm<EPI_BIAS, true>(p1, 3, st);
+  p1.nz = 3;
+  err = launch_gemm<EPI_BIAS>(amap, wmap, p1, st);
   if (err != cudaSuccess) return static_cast<int>(err);
 
-  err = launch_attention_core<bf16>(qkv_b, qkv_b + plane, qkv_b + 2 * plane,
-                                    static_cast<bf16*>(attn), B, S, d, num_heads, valid_len, st);
+  err = launch_attention_core<bf16>(qkv_b, qkv_b + plane, qkv_b + 2 * plane, h, B, S, d,
+                                    num_heads, valid_len, st);
   if (err != cudaSuccess) return static_cast<int>(err);
 
   GemmParams p2 = {};
-  p2.a = static_cast<const bf16*>(attn);
-  p2.b[0] = static_cast<const bf16*>(wo);
   p2.bias[0] = static_cast<const bf16*>(bo);
   p2.out[0] = static_cast<bf16*>(out);
   p2.residual = static_cast<const bf16*>(x);
   p2.M = T;
   p2.N = d;
   p2.K = d;
-  return static_cast<int>(launch_gemm<EPI_BIAS_RESIDUAL, false>(p2, 1, st));
+  p2.nz = 1;
+  return static_cast<int>(launch_gemm<EPI_BIAS_RESIDUAL>(amap, wmap + 3, p2, st));
 }
 
 // qkv: scratch (3, B*S, d); attn: scratch (B*S, d).
@@ -84,9 +91,12 @@ extern "C" int emr2a_fused_ln_attention(const void* x, const void* ln_scale,
                                         void* qkv, void* attn, void* out, int B, int S, int d,
                                         int num_heads, int valid_len, float eps,
                                         void* stream) {
-  return emr2a_fused_ln_attention_planes(x, ln_scale, ln_bias, wq, bq, wk, bk, wv, bv, wo, bo,
-                                         qkv, (size_t)B * S * d, attn, out, B, S, d, num_heads,
-                                         valid_len, eps, stream);
+  CUtensorMap wmap[4];
+  const cudaError_t err = encode_weight_maps(wmap, wq, wk, wv, wo, d);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return emr2a_fused_ln_attention_planes(x, ln_scale, ln_bias, wmap, bq, bk, bv, bo, qkv,
+                                         (size_t)B * S * d, attn, out, B, S, d, num_heads,
+                                         valid_len, eps, reinterpret_cast<cudaStream_t>(stream));
 }
 
 // K3m: the same function on the schedule of the TPU kernel's merged-batch
@@ -102,17 +112,19 @@ extern "C" int emr2a_fused_ln_attention(const void* x, const void* ln_scale,
 // element's K-loop and each item's attention are K3's, so the result is K3's
 // bit for bit.
 //
-// Bound: as K3, compute-bound on the projections. The schedule costs
-// 3 * ceil(B / block_b) launches of GEMMs with M = block_b*S rows (800 at
-// ViT-B, block_b 4: 7 row tiles of 128 against K3's 200 at B = 128), so it is
-// expected slower than K3; a single persistent launch that keeps a group's
-// Q/K/V on chip is the redesign queued for it.
+// Bound: as K3, bound by the tensor cores on the projections. The schedule
+// costs K3's four launches per group, its two GEMMs at M = block_b*S rows
+// (800 at ViT-B, block_b 4: 7 row tiles of 128 against K3's 200 at B = 128),
+// so it is expected slower than K3.
 extern "C" int emr2a_fused_ln_attention_merged(
     const void* x, const void* ln_scale, const void* ln_bias, const void* wq, const void* bq,
     const void* wk, const void* bk, const void* wv, const void* bv, const void* wo,
     const void* bo, void* qkv, void* attn, void* out, int B, int S, int d, int num_heads,
     int valid_len, int block_b, float eps, void* stream) {
   if (block_b < 1 || B < 1) return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap wmap[4];   // every group's weights
+  const cudaError_t enc = encode_weight_maps(wmap, wq, wk, wv, wo, d);
+  if (enc != cudaSuccess) return static_cast<int>(enc);
   const int G = block_b < B ? block_b : B;
   const size_t plane = (size_t)G * S * d;   // one projection's scratch
   const size_t item = (size_t)S * d;
@@ -120,9 +132,9 @@ extern "C" int emr2a_fused_ln_attention_merged(
     const int nb = B - b0 < G ? B - b0 : G;
     const bf16* xg = static_cast<const bf16*>(x) + b0 * item;
     bf16* og = static_cast<bf16*>(out) + b0 * item;
-    int err = emr2a_fused_ln_attention_planes(xg, ln_scale, ln_bias, wq, bq, wk, bk, wv, bv, wo,
-                                              bo, qkv, plane, attn, og, nb, S, d, num_heads,
-                                              valid_len, eps, stream);
+    int err = emr2a_fused_ln_attention_planes(xg, ln_scale, ln_bias, wmap, bq, bk, bv, bo, qkv,
+                                              plane, attn, og, nb, S, d, num_heads, valid_len, eps,
+                                              reinterpret_cast<cudaStream_t>(stream));
     if (err != 0) return err;
   }
   return 0;

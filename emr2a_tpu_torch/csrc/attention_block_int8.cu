@@ -1,8 +1,8 @@
-// Fused LN -> QKV -> attention -> out-proj -> residual block in W8A8 for
-// Hopper (sm_90a).
+// Fused LN -> QKV -> attention -> out-proj -> residual block in W8A8 (K4)
+// for Hopper (sm_90a).
 //
-// Replaces emr2a_tpu/ops/attention_block.py:fused_ln_attention_int8 (the
-// Pallas kernel _attn_block_kernel_i8):
+// Replaces emr2a_tpu/ops/attention_block.py:436 fused_ln_attention_int8
+// (the Pallas kernel _attn_block_kernel_i8, pallas_call at :465):
 //   h = LN(x)                        f32 statistics, f32 output
 //   hq = q8(h)                       per-row s8 codes + f32 scale
 //   q/k/v = bf16((hq @ Wq) * s_row * s_col + b)     s32 products
@@ -13,15 +13,16 @@
 //   y = x + bf16((oq @ Wo) * s_row * s_col + bo)
 //
 // Bound on the H100: at ViT-B (B x 200 x 768, 12 heads of 64) the four
-// projections are ~8/9 of the operations, compute-bound on the tensor cores.
+// projections are ~8/9 of the operations, bound by the tensor cores.
 // Design: five launches, built from the pieces of K3 and K2: (1) quant.cuh's
 // row pass fuses the LayerNorm and quantizes its f32 output; (2) one s8 GEMM
-// launch (gemm_s8.cuh) with blockIdx.z picking Wq/Wk/Wv writes bf16 Q/K/V;
-// (3) the attention core of K3 (attention_core.cuh) in its f32-output
-// variant, since the TPU kernel quantizes the unrounded P.V; (4) the row
-// pass quantizes P.V; (5) the s8 GEMM computes the out-projection with the
-// rescale, bias and residual add in its epilogue.
-// Not yet done: Q/K/V and P.V make a round trip through device memory each.
+// launch (gemm_s8.cuh, wmma) with blockIdx.z picking Wq/Wk/Wv writes bf16
+// Q/K/V; (3) K3's attention core (attention_core.cuh: any sequence length)
+// in its f32-output variant, since the TPU kernel quantizes the unrounded
+// P.V; (4) the row pass quantizes P.V; (5) the s8 GEMM computes the
+// out-projection with the rescale, bias and residual add in its epilogue.
+// Q/K/V and P.V make one round trip through device memory each; the s8
+// GEMMs' move to wgmma is queued.
 #include "attention_core.cuh"
 #include "gemm_s8.cuh"
 #include "quant.cuh"
@@ -40,8 +41,7 @@ extern "C" int emr2a_fused_ln_attention_int8(
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   const int T = B * S;
   if (valid_len > S) valid_len = S;
-  if ((S + 15) / 16 * 16 > ATT_MAX_SP || d != num_heads * ATT_HD || valid_len < 1)
-    return static_cast<int>(cudaErrorInvalidValue);
+  if (d != num_heads * ATT_HD || valid_len < 1) return static_cast<int>(cudaErrorInvalidValue);
 
   QuantParams qp = {};
   qp.x = x;

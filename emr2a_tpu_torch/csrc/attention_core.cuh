@@ -1,201 +1,284 @@
 // The attention core shared by K3 (attention_block.cu) and K4
-// (attention_block_int8.cu): per (item, head),
-//   p = softmax(q k^T * hd^-0.5 + mask)   f32 logits and softmax; keys at or
-//                                         past valid_len get -1e30; p rounded
-//                                         to bf16
-//   o = p v                               f32 accumulation
-// from bf16 q/k/v. K3 stores o rounded to bf16 (OutT = bf16), the rounding
-// point of emr2a_tpu/ops/attention_block.py:_attn_block_kernel; K4 stores it
-// in f32 (OutT = float), since _attn_block_kernel_i8 quantizes the f32 P.V.
+// (attention_block_int8.cu), the softmax attention inside
+// emr2a_tpu/ops/attention_block.py:_attn_block_kernel (:102) and
+// _attn_block_kernel_i8. Per (item, head), from bf16 q/k/v with head dim 64:
+//   logits = q k^T * hd^-0.5             f32; keys at or past valid_len get
+//                                        -1e30
+//   p = bf16(exp(logits - max) / sum)    the exact row max; p normalised
+//                                        before it is rounded (the TPU
+//                                        kernels' rounding point)
+//   o = p v                              f32 accumulation
+// K3 stores o rounded to bf16 (OutT = bf16); K4 stores it in f32 (OutT =
+// float), since _attn_block_kernel_i8 quantizes the unrounded P.V.
 //
-// Design: the block holds one head's K and V (S padded to 16, at most 384)
-// in shared memory and gives each of its 4 warps 16 query rows, whose whole
-// f32 logits row stays on chip; 16x16x16 bf16 wmma fragments for both
-// products. The bf16 probabilities overwrite their own logits row in place.
+// Bound on the H100: 4*B*H*S*valid_len*64 bf16 operations against the bytes
+// of q, k, v and o (ViT-B at batch 32, S = 200: 3.9 GFLOP and 39 MB, the
+// bytes bound it at 12 us).
+//
+// Design: any sequence length, in two passes over 64-key tiles, with the
+// logits in registers only. A block of 8 warps owns 128 query rows of one
+// (item, head), 16 a warp, so at S = 200 each head's K/V is read by two
+// blocks. Pass 1 computes each tile's logits and carries each row's running
+// max and sum (rescaled as the max grows); pass 2 recomputes them, forms p =
+// bf16(exp2(logit - max) / sum) straight into the A fragments of P.V
+// (FlashAttention-2's register reuse) and accumulates o, which needs no
+// rescale. Products run on mma.sync m16n8k16 (bf16 in, f32 accumulate); K
+// fragments come by ldmatrix, V fragments by ldmatrix.trans. The K/V tiles
+// live in shared memory with the 128-byte swizzle (chunk c of key row r at
+// chunk c ^ (r % 8), free of bank conflicts for ldmatrix), 16 KB a tile
+// pair in 4 slots (64 KB a block, so two blocks, 16 warps, share an SM):
+// up to 256 valid keys, K and V are loaded once by cp.async and stay for
+// both passes; past that they stream from L2 through the slots as a ring (K
+// alone in pass 1, K and V in pass 2), two tiles in flight. Only tiles
+// holding a key below valid_len are visited: a masked key's probability is
+// exactly 0 in f32 (exp of about -1e30), so -inf stands for the -1e30 mask.
 #pragma once
 
 #include <math_constants.h>
-#include <mma.h>
 
-#include "common.cuh"
+#include "flash.cuh"
 
 namespace emr2a {
 
-constexpr int ATT_HD = 64;                 // head dim the core supports
-constexpr int ATT_WARPS = 4;
+constexpr int ATT_HD = 64;                      // head dim the core supports
+constexpr int ATT_WARPS = 8;
 constexpr int ATT_THREADS = ATT_WARPS * 32;
-constexpr int ATT_QROWS = ATT_WARPS * 16;  // query rows per block
-constexpr int ATT_KV_LD = ATT_HD + 8;      // padded bf16 rows
-constexpr int ATT_MAX_SP = 384;            // keys padded to 16, at most this
-constexpr int ATT_MAX_COLS = ATT_MAX_SP / 32;
-constexpr float ATT_NEG_INF = -1e30f;
+constexpr int ATT_BQ = ATT_WARPS * 16;          // query rows a block
+constexpr int ATT_BK = 64;                      // keys a tile
+constexpr int ATT_SLOTS = 4;                    // K/V tiles in shared memory
+constexpr int ATT_TILE = ATT_BK * ATT_HD * 2;   // bytes of one K or V tile
+constexpr int ATT_SMEM = ATT_SLOTS * 2 * ATT_TILE;
 
-// f32 row stride of a warp's logits tile; it also stages the 16 x 64 output
-__host__ __device__ inline int logits_ld(int sp) { return (sp > ATT_HD ? sp : ATT_HD) + 8; }
+// the byte offset of 16-byte chunk c of row r in a swizzled tile
+__device__ __forceinline__ int att_swz(int r, int c) { return r * 128 + ((c ^ (r & 7)) << 4); }
 
-inline int attention_smem_bytes(int sp) {
-  return 2 * sp * ATT_KV_LD * 2                    // K, V
-         + ATT_WARPS * 16 * ATT_KV_LD * 2          // Q rows of each warp
-         + ATT_WARPS * 16 * logits_ld(sp) * 4;     // f32 logits of each warp
-}
-
-// 32 consecutive f32 values of the staging tile to the output row
-__device__ __forceinline__ void store_row32(bf16* dst, const float* src) {
+// keys k0 .. k0 + 63 of K (and V) into a slot, zero past S
+__device__ __forceinline__ void att_issue(uint8_t* ks, uint8_t* vs, const bf16* k, const bf16* v,
+                                          size_t base, int d, int k0, int S, bool with_v,
+                                          int tid) {
 #pragma unroll
-  for (int g = 0; g < 4; ++g) {
-    Vec8 o;
-#pragma unroll
-    for (int t = 0; t < 8; ++t) o.h[t] = __float2bfloat16(src[g * 8 + t]);
-    *reinterpret_cast<uint4*>(dst + g * 8) = o.u;
+  for (int j = 0; j < ATT_BK * 8 / ATT_THREADS; ++j) {
+    const int r = (tid + j * ATT_THREADS) >> 3, c = tid & 7;
+    const bool ok = k0 + r < S;
+    const size_t off = ok ? base + static_cast<size_t>(k0 + r) * d + c * 8 : 0;
+    const int n = ok ? 16 : 0;
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                     fa_smem_u32(ks + att_swz(r, c))),
+                 "l"(k + off), "r"(n));
+    if (with_v)
+      asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                       fa_smem_u32(vs + att_swz(r, c))),
+                   "l"(v + off), "r"(n));
   }
 }
 
-__device__ __forceinline__ void store_row32(float* dst, const float* src) {
+// this warp's logits (16 rows x 64 keys, m16n8 C fragments) of the tile at
+// ks, keys at or past valid_len (k0 + key) set to -inf
+__device__ __forceinline__ void att_logits(float (&s)[ATT_BK / 8][4],
+                                           const uint32_t (&qa)[ATT_HD / 16][4], const uint8_t* ks,
+                                           int k0, int valid_len, int lane) {
+  const int tq = lane & 3;
 #pragma unroll
-  for (int g = 0; g < 8; ++g)
-    reinterpret_cast<float4*>(dst)[g] = reinterpret_cast<const float4*>(src)[g];
+  for (int nt = 0; nt < ATT_BK / 8; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[nt][e] = 0.f;
+#pragma unroll
+  for (int kc = 0; kc < ATT_HD / 16; ++kc) {
+    uint32_t b[ATT_BK / 16][4];
+#pragma unroll
+    for (int np = 0; np < ATT_BK / 16; ++np) {
+      const int key = (2 * np + (lane >> 4)) * 8 + (lane & 7);
+      fa_ldmatrix_x4(b[np], ks + att_swz(key, kc * 2 + ((lane >> 3) & 1)));
+    }
+#pragma unroll
+    for (int np = 0; np < ATT_BK / 16; ++np) {
+      mma_bf16_16816(s[2 * np], qa[kc], b[np][0], b[np][1]);
+      mma_bf16_16816(s[2 * np + 1], qa[kc], b[np][2], b[np][3]);
+    }
+  }
+  if (k0 + ATT_BK > valid_len) {
+#pragma unroll
+    for (int nt = 0; nt < ATT_BK / 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        if (k0 + nt * 8 + tq * 2 + (e & 1) >= valid_len) s[nt][e] = -CUDART_INF_F;
+  }
 }
 
-// grid (ceil(S / 64), heads, B); q/k/v/out are (B*S, d) with head h in
+__device__ __forceinline__ void att_store2(bf16* dst, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(dst) = __floats2bfloat162_rn(a, b);
+}
+
+__device__ __forceinline__ void att_store2(float* dst, float a, float b) {
+  *reinterpret_cast<float2*>(dst) = make_float2(a, b);
+}
+
+// grid (ceil(S / 128), heads, B); q/k/v/out are (B*S, d) with head h in
 // columns [h*64, h*64+64).
 template <typename OutT>
-__global__ void __launch_bounds__(ATT_THREADS)
+__global__ void __launch_bounds__(ATT_THREADS, 2)
 attention_core_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                       const bf16* __restrict__ v, OutT* __restrict__ out, int S, int d,
-                      int valid_len, float scale, int sp) {
-  using namespace nvcuda;
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int ls_ld = logits_ld(sp);
-  bf16* Ks = reinterpret_cast<bf16*>(smem);
-  bf16* Vs = Ks + sp * ATT_KV_LD;
-  bf16* Qs = Vs + sp * ATT_KV_LD;
-  float* Ls = reinterpret_cast<float*>(Qs + ATT_WARPS * 16 * ATT_KV_LD);
-
+                      int valid_len, float scale_log2) {
+  extern __shared__ __align__(128) uint8_t att_smem[];
   const int b = blockIdx.z, h = blockIdx.y;
-  const int q0 = blockIdx.x * ATT_QROWS;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const size_t base = (size_t)b * S * d + (size_t)h * ATT_HD;
+  const int gq = lane >> 2, tq = lane & 3;
+  const size_t base = static_cast<size_t>(b) * S * d + static_cast<size_t>(h) * ATT_HD;
+  const int nt = (valid_len + ATT_BK - 1) / ATT_BK;   // tiles holding a valid key
+  const bool resident = nt <= ATT_SLOTS;
+  const int loads = resident ? nt : 2 * nt;
+  auto slot = [&](int i) { return att_smem + (i % ATT_SLOTS) * 2 * ATT_TILE; };
+  // load i: tile i % nt, with V when resident or in pass 2
+  auto issue = [&](int i) {
+    uint8_t* st = slot(i);
+    att_issue(st, st + ATT_TILE, k, v, base, d, (i % nt) * ATT_BK, S, resident || i >= nt, tid);
+  };
+  const int ahead = resident ? nt : ATT_SLOTS - 1;
+  for (int i = 0; i < ahead; ++i) {
+    if (i < loads) issue(i);
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+  }
 
-  // K and V of this (item, head): rows past S are zero (and masked below).
-  for (int i = tid; i < sp * (ATT_HD / 8); i += ATT_THREADS) {
-    const int r = i >> 3, c = (i & 7) * 8;
-    uint4 kv = make_uint4(0u, 0u, 0u, 0u), vv = kv;
-    if (r < S) {
-      kv = *reinterpret_cast<const uint4*>(k + base + (size_t)r * d + c);
-      vv = *reinterpret_cast<const uint4*>(v + base + (size_t)r * d + c);
+  // this warp's 16 query rows as A fragments, straight from device memory
+  const int row0 = blockIdx.x * ATT_BQ + warp * 16;
+  const bool active = row0 < S;
+  uint32_t qa[ATT_HD / 16][4];
+#pragma unroll
+  for (int kc = 0; kc < ATT_HD / 16; ++kc)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int row = row0 + gq + ((e & 1) ? 8 : 0);
+      const int col = kc * 16 + tq * 2 + ((e & 2) ? 8 : 0);
+      qa[kc][e] = row < S ? *reinterpret_cast<const uint32_t*>(q + base + static_cast<size_t>(row) * d + col)
+                          : 0u;
     }
-    *reinterpret_cast<uint4*>(Ks + r * ATT_KV_LD + c) = kv;
-    *reinterpret_cast<uint4*>(Vs + r * ATT_KV_LD + c) = vv;
-  }
-  const int row0 = q0 + warp * 16;
-  bf16* qs = Qs + warp * 16 * ATT_KV_LD;
-  for (int i = lane; i < 16 * (ATT_HD / 8); i += 32) {
-    const int r = i >> 3, c = (i & 7) * 8;
-    uint4 qv = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < S) qv = *reinterpret_cast<const uint4*>(q + base + (size_t)(row0 + r) * d + c);
-    *reinterpret_cast<uint4*>(qs + r * ATT_KV_LD + c) = qv;
-  }
-  __syncthreads();
-  if (row0 >= S) return;  // no barrier follows
 
-  // logits (16 x sp) = q k^T, f32, into this warp's rows of Ls
-  float* ls = Ls + warp * 16 * ls_ld;
-  wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fq[ATT_HD / 16];
+  float o[ATT_HD / 8][4];
 #pragma unroll
-  for (int kk = 0; kk < ATT_HD / 16; ++kk)
-    wmma::load_matrix_sync(fq[kk], qs + kk * 16, ATT_KV_LD);
-  for (int n = 0; n < sp; n += 16) {
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-    wmma::fill_fragment(acc, 0.f);
+  for (int dt = 0; dt < ATT_HD / 8; ++dt)
 #pragma unroll
-    for (int kk = 0; kk < ATT_HD / 16; ++kk) {
-      // k^T as a column-major (64 x 16) operand: element (c, n) at Ks[n][c]
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> fk;
-      wmma::load_matrix_sync(fk, Ks + n * ATT_KV_LD + kk * 16, ATT_KV_LD);
-      wmma::mma_sync(acc, fq[kk], fk, acc);
+    for (int e = 0; e < 4; ++e) o[dt][e] = 0.f;
+  // rows gq and gq + 8: the running max (log2 domain) and sum of pass 1,
+  // then the max and 1 / sum of pass 2
+  float m0 = -CUDART_INF_F, m1 = -CUDART_INF_F, l0 = 0.f, l1 = 0.f;
+
+  for (int i = 0; i < 2 * nt; ++i) {
+    if (!resident) {
+      asm volatile("cp.async.wait_group %0;\n" ::"n"(ATT_SLOTS - 2) : "memory");
+      __syncthreads();  // load i has landed; every warp is done with load i - 1
+      if (i + ATT_SLOTS - 1 < loads) issue(i + ATT_SLOTS - 1);
+      asm volatile("cp.async.commit_group;\n" ::: "memory");
+    } else if (i == 0) {
+      asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+      __syncthreads();
     }
-    wmma::store_matrix_sync(ls + n, acc, ls_ld, wmma::mem_row_major);
-  }
-  __syncwarp();
+    if (!active) continue;
+    const int t = i % nt;
+    const uint8_t* ks = resident ? slot(t) : slot(i);
+    float s[ATT_BK / 8][4];
+    att_logits(s, qa, ks, t * ATT_BK, valid_len, lane);
 
-  // Softmax row by row in f32; the bf16 probabilities overwrite the front
-  // half of their own f32 row (read fully into registers first).
-  bf16* ps = reinterpret_cast<bf16*>(ls);
-  const int ps_ld = 2 * ls_ld;
-  for (int r = 0; r < 16; ++r) {
-    float vals[ATT_MAX_COLS];
-    float mx = -CUDART_INF_F;
+    if (i < nt) {
+      // pass 1: the tile's row max (a quad of lanes shares a row), then the
+      // running max and the rescaled running sum; tile 0 holds key 0, so
+      // the max is finite from the first tile on
+      float mx0 = -CUDART_INF_F, mx1 = -CUDART_INF_F;
 #pragma unroll
-    for (int t = 0; t < ATT_MAX_COLS; ++t) {
-      const int c = lane + 32 * t;
-      float l = -CUDART_INF_F;
-      if (c < sp) {
-        l = ls[r * ls_ld + c] * scale;
-        if (c >= valid_len) l += ATT_NEG_INF;
+      for (int n = 0; n < ATT_BK / 8; ++n) {
+        mx0 = fmaxf(mx0, fmaxf(s[n][0], s[n][1]));
+        mx1 = fmaxf(mx1, fmaxf(s[n][2], s[n][3]));
       }
-      vals[t] = l;
-      mx = fmaxf(mx, l);
-    }
-    mx = warp_max(mx);
-    float sum = 0.f;
 #pragma unroll
-    for (int t = 0; t < ATT_MAX_COLS; ++t) {
-      const float e = (lane + 32 * t < sp) ? expf(vals[t] - mx) : 0.f;
-      vals[t] = e;
-      sum += e;
-    }
-    sum = warp_sum(sum);
-    __syncwarp();
+      for (int off = 1; off < 4; off <<= 1) {
+        mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
+        mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
+      }
+      const float mn0 = fmaxf(m0, mx0 * scale_log2), mn1 = fmaxf(m1, mx1 * scale_log2);
+      float sum0 = 0.f, sum1 = 0.f;
 #pragma unroll
-    for (int t = 0; t < ATT_MAX_COLS; ++t) {
-      const int c = lane + 32 * t;
-      if (c < sp) ps[r * ps_ld + c] = __float2bfloat16(vals[t] / sum);
+      for (int n = 0; n < ATT_BK / 8; ++n) {
+        sum0 += fa_exp2(fmaf(s[n][0], scale_log2, -mn0)) + fa_exp2(fmaf(s[n][1], scale_log2, -mn0));
+        sum1 += fa_exp2(fmaf(s[n][2], scale_log2, -mn1)) + fa_exp2(fmaf(s[n][3], scale_log2, -mn1));
+      }
+#pragma unroll
+      for (int off = 1; off < 4; off <<= 1) {
+        sum0 += __shfl_xor_sync(0xffffffffu, sum0, off);
+        sum1 += __shfl_xor_sync(0xffffffffu, sum1, off);
+      }
+      l0 = l0 * fa_exp2(m0 - mn0) + sum0;
+      l1 = l1 * fa_exp2(m1 - mn1) + sum1;
+      m0 = mn0;
+      m1 = mn1;
+      if (i == nt - 1) {
+        l0 = 1.0f / l0;
+        l1 = 1.0f / l1;
+      }
+      continue;
     }
-    __syncwarp();
-  }
 
-  // o (16 x 64) = p v, f32 accumulation
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> fo[ATT_HD / 16];
+    // pass 2: the normalised probabilities in bf16 as P.V's A fragments,
+    // then o += p v
+    uint32_t pa[ATT_BK / 16][4];
 #pragma unroll
-  for (int j = 0; j < ATT_HD / 16; ++j) wmma::fill_fragment(fo[j], 0.f);
-  for (int kk = 0; kk < sp; kk += 16) {
-    wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fp;
-    wmma::load_matrix_sync(fp, ps + kk, ps_ld);
+    for (int kc = 0; kc < ATT_BK / 16; ++kc) {
+      float p[2][4];
 #pragma unroll
-    for (int j = 0; j < ATT_HD / 16; ++j) {
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fv;
-      wmma::load_matrix_sync(fv, Vs + kk * ATT_KV_LD + j * 16, ATT_KV_LD);
-      wmma::mma_sync(fo[j], fp, fv, fo[j]);
+      for (int half = 0; half < 2; ++half)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          p[half][e] = fa_exp2(fmaf(s[2 * kc + half][e], scale_log2, -(e < 2 ? m0 : m1))) *
+                       (e < 2 ? l0 : l1);
+      pa[kc][0] = pack_bf16(p[0][0], p[0][1]);
+      pa[kc][1] = pack_bf16(p[0][2], p[0][3]);
+      pa[kc][2] = pack_bf16(p[1][0], p[1][1]);
+      pa[kc][3] = pack_bf16(p[1][2], p[1][3]);
+    }
+    const uint8_t* vs = ks + ATT_TILE;
+#pragma unroll
+    for (int kc = 0; kc < ATT_BK / 16; ++kc) {
+      uint32_t bv[ATT_HD / 16][4];
+      const int key = kc * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
+#pragma unroll
+      for (int dp = 0; dp < ATT_HD / 16; ++dp)
+        fa_ldmatrix_x4_trans(bv[dp], vs + att_swz(key, dp * 2 + (lane >> 4)));
+#pragma unroll
+      for (int dp = 0; dp < ATT_HD / 16; ++dp) {
+        mma_bf16_16816(o[2 * dp], pa[kc], bv[dp][0], bv[dp][1]);
+        mma_bf16_16816(o[2 * dp + 1], pa[kc], bv[dp][2], bv[dp][3]);
+      }
     }
   }
-  __syncwarp();
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+  if (!active) return;
+
+  const int r0 = row0 + gq, r1 = r0 + 8;
 #pragma unroll
-  for (int j = 0; j < ATT_HD / 16; ++j)
-    wmma::store_matrix_sync(ls + j * 16, fo[j], ATT_HD, wmma::mem_row_major);
-  __syncwarp();
-  {
-    const int r = lane >> 1, c = (lane & 1) * 32;
-    if (row0 + r < S) store_row32(out + base + (size_t)(row0 + r) * d + c, ls + r * ATT_HD + c);
+  for (int dt = 0; dt < ATT_HD / 8; ++dt) {
+    const int col = dt * 8 + tq * 2;
+    if (r0 < S) att_store2(out + base + static_cast<size_t>(r0) * d + col, o[dt][0], o[dt][1]);
+    if (r1 < S) att_store2(out + base + static_cast<size_t>(r1) * d + col, o[dt][2], o[dt][3]);
   }
 }
 
-// Rules the wrappers check: head dim 64 (d == heads * 64), S <= 384,
+// Rules the wrappers check: head dim 64 (d == heads * 64), S >= 1,
 // 1 <= valid_len (clipped to S).
 template <typename OutT>
 inline cudaError_t launch_attention_core(const bf16* q, const bf16* k, const bf16* v, OutT* out,
                                          int B, int S, int d, int num_heads, int valid_len,
                                          cudaStream_t stream) {
   if (valid_len > S) valid_len = S;
-  const int sp = (S + 15) / 16 * 16;
-  if (sp > ATT_MAX_SP || d != num_heads * ATT_HD || valid_len < 1 || B < 1)
-    return cudaErrorInvalidValue;
-  const int smem = attention_smem_bytes(sp);
-  cudaError_t err = cudaFuncSetAttribute(attention_core_kernel<OutT>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return err;
-  dim3 grid((S + ATT_QROWS - 1) / ATT_QROWS, num_heads, B);
-  attention_core_kernel<OutT><<<grid, ATT_THREADS, smem, stream>>>(
-      q, k, v, out, S, d, valid_len, 1.0f / sqrtf((float)ATT_HD), sp);
+  if (d != num_heads * ATT_HD || valid_len < 1 || B < 1) return cudaErrorInvalidValue;
+  static bool sized = false;   // the attribute is set once
+  if (!sized) {
+    cudaError_t err = cudaFuncSetAttribute(attention_core_kernel<OutT>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize, ATT_SMEM);
+    if (err != cudaSuccess) return err;
+    sized = true;
+  }
+  dim3 grid((S + ATT_BQ - 1) / ATT_BQ, num_heads, B);
+  attention_core_kernel<OutT><<<grid, ATT_THREADS, ATT_SMEM, stream>>>(
+      q, k, v, out, S, d, valid_len, 1.4426950408889634f / sqrtf(static_cast<float>(ATT_HD)));
   return cudaGetLastError();
 }
 

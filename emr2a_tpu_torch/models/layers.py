@@ -17,9 +17,8 @@ reference's function: the fused MLP's tanh gelu or the unfused MLP's erf
 gelu, and the unfused attention with the ``valid_len`` key mask where the
 rule refuses (ViT-L/336 at S = 577, a 1024 x 4096 bf16 MLP). The chosen
 ``block_b`` / ``head_group`` are not passed on: the CUDA kernels have no
-such knobs (a recorded divergence). The rule admits some shapes that the
-CUDA attention kernels refuse (S > 384, e.g. ViT-B at S = 577); no ported
-entry point reaches them.
+such knobs (a recorded divergence). The CUDA attention kernels take every
+sequence length the rule admits (ViT-B at S = 577, for one).
 
 W8A8 params are routed by what they hold, as the JAX package's
 ``_QuantRoutingModule`` does: ``load_params`` replaces every ``Dense`` whose

@@ -34,7 +34,7 @@ the same).
 
 A CPU tensor goes to the plain version; a CUDA tensor goes to the CUDA
 kernel in ``csrc/attention_block.cu`` (bf16, head dim 64, d % 128 == 0,
-sequence at most 384), or the call raises. ``LAUNCHES`` counts the calls
+any sequence length), or the call raises. ``LAUNCHES`` counts the calls
 that went to K3, ``MERGED_LAUNCHES`` those that went to K3m.
 
 The W8A8 variant, K4 (``fused_ln_attention_int8``, port of
@@ -72,7 +72,6 @@ from emr2a_tpu_torch.ops.quant import quantize_rows_s8_reference, s8_matmul
 
 NEG_INF = -1e30
 KERNEL_HEAD_DIM = 64
-KERNEL_MAX_SEQ = 384   # ATT_MAX_SP in csrc/attention_core.cuh
 
 LAUNCHES = 0
 MERGED_LAUNCHES = 0
@@ -258,6 +257,8 @@ def fused_ln_attention(x: torch.Tensor, ln_scale, ln_bias, wq, bq, wk, bk,
 
 
 def _check_kernel_shape(S: int, d: int, num_heads: int) -> None:
+    """Raise unless the CUDA kernels take (S, d, num_heads): head dim 64 and
+    d % 128 == 0; any sequence length S."""
     if d % num_heads:
         raise ValueError(f"hidden {d} not divisible by num_heads {num_heads}")
     if d // num_heads != KERNEL_HEAD_DIM:
@@ -265,9 +266,6 @@ def _check_kernel_shape(S: int, d: int, num_heads: int) -> None:
                          f"got {d // num_heads}")
     if d % GEMM_BN:
         raise ValueError(f"the kernel needs d divisible by {GEMM_BN}, got {d}")
-    if S > KERNEL_MAX_SEQ:
-        raise ValueError(f"the kernel supports sequences up to "
-                         f"{KERNEL_MAX_SEQ}, got {S}")
 
 
 def _argtypes(merged: bool = False):

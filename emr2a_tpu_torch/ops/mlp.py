@@ -19,10 +19,11 @@ tensor goes to ``fused_ln_mlp_reference``, the plain PyTorch version; a
 CUDA tensor goes to the CUDA kernel in ``csrc/mlp.cu`` (bf16 only), or the
 call raises. ``LAUNCHES`` counts the calls that went to the kernel.
 
-On the H100 the block is compute-bound at ViT-B (4*T*768*3072 FLOPs); the
-kernel is two hand-written tensor-core GEMMs with the LayerNorm fused into
-the first one's operand load and bias, gelu and residual fused into the
-epilogues. The (T, m) activation still passes through device memory.
+On the H100 the block is bound by the tensor cores at ViT-B
+(4*T*768*3072 operations); the kernel is a LayerNorm row pass and two
+TMA-fed wgmma GEMMs (``csrc/gemm.cuh``) with bias, gelu and residual fused
+into their epilogues. The LN output and the (T, m) activation pass through
+device memory (the output buffer and the ``h1`` scratch).
 
 The W8A8 variant, K2 (``fused_ln_mlp_int8``, port of
 ``emr2a_tpu/ops/mlp.py:fused_ln_mlp_int8``), takes int8 weights from
@@ -70,8 +71,8 @@ from emr2a_tpu_torch.ops.quant import quantize_rows_s8_reference, s8_matmul
 LAUNCHES = 0
 INT8_LAUNCHES = 0
 
-# column tile of the GEMM in csrc/gemm.cuh: every N (and so every K, which
-# is another GEMM's N here) must be a multiple of it
+# the narrower column tile of the GEMMs in csrc/gemm.cuh: every N (and so
+# every K, which is another GEMM's N here) must be a multiple of it
 GEMM_BN = 128
 
 

@@ -50,11 +50,12 @@ _KERNELS = (
      lambda T, B, S: 4 * B * _H * S * S * (_D // _H)),
     (r"attention_core", "attention core (K3)",
      lambda T, B, S: 4 * B * _H * S * S * (_D // _H)),
-    (r"gemm_bf16_kernel<0, ?true>", "Q/K/V GEMM + LN (K3)",
+    (r"layer_norm_rows_kernel", "LN row pass (K1, K3)", None),
+    (r"gemm_bf16_kernel<\d+, ?0>", "Q/K/V GEMM (K3)",
      lambda T, B, S: 2 * T * _D * 3 * _D),
-    (r"gemm_bf16_kernel<1, ?true>", "fc1 GEMM + LN + gelu (K1)",
+    (r"gemm_bf16_kernel<\d+, ?[13]>", "fc1 GEMM + gelu (K1)",
      lambda T, B, S: 2 * T * _D * _M),
-    (r"gemm_bf16_kernel<2, ?false>", "fc2 and out-proj GEMM + residual (K1, K3)",
+    (r"gemm_bf16_kernel<\d+, ?2>", "fc2 and out-proj GEMM + residual (K1, K3)",
      lambda T, B, S: (2 * T * _M * _D + 2 * T * _D * _D) / 2),
     (r"gemm_s8_kernel<0>", "Q/K/V s8 GEMM (K4)",
      lambda T, B, S: 2 * T * _D * 3 * _D),

@@ -1,0 +1,275 @@
+"""Time the tower's fused blocks on the card: K1 (``fused_ln_mlp``, also with
+``act_dtype=bf16``), K3 (``fused_ln_attention``), K3m (its
+``merge_batch=True`` schedule, block_b 4) and K4
+(``fused_ln_attention_int8``).
+
+    python -m emr2a_tpu_torch.tools.time_blocks [--out FILE]
+
+Shapes: the main path's, at BioMedCLIP ViT-B/16 width (d = 768, m = 3,072,
+12 heads of 64, valid_len 197): step2's device batch of 32 slices at S =
+200 (K1 at T = 6,400), the layer breakdown's B = 96 x 200 (T = 19,200) and
+the tower's throughput batch of 128 at S = 197 (T = 25,216). At each shape
+the kernel is held against its plain version (atol = rtol = 1e-2 and row
+cosine >= 0.9999 on the valid rows; K3m bit for bit against K3), then
+timed with ``time_linears.timings`` (median and quartiles of 100 single
+launches, each with the wrapper's host work, and the least of 3 chains of
+20) and ``time_linears.graph_ms`` (one call's device time, 20 calls
+replayed in a CUDA graph), beside a yardstick timed the same way: plain
+bf16 PyTorch on the same inputs (cuBLAS products, ``layer_norm``,
+``softmax``) for K1, K3 and K3m, and K4's plain version with its s8
+products on ``torch._int_mm`` for K4; the plain version's median at the
+first shape, with the device time of one call by kernel
+(``torch.profiler``); and the bound (the larger of the bytes over 3.35 TB/s
+and the operations over the dense peak of their type). Prints one line per shape
+and, with ``--out``, writes the records as JSON. Uses only the wrappers'
+public functions, so the same file times an older tree of the port.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+
+import torch
+
+from emr2a_tpu_torch.tools.time_linears import graph_ms, timing_text, timings
+
+# H100 SXM peaks (NVIDIA's data sheet, dense, 700 W)
+HBM_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12}
+D, M, H, VALID = 768, 3072, 12, 197
+# (B, S) of step2's device batch, the layer breakdown and the tower's batch
+SHAPES = ((32, 200), (96, 200), (128, 197))
+BLOCK_B = 4
+
+
+def bound(nbytes: float, ops=()) -> dict:
+    """The least time the card could take: the larger of the bytes over
+    the memory rate and the operations over the peak of their type."""
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = sum(n / PEAK_OPS_PER_S[kind] for kind, n in ops)
+    return {"bound_ms": max(t_bytes, t_ops) * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
+
+
+def close(got: torch.Tensor, want: torch.Tensor) -> float:
+    """atol = rtol = 1e-2 and row cosine >= 0.9999; returns the max abs
+    error (raises AssertionError otherwise)."""
+    got = got.float().reshape(-1, got.shape[-1])
+    want = want.float().reshape(-1, want.shape[-1])
+    if not torch.isfinite(got).all():
+        raise AssertionError("non-finite output")
+    torch.testing.assert_close(got, want, atol=1e-2, rtol=1e-2)
+    cos = torch.nn.functional.cosine_similarity(got, want, dim=-1).min().item()
+    if cos < 0.9999:
+        raise AssertionError(f"min row cosine {cos} < 0.9999")
+    return (got - want).abs().max().item()
+
+
+def operands(seed: int = 0) -> dict:
+    """Seeded bf16 block weights at ViT-B width, their W8A8 codes (quantized
+    on the card, as ``fast="int8"`` does) and one (B, S, d) input per shape
+    of SHAPES."""
+    from emr2a_tpu_torch.models.quantize import quantize_weight_int8_torch
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def rn(*shape, std=1.0):
+        return (torch.randn(*shape, generator=g, device="cuda") * std).to(torch.bfloat16)
+
+    ln = ((1.0 + rn(D, std=0.1).float()).to(torch.bfloat16), rn(D, std=0.1))
+    mlp_w = (rn(D, M, std=0.02), rn(M, std=0.02), rn(M, D, std=0.02), rn(D, std=0.02))
+    attn_w = [rn(D, D, std=0.02) if i % 2 == 0 else rn(D, std=0.02) for i in range(8)]
+    attn_q = []
+    for i in (0, 2, 4, 6):
+        q, s = quantize_weight_int8_torch(attn_w[i])
+        attn_q += [q, s.reshape(-1), attn_w[i + 1]]
+    xs = {shape: rn(*shape, D) for shape in SHAPES}
+    return {"ln": ln, "mlp": mlp_w, "attn": attn_w, "attn_q": attn_q, "x": xs}
+
+
+def plain_bf16_mlp(x2, ln, w):
+    """The block in plain bf16 PyTorch (cuBLAS products), a yardstick."""
+    from emr2a_tpu_torch.ops.mlp import gelu_tanh
+    w1, b1, w2, b2 = w
+    h = torch.nn.functional.layer_norm(x2, (x2.shape[-1],), ln[0], ln[1], 1e-6)
+    return x2 + (gelu_tanh(h @ w1 + b1) @ w2 + b2)
+
+
+def plain_bf16_attention(x, ln, w, heads: int, valid_len: int):
+    """The block in plain bf16 PyTorch (cuBLAS products, softmax), a
+    yardstick."""
+    B, S, d = x.shape
+    h = torch.nn.functional.layer_norm(x, (d,), ln[0], ln[1], 1e-6)
+    q, k, v = (h @ w[i] + w[i + 1] for i in (0, 2, 4))
+    split = lambda t: t.reshape(B, S, heads, d // heads).transpose(1, 2)
+    mask = torch.zeros(S, device=x.device, dtype=x.dtype)
+    mask[valid_len:] = float("-inf")
+    o = torch.softmax(split(q) @ split(k).transpose(-1, -2) * (d // heads) ** -0.5
+                      + mask, dim=-1) @ split(v)
+    return x + o.transpose(1, 2).reshape(B, S, d) @ w[6] + w[7]
+
+
+def int_mm_version(module, fn, weights):
+    """``fn`` (a W8A8 op's plain version in ``module``) with its s8
+    products on ``torch._int_mm`` (cuBLAS int8), as a yardstick only."""
+    col_major = {w.data_ptr(): w.t().contiguous().t() for w in weights}
+
+    def run():
+        plain = module.s8_matmul
+        module.s8_matmul = lambda q, w: torch._int_mm(q, col_major[w.data_ptr()]).float()
+        try:
+            return fn()
+        finally:
+            module.s8_matmul = plain
+    return run
+
+
+def device_breakdown(fn, calls: int = 20) -> dict:
+    """Device ms a call of ``fn``, by kernel: ``torch.profiler`` over
+    ``calls`` calls after a warm-up; kernel names cut at their arguments."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        us = getattr(e, "device_time_total", None)
+        if us is None:
+            us = e.cuda_time_total
+        if us > 0:
+            name = e.key.split("(")[0].replace("void ", "")
+            out[name] = out.get(name, 0.0) + us / 1e3 / calls
+    return out
+
+
+def _timed(fn) -> dict:
+    t = timings(fn)
+    t["graph_ms"] = graph_ms(fn)
+    return t
+
+
+def block_record(kernel: str, shape, ops: dict, plain: bool) -> dict:
+    """One kernel at one (B, S): the check against its plain version, its
+    times, the yardstick's and the bound. ``plain`` also times the plain
+    version (slow: f32 products on the card)."""
+    from emr2a_tpu_torch.ops import attention_block, mlp
+
+    B, S = shape
+    x = ops["x"][shape]
+    ln, mw, aw, aq = ops["ln"], ops["mlp"], ops["attn"], ops["attn_q"]
+    x2 = x.reshape(B * S, D)
+    rows = slice(None)
+    if kernel in ("k1", "k1_bf16_gelu"):
+        act = torch.bfloat16 if kernel == "k1_bf16_gelu" else torch.float32
+        fn = lambda: mlp.fused_ln_mlp(x2, *ln, *mw, act_dtype=act)
+        ref = lambda: mlp.fused_ln_mlp_reference(x2, *ln, *mw, act_dtype=act)
+        yard = lambda: plain_bf16_mlp(x2, ln, mw)
+        bnd = bound(nbytes(x2, *ln, *mw) + nbytes(x2), [("bf16", 4 * B * S * D * M)])
+        tag = f"T={B * S}, {D}->{M}->{D}"
+    else:
+        attn_ops = 4 * B * H * S * VALID * (D // H)
+        rows = slice(0, VALID)
+        if kernel == "k4":
+            fn = lambda: attention_block.fused_ln_attention_int8(
+                x, *ln, *aq, num_heads=H, valid_len=VALID)
+            ref = lambda: attention_block.fused_ln_attention_int8_reference(
+                x, *ln, *aq, num_heads=H, valid_len=VALID)
+            yard = int_mm_version(attention_block, ref, aq[0::3])
+            bnd = bound(nbytes(x, *ln, *aq) + nbytes(x),
+                        [("int8", 8 * B * S * D * D), ("bf16", attn_ops)])
+        else:
+            merged = {"block_b": BLOCK_B, "merge_batch": True} if kernel == "k3m" else {}
+            fn = lambda: attention_block.fused_ln_attention(
+                x, *ln, *aw, num_heads=H, valid_len=VALID, **merged)
+            if kernel == "k3m":
+                ref = lambda: attention_block.fused_ln_attention_merged_reference(
+                    x, *ln, *aw, num_heads=H, valid_len=VALID, block_b=BLOCK_B)
+            else:
+                ref = lambda: attention_block.fused_ln_attention_reference(
+                    x, *ln, *aw, num_heads=H, valid_len=VALID)
+            yard = lambda: plain_bf16_attention(x, ln, aw, H, VALID)
+            bnd = bound(nbytes(x, *ln, *aw) + nbytes(x), [("bf16", 8 * B * S * D * D + attn_ops)])
+        tag = f"({B}, {S}, {D}), valid_len {VALID}" + (
+            f", block_b {BLOCK_B}" if kernel == "k3m" else "")
+    got = fn()
+    torch.cuda.synchronize()
+    rec = {"kernel": kernel, "shape": tag,
+           "max_abs_err": close(got.reshape(B, S, D)[:, rows],
+                                ref().reshape(B, S, D)[:, rows])}
+    if kernel == "k3m":
+        k3 = attention_block.fused_ln_attention(x, *ln, *aw, num_heads=H, valid_len=VALID)
+        if not torch.equal(got, k3):
+            raise AssertionError(f"k3m {tag}: not bit-identical to K3")
+        rec["bit_identical_to_k3"] = True
+    del got
+    rec.update(_timed(fn))
+    y = _timed(yard)
+    rec.update({"yardstick": "int_mm plain" if kernel == "k4" else "plain bf16",
+                "yardstick_ms": y["ms"], "yardstick_chained_ms": y["chained_ms"],
+                "yardstick_graph_ms": y["graph_ms"], **bnd, "library_ms": None,
+                "plain_ms": timings(ref, iters=5, warmup=1, chain=1, chains=1)["ms"]
+                if plain else None})
+    if plain:
+        rec["device_ms_by_kernel"] = device_breakdown(fn)
+    rec["bound_share_chained"] = rec["bound_ms"] / rec["chained_ms"]
+    rec["bound_share_graph"] = rec["bound_ms"] / rec["graph_ms"]
+    print(f"{kernel} {tag}: max_abs_err {rec['max_abs_err']:.4g}; kernel {timing_text(rec)}, "
+          f"in a CUDA graph {rec['graph_ms']:.4f}; {rec['yardstick']} {timing_text(y)}, in a "
+          f"CUDA graph {y['graph_ms']:.4f}"
+          + (f"; plain {rec['plain_ms']:.4f}" if plain else "")
+          + f"; bound {rec['bound_ms']:.4f} ({rec['bound_by']}; share of chained "
+          f"{100 * rec['bound_share_chained']:.1f} %, of graph "
+          f"{100 * rec['bound_share_graph']:.1f} %)"
+          + ("; device ms a call by kernel: " + ", ".join(
+              f"{k} {v:.4f}" for k, v in rec["device_ms_by_kernel"].items()) if plain else ""),
+          flush=True)
+    return rec
+
+
+KERNELS = ("k1", "k1_bf16_gelu", "k3", "k3m", "k4")
+
+
+def block_records(kernels=KERNELS, seed: int = 0) -> dict:
+    """Every kernel of ``kernels`` at every shape of SHAPES (K1's bf16 gelu
+    at the first two); the plain version timed at the first shape."""
+    ops = operands(seed)
+    out = {}
+    for kernel in kernels:
+        shapes = SHAPES[:2] if kernel == "k1_bf16_gelu" else SHAPES
+        out[kernel] = [block_record(kernel, s, ops, plain=i == 0) for i, s in enumerate(shapes)]
+        torch.cuda.empty_cache()
+    return out
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--kernels", default=",".join(KERNELS))
+    ap.add_argument("--out", default=None)
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("no CUDA device: the timings need the card", file=sys.stderr)
+        return 2
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+    print(f"card: {card}", flush=True)
+    records = block_records(tuple(args.kernels.split(",")))
+    if args.out:
+        with open(args.out, "w") as f:
+            json.dump({"card": card, "records": records}, f, indent=1)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -10,7 +10,7 @@ import torch
 from emr2a_tpu.ops.attention_block import (
     fused_ln_attention as jax_fused_ln_attention,
 )
-from emr2a_tpu_torch.ops.attention_block import fused_ln_attention
+from emr2a_tpu_torch.ops.attention_block import _check_kernel_shape, fused_ln_attention
 
 torch.set_num_threads(1)
 
@@ -27,6 +27,7 @@ def _inputs(rng, B, S, d):
     (2, 197, 48, 4, 190),
     (4, 17, 32, 2, 13),
     (2, 33, 64, 2, None),
+    (1, 577, 64, 2, 570),
 ])
 def test_fused_ln_attention_matches_jax_kernel(rng, B, S, d, H, valid_len):
     a = {k: v.astype(np.float32) for k, v in _inputs(rng, B, S, d).items()}
@@ -60,3 +61,15 @@ def test_fused_ln_attention_rejects_devices_without_a_kernel(rng):
          for v in _inputs(rng, 1, 8, 64).values()]
     with pytest.raises(ValueError, match="no kernel"):
         fused_ln_attention(*a, num_heads=1)
+
+
+@pytest.mark.parametrize("S,d,H", [(577, 768, 12), (1025, 384, 6), (1, 128, 2)])
+def test_kernel_shape_rule_takes_any_sequence_length(S, d, H):
+    """The CUDA kernels' shape rule: head dim 64 and d % 128 == 0, any S
+    (ViT-B at S = 577, which the routing rule admits)."""
+    _check_kernel_shape(S, d, H)
+
+
+def test_kernel_shape_rule_refuses_other_head_dims():
+    with pytest.raises(ValueError, match="head dim 64"):
+        _check_kernel_shape(577, 384, 12)

@@ -10,9 +10,11 @@ quantize inside, by the kernel library's own launch counts; the wgmma
 GEMM above), K = 12,288 with N = 1,024, duplicate and all-zero rows, leading
 axes, and the card's int4 quantizer against the numpy one; K8 and
 K9 (the per-frame attention kernel) at ragged S, head dims 8 to 128 and
-duplicate keys; K3m (the merged-batch LN+attention block) bit for bit
-against K3 at B = 1, 5, 128 and block_b 1, 3, 4, 8, at valid_len < S, S = 1
-and S = 384; K1 and K2 with act_dtype=bf16; the inputs the wrappers must
+duplicate keys; K3 and K4 at S = 385 and 577 (the attention core's
+streamed K/V) and at valid_len 256 and 257 (its last resident and first
+streamed key count); K3m (the merged-batch LN+attention block) bit for bit
+against K3 at B = 1, 5, 128 and block_b 1, 3, 4, 8, at valid_len < S, S = 1,
+S = 384 and S = 577; K1 and K2 with act_dtype=bf16; the inputs the wrappers must
 refuse, and the launch counters. Each test skips without a CUDA card. On the card (the suite's
 conftest imports JAX, which that machine lacks):
 
@@ -73,7 +75,8 @@ def _attn_args(gen, B, S, d):
 
 
 @pytest.mark.parametrize("T,d,m", [(1, 768, 3072), (300, 768, 3072),
-                                   (6437, 768, 3072), (129, 256, 512)])
+                                   (6437, 768, 3072), (129, 256, 512),
+                                   (77, 128, 2176)])
 def test_fused_ln_mlp_kernel_matches_plain(cuda, T, d, m):
     args = _mlp_args(torch.Generator(device="cuda").manual_seed(T), T, d, m)
     before = mlp.LAUNCHES
@@ -85,7 +88,8 @@ def test_fused_ln_mlp_kernel_matches_plain(cuda, T, d, m):
 
 @pytest.mark.parametrize("B,S,d,H,valid_len", [
     (1, 17, 128, 2, 13), (3, 50, 768, 12, 50), (2, 200, 768, 12, 197),
-    (1, 384, 256, 4, 300), (2, 8, 768, 12, 1),
+    (1, 384, 256, 4, 300), (2, 8, 768, 12, 1), (1, 385, 256, 4, 300),
+    (2, 577, 768, 12, 570), (2, 260, 256, 4, 256), (2, 260, 256, 4, 257),
 ])
 def test_fused_ln_attention_kernel_matches_plain(cuda, B, S, d, H, valid_len):
     args = _attn_args(torch.Generator(device="cuda").manual_seed(S), B, S, d)
@@ -101,9 +105,6 @@ def test_fused_ln_attention_kernel_matches_plain(cuda, B, S, d, H, valid_len):
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     gen = torch.Generator(device="cuda").manual_seed(0)
-    x, s, b, *ws = _attn_args(gen, 1, 385, 256)
-    with pytest.raises(ValueError, match="up to 384"):
-        attention_block.fused_ln_attention(x, s, b, *ws, num_heads=4)
     x, s, b, *ws = _attn_args(gen, 1, 16, 768)
     with pytest.raises(ValueError, match="head dim 64"):
         attention_block.fused_ln_attention(x, s, b, *ws, num_heads=8)
@@ -141,7 +142,7 @@ def test_merged_attention_kernel_equals_k3_bit_for_bit(cuda, B, block_b):
 
 @pytest.mark.parametrize("B,S,d,H,valid_len,block_b", [
     (6, 200, 768, 12, 150, 4), (5, 1, 768, 12, 1, 2), (3, 384, 256, 4, 384, 2),
-    (4, 384, 768, 12, 300, 3)])
+    (4, 384, 768, 12, 300, 3), (3, 577, 768, 12, 570, 2)])
 def test_merged_attention_kernel_edges(cuda, B, S, d, H, valid_len, block_b):
     args = _attn_args(torch.Generator(device="cuda").manual_seed(S + B), B, S, d)
     got = attention_block.fused_ln_attention(*args, num_heads=H, valid_len=valid_len,
@@ -167,10 +168,6 @@ def test_merged_attention_refuses_what_the_kernel_does_not_take(cuda):
     with pytest.raises(TypeError, match="bfloat16"):
         attention_block.fused_ln_attention(x.float(), s, b, *ws, num_heads=12,
                                            block_b=2, merge_batch=True)
-    x, s, b, *ws = _attn_args(gen, 1, 385, 256)
-    with pytest.raises(ValueError, match="up to 384"):
-        attention_block.fused_ln_attention(x, s, b, *ws, num_heads=4, block_b=2,
-                                           merge_batch=True)
     x, s, b, *ws = _attn_args(gen, 1, 16, 192)
     with pytest.raises(ValueError, match="divisible by 128"):
         attention_block.fused_ln_attention(x, s, b, *ws, num_heads=3, block_b=2,
@@ -362,7 +359,8 @@ def _attn8_args(gen, B, S, d):
 
 @pytest.mark.parametrize("B,S,d,H,valid_len", [
     (1, 17, 128, 2, 13), (3, 50, 768, 12, 50), (32, 200, 768, 12, 197),
-    (1, 384, 256, 4, 300), (2, 8, 768, 12, 1),
+    (1, 384, 256, 4, 300), (2, 8, 768, 12, 1), (1, 385, 256, 4, 300),
+    (2, 577, 768, 12, 570), (2, 260, 256, 4, 257),
 ])
 def test_fused_ln_attention_int8_kernel_matches_plain(cuda, B, S, d, H, valid_len):
     args = _attn8_args(torch.Generator(device="cuda").manual_seed(S), B, S, d)
@@ -409,9 +407,6 @@ def test_int8_wrappers_refuse_what_the_kernels_do_not_take(cuda):
         mlp.fused_ln_mlp_int8(*margs[:4], margs[4].to(torch.bfloat16), *margs[5:])
     with pytest.raises(ValueError, match="gelu only"):
         mlp.fused_ln_mlp_int8(*margs, activation="quick_gelu")
-    x, s, b, *ws4 = _attn8_args(gen, 1, 385, 256)
-    with pytest.raises(ValueError, match="up to 384"):
-        attention_block.fused_ln_attention_int8(x, s, b, *ws4, num_heads=4)
     x, s, b, *ws4 = _attn8_args(gen, 2, 16, 768)
     with pytest.raises(ValueError, match="contiguous"):
         attention_block.fused_ln_attention_int8(

@@ -158,6 +158,7 @@ def _attn_float(i):
     (3, 50, 64, 4, 45),
     (2, 17, 32, 2, 13),
     (2, 33, 64, 2, None),
+    (1, 577, 64, 2, 570),
 ])
 def test_fused_ln_attention_int8_f32_matches_jax(rng, B, S, d, H, valid_len):
     a = _attn_args(rng, B, S, d)

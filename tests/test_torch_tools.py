@@ -36,8 +36,15 @@ def test_write_cohort_grey_and_rgb(tmp_path):
      "attention core, f32 out (K4)"),
     ("void emr2a::attention_core_kernel<__nv_bfloat16>(__nv_bfloat16 const*)",
      "attention core (K3)"),
-    ("void emr2a::gemm_bf16_kernel<1, true>(emr2a::GemmParams)",
-     "fc1 GEMM + LN + gelu (K1)"),
+    ("void emr2a::gemm_bf16_kernel<256, 1>(CUtensorMap_st, emr2a::GemmParams)",
+     "fc1 GEMM + gelu (K1)"),
+    ("void emr2a::gemm_bf16_kernel<256, 3>(CUtensorMap_st, emr2a::GemmParams)",
+     "fc1 GEMM + gelu (K1)"),
+    ("void emr2a::gemm_bf16_kernel<128, 0>(CUtensorMap_st, emr2a::GemmParams)",
+     "Q/K/V GEMM (K3)"),
+    ("void emr2a::gemm_bf16_kernel<128, 2>(CUtensorMap_st, emr2a::GemmParams)",
+     "fc2 and out-proj GEMM + residual (K1, K3)"),
+    ("void emr2a::layer_norm_rows_kernel(__nv_bfloat16 const*)", "LN row pass (K1, K3)"),
     ("void emr2a::gemm_s8_kernel<0>(emr2a::GemmS8Params)", "Q/K/V s8 GEMM (K4)"),
     ("void emr2a::gemm_s8_kernel<2>(emr2a::GemmS8Params)",
      "fc2 and out-proj s8 GEMM + residual (K2, K4)"),
@@ -48,7 +55,7 @@ def test_profiler_names_every_kernel(key, label):
     from emr2a_tpu_torch.tools.profile_tower import kernel_label
     got, ops = kernel_label(key, T=6400, B=32, S=200)
     assert got == label
-    if "s8 GEMM (K4)" in label:
+    if "Q/K/V" in label:
         assert ops == 2 * 6400 * 768 * 3 * 768
     assert kernel_label("elementwise_kernel", 1, 1, 1) == ("elementwise_kernel", None)
 
