@@ -10,21 +10,23 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    attention core's residency (blocks and warps an SM).
 3. Kernels, each against its plain PyTorch version at the main path's
    shapes, with median times over 100 launches (CUDA events): K1 (fused
-   LN+MLP, also with act_dtype=bf16), K3 (fused LN+attention), K3m (its
-   merged-batch schedule, block_b 4, bit for bit against K3) and K4 (its
-   W8A8 variant) through ``tools/time_blocks.py`` at step2's batch of 32
-   (T = 6,400; (32, 200, 768)), the layer breakdown's B = 96 and the
-   tower's batch of 128 at S = 197, single, chained and in a CUDA graph,
-   beside plain bf16 PyTorch (K4: its plain version on ``torch._int_mm``)
-   and the bound; K3 and K4 at (2, 577, 768), valid_len 570, against their
-   plain versions and K3m there bit for bit against K3; K2 (K1's W8A8
-   variant, also with act_dtype=bf16) at T = 6,400; K5 (W8A8 linear) bit
+   LN+MLP) and K2 (its W8A8 variant), each also with act_dtype=bf16, K3
+   (fused LN+attention), K3m (its merged-batch schedule, block_b 4, bit
+   for bit against K3) and K4 (its W8A8 variant) through
+   ``tools/time_blocks.py`` at step2's batch of 32 (T = 6,400; (32, 200,
+   768)), the layer breakdown's B = 96 and the tower's batch of 128 at S =
+   197 (K2 at the first and the last, K1's and K2's bf16 gelu at the
+   first two), single, chained and in a CUDA
+   graph, with the device time by launch, beside plain bf16 PyTorch (K2
+   and K4: their plain versions on ``torch._int_mm``) and the bound; K3
+   and K4 at (2, 577, 768), valid_len 570, against their plain versions
+   and K3m there bit for bit against K3; K5 (W8A8 linear) bit
    for bit at the PubMedBERT shapes (T = 32 x 256: 768->768, 768->3072,
    3072->768), at T = 32, and at the int8 judge's eight (T = 2048 and T = 1
    on 4096->4096, 4096->1024, 4096->12288, 12288->4096), each timed by
    ``tools/time_linears.py`` (single quartiles and chained) beside cuBLAS
-   bf16 on the dequantized weight. K2 and K5 are also timed against a
-   plain int8 yardstick (their plain versions with ``torch._int_mm``
+   bf16 on the dequantized weight. K5 is also timed against a
+   plain int8 yardstick (its plain version with ``torch._int_mm``
    products). K6 (the fused
    cosine top-k) at 1M x 512, k = 5, q = 1, 4, 8, 16, 32 and 64, in f32,
    bf16 and int8, on both of its scans (the streaming scan and the tile
@@ -240,16 +242,21 @@ BLOCK_RECORDS = (
      "emr2a_tpu/ops/attention_block.py:179"),
     ("k4", "fused_ln_attention_int8", "attention_block_int8.cu",
      "emr2a_tpu/ops/attention_block.py:436"),
+    ("k2", "fused_ln_mlp_int8", "mlp_int8.cu", "emr2a_tpu/ops/mlp.py:194"),
     ("k1_bf16_gelu", "fused_ln_mlp act_dtype=bf16", "mlp.cu", "emr2a_tpu/ops/mlp.py:75"),
+    ("k2_bf16_gelu", "fused_ln_mlp_int8 act_dtype=bf16", "mlp_int8.cu",
+     "emr2a_tpu/ops/mlp.py:194"),
 )
 LONG_SEQ = (2, 577, 768, 12, 570)   # ViT-B width at S = 577, which the routing rule admits
 
 
 def block_phase(card: str) -> list:
-    """K1 (and its bf16 gelu), K3, K3m and K4 through ``tools/time_blocks``:
-    each against its plain version at the main path's shapes (K3m bit for
-    bit against K3), single, chained and CUDA-graph times beside the
-    yardstick and the bound; the record's head is its first shape."""
+    """K1 and K2 (each also with its bf16 gelu), K3, K3m and K4 through
+    ``tools/time_blocks``: each against its plain version at the main
+    path's shapes (K3m bit for bit against K3), single, chained and
+    CUDA-graph times beside the yardstick (plain bf16 PyTorch, or for K2 and
+    K4 the plain version on ``torch._int_mm``), the bound and the device
+    time by launch; the record's head is its first shape."""
     from emr2a_tpu_torch.tools import time_blocks
 
     try:
@@ -264,7 +271,9 @@ def block_phase(card: str) -> list:
                         "max_abs_err": max(r["max_abs_err"] for r in shapes), "shapes": shapes})
         print(f"{name}: {len(shapes)} shapes against the plain version"
               + (", bit-identical to K3" if kernel == "k3m" else "") + f" ({card})", flush=True)
-    records[-1]["gelu_epilogue_bit_identical_values"] = GELU_VALUES
+    for rec in records:
+        if rec["name"].endswith("act_dtype=bf16"):
+            rec["gelu_epilogue_bit_identical_values"] = GELU_VALUES
     return records
 
 
@@ -301,47 +310,15 @@ def long_sequence_check() -> None:
 
 
 def kernel_phase(card: str) -> list:
-    from emr2a_tpu_torch.ops import mlp, quant
-    from emr2a_tpu_torch.tools.time_blocks import int_mm_version
+    from emr2a_tpu_torch.ops import quant
 
     records = block_phase(card)
     long_sequence_check()
     gelu_epilogue_check()
 
     g = torch.Generator(device="cuda").manual_seed(0)
-
-    def rn(*shape, std=1.0):
-        return (torch.randn(*shape, generator=g, device="cuda") * std).to(torch.bfloat16)
-
-    B, S, d, m = 32, 200, 768, 3072
-    T = B * S
-    x2 = rn(T, d)
-    ln_s, ln_b = (1.0 + rn(d, std=0.1).float()).to(torch.bfloat16), rn(d, std=0.1)
-    w1, b1, w2, b2 = rn(d, m, std=0.02), rn(m, std=0.02), rn(m, d, std=0.02), rn(d, std=0.02)
-    # W8A8 weights quantized from the same bf16 values, as fast="int8" does
-    (w1q, w1s), (w2q, w2s) = quantize_weight(w1), quantize_weight(w2)
-    mlp8 = (x2, ln_s, ln_b, w1q, w1s, b1, w2q, w2s, b2)
-    mlp_ops = 4 * T * d * m
-    bnd = bound(nbytes(*mlp8) + T * d * 2, [("int8", mlp_ops)])
-    shape = f"T={T}, {d}->{m}->{d}"
-    for name, act in (("fused_ln_mlp_int8", torch.float32),
-                      ("fused_ln_mlp_int8 act_dtype=bf16", torch.bfloat16)):
-        fn = lambda: mlp.fused_ln_mlp_int8(*mlp8, act_dtype=act)
-        ref = lambda: mlp.fused_ln_mlp_int8_reference(*mlp8, act_dtype=act)
-        got = fn()
-        torch.cuda.synchronize()
-        err = compare(name, got, ref())
-        rec = {"name": name, "route": "cuda", "source": "emr2a_tpu_torch/csrc/mlp_int8.cu",
-               "replaces": "emr2a_tpu/ops/mlp.py:194", "shape": shape, "max_abs_err": err,
-               "ms": median_ms(fn), "plain_ms": median_ms(ref), **bnd, "library_ms": None}
-        if act == torch.float32:
-            rec["int_mm_ms"] = median_ms(int_mm_version(mlp, ref, (w1q, w2q)))
-        else:
-            rec["gelu_epilogue_bit_identical_values"] = GELU_VALUES
-        print(f"{name}: kernel {rec['ms']:.4f} ms, plain version {rec['plain_ms']:.4f} ms"
-              + (f", int_mm {rec['int_mm_ms']:.4f} ms" if "int_mm_ms" in rec else "")
-              + f" (median of 100, {shape}; {card})", flush=True)
-        records.append(rec)
+    T, d, m = 32 * 200, 768, 3072
+    x2 = (torch.randn(T, d, generator=g, device="cuda")).to(torch.bfloat16)
 
     # K5 at every shape the int8 judge gives it (the decoder's q/o, k/v,
     # gate/up and down projections at its prefill, T = 2048, and its decode,

@@ -3,7 +3,8 @@
 //
 // Replaces emr2a_tpu/ops/attention_block.py:436 fused_ln_attention_int8
 // (the Pallas kernel _attn_block_kernel_i8, pallas_call at :465):
-//   h = LN(x)                        f32 statistics, f32 output
+//   h = LN(x)                        f32 output; statistics from exact
+//                                    f64 row sums (quant.cuh)
 //   hq = q8(h)                       per-row s8 codes + f32 scale
 //   q/k/v = bf16((hq @ Wq) * s_row * s_col + b)     s32 products
 //   p = softmax(q k^T * hd^-0.5 + mask)  f32; keys at or past valid_len get
@@ -13,18 +14,23 @@
 //   y = x + bf16((oq @ Wo) * s_row * s_col + bo)
 //
 // Bound on the H100: at ViT-B (B x 200 x 768, 12 heads of 64) the four
-// projections are ~8/9 of the operations, bound by the tensor cores.
+// projections, 8*T*d*d s8 operations (0.0157 ms at (32, 200, 768) over
+// 1,979 TOP/s), are ~8/9 of the work, bound by the tensor cores; the
+// attention core's bf16 operations are the rest.
 // Design: five launches, built from the pieces of K3 and K2: (1) quant.cuh's
-// row pass fuses the LayerNorm and quantizes its f32 output; (2) one s8 GEMM
-// launch (gemm_s8.cuh, wmma) with blockIdx.z picking Wq/Wk/Wv writes bf16
-// Q/K/V; (3) K3's attention core (attention_core.cuh: any sequence length)
-// in its f32-output variant, since the TPU kernel quantizes the unrounded
-// P.V; (4) the row pass quantizes P.V; (5) the s8 GEMM computes the
-// out-projection with the rescale, bias and residual add in its epilogue.
-// Q/K/V and P.V make one round trip through device memory each; the s8
-// GEMMs' move to wgmma is queued.
+// row pass fuses the LayerNorm and quantizes its f32 output; (2) one launch
+// of the persistent s8 wgmma GEMM (gemm_s8_wgmma.cuh) over the three weights
+// Wq/Wk/Wv (a tile picks its weight, scales, bias and output by index, and
+// the 18 column tiles of a token block run side by side on its x codes)
+// writes bf16 Q/K/V; (3) K3's attention core (attention_core.cuh: any
+// sequence length) in its f32-output variant, since the TPU kernel
+// quantizes the unrounded P.V; (4) the row pass quantizes P.V; (5) the same
+// GEMM computes the out-projection with the rescale, bias and residual add
+// in its epilogue, at a token tile chosen by T so that its last wave of
+// tiles is not thin (N = 768). Q/K/V and P.V make one round trip through
+// device memory each.
 #include "attention_core.cuh"
-#include "gemm_s8.cuh"
+#include "gemm_s8_wgmma.cuh"
 #include "quant.cuh"
 
 using namespace emr2a;
@@ -42,6 +48,9 @@ extern "C" int emr2a_fused_ln_attention_int8(
   const int T = B * S;
   if (valid_len > S) valid_len = S;
   if (d != num_heads * ATT_HD || valid_len < 1) return static_cast<int>(cudaErrorInvalidValue);
+  int sms = 0;
+  cudaError_t err = current_sms(&sms);
+  if (err != cudaSuccess) return static_cast<int>(err);
 
   QuantParams qp = {};
   qp.x = x;
@@ -52,27 +61,26 @@ extern "C" int emr2a_fused_ln_attention_int8(
   qp.scale = static_cast<float*>(hs);
   qp.rows = T;
   qp.K = d;
-  cudaError_t err = launch_quantize_rows<bf16, true>(qp, st);
+  err = launch_quantize_rows<bf16, true>(qp, st);
   if (err != cudaSuccess) return static_cast<int>(err);
 
   bf16* qkv_b = static_cast<bf16*>(qkv);
-  GemmS8Params p1 = {};
-  p1.a = static_cast<const int8_t*>(hq);
-  p1.a_scale = static_cast<const float*>(hs);
-  p1.b[0] = static_cast<const int8_t*>(wq);
-  p1.b[1] = static_cast<const int8_t*>(wk);
-  p1.b[2] = static_cast<const int8_t*>(wv);
-  p1.b_scale[0] = static_cast<const float*>(sq);
-  p1.b_scale[1] = static_cast<const float*>(sk);
-  p1.b_scale[2] = static_cast<const float*>(sv);
+  WgmmaParams p1 = {};
+  p1.x_scale = static_cast<const float*>(hs);
+  p1.w_scale[0] = static_cast<const float*>(sq);
+  p1.w_scale[1] = static_cast<const float*>(sk);
+  p1.w_scale[2] = static_cast<const float*>(sv);
   p1.bias[0] = static_cast<const bf16*>(bq);
   p1.bias[1] = static_cast<const bf16*>(bk);
   p1.bias[2] = static_cast<const bf16*>(bv);
-  for (int z = 0; z < 3; ++z) p1.out[z] = qkv_b + (size_t)z * T * d;
-  p1.M = T;
-  p1.N = d;
+  for (int z = 0; z < 3; ++z) p1.out[z] = qkv_b + static_cast<size_t>(z) * T * d;
+  p1.T = T;
   p1.K = d;
-  err = launch_gemm_s8<EPI_S8_BF16>(p1, 3, st);
+  p1.N = d;
+  const int8_t* w3[3] = {static_cast<const int8_t*>(wq), static_cast<const int8_t*>(wk),
+                         static_cast<const int8_t*>(wv)};
+  err = launch_gemm_s8_wgmma<false, EPI_S8_BF16, 3>(static_cast<const int8_t*>(hq), w3, p1, sms,
+                                                     st);
   if (err != cudaSuccess) return static_cast<int>(err);
 
   err = launch_attention_core<float>(qkv_b, qkv_b + (size_t)T * d, qkv_b + (size_t)2 * T * d,
@@ -89,16 +97,16 @@ extern "C" int emr2a_fused_ln_attention_int8(
   err = launch_quantize_rows<float, false>(qp2, st);
   if (err != cudaSuccess) return static_cast<int>(err);
 
-  GemmS8Params p2 = {};
-  p2.a = static_cast<const int8_t*>(aq);
-  p2.a_scale = static_cast<const float*>(as);
-  p2.b[0] = static_cast<const int8_t*>(wo);
-  p2.b_scale[0] = static_cast<const float*>(so);
+  WgmmaParams p2 = {};
+  p2.x_scale = static_cast<const float*>(as);
+  p2.w_scale[0] = static_cast<const float*>(so);
   p2.bias[0] = static_cast<const bf16*>(bo);
   p2.out[0] = out;
   p2.residual = static_cast<const bf16*>(x);
-  p2.M = T;
-  p2.N = d;
+  p2.T = T;
   p2.K = d;
-  return static_cast<int>(launch_gemm_s8<EPI_S8_RESIDUAL>(p2, 1, st));
+  p2.N = d;
+  const int8_t* wo_q = static_cast<const int8_t*>(wo);
+  return static_cast<int>(launch_gemm_s8_wgmma<false, EPI_S8_RESIDUAL>(
+      static_cast<const int8_t*>(aq), &wo_q, p2, sms, st));
 }

@@ -373,9 +373,8 @@ inline cudaError_t launch_gemm_tile(const CUtensorMap& amap, const CUtensorMap* 
     if (err != cudaSuccess) return err;
     sized = true;
   }
-  int dev = 0, sms = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  int sms = 0;
+  cudaError_t err = current_sms(&sms);
   if (err != cudaSuccess) return err;
   const int tiles = p.nz * ((p.M + GEMM_BM - 1) / GEMM_BM) * ((p.N + BN - 1) / BN);
   gemm_bf16_kernel<BN, EPI><<<tiles < sms ? tiles : sms, GEMM_THREADS, GemmTile<BN>::SMEM, st>>>(

@@ -16,9 +16,9 @@
 // - T <= 16: linear_gemv.cuh, one launch that quantizes the rows in shared
 //   memory and streams the weights with 16-byte loads and dp4a, its K split
 //   across blocks (s32 partials, the strip's last block rescales).
-// - T > 16: quant.cuh's row pass, then gemm_s8_wgmma.cuh, the s8 wgmma GEMM
-//   with TMA and an mbarrier ring, the rescale and bias in its epilogue.
-// gemm_s8.cuh (the wmma tile GEMM) stays with K2 and K4.
+// - T > 16: quant.cuh's row pass, then gemm_s8_wgmma.cuh, the persistent
+//   s8 wgmma GEMM with TMA and an mbarrier ring, the rescale and bias in its
+//   bf16 epilogue; K2 and K4 run their products on the same GEMM.
 #include "linear_quantized.cuh"
 
 using namespace emr2a;

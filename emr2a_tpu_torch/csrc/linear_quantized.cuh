@@ -65,13 +65,14 @@ inline cudaError_t run_linear(const void* x, const void* w, const void* w_scale,
   ++linear_launches[ROW_QUANTIZE];
   WgmmaParams p = {};
   p.x_scale = xs;
-  p.w_scale = ws;
-  p.bias = b;
-  p.out = static_cast<bf16*>(out);
+  p.w_scale[0] = ws;
+  p.bias[0] = b;
+  p.out[0] = out;
   p.T = T;
   p.K = K;
   p.N = N;
-  err = launch_gemm_s8_wgmma<W4>(xq, static_cast<const int8_t*>(w), p, sms, st);
+  const int8_t* wq = static_cast<const int8_t*>(w);
+  err = launch_gemm_s8_wgmma<W4, EPI_S8_BF16>(xq, &wq, p, sms, st);
   if (err == cudaSuccess) ++linear_launches[W4 ? WGMMA_W4A8 : WGMMA_W8A8];
   return err;
 }

@@ -1,8 +1,9 @@
-// Fused LN -> MLP -> residual block in W8A8 for Hopper (sm_90a).
+// Fused LN -> MLP -> residual block in W8A8 (K2) for Hopper (sm_90a).
 //
-// Replaces emr2a_tpu/ops/mlp.py:fused_ln_mlp_int8 (the Pallas kernel
-// _mlp_kernel_int8):
-//   h   = LN(x)                         f32 statistics, f32 output
+// Replaces emr2a_tpu/ops/mlp.py:194 fused_ln_mlp_int8 (the Pallas kernel
+// _mlp_kernel_int8, pallas_call at :214):
+//   h   = LN(x)                         f32 output; statistics from exact
+//                                       f64 row sums (quant.cuh)
 //   q1  = q8(h)                         per-row s8 codes + f32 scale
 //   h1  = gelu_tanh((q1 @ W1q) * s_row * s_col + b1)       s32 products, f32
 //   q2  = q8(h1)                        over the whole f32 row of m values
@@ -12,21 +13,27 @@
 // back to f32 before the row quantize; the f32 path is unchanged.
 //
 // Bound on the H100: at ViT-B (T = B*200, d = 768, m = 3072) the products are
-// 4*T*d*m integer operations, compute-bound on the tensor cores; the f32 h1
-// row (4*m bytes) must be whole before its amax is known.
+// 4*T*d*m s8 operations, 0.0305 ms at T = 6,400 over 1,979 TOP/s. The f32 h1
+// row (4*m bytes) must be whole before its amax is known, so h1 goes through
+// device memory: written by fc1's epilogue, read by the row pass, with q2
+// written and read by fc2, some 197 MB at T = 6,400 (0.059 ms at 3.35 TB/s),
+// a floor above the operations' whatever the products do.
 // Design: four launches. (1) quant.cuh's row pass fuses the LayerNorm and
-// quantizes its f32 output; (2) the s8 GEMM (gemm_s8.cuh) computes fc1 with
-// the rescale, b1 and gelu in its epilogue and writes h1 in f32; (3) the row
-// pass quantizes h1 with the amax of its whole row; (4) the s8 GEMM computes
-// fc2 with the rescale, b2 and the residual add in its epilogue.
-// Not yet done: h1 makes a round trip through device memory in f32 (T*m*4
-// bytes each way); keeping it on chip is the first optimisation queued.
-#include "gemm_s8.cuh"
+// quantizes its f32 output; (2) the persistent s8 wgmma GEMM
+// (gemm_s8_wgmma.cuh) computes fc1 with the rescale, b1 and gelu in its
+// epilogue and writes h1 in f32; (3) the row pass quantizes h1 with the
+// amax of its whole row; (4) the same GEMM computes fc2 with the rescale,
+// b2 and the residual add in its epilogue. The GEMM keeps the weights'
+// (in, out) layout (the swapped operands) and picks its token tile by T,
+// so that the last wave of tiles is not thin (fc2's N = 768).
+// Not yet done: keeping h1 on chip (T*m*4 bytes each way).
+#include "gemm_s8_wgmma.cuh"
 #include "quant.cuh"
 
 using namespace emr2a;
 
 // hq (T, d) s8, hs (T,) f32, h1 (T, m) f32, q2 (T, m) s8, s2 (T,) f32: scratch.
+// Rules the wrapper checks: d % 128 == 0, m % 128 == 0, T >= 1.
 extern "C" int emr2a_fused_ln_mlp_int8(const void* x, const void* ln_scale,
                                        const void* ln_bias, const void* w1, const void* w1_scale,
                                        const void* b1, const void* w2, const void* w2_scale,
@@ -34,6 +41,9 @@ extern "C" int emr2a_fused_ln_mlp_int8(const void* x, const void* ln_scale,
                                        void* s2, void* out, int T, int d, int m,
                                        int act_bf16, float eps, void* stream) {
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  int sms = 0;
+  cudaError_t err = current_sms(&sms);
+  if (err != cudaSuccess) return static_cast<int>(err);
   QuantParams qp = {};
   qp.x = x;
   qp.ln_scale = static_cast<const bf16*>(ln_scale);
@@ -43,21 +53,21 @@ extern "C" int emr2a_fused_ln_mlp_int8(const void* x, const void* ln_scale,
   qp.scale = static_cast<float*>(hs);
   qp.rows = T;
   qp.K = d;
-  cudaError_t err = launch_quantize_rows<bf16, true>(qp, st);
+  err = launch_quantize_rows<bf16, true>(qp, st);
   if (err != cudaSuccess) return static_cast<int>(err);
 
-  GemmS8Params p1 = {};
-  p1.a = static_cast<const int8_t*>(hq);
-  p1.a_scale = static_cast<const float*>(hs);
-  p1.b[0] = static_cast<const int8_t*>(w1);
-  p1.b_scale[0] = static_cast<const float*>(w1_scale);
+  WgmmaParams p1 = {};
+  p1.x_scale = static_cast<const float*>(hs);
+  p1.w_scale[0] = static_cast<const float*>(w1_scale);
   p1.bias[0] = static_cast<const bf16*>(b1);
   p1.out[0] = h1;
-  p1.M = T;
-  p1.N = m;
+  p1.T = T;
   p1.K = d;
-  err = act_bf16 ? launch_gemm_s8<EPI_S8_GELU_BF16>(p1, 1, st)
-                 : launch_gemm_s8<EPI_S8_GELU_F32>(p1, 1, st);
+  p1.N = m;
+  const int8_t* w1q = static_cast<const int8_t*>(w1);
+  const int8_t* hqc = static_cast<const int8_t*>(hq);
+  err = act_bf16 ? launch_gemm_s8_wgmma<false, EPI_S8_GELU_BF16>(hqc, &w1q, p1, sms, st)
+                 : launch_gemm_s8_wgmma<false, EPI_S8_GELU_F32>(hqc, &w1q, p1, sms, st);
   if (err != cudaSuccess) return static_cast<int>(err);
 
   QuantParams qp2 = {};
@@ -69,16 +79,16 @@ extern "C" int emr2a_fused_ln_mlp_int8(const void* x, const void* ln_scale,
   err = launch_quantize_rows<float, false>(qp2, st);
   if (err != cudaSuccess) return static_cast<int>(err);
 
-  GemmS8Params p2 = {};
-  p2.a = static_cast<const int8_t*>(q2);
-  p2.a_scale = static_cast<const float*>(s2);
-  p2.b[0] = static_cast<const int8_t*>(w2);
-  p2.b_scale[0] = static_cast<const float*>(w2_scale);
+  WgmmaParams p2 = {};
+  p2.x_scale = static_cast<const float*>(s2);
+  p2.w_scale[0] = static_cast<const float*>(w2_scale);
   p2.bias[0] = static_cast<const bf16*>(b2);
   p2.out[0] = out;
   p2.residual = static_cast<const bf16*>(x);
-  p2.M = T;
-  p2.N = d;
+  p2.T = T;
   p2.K = m;
-  return static_cast<int>(launch_gemm_s8<EPI_S8_RESIDUAL>(p2, 1, st));
+  p2.N = d;
+  const int8_t* w2q = static_cast<const int8_t*>(w2);
+  return static_cast<int>(launch_gemm_s8_wgmma<false, EPI_S8_RESIDUAL>(
+      static_cast<const int8_t*>(q2), &w2q, p2, sms, st));
 }

@@ -12,15 +12,21 @@
 // (__frcp_rn) followed by a multiply; rounding is rintf (half to even); the
 // library is built without fast-math.
 //
-// With LN = true the row is first LayerNorm-ed in f32 (two-pass statistics,
-// then ((x - mu) * rstd) * scale + bias with no fused multiply-add), and the
-// f32 LN output is quantized: the prologue of K2 and K4, which quantize the
-// f32 LN output, not a bf16-rounded one.
+// With LN = true the row is first LayerNorm-ed in f32, and the f32 LN output
+// is quantized: the prologue of K2 and K4, which quantize the f32 LN output,
+// not a bf16-rounded one. The statistics come from the row's sum and sum of
+// squares in f64, which are exact for a bf16 row (8-bit significands, 16 for
+// a square), so they do not depend on the order of the sums: mu = f32(sum /
+// K), var = f32(sumsq / K - (sum / K)^2), rstd = 1 / sqrt(var + eps) in f32,
+// each step rounded once, then ((x - mu) * rstd) * scale + bias with no fused
+// multiply-add. The plain version (ops/mlp.py layer_norm_f32) computes the
+// same bits; f32 sums in another order would differ by an ulp in many rows,
+// and a code at a half-way point would then flip.
 //
 // Design: one warp per row, 8 rows per 256-thread block. A lane handles 8
 // consecutive elements per step (one 16-byte load of bf16, two of f32). The
 // row is read once for the amax and once more for the codes (from L1/L2);
-// LN rows are read four times. Bound by device memory: T*K*(in + 1) bytes.
+// LN rows are read three times. Bound by device memory: T*K*(in + 1) bytes.
 #pragma once
 
 #include "common.cuh"
@@ -76,25 +82,23 @@ __global__ void __launch_bounds__(QUANT_THREADS) quantize_rows_kernel(QuantParam
 
   float mu = 0.f, rstd = 1.f;
   if (LN) {
-    float s = 0.f;
-    for (int k = lane * 8; k < K; k += 256) {
-      float v[8];
-      load8(x + k, v);
-#pragma unroll
-      for (int t = 0; t < 8; ++t) s += v[t];
-    }
-    mu = warp_sum(s) / (float)K;
-    float ss = 0.f;
+    double s = 0.0, ss = 0.0;
     for (int k = lane * 8; k < K; k += 256) {
       float v[8];
       load8(x + k, v);
 #pragma unroll
       for (int t = 0; t < 8; ++t) {
-        const float dv = v[t] - mu;
-        ss += dv * dv;
+        const double dv = v[t];
+        s = __dadd_rn(s, dv);
+        ss = __fma_rn(dv, dv, ss);
       }
     }
-    rstd = 1.0f / sqrtf(warp_sum(ss) / (float)K + p.eps);
+    s = warp_sum(s);
+    ss = warp_sum(ss);
+    const double m = __ddiv_rn(s, (double)K);
+    mu = __double2float_rn(m);
+    const float var = __double2float_rn(__dsub_rn(__ddiv_rn(ss, (double)K), __dmul_rn(m, m)));
+    rstd = __frcp_rn(__fsqrt_rn(__fadd_rn(var, p.eps)));
   }
   // the value to quantize: x itself, or its f32 LayerNorm
   auto values = [&](int k, float* v) {

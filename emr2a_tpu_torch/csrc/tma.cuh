@@ -1,5 +1,5 @@
 // Hopper's asynchronous copy and barrier helpers, shared by the two wgmma
-// GEMMs: the s8 one of K5/K7 (gemm_s8_wgmma.cuh) and the bf16 one of K1/K3
+// GEMMs: the s8 one of K2/K4/K5/K7 (gemm_s8_wgmma.cuh) and the bf16 one of K1/K3
 // (gemm.cuh). TMA descriptors are encoded on the host per call by
 // cuTensorMapEncodeTiled, looked up with dlsym in the libcuda that the CUDA
 // runtime has loaded, so nothing links against libcuda. Matrices are described as bytes (a bf16
@@ -69,6 +69,14 @@ __device__ __forceinline__ uint64_t wg_desc(const void* p) {
 }
 
 __device__ __forceinline__ void reg_fence(int& r) { asm volatile("" : "+r"(r)::"memory"); }
+
+// the current device's SM count: the persistent GEMMs' grid
+inline cudaError_t current_sms(int* sms) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  return err == cudaSuccess ? cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev)
+                            : err;
+}
 
 // cuTensorMapEncodeTiled, from the libcuda that the runtime has loaded
 using EncodeTiledFn = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,

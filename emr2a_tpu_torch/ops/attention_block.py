@@ -40,8 +40,8 @@ that went to K3, ``MERGED_LAUNCHES`` those that went to K3m.
 The W8A8 variant, K4 (``fused_ln_attention_int8``, port of
 ``emr2a_tpu/ops/attention_block.py:fused_ln_attention_int8``), runs the
 four projections as s8 products from int8 weights with per-column f32
-scales. Rounding points, as in the TPU kernel: the f32 LN output is
-quantized per row; q/k/v = (acc * row scale) * column scale + b, rounded to
+scales. Rounding points, as in the TPU kernel: the f32 LN output (as K2's,
+``mlp.layer_norm_exact_stats``) is quantized per row; q/k/v = (acc * row scale) * column scale + b, rounded to
 ``x.dtype``; the softmax as in K3; P.V accumulated in f32 and quantized per
 row unrounded; the out-proj rescaled + bo, rounded, then the residual add.
 A CUDA tensor goes to ``csrc/attention_block_int8.cu`` (same limits as K3),
@@ -66,6 +66,7 @@ from emr2a_tpu_torch.ops.mlp import (
     GEMM_BN,
     check_cuda_operands,
     check_cuda_tensor,
+    layer_norm_exact_stats,
     layer_norm_f32,
 )
 from emr2a_tpu_torch.ops.quant import quantize_rows_s8_reference, s8_matmul
@@ -291,7 +292,7 @@ def fused_ln_attention_int8_reference(x, ln_scale, ln_bias, wq_q, wq_s, bq,
     hd = d // num_heads
     valid_len = S if valid_len is None else min(valid_len, S)
     hq, hs = quantize_rows_s8_reference(
-        layer_norm_f32(x, ln_scale, ln_bias, eps).reshape(B * S, d))
+        layer_norm_exact_stats(x, ln_scale, ln_bias, eps).reshape(B * S, d))
 
     def rescale(acc, row_scale, w_s, b):
         return acc * row_scale * w_s.reshape(1, -1).float() + b.float()

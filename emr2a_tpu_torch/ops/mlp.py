@@ -28,7 +28,8 @@ device memory (the output buffer and the ``h1`` scratch).
 The W8A8 variant, K2 (``fused_ln_mlp_int8``, port of
 ``emr2a_tpu/ops/mlp.py:fused_ln_mlp_int8``), takes int8 weights from
 ``quantize_weight_int8`` with per-column f32 scales. Rounding points, as in
-the TPU kernel: the f32 LN output is quantized per row
+the TPU kernel: the f32 LN output (its statistics from exact row sums,
+``layer_norm_exact_stats``) is quantized per row
 (``ops/quant.quantize_rows_s8``); s8 products accumulate exactly;
 (acc * row scale) * column scale + b1 and the tanh gelu in f32; the f32
 activation is quantized per row, over its whole m-wide row; the second
@@ -126,6 +127,24 @@ def layer_norm_f32(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     mu = xf.mean(dim=-1, keepdim=True)
     var = ((xf - mu) ** 2).mean(dim=-1, keepdim=True)
     return (xf - mu) * torch.rsqrt(var + eps) * scale.float() + bias.float()
+
+
+def layer_norm_exact_stats(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+                           eps: float) -> torch.Tensor:
+    """LN in f32 as the int8 blocks' row pass computes it (``csrc/quant.cuh``),
+    bit for bit; returns f32. The statistics come from the row's sum and sum
+    of squares in f64, exact for bf16 rows, so they do not depend on the
+    order of the sums: mu = f32(sum / K), var = f32(sumsq / K - (sum / K)^2)
+    and rstd = 1 / sqrt(var + eps) in f32, each rounded once. Statistics
+    that differ by an ulp move a code at a half-way point of the row
+    quantize that follows. The divisor is a tensor: a division by a Python
+    number may be done as a multiply by its reciprocal."""
+    xf, xd = x.float(), x.double()
+    k = xd.new_full((), x.shape[-1])
+    m = xd.sum(dim=-1, keepdim=True) / k
+    var = ((xd * xd).sum(dim=-1, keepdim=True) / k - m * m).float()
+    rstd = torch.sqrt(var + eps).reciprocal()
+    return (xf - m.float()) * rstd * scale.float() + bias.float()
 
 
 def _kernel_activation(name: str):
@@ -250,7 +269,7 @@ def fused_ln_mlp_int8_reference(x, ln_scale, ln_bias, w1_q, w1_scale, b1,
                                 act_dtype=torch.float32) -> torch.Tensor:
     """Plain PyTorch version of K2, with the TPU kernel's rounding points.
     ``tile`` is ignored."""
-    h = layer_norm_f32(x, ln_scale, ln_bias, eps)
+    h = layer_norm_exact_stats(x, ln_scale, ln_bias, eps)
     q1, s1 = quantize_rows_s8_reference(h)
     h1 = (s8_matmul(q1, w1_q) * s1 * w1_scale.reshape(1, -1).float()
           + b1.float())

@@ -37,7 +37,7 @@ _GROUPS = (
     (r"linear_gemv_kernel<\d+, true>", "K7 GEMV (T <= 16)"),
     (r"linear_gemv_kernel<\d+, false>", "K5 GEMV (T <= 16)"),
     (r"gemm_s8_wgmma_kernel<true", "K7 wgmma GEMM"),
-    (r"gemm_s8_wgmma_kernel<false", "K5 wgmma GEMM"),
+    (r"gemm_s8_wgmma_kernel<false, ?2, ?\d+, ?0, ?1>", "K5 wgmma GEMM"),
     (r"quantize_rows_kernel", "row quantize (K5, K7 at T > 16)"),
     (r"(?i)softmax", "softmax"),
     (r"gemm|gemv|xmma|cutlass|nvjet|cublas|splitK", "cuBLAS products"),

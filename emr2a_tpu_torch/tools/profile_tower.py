@@ -57,12 +57,16 @@ _KERNELS = (
      lambda T, B, S: 2 * T * _D * _M),
     (r"gemm_bf16_kernel<\d+, ?2>", "fc2 and out-proj GEMM + residual (K1, K3)",
      lambda T, B, S: (2 * T * _M * _D + 2 * T * _D * _D) / 2),
-    (r"gemm_s8_kernel<0>", "Q/K/V s8 GEMM (K4)",
+    # the s8 wgmma GEMM <W4, MT, NT, epilogue, weights>: K4's Q/K/V is its
+    # bf16 epilogue over 3 weights (K5's is the same epilogue over 1)
+    (r"gemm_s8_wgmma_kernel<false, ?2, ?\d+, ?0, ?3>", "Q/K/V s8 GEMM (K4)",
      lambda T, B, S: 2 * T * _D * 3 * _D),
-    (r"gemm_s8_kernel<1>", "fc1 s8 GEMM + gelu (K2)",
+    (r"gemm_s8_wgmma_kernel<false, ?2, ?\d+, ?[13], ?1>", "fc1 s8 GEMM + gelu (K2)",
      lambda T, B, S: 2 * T * _D * _M),
-    (r"gemm_s8_kernel<2>", "fc2 and out-proj s8 GEMM + residual (K2, K4)",
+    (r"gemm_s8_wgmma_kernel<false, ?2, ?\d+, ?2, ?1>",
+     "fc2 and out-proj s8 GEMM + residual (K2, K4)",
      lambda T, B, S: (2 * T * _M * _D + 2 * T * _D * _D) / 2),
+    (r"gemm_s8_wgmma_kernel<false, ?2, ?\d+, ?0, ?1>", "K5 wgmma GEMM", None),
     (r"quantize_rows_kernel<__nv_bfloat16, ?true>", "LN + row quantize (K2, K4)",
      None),
     (r"quantize_rows_kernel<float, ?false>",

@@ -1,33 +1,39 @@
 """Time the tower's fused blocks on the card: K1 (``fused_ln_mlp``, also with
+``act_dtype=bf16``), K2 (``fused_ln_mlp_int8``, also with
 ``act_dtype=bf16``), K3 (``fused_ln_attention``), K3m (its
 ``merge_batch=True`` schedule, block_b 4) and K4
 (``fused_ln_attention_int8``).
 
-    python -m emr2a_tpu_torch.tools.time_blocks [--out FILE]
+    python -m emr2a_tpu_torch.tools.time_blocks [--kernels k2,k4] [--out FILE]
 
 Shapes: the main path's, at BioMedCLIP ViT-B/16 width (d = 768, m = 3,072,
 12 heads of 64, valid_len 197): step2's device batch of 32 slices at S =
-200 (K1 at T = 6,400), the layer breakdown's B = 96 x 200 (T = 19,200) and
-the tower's throughput batch of 128 at S = 197 (T = 25,216). At each shape
-the kernel is held against its plain version (atol = rtol = 1e-2 and row
-cosine >= 0.9999 on the valid rows; K3m bit for bit against K3), then
-timed with ``time_linears.timings`` (median and quartiles of 100 single
-launches, each with the wrapper's host work, and the least of 3 chains of
-20) and ``time_linears.graph_ms`` (one call's device time, 20 calls
-replayed in a CUDA graph), beside a yardstick timed the same way: plain
-bf16 PyTorch on the same inputs (cuBLAS products, ``layer_norm``,
-``softmax``) for K1, K3 and K3m, and K4's plain version with its s8
-products on ``torch._int_mm`` for K4; the plain version's median at the
-first shape, with the device time of one call by kernel
-(``torch.profiler``); and the bound (the larger of the bytes over 3.35 TB/s
-and the operations over the dense peak of their type). Prints one line per shape
-and, with ``--out``, writes the records as JSON. Uses only the wrappers'
-public functions, so the same file times an older tree of the port.
+200 (K1 and K2 at T = 6,400), the layer breakdown's B = 96 x 200 (T =
+19,200) and the tower's throughput batch of 128 at S = 197 (T = 25,216);
+K1's and K2's bf16 gelu at the first two, K2 at the first and the
+last. At each shape the kernel is held against its plain version (atol =
+rtol = 1e-2 and row cosine >= 0.9999 on the valid rows; K3m bit for bit
+against K3), then timed with ``time_linears.timings`` (median and
+quartiles of 100 single launches, each with the wrapper's host work, and
+the least of 3 chains of 20) and ``time_linears.graph_ms`` (one call's
+device time, 20 calls replayed in a CUDA graph), beside a yardstick timed
+the same way: plain bf16 PyTorch on the same inputs (cuBLAS products,
+``layer_norm``, ``softmax``) for K1, K3 and K3m, and the plain version
+with its s8 products on ``torch._int_mm`` for K2 and K4; the device time
+of one call by kernel (``torch.profiler``); the plain version's median at
+the first shape; the bound (the larger of the bytes over 3.35 TB/s and
+the operations over the dense peak of their type; for K2 also the byte
+floor of its f32 h1 and q2 round trips); and the SHA-256 of the output's
+bytes, so that two trees' outputs on the same seeded inputs can be
+compared. Prints one line per shape and, with ``--out``, writes the
+records as JSON. Uses only the wrappers' public functions, so the same
+file times an older tree of the port.
 """
 
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import subprocess
 import sys
@@ -86,12 +92,16 @@ def operands(seed: int = 0) -> dict:
     ln = ((1.0 + rn(D, std=0.1).float()).to(torch.bfloat16), rn(D, std=0.1))
     mlp_w = (rn(D, M, std=0.02), rn(M, std=0.02), rn(M, D, std=0.02), rn(D, std=0.02))
     attn_w = [rn(D, D, std=0.02) if i % 2 == 0 else rn(D, std=0.02) for i in range(8)]
-    attn_q = []
+    attn_q, mlp_q = [], []
     for i in (0, 2, 4, 6):
         q, s = quantize_weight_int8_torch(attn_w[i])
         attn_q += [q, s.reshape(-1), attn_w[i + 1]]
+    for i in (0, 2):
+        q, s = quantize_weight_int8_torch(mlp_w[i])
+        mlp_q += [q, s.reshape(-1), mlp_w[i + 1]]
     xs = {shape: rn(*shape, D) for shape in SHAPES}
-    return {"ln": ln, "mlp": mlp_w, "attn": attn_w, "attn_q": attn_q, "x": xs}
+    return {"ln": ln, "mlp": mlp_w, "mlp_q": mlp_q, "attn": attn_w, "attn_q": attn_q,
+            "x": xs}
 
 
 def plain_bf16_mlp(x2, ln, w):
@@ -153,6 +163,12 @@ def device_breakdown(fn, calls: int = 20) -> dict:
     return out
 
 
+def digest(t: torch.Tensor) -> str:
+    """SHA-256 of a tensor's bytes (bf16 read as int16)."""
+    raw = t.contiguous().view(torch.int16) if t.dtype == torch.bfloat16 else t.contiguous()
+    return hashlib.sha256(raw.cpu().numpy().tobytes()).hexdigest()
+
+
 def _timed(fn) -> dict:
     t = timings(fn)
     t["graph_ms"] = graph_ms(fn)
@@ -170,7 +186,18 @@ def block_record(kernel: str, shape, ops: dict, plain: bool) -> dict:
     ln, mw, aw, aq = ops["ln"], ops["mlp"], ops["attn"], ops["attn_q"]
     x2 = x.reshape(B * S, D)
     rows = slice(None)
-    if kernel in ("k1", "k1_bf16_gelu"):
+    extra = {}
+    if kernel in ("k2", "k2_bf16_gelu"):
+        act = torch.bfloat16 if kernel == "k2_bf16_gelu" else torch.float32
+        mq = ops["mlp_q"]
+        fn = lambda: mlp.fused_ln_mlp_int8(x2, *ln, *mq, act_dtype=act)
+        ref = lambda: mlp.fused_ln_mlp_int8_reference(x2, *ln, *mq, act_dtype=act)
+        yard = int_mm_version(mlp, ref, mq[0::3])
+        bnd = bound(nbytes(x2, *ln, *mq) + nbytes(x2), [("int8", 4 * B * S * D * M)])
+        # f32 h1 written and read back, its codes q2 written and read back
+        extra["h1_floor_ms"] = B * S * M * (2 * 4 + 2) / HBM_BYTES_PER_S * 1e3
+        tag = f"T={B * S}, {D}->{M}->{D}"
+    elif kernel in ("k1", "k1_bf16_gelu"):
         act = torch.bfloat16 if kernel == "k1_bf16_gelu" else torch.float32
         fn = lambda: mlp.fused_ln_mlp(x2, *ln, *mw, act_dtype=act)
         ref = lambda: mlp.fused_ln_mlp_reference(x2, *ln, *mw, act_dtype=act)
@@ -206,7 +233,8 @@ def block_record(kernel: str, shape, ops: dict, plain: bool) -> dict:
     torch.cuda.synchronize()
     rec = {"kernel": kernel, "shape": tag,
            "max_abs_err": close(got.reshape(B, S, D)[:, rows],
-                                ref().reshape(B, S, D)[:, rows])}
+                                ref().reshape(B, S, D)[:, rows]),
+           "out_sha256": digest(got), **extra}
     if kernel == "k3m":
         k3 = attention_block.fused_ln_attention(x, *ln, *aw, num_heads=H, valid_len=VALID)
         if not torch.equal(got, k3):
@@ -215,13 +243,13 @@ def block_record(kernel: str, shape, ops: dict, plain: bool) -> dict:
     del got
     rec.update(_timed(fn))
     y = _timed(yard)
-    rec.update({"yardstick": "int_mm plain" if kernel == "k4" else "plain bf16",
+    rec.update({"yardstick": "int_mm plain" if kernel in ("k2", "k2_bf16_gelu", "k4")
+                else "plain bf16",
                 "yardstick_ms": y["ms"], "yardstick_chained_ms": y["chained_ms"],
                 "yardstick_graph_ms": y["graph_ms"], **bnd, "library_ms": None,
                 "plain_ms": timings(ref, iters=5, warmup=1, chain=1, chains=1)["ms"]
                 if plain else None})
-    if plain:
-        rec["device_ms_by_kernel"] = device_breakdown(fn)
+    rec["device_ms_by_kernel"] = device_breakdown(fn)
     rec["bound_share_chained"] = rec["bound_ms"] / rec["chained_ms"]
     rec["bound_share_graph"] = rec["bound_ms"] / rec["graph_ms"]
     print(f"{kernel} {tag}: max_abs_err {rec['max_abs_err']:.4g}; kernel {timing_text(rec)}, "
@@ -231,22 +259,34 @@ def block_record(kernel: str, shape, ops: dict, plain: bool) -> dict:
           + f"; bound {rec['bound_ms']:.4f} ({rec['bound_by']}; share of chained "
           f"{100 * rec['bound_share_chained']:.1f} %, of graph "
           f"{100 * rec['bound_share_graph']:.1f} %)"
-          + ("; device ms a call by kernel: " + ", ".join(
-              f"{k} {v:.4f}" for k, v in rec["device_ms_by_kernel"].items()) if plain else ""),
-          flush=True)
+          + (f"; h1 + q2 byte floor {extra['h1_floor_ms']:.4f}" if extra else "")
+          + "; device ms a call by kernel: " + ", ".join(
+              f"{k} {v:.4f}" for k, v in rec["device_ms_by_kernel"].items())
+          + f"; output sha256 {rec['out_sha256'][:16]}", flush=True)
     return rec
 
 
-KERNELS = ("k1", "k1_bf16_gelu", "k3", "k3m", "k4")
+KERNELS = ("k1", "k1_bf16_gelu", "k2", "k2_bf16_gelu", "k3", "k3m", "k4")
+
+
+def shapes_of(kernel: str) -> tuple:
+    """The (B, S) a kernel is timed at: K1's and K2's bf16 gelu at the first
+    two of SHAPES (the second is the layer breakdown's, where they run), K2
+    at step2's and the tower's batch, the others at all three."""
+    if kernel in ("k1_bf16_gelu", "k2_bf16_gelu"):
+        return SHAPES[:2]
+    if kernel == "k2":
+        return SHAPES[0], SHAPES[2]
+    return SHAPES
 
 
 def block_records(kernels=KERNELS, seed: int = 0) -> dict:
-    """Every kernel of ``kernels`` at every shape of SHAPES (K1's bf16 gelu
-    at the first two); the plain version timed at the first shape."""
+    """Every kernel of ``kernels`` at each of its shapes; the plain version
+    timed at the first shape."""
     ops = operands(seed)
     out = {}
     for kernel in kernels:
-        shapes = SHAPES[:2] if kernel == "k1_bf16_gelu" else SHAPES
+        shapes = shapes_of(kernel)
         out[kernel] = [block_record(kernel, s, ops, plain=i == 0) for i, s in enumerate(shapes)]
         torch.cuda.empty_cache()
     return out

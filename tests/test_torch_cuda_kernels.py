@@ -14,7 +14,10 @@ duplicate keys; K3 and K4 at S = 385 and 577 (the attention core's
 streamed K/V) and at valid_len 256 and 257 (its last resident and first
 streamed key count); K3m (the merged-batch LN+attention block) bit for bit
 against K3 at B = 1, 5, 128 and block_b 1, 3, 4, 8, at valid_len < S, S = 1,
-S = 384 and S = 577; K1 and K2 with act_dtype=bf16; the inputs the wrappers must
+S = 384 and S = 577; K1 and K2 with act_dtype=bf16; K2's and K4's s8
+products (the persistent s8 wgmma GEMM) bit for bit against torch._int_mm
+on the codes and scales the kernels leave in their scratch, at T = 1 to
+6,437 and at K4's edge shapes; the inputs the wrappers must
 refuse, and the launch counters. Each test skips without a CUDA card. On the card (the suite's
 conftest imports JAX, which that machine lacks):
 
@@ -374,6 +377,115 @@ def test_fused_ln_attention_int8_kernel_matches_plain(cuda, B, S, d, H, valid_le
     want = attention_block.fused_ln_attention_int8_reference(
         *args, num_heads=H, valid_len=valid_len)
     _assert_matches(got[:, :valid_len], want[:, :valid_len])
+
+
+# K2's and K4's s8 products run on the persistent s8 wgmma GEMM
+# (csrc/gemm_s8_wgmma.cuh): exact s32 sums and the same three rounded
+# steps, so each product equals torch._int_mm on the kernel's own codes
+# and scales (read back from its scratch), rescaled in plain PyTorch, bit
+# for bit; K2's f32 gelu of fc1 within a few ulp of PyTorch's. Their LN
+# codes and scales equal the plain version's bit for bit.
+
+def _int_mm(a, w):
+    """(M, K) int8 @ (K, N) int8 -> (M, N) s32 exactly, on torch._int_mm
+    (cuBLAS int8; it takes more than 16 rows, so short ones are padded)."""
+    M = a.shape[0]
+    if M <= 16:
+        a = torch.cat([a, a.new_zeros(32 - M, a.shape[1])])
+    return torch._int_mm(a, w.t().contiguous().t())[:M]
+
+
+def _rescale(acc, row_scale, w_scale, bias):
+    """bf16(((f32(acc) * row scale) * column scale) + bias), each step
+    rounded once."""
+    y = acc.float() * row_scale.reshape(-1, 1)
+    y = y * w_scale.reshape(1, -1)
+    return (y + bias.float()).to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("act_bf16", [0, 1])
+@pytest.mark.parametrize("T,d,m", [(1, 768, 3072), (7, 768, 3072), (300, 768, 3072),
+                                   (6437, 768, 3072), (129, 256, 512)])
+def test_fused_ln_mlp_int8_products_equal_int_mm(cuda, T, d, m, act_bf16):
+    import ctypes
+    from emr2a_tpu_torch.ops import _build
+    x, s, b, w1q, w1s, b1, w2q, w2s, b2 = _mlp8_args(
+        torch.Generator(device="cuda").manual_seed(T + act_bf16), T, d, m)
+    x[0] = 0.0                                          # an all-zero row
+    p, i = ctypes.c_void_p, ctypes.c_int
+    fn = _build.kernel_function("emr2a_fused_ln_mlp_int8", [p] * 15 + [i, i, i, i, ctypes.c_float, p])
+    hq = torch.empty(T, d, device=cuda, dtype=torch.int8)
+    hs, s2 = torch.empty(T, device=cuda), torch.empty(T, device=cuda)
+    h1 = torch.empty(T, m, device=cuda)
+    q2 = torch.empty(T, m, device=cuda, dtype=torch.int8)
+    out = torch.empty_like(x)
+    _build.check(fn(*(t.data_ptr() for t in (x, s, b, w1q, w1s, b1, w2q, w2s, b2,
+                                              hq, hs, h1, q2, s2, out)),
+                    T, d, m, act_bf16, 1e-6, torch.cuda.current_stream().cuda_stream),
+                 "fused_ln_mlp_int8")
+    torch.cuda.synchronize()
+    # the LN's codes and scales: the plain version's, bit for bit
+    q1_want, s1_want = quant.quantize_rows_s8_reference(mlp.layer_norm_exact_stats(x, s, b, 1e-6))
+    assert torch.equal(hq, q1_want) and torch.equal(hs, s1_want.reshape(-1))
+    # fc1: the f32 rescale of its exact sums, through the gelu into h1; the
+    # bf16 gelu bit for bit, the f32 one within a few ulp (tanhf and the
+    # cubic may round otherwise than PyTorch's ops, and 1 + tanh cancels in
+    # gelu's negative tail, hence the absolute term)
+    pre = _int_mm(hq, w1q).float() * hs.reshape(-1, 1)
+    pre = pre * w1s.reshape(1, -1)
+    pre = pre + b1.float()
+    if act_bf16:
+        assert torch.equal(h1, mlp.gelu_tanh_bf16(pre)), \
+            (h1 - mlp.gelu_tanh_bf16(pre)).abs().max()
+    else:
+        torch.testing.assert_close(h1, mlp.gelu_tanh(pre), rtol=2 ** -20, atol=2 ** -20)
+    # h1's codes are the row quantize's of the h1 scratch
+    q2_want, s2_want = quant.quantize_rows_s8_reference(h1)
+    assert torch.equal(q2, q2_want) and torch.equal(s2, s2_want.reshape(-1))
+    want = (x.float() + _rescale(_int_mm(q2, w2q), s2, w2s, b2).float()).to(torch.bfloat16)
+    assert torch.equal(out, want), (out.float() - want.float()).abs().max()
+    if act_bf16:                                        # so the whole block is the plain one's
+        assert torch.equal(out, mlp.fused_ln_mlp_int8_reference(
+            x, s, b, w1q, w1s, b1, w2q, w2s, b2, act_dtype=torch.bfloat16))
+
+
+@pytest.mark.parametrize("B,S,d,H,valid_len", [
+    (1, 17, 128, 2, 13), (3, 50, 768, 12, 50), (32, 200, 768, 12, 197),
+    (1, 384, 256, 4, 300), (2, 8, 768, 12, 1), (1, 385, 256, 4, 300),
+    (2, 577, 768, 12, 570), (2, 260, 256, 4, 257),
+])
+def test_fused_ln_attention_int8_products_equal_int_mm_bit_for_bit(cuda, B, S, d, H,
+                                                                   valid_len):
+    import ctypes
+    from emr2a_tpu_torch.ops import _build
+    args = _attn8_args(torch.Generator(device="cuda").manual_seed(S + 1), B, S, d)
+    x, s, b, ws = args[0], args[1], args[2], args[3:]
+    x[:, S - 1] = 0.0
+    T = B * S
+    p, i = ctypes.c_void_p, ctypes.c_int
+    fn = _build.kernel_function("emr2a_fused_ln_attention_int8", [p] * 22 + [i] * 5 + [ctypes.c_float, p])
+    hq, aq = (torch.empty(T, d, device=cuda, dtype=torch.int8) for _ in range(2))
+    hs, as_ = torch.empty(T, device=cuda), torch.empty(T, device=cuda)
+    qkv = torch.empty(3, T, d, device=cuda, dtype=torch.bfloat16)
+    attn = torch.empty(T, d, device=cuda)
+    out = torch.empty_like(x)
+    _build.check(fn(*(t.data_ptr() for t in (x, s, b, *ws, hq, hs, qkv, attn, aq, as_, out)),
+                    B, S, d, H, valid_len, 1e-6, torch.cuda.current_stream().cuda_stream),
+                 "fused_ln_attention_int8")
+    torch.cuda.synchronize()
+    h_want = mlp.layer_norm_exact_stats(x.reshape(T, d), s, b, 1e-6)
+    q_want, s_want = quant.quantize_rows_s8_reference(h_want)
+    assert torch.equal(hq, q_want) and torch.equal(hs, s_want.reshape(-1))
+    for z in range(3):
+        wq, wsc, bias = ws[3 * z:3 * z + 3]
+        want = _rescale(_int_mm(hq, wq), hs, wsc, bias)
+        assert torch.equal(qkv[z], want), (z, (qkv[z].float() - want.float()).abs().max())
+    want_q, want_s = quant.quantize_rows_s8_reference(attn)
+    assert torch.equal(aq, want_q) and torch.equal(as_, want_s.reshape(-1))
+    wq, wsc, bias = ws[9:12]
+    want = (x.reshape(T, d).float() + _rescale(_int_mm(aq, wq), as_, wsc, bias).float()
+            ).to(torch.bfloat16)
+    assert torch.equal(out.reshape(T, d), want)
 
 
 def test_int8_wrappers_refuse_what_the_kernels_do_not_take(cuda):

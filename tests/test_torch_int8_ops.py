@@ -187,6 +187,32 @@ def test_fused_ln_attention_int8_bf16_matches_jax(rng):
                        bf16=True)
 
 
+def test_int8_blocks_layer_norm_does_not_depend_on_the_summation_order(rng):
+    """K2's and K4's LN (``layer_norm_exact_stats``) takes its statistics
+    from exact row sums: permuting a bf16 row's columns permutes its output
+    bit for bit."""
+    x = torch.from_numpy(rng.randn(64, 768).astype(np.float32) * 2 + 0.5).to(torch.bfloat16)
+    one, zero = torch.ones(768), torch.zeros(768)
+    perm = torch.from_numpy(rng.permutation(768))
+    h = mlp.layer_norm_exact_stats(x, one, zero, 1e-6)
+    assert torch.equal(mlp.layer_norm_exact_stats(x[:, perm], one, zero, 1e-6), h[:, perm])
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_int8_blocks_layer_norm_matches_float64(rng, dtype):
+    """Each of its steps is rounded once: within a few f32 ulp of the LN
+    evaluated in f64."""
+    x = torch.from_numpy(rng.randn(64, 768).astype(np.float32) * 2 + 0.5).to(dtype)
+    scale = torch.from_numpy(1 + 0.1 * rng.randn(768).astype(np.float32))
+    bias = torch.from_numpy(0.1 * rng.randn(768).astype(np.float32))
+    xd = x.double()
+    mu = xd.mean(-1, keepdim=True)
+    want = ((xd - mu) / torch.sqrt(((xd - mu) ** 2).mean(-1, keepdim=True) + 1e-6)
+            * scale.double() + bias.double())
+    got = mlp.layer_norm_exact_stats(x, scale, bias, 1e-6)
+    torch.testing.assert_close(got.double(), want, rtol=2 ** -20, atol=2 ** -20)
+
+
 def test_fused_int8_blocks_keep_padding_rows_finite(rng):
     """Rows past valid_len (zero padding in the ViT) are junk but finite."""
     a = [torch.from_numpy(v) for v in _attn_args(rng, 2, 16, 64)]

@@ -45,9 +45,18 @@ def test_write_cohort_grey_and_rgb(tmp_path):
     ("void emr2a::gemm_bf16_kernel<128, 2>(CUtensorMap_st, emr2a::GemmParams)",
      "fc2 and out-proj GEMM + residual (K1, K3)"),
     ("void emr2a::layer_norm_rows_kernel(__nv_bfloat16 const*)", "LN row pass (K1, K3)"),
-    ("void emr2a::gemm_s8_kernel<0>(emr2a::GemmS8Params)", "Q/K/V s8 GEMM (K4)"),
-    ("void emr2a::gemm_s8_kernel<2>(emr2a::GemmS8Params)",
+    ("void emr2a::gemm_s8_wgmma_kernel<false, 2, 128, 0, 3>(CUtensorMap_st, "
+     "CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, emr2a::WgmmaParams)",
+     "Q/K/V s8 GEMM (K4)"),
+    ("void emr2a::gemm_s8_wgmma_kernel<false, 2, 80, 2, 1>(CUtensorMap_st, "
+     "CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, emr2a::WgmmaParams)",
      "fc2 and out-proj s8 GEMM + residual (K2, K4)"),
+    ("void emr2a::gemm_s8_wgmma_kernel<false, 2, 128, 3, 1>(CUtensorMap_st, "
+     "CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, emr2a::WgmmaParams)",
+     "fc1 s8 GEMM + gelu (K2)"),
+    ("void emr2a::gemm_s8_wgmma_kernel<false, 2, 64, 0, 1>(CUtensorMap_st, "
+     "CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, emr2a::WgmmaParams)",
+     "K5 wgmma GEMM"),
     ("void emr2a::quantize_rows_kernel<__nv_bfloat16, true>(emr2a::QuantParams)",
      "LN + row quantize (K2, K4)"),
 ])
@@ -58,6 +67,15 @@ def test_profiler_names_every_kernel(key, label):
     if "Q/K/V" in label:
         assert ops == 2 * 6400 * 768 * 3 * 768
     assert kernel_label("elementwise_kernel", 1, 1, 1) == ("elementwise_kernel", None)
+
+
+@pytest.mark.parametrize("key,group", [
+    ("void emr2a::gemm_s8_wgmma_kernel<false, 2, 128, 0, 1>(CUtensorMap_st)", "K5 wgmma GEMM"),
+    ("void emr2a::gemm_s8_wgmma_kernel<true, 1, 192, 0, 1>(CUtensorMap_st)", "K7 wgmma GEMM"),
+])
+def test_judge_profile_names_the_quantized_gemms(key, group):
+    from emr2a_tpu_torch.tools.profile_judge import group_of
+    assert group_of(key) == group
 
 
 def test_step1_on_the_cohort_tree_gives_its_manifest(tmp_path):
