@@ -18,9 +18,12 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    197 (K2 at the first and the last, K1's and K2's bf16 gelu at the
    first two), single, chained and in a CUDA
    graph, with the device time by launch, beside plain bf16 PyTorch (K2
-   and K4: their plain versions on ``torch._int_mm``) and the bound; K3
+   and K4: their plain versions on ``torch._int_mm``) and the bound; K3m's
+   group (from the card's SM count and L2 size), its device launches a call
+   and its times beside K3's at each shape; K3
    and K4 at (2, 577, 768), valid_len 570, against their plain versions
-   and K3m there bit for bit against K3; K5 (W8A8 linear) bit
+   and K3m there, at (37, 200, 768) (groups 24 + 13) and at (3, 200,
+   768) (B < block_b) bit for bit against K3; K5 (W8A8 linear) bit
    for bit at the PubMedBERT shapes (T = 32 x 256: 768->768, 768->3072,
    3072->768), at T = 32, and at the int8 judge's eight (T = 2048 and T = 1
    on 4096->4096, 4096->1024, 4096->12288, 12288->4096), each timed by
@@ -86,10 +89,24 @@ Phases, each of which fails the run (non-zero exit) if it fails:
     the plain versions on the CPU (cosine >= 0.9998 and max abs error <=
     0.2 in bf16, >= 0.997 and <= 0.75 in int8 and int4; the CPU's greedy
     token, or one tied with it there), limits that must refuse the card against the CPU's logits of
-    another precision (a control). Then step4
+    another precision (a control); each precision also with the int8 KV
+    cache and with a prefill in two chunks, under the same limits and
+    controls (the greedy token there within the logits' limit of the
+    CPU's). The
+    int4 judge's generator options on the same request: the int8 KV cache
+    and ``prefill_chunk=512`` (4 chunks), prefill and decode times beside
+    the plain run's; a sampled generation (temperature 0.7, top_p 0.9, a
+    fixed seed, 16 tokens) twice: every token inside its step's filtered
+    support, the same tokens for the same seed. Then step4
     (``run_vlm_audit_pipeline``) on the cohort's CV experiment with the
     int4 judge: 4 cases, 64 new tokens, both artifacts, every case through
-    K7 and K8. A stub word-level tokenizer stands in for Qwen's.
+    K7 and K8; and the CV runner's ``_run_vlm_review`` (the G2 review) on
+    the cohort's CV folds with the int4 judge passed in through
+    ``VLMReviewModule(backend=...)``: 2 reviews, new tokens capped at 32,
+    every review's text generated, K7 on every decoder forward (a review's
+    one montage is one frame, which the vision tower attends on its flat
+    path, as JAX's does). A stub
+    word-level tokenizer stands in for Qwen's.
 
 13. Layer breakdown (``tools/layer_breakdown.main``, in-process, ViT-B/16
     block at B = 96): ``--what tune --merge_batch`` (K3m + K1), ``--what
@@ -113,6 +130,8 @@ before the last is the kernels' JSON record; the last line is
 
 from __future__ import annotations
 
+import argparse
+import copy
 import dataclasses
 import json
 import re
@@ -274,12 +293,20 @@ def block_phase(card: str) -> list:
     for rec in records:
         if rec["name"].endswith("act_dtype=bf16"):
             rec["gelu_epilogue_bit_identical_values"] = GELU_VALUES
+    for k3m, k3 in zip(blocks["k3m"], blocks["k3"]):
+        print(f"K3m {k3m['shape']}: group {k3m['group']} x {k3m['groups']} on "
+              f"{k3m['streams']} stream(s), {k3m['device_launches_per_call']} device launches "
+              f"a call; single / chained / graph {k3m['ms']:.4f} / {k3m['chained_ms']:.4f} / "
+              f"{k3m['graph_ms']:.4f} ms beside K3's {k3['ms']:.4f} / {k3['chained_ms']:.4f} / "
+              f"{k3['graph_ms']:.4f} (graph {k3m['graph_ms'] / k3['graph_ms']:.3f} x K3); "
+              f"bit-identical to K3 ({card})", flush=True)
     return records
 
 
 def long_sequence_check() -> None:
     """K3 and K4 at LONG_SEQ (K/V streamed through the attention core's
-    slots) against their plain versions; K3m bit for bit against K3."""
+    slots) against their plain versions; K3m bit for bit against K3 there,
+    at a B that is no multiple of its group and at B < block_b."""
     from emr2a_tpu_torch.ops import attention_block
 
     B, S, d, H, valid_len = LONG_SEQ
@@ -307,6 +334,19 @@ def long_sequence_check() -> None:
     if not torch.equal(k3m, k3):
         fail(f"fused_ln_attention merge_batch {tag}: not bit-identical to K3")
     print(f"fused_ln_attention merge_batch {tag}: bit-identical to K3", flush=True)
+    # K3m where B is no multiple of its group (24 + 13) and where B < block_b
+    for B in (37, 3):
+        x = rn(B, 200, d)
+        k3 = attention_block.fused_ln_attention(x, *ln, *w, num_heads=H, valid_len=197)
+        k3m = attention_block.fused_ln_attention(x, *ln, *w, num_heads=H, valid_len=197,
+                                                 block_b=4, merge_batch=True)
+        torch.cuda.synchronize()
+        G = attention_block.merged_group(B, 200, d, 4, *attention_block.device_caps(
+            torch.cuda.current_device()))
+        if not torch.equal(k3m, k3):
+            fail(f"fused_ln_attention merge_batch ({B}, 200, {d}): not bit-identical to K3")
+        print(f"fused_ln_attention merge_batch ({B}, 200, {d}), block_b 4: group {G}, "
+              f"bit-identical to K3", flush=True)
 
 
 def kernel_phase(card: str) -> list:
@@ -980,6 +1020,9 @@ MIN_LOGIT_COSINE = {"bf16": 0.9998, "int8": 0.997, "int4": 0.997}
 MAX_LOGIT_ABS_ERR = {"bf16": 0.2, "int8": 0.75, "int4": 0.75}
 CONTROL_OF = {"bf16": "int8", "int8": "int4", "int4": "int8"}
 STEP4_CASES, STEP4_NEW_TOKENS = 4, 64
+OPTION_CHUNK = 512           # the chunked prefill's chunk: 4 chunks of the 2,048 bucket
+SAMPLED_TOKENS, SAMPLED_SEED = 16, 1234
+REVIEW_SAMPLES, REVIEW_NEW_TOKENS = 2, 32   # the review's 512 new tokens, capped
 
 
 def judge_kernel_phase(card: str) -> list:
@@ -1099,9 +1142,11 @@ def decode_step_kernels(step) -> dict:
             **{kind: after[kind] - before[kind] for kind in after}}
 
 
-def judge_request(prec: str, backend, request: dict, card: str) -> dict:
+def judge_request(prec: str, backend, request: dict, card: str, tag: str = None) -> dict:
     """One audit request through ``backend.generate`` with the counts reset
-    just before; then prefill and decode timed with CUDA events."""
+    just before; then prefill and decode timed with CUDA events. ``tag``
+    names a run with generator options (``prec`` is its weights')."""
+    tag = tag or prec
     gen = backend.generator
     model = backend.model
     n_text, h_text = count_calls(model.language_model)
@@ -1123,9 +1168,9 @@ def judge_request(prec: str, backend, request: dict, card: str) -> dict:
     want = {"frame_flash_attention": len(model.visual.blocks) * n_vis[0]}
     if kernel:
         want[kernel] = n_proj * n_text[0]
-    check_launches(f"judge {prec}", launches, want)
+    check_launches(f"judge {tag}", launches, want)
     if n_vis[0] != 1 or not isinstance(text, str):
-        fail(f"judge {prec}: {n_vis[0]} vision forwards, output {type(text)}")
+        fail(f"judge {tag}: {n_vis[0]} vision forwards, output {type(text)}")
 
     ids, patches, grids = backend._prepare(request["images"], request["prompt"],
                                            request["system"])
@@ -1148,7 +1193,7 @@ def judge_request(prec: str, backend, request: dict, card: str) -> dict:
         kernels = decode_step_kernels(lambda: gen._decode_step(
             cache, token, DECODE_TOKENS, padded, max_len, tl, npb))
     if not torch.isfinite(logits.float()).all():
-        fail(f"judge {prec}: non-finite logits")
+        fail(f"judge {tag}: non-finite logits")
     tree = sum(t.numel() * t.element_size() for t in
                {t.data_ptr(): t for t in model.state_dict().values()}.values())
     bounds = judge_bounds(model, prec, padded, grids, max_len)
@@ -1161,9 +1206,9 @@ def judge_request(prec: str, backend, request: dict, card: str) -> dict:
     if kernel and not (kernels[f"{kernel} calls"] >= n_proj
                        and kernels[f"{kernel} GEMV"] == kernels[f"{kernel} calls"]
                        and sum(kernels.values()) == 2 * kernels[f"{kernel} calls"]):
-        fail(f"judge {prec}: a decode step's device kernels {kernels}: each {kernel} call "
+        fail(f"judge {tag}: a decode step's device kernels {kernels}: each {kernel} call "
              f"should be one GEMV launch")
-    print(f"judge {prec}: {len(request['images'])} images, {len(ids)} prompt tokens "
+    print(f"judge {tag}: {len(request['images'])} images, {len(ids)} prompt tokens "
           f"(bucket {padded}); generate {DECODE_TOKENS} tokens in {wall:.2f} s "
           f"(host clock, {n_text[0]} decoder forwards); prefill "
           f"{out['prefill_ms']:.3f} ms (bound {bounds['prefill']['bound_ms']:.3f}, "
@@ -1176,12 +1221,19 @@ def judge_request(prec: str, backend, request: dict, card: str) -> dict:
     return out
 
 
+# the reduced-depth check's generator options: the int8 KV cache, and a
+# prefill in two chunks of half the prompt bucket
+REDUCED_OPTIONS = ("", " kv_dtype=int8", " prefill_chunk=bucket/2")
+
+
 def reduced_depth_check(cfg, state: dict, images: list, card: str) -> None:
     """The 8B's weights cut to 2 vision blocks (deepstack at 0) and 2 text
     layers at full width: last-position prefill logits on the card (the
-    kernels) against the plain versions on the CPU, per precision."""
+    kernels) against the plain versions on the CPU, per precision, each
+    also with the int8 KV cache and with a prefill in two chunks, under the
+    same limits."""
     from emr2a_tpu_torch.judge.qwen_backend import QwenVLBackend
-    from emr2a_tpu_torch.models.qwen3_vl import Qwen3VLConfig
+    from emr2a_tpu_torch.models.qwen3_vl import Qwen3VLConfig, Qwen3VLGenerator
 
     small = Qwen3VLConfig(
         vision=dataclasses.replace(cfg.vision, depth=2, deepstack_visual_indexes=(0,)),
@@ -1199,19 +1251,29 @@ def reduced_depth_check(cfg, state: dict, images: list, card: str) -> None:
             be = QwenVLBackend(config=small, params=params, tokenizer=tok, precision=prec,
                                prompt_bucket=16)
             ids, patches, grids = be._prepare(images, prompt, None)
-            gen = be.generator
-            if dev == "cuda":
-                torch.cuda.synchronize()
-                reset_counts()
-            with torch.inference_mode():
-                inputs = gen.device_inputs(np.asarray([ids]), patches, tuple(grids), 16)
-                _, last, _ = gen._prefill(*inputs[:4], tuple(grids), inputs[4], inputs[4] + 1)
-            logits[prec, dev] = last[0].float().cpu()
-            if dev == "cuda":
-                torch.cuda.synchronize()
-                kernel = {"int8": "linear_w8a8", "int4": "linear_w4a8"}.get(prec)
-                want = {"frame_flash_attention": 2, **({kernel: 14} if kernel else {})}
-                check_launches(f"reduced-depth {prec}", read_counts(), want)
+            padded = -(-len(ids) // 16) * 16
+            for opt in REDUCED_OPTIONS:
+                kw = ({"kv_dtype": "int8"} if "kv_dtype" in opt else
+                      {"prefill_chunk": padded // 2} if "prefill_chunk" in opt else {})
+                gen = Qwen3VLGenerator(be.model, **kw)
+                n_text, hook = count_calls(be.model.language_model)
+                if dev == "cuda":
+                    torch.cuda.synchronize()
+                    reset_counts()
+                with torch.inference_mode():
+                    inputs = gen.device_inputs(np.asarray([ids]), patches, tuple(grids), 16)
+                    _, last, _ = gen._prefill(*inputs[:4], tuple(grids), inputs[4],
+                                              inputs[4] + 1)
+                hook.remove()
+                logits[prec + opt, dev] = last[0].float().cpu()
+                if dev == "cuda":
+                    torch.cuda.synchronize()
+                    kernel = {"int8": "linear_w8a8", "int4": "linear_w4a8"}.get(prec)
+                    want = {"frame_flash_attention": 2,
+                            **({kernel: 14 * n_text[0]} if kernel else {})}
+                    check_launches(f"reduced-depth {prec}{opt}", read_counts(), want)
+                    if n_text[0] != (2 if "prefill_chunk" in kw else 1):
+                        fail(f"reduced-depth {prec}{opt}: {n_text[0]} decoder passes")
             del be
 
     def agreement(a, b, prec):
@@ -1242,6 +1304,149 @@ def reduced_depth_check(cfg, state: dict, images: list, card: str) -> None:
             fail(f"reduced-depth {prec}: the card disagrees with the CPU's plain versions")
         if control_ok:
             fail(f"reduced-depth {prec}: the limits do not refuse the {control} control")
+        for opt in REDUCED_OPTIONS[1:]:
+            # the same limits and control; the greedy token within the
+            # logits' limit of the CPU's (in int8 and int4 the CPU's top
+            # logits tie in bf16 while the card's differ from them by about
+            # 8 bf16 steps, so an exact greedy match is a coin toss there)
+            a, b = logits[prec + opt, "cuda"], logits[prec + opt, "cpu"]
+            cos, err, ok = agreement(a, b, prec)
+            top_card, top_cpu = int(a.argmax()), int(b.argmax())
+            gap = (b[top_cpu] - b[top_card]).item()
+            control_ok = agreement(a, logits[CONTROL_OF[prec] + opt, "cpu"], prec)[2]
+            print(f"reduced-depth {prec}{opt}: card vs CPU last-position logits cosine "
+                  f"{cos:.6f} (limit {MIN_LOGIT_COSINE[prec]}), max_abs_err {err:.5f} "
+                  f"(limit {MAX_LOGIT_ABS_ERR[prec]}), greedy token "
+                  f"{'equal' if top_card == top_cpu else f'{top_card} vs {top_cpu}'} (the "
+                  f"CPU scores the card's {gap:.5f} below its own); CPU against its one-shot "
+                  f"bf16-cache logits: max_abs_err "
+                  f"{(b - logits[prec, 'cpu']).abs().max().item():.5f}; the "
+                  f"{CONTROL_OF[prec]}{opt} control "
+                  f"{'not refused' if control_ok else 'refused'} ({card})", flush=True)
+            if not ok or gap > MAX_LOGIT_ABS_ERR[prec]:
+                fail(f"reduced-depth {prec}{opt}: the card disagrees with the CPU's plain "
+                     f"versions")
+            if control_ok:
+                fail(f"reduced-depth {prec}{opt}: the limits do not refuse the "
+                     f"{CONTROL_OF[prec]} control")
+
+
+def sampled_phase(backend, request: dict, card: str) -> dict:
+    """A sampled generation on ``backend`` (the int4 judge), the audit
+    request, temperature 0.7, top_p 0.9, seed SAMPLED_SEED, twice: every
+    token inside its step's filtered support (``filtered_log_probs`` of the
+    very logits it was drawn from) and the same tokens under the same seed.
+    Returns the runs' launch counts."""
+    from emr2a_tpu_torch.models import qwen3_vl
+
+    gen = backend.generator
+    ids, patches, grids = backend._prepare(request["images"], request["prompt"],
+                                           request["system"])
+    real = qwen3_vl.sample_rows
+    kept, outside = [], []
+
+    def checked(logits, rng, temp, top_p):
+        tok = real(logits, rng, temp, top_p)
+        lp = qwen3_vl.filtered_log_probs(logits, temp, top_p)
+        kept.append(int(torch.isfinite(lp).sum()))
+        outside.append(int((~torch.isfinite(lp.gather(1, tok[:, None]))).sum()))
+        return tok
+
+    n_text, h_text = count_calls(backend.model.language_model)
+    n_vis, h_vis = count_calls(backend.model.visual)
+    torch.cuda.synchronize()
+    reset_counts()
+    qwen3_vl.sample_rows = checked
+    try:
+        streams = [gen.generate(np.asarray([ids]), pixel_patches=patches,
+                                grid_thw=tuple(grids), max_new_tokens=SAMPLED_TOKENS,
+                                temperature=0.7, top_p=0.9, seed=SAMPLED_SEED,
+                                prompt_bucket=backend.prompt_bucket) for _ in range(2)]
+    finally:
+        qwen3_vl.sample_rows = real
+    torch.cuda.synchronize()
+    launches = read_counts()
+    h_text.remove()
+    h_vis.remove()
+    check_launches("sampled", launches, {
+        "frame_flash_attention": len(backend.model.visual.blocks) * n_vis[0],
+        "linear_w4a8": 7 * len(backend.model.language_model.layers) * n_text[0]})
+    if len(kept) != 2 * (SAMPLED_TOKENS + 1) or sum(outside):
+        fail(f"sampled: {sum(outside)} tokens outside their filtered support "
+             f"({len(kept)} draws)")
+    if not np.array_equal(streams[0], streams[1]):
+        fail("sampled: the same seed gave other tokens")
+    print(f"sampled (int4 judge, temperature 0.7, top_p 0.9, seed {SAMPLED_SEED}): "
+          f"{SAMPLED_TOKENS} tokens twice, equal; every one of {len(kept)} draws inside "
+          f"its filtered support ({min(kept)} to {max(kept)} tokens kept of top-k "
+          f"{qwen3_vl.SAMPLE_TOP_K}); tokens {streams[0][0].tolist()}; launches "
+          f"{launches} ({card})", flush=True)
+    return launches
+
+
+class CappedBackend:
+    """The judge with every generation capped at REVIEW_NEW_TOKENS new
+    tokens (the review asks for 512), recording each output."""
+
+    def __init__(self, backend):
+        self.backend = backend
+        self.texts = []
+
+    def generate(self, images, prompt, system=None, max_new_tokens=1024, temperature=0.0):
+        text = self.backend.generate(images, prompt, system=system,
+                                     max_new_tokens=min(max_new_tokens, REVIEW_NEW_TOKENS),
+                                     temperature=temperature)
+        self.texts.append(text)
+        return text
+
+
+def review_phase(work: Path, manifest_path: Path, backend, card: str) -> dict:
+    """The CV runner's ``_run_vlm_review`` on the cohort's CV folds (the
+    card's run) with ``backend`` (the int4 judge) passed in through
+    ``VLMReviewModule(backend=...)``: REVIEW_SAMPLES reviews, each of which
+    must have generated text, every decoder projection on K7. Returns the
+    launch counts."""
+    from emr2a_tpu_torch.analysis import run_cv_experiments as runner
+    from emr2a_tpu_torch.data.manifest import load_manifest
+
+    exp = work / "cv" / "cuda" / "exp_cohort"
+    results = {"fold_results": [json.loads((f / "metrics.json").read_text(encoding="utf-8"))
+                                for f in sorted(exp.glob("fold_*"))]}
+    manifest = load_manifest(manifest_path)
+    args = argparse.Namespace(vlm_model_path=None, device="cuda", vlm_prompt=None,
+                              output_dir=str(work / "review"))
+    capped = CappedBackend(backend)
+    n_text, h_text = count_calls(backend.model.language_model)
+    n_vis, h_vis = count_calls(backend.model.visual)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.time()
+    review = runner._run_vlm_review(args, "cohort", manifest,
+                                    [r["patient_id"] for r in manifest], results,
+                                    max_vlm_samples=REVIEW_SAMPLES, backend=capped)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = read_counts()
+    h_text.remove()
+    h_vis.remove()
+    # one montage a request is one frame, which the vision tower (as JAX's)
+    # attends on its flat path, not K8's frame batch
+    check_launches("review", launches, {
+        "linear_w4a8": 7 * len(backend.model.language_model.layers) * n_text[0]})
+    evidence = sorted(p.name for p in (work / "review" / "exp_cohort" / "vlm_review").iterdir())
+    if (len(capped.texts) != REVIEW_SAMPLES or n_vis[0] != REVIEW_SAMPLES
+            or not all(isinstance(t, str) and t.strip() for t in capped.texts)
+            or len(review["vlm_predictions"]) != REVIEW_SAMPLES
+            or evidence != [f"evidence_{i}" for i in range(REVIEW_SAMPLES)]):
+        fail(f"review: {len(capped.texts)} outputs {[len(t) for t in capped.texts]} chars, "
+             f"{n_vis[0]} vision forwards, evidence {evidence}")
+    print(f"review (_run_vlm_review, int4 judge, max_new_tokens capped at "
+          f"{REVIEW_NEW_TOKENS} of 512): {REVIEW_SAMPLES} reviews in {wall:.2f} s (host "
+          f"clock), every one generated text ({[len(t.split()) for t in capped.texts]} "
+          f"words); predictions {review['vlm_predictions']}, agreement_rate "
+          f"{review['agreement_rate']}; {n_text[0]} decoder forwards; launches {launches} "
+          f"({card})", flush=True)
+    return launches
 
 
 def judge_phase(work: Path, manifest_path: Path, card: str) -> dict:
@@ -1290,6 +1495,23 @@ def judge_phase(work: Path, manifest_path: Path, card: str) -> dict:
         fail(f"the audit request has {len(request['images'])} images, expected 7")
     runs = {prec: judge_request(prec, be, request, card) for prec, be in backends.items()}
 
+    # the generator's options on the int4 judge, the same request
+    from emr2a_tpu_torch.models.qwen3_vl import Qwen3VLGenerator
+    base = backends["int4"]
+    chunked = f"int4 prefill_chunk={OPTION_CHUNK}"
+    for tag, kw in (("int4 kv_dtype=int8", {"kv_dtype": "int8"}),
+                    (chunked, {"prefill_chunk": OPTION_CHUNK})):
+        be = copy.copy(base)
+        be.decode_chunk = DECODE_TOKENS      # no decode steps past the timed ones
+        be.generator = Qwen3VLGenerator(base.model, eos_token_id=base.generator.eos_token_id,
+                                        **kw)
+        runs[tag] = judge_request("int4", be, request, card, tag=tag)
+    chunks = runs[chunked]["padded"] // OPTION_CHUNK
+    if runs[chunked]["forwards"] != chunks + DECODE_TOKENS:
+        fail(f"{chunked}: {runs[chunked]['forwards']} decoder forwards, expected "
+             f"{chunks + DECODE_TOKENS} ({chunks} prefill chunks, {DECODE_TOKENS} steps)")
+    sampled = sampled_phase(base, request, card)
+
     images = [Image.open(p).convert("RGB").resize((256, 256))
               for p in evidence["query_images"][:2]]
     reduced_depth_check(cfg, state, images, card)
@@ -1320,9 +1542,10 @@ def judge_phase(work: Path, manifest_path: Path, card: str) -> dict:
           f"in {wall:.2f} s (host clock); {n_text[0]} decoder forwards; decisions "
           f"{summary['audit_summary']}; launches {step4}; artifacts written ({card})",
           flush=True)
-    del backends, state, be, m
+    review = review_phase(work, manifest_path, be, card)
+    del backends, state, be, base, m
     torch.cuda.empty_cache()
-    return {"runs": runs, "step4": step4}
+    return {"runs": runs, "step4": step4, "sampled": sampled, "review": review}
 
 
 def step1_phase(work: Path) -> Path:
@@ -1432,9 +1655,10 @@ def main_path_phase(work: Path, records: list, card: str) -> None:
     del encoders, plain_cpu, int8_cpu
     judge = judge_phase(work, manifest_path, card)
     runs = judge["runs"]
-    paths = {"text": text["launches"], "judge_bf16": runs["bf16"]["launches"],
-             "judge_int8": runs["int8"]["launches"], "judge_int4": runs["int4"]["launches"],
-             "step4_int4": judge["step4"]}
+    paths = {"text": text["launches"],
+             **{"judge " + tag: r["launches"] for tag, r in runs.items()},
+             "judge int4 sampled": judge["sampled"], "step4_int4": judge["step4"],
+             "review_int4": judge["review"]}
     for rec in records:
         name = rec["name"]
         if name in ("linear_w8a8", "linear_w4a8", "frame_flash_attention", "fused_attention"):

@@ -8,10 +8,11 @@ image_matrix, text_matrix}), clinical text rendered from the manifest's
 meta, and per-patient slice sampling with mean pooling. The CV math runs
 in ``eval/cv.py`` on ``--device`` (default ``cuda``; ``--device cpu`` asks
 for the CPU). Encoders come from the port's factory, which raises for a
-family not ported yet; ``--vlm_review`` raises ``NotImplementedError``:
-the step4 judge is ported, but the review module it drives
-(``emr2a_tpu/judge/review.py``, ``VLMReviewModule``) is not yet
-(ROADMAP.md Queue 1 item 2).
+family not ported yet. ``--vlm_review`` runs the G2 goalkeeper review
+(``judge/review.py``) on the first 30 CV test patients, each beside its own
+neighbours, with the judge at ``--vlm_model_path`` on ``--device`` (``fake``
+for canned answers), and writes ``vlm_review_summary.json`` beside the
+folds.
 
     python -m emr2a_tpu_torch.analysis.run_cv_experiments \
         --experiment_id demo --skip_encoding \
@@ -32,6 +33,7 @@ from emr2a_tpu_torch.config import BaseConfig
 from emr2a_tpu_torch.data.manifest import load_manifest
 from emr2a_tpu_torch.encoders import create_encoder
 from emr2a_tpu_torch.eval.cv import CVRetrievalEvaluator, make_serializable
+from emr2a_tpu_torch.judge.review import VLMReviewModule
 from emr2a_tpu_torch.ops.preprocess import sample_slice_indices
 
 logger = logging.getLogger(__name__)
@@ -232,11 +234,6 @@ def aggregate_embeddings(embeddings: Dict[str, Dict[str, np.ndarray]]
 def run_experiment(args, config: BaseConfig, experiment_id: str,
                    shuffle_text: bool = False,
                    enable_vlm_review: bool = False) -> Dict:
-    if enable_vlm_review:
-        raise NotImplementedError(
-            "--vlm_review needs judge/review.py (VLMReviewModule), which is "
-            "not ported to emr2a_tpu_torch yet (ROADMAP.md Queue 1 item 2); "
-            "the step4 judge itself is ported")
     logger.info("Running experiment: %s", experiment_id)
     manifest = load_manifest(args.manifest_path)
     logger.info("Loaded %d records from manifest", len(manifest))
@@ -278,6 +275,11 @@ def run_experiment(args, config: BaseConfig, experiment_id: str,
         fusion=args.fusion, top_k_list=[1, 3, 5, args.top_k],
         w_text=args.w_text)
 
+    vlm_review_results = None
+    if enable_vlm_review:
+        vlm_review_results = _run_vlm_review(args, experiment_id, manifest,
+                                             patient_ids, results)
+
     config_dict = {
         "experiment_id": experiment_id,
         "image_encoder": args.image_encoder,
@@ -296,6 +298,9 @@ def run_experiment(args, config: BaseConfig, experiment_id: str,
         "text_shuffle": shuffle_text,
         "vlm_review": enable_vlm_review,
     }
+    if vlm_review_results:
+        results["vlm_review"] = vlm_review_results
+
     evaluator.save_results(results, Path(args.output_dir), experiment_id,
                            config_dict)
     logger.info("Experiment %s completed", experiment_id)
@@ -305,6 +310,56 @@ def run_experiment(args, config: BaseConfig, experiment_id: str,
                 results["summary"]["vote_acc"]["mean"],
                 results["summary"]["vote_acc"]["std"])
     return results
+
+
+def _run_vlm_review(args, experiment_id, manifest, patient_ids, results,
+                    max_vlm_samples: int = 30, backend=None):
+    """The G2 goalkeeper review over the first ``max_vlm_samples`` CV test
+    patients, each paired with its own fold's predictions and its real
+    neighbour ids (``all_top_patient_ids``). ``backend`` (a ``VLMBackend``)
+    takes the place of loading ``--vlm_model_path``."""
+    from collections import Counter
+
+    vlm_module = VLMReviewModule(model_path=args.vlm_model_path,
+                                 device=args.device, backend=backend)
+    vlm_output_dir = Path(args.output_dir) / f"exp_{experiment_id}" / "vlm_review"
+    pid_to_record = {r.get("patient_id"): r for r in manifest}
+
+    retrieval_predictions, retrieval_similarities = [], []
+    retrieval_labels, top_neighbors_list, query_patients = [], [], []
+    for fold_result in results["fold_results"]:
+        all_top_labels = fold_result.get("all_top_labels", [])
+        all_top_scores = fold_result.get("all_top_scores", [])
+        top_pids = fold_result.get("all_top_patient_ids", [])
+        for i, test_pid in enumerate(fold_result.get("test_patient_ids", [])):
+            if len(query_patients) >= max_vlm_samples:
+                break
+            record = pid_to_record.get(test_pid)
+            if i >= len(all_top_labels) or record is None:
+                continue
+            top_labels, top_scores = all_top_labels[i], all_top_scores[i]
+            retrieval_predictions.append(Counter(top_labels).most_common(1)[0][0])
+            retrieval_similarities.append(top_scores)
+            retrieval_labels.append(top_labels)
+            pids_i = (top_pids[i] if i < len(top_pids)
+                      else [f"neighbor_{j}" for j in range(len(top_labels))])
+            top_neighbors_list.append(
+                [(pid, label, float(score))
+                 for pid, (label, score) in zip(pids_i, zip(top_labels, top_scores))])
+            query_patients.append(record)
+        if len(query_patients) >= max_vlm_samples:
+            break
+
+    logger.info("Processing %d samples for VLM review", len(query_patients))
+    return vlm_module.g2_goalkeeper_review(
+        retrieval_predictions=retrieval_predictions,
+        retrieval_similarities=retrieval_similarities,
+        retrieval_labels=retrieval_labels,
+        query_patients=query_patients,
+        top_neighbors_list=top_neighbors_list,
+        manifest=manifest,
+        output_dir=vlm_output_dir,
+        prompt_template=args.vlm_prompt)
 
 
 def run_experiments(args, config: BaseConfig) -> None:

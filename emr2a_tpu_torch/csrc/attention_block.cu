@@ -99,42 +99,66 @@ extern "C" int emr2a_fused_ln_attention(const void* x, const void* ln_scale,
                                          valid_len, eps, reinterpret_cast<cudaStream_t>(stream));
 }
 
-// K3m: the same function on the schedule of the TPU kernel's merged-batch
-// variant (emr2a_tpu/ops/attention_block.py:_attn_block_kernel_merged, which
-// fused_ln_attention(..., merge_batch=True) selects): items in groups of
-// block_b; per group, LN and the Q/K/V projections run once over the group's
-// block_b*S rows, the attention core per item, then the out-projection with
-// bias and residual over the group's rows. The TPU variant keeps a group's
-// tile in VMEM; here a group's Q/K/V and attention output live in a bounded
-// scratch that every group reuses, (3, G*S, d) + (G*S, d) bf16 with
-// G = min(block_b, B), instead of K3's (3, B*S, d) + (B*S, d). A short last
-// group takes the place of the TPU kernel's batch padding. Each output
-// element's K-loop and each item's attention are K3's, so the result is K3's
-// bit for bit.
+// The card's SM count and L2 size: K3m's group rule
+// (ops/attention_block.merged_group) reads both here.
+extern "C" int emr2a_device_caps(int* sms, int* l2_bytes) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(l2_bytes, cudaDevAttrL2CacheSize, dev);
+  return static_cast<int>(err);
+}
+
+// K3m: the same function over groups of items (emr2a_tpu/ops/
+// attention_block.py:_attn_block_kernel_merged, which
+// fused_ln_attention(..., merge_batch=True) selects). The TPU variant keeps
+// a group of block_b items' (block_b*S, d) tile in VMEM from LN to the
+// out-projection; on this card the counterpart of VMEM residency is L2. Per
+// group of G items: LN and the Q/K/V projections once over the group's G*S
+// rows, the attention core per item, then the out-projection with bias and
+// residual over the group's rows, each group in its own scratch set, (3,
+// G*S, d) + (G*S, d) bf16, which the next group but one reuses.
 //
-// Bound: as K3, bound by the tensor cores on the projections. The schedule
-// costs K3's four launches per group, its two GEMMs at M = block_b*S rows
-// (800 at ViT-B, block_b 4: 7 row tiles of 128 against K3's 200 at B = 128),
-// so it is expected slower than K3.
+// Bound: as K3, bound by the tensor cores on the projections. The TPU's
+// group of block_b items gives this card small grids (at ViT-B, block_b 4:
+// 42 out-projection tiles on 132 SMs), and the four launches of a group run
+// one after another, each paying its tail. Design: the wrapper picks G, a
+// multiple of block_b, from the SM count and the L2 size (the out-projection
+// tiles cover the SMs 1.5 times, a group's scratch fits a share of L2: 24
+// items at ViT-B), and groups alternate between two streams and two scratch
+// sets (stream2 may equal stream), so that group g+1's LN and Q/K/V run
+// beside group g's core and out-projection and each launch's tail is filled
+// by the other stream. The
+// wrapper forks stream2 from stream and joins it back, with events, which a
+// CUDA graph captures. Each output element's K-loop (gemm.cuh picks the tile
+// by N alone) and each item's attention are K3's, so the result is K3's bit
+// for bit at every G.
+//
+// qkv: scratch (nsets, 3, G*S, d); attn: scratch (nsets, G*S, d), nsets = 2
+// where there is more than one group, else 1.
 extern "C" int emr2a_fused_ln_attention_merged(
     const void* x, const void* ln_scale, const void* ln_bias, const void* wq, const void* bq,
     const void* wk, const void* bk, const void* wv, const void* bv, const void* wo,
     const void* bo, void* qkv, void* attn, void* out, int B, int S, int d, int num_heads,
-    int valid_len, int block_b, float eps, void* stream) {
-  if (block_b < 1 || B < 1) return static_cast<int>(cudaErrorInvalidValue);
+    int valid_len, int group, float eps, void* stream, void* stream2) {
+  if (group < 1 || B < 1) return static_cast<int>(cudaErrorInvalidValue);
   CUtensorMap wmap[4];   // every group's weights
   const cudaError_t enc = encode_weight_maps(wmap, wq, wk, wv, wo, d);
   if (enc != cudaSuccess) return static_cast<int>(enc);
-  const int G = block_b < B ? block_b : B;
+  const int G = group < B ? group : B;
   const size_t plane = (size_t)G * S * d;   // one projection's scratch
   const size_t item = (size_t)S * d;
-  for (int b0 = 0; b0 < B; b0 += G) {
+  cudaStream_t streams[2] = {reinterpret_cast<cudaStream_t>(stream),
+                             reinterpret_cast<cudaStream_t>(stream2)};
+  for (int g = 0, b0 = 0; b0 < B; ++g, b0 += G) {
+    const int set = g & 1;
     const int nb = B - b0 < G ? B - b0 : G;
     const bf16* xg = static_cast<const bf16*>(x) + b0 * item;
     bf16* og = static_cast<bf16*>(out) + b0 * item;
-    int err = emr2a_fused_ln_attention_planes(xg, ln_scale, ln_bias, wmap, bq, bk, bv, bo, qkv,
-                                              plane, attn, og, nb, S, d, num_heads, valid_len, eps,
-                                              reinterpret_cast<cudaStream_t>(stream));
+    int err = emr2a_fused_ln_attention_planes(
+        xg, ln_scale, ln_bias, wmap, bq, bk, bv, bo, static_cast<bf16*>(qkv) + set * 3 * plane,
+        plane, static_cast<bf16*>(attn) + set * plane, og, nb, S, d, num_heads, valid_len, eps,
+        streams[set]);
     if (err != 0) return err;
   }
   return 0;

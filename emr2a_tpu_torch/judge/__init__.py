@@ -4,9 +4,11 @@ from emr2a_tpu_torch.judge.parsers import (
     extract_json_payload,
     parse_audit_output,
 )
+from emr2a_tpu_torch.judge.review import VLMReviewModule
 
 __all__ = [
     "VLMAuditModule",
+    "VLMReviewModule",
     "VLMBackend",
     "FakeVLMBackend",
     "parse_audit_output",

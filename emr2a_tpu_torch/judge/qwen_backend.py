@@ -1,18 +1,19 @@
 """Qwen3-VL generation backend: the production judge engine.
 
-Port of ``emr2a_tpu/judge/qwen_backend.py`` for single-request greedy
-generation: chat-template the prompt with one image placeholder per image,
-patchify each image (``encoders/qwen3_vl_encoder.make_image_processor``),
+Port of ``emr2a_tpu/judge/qwen_backend.py`` for single-request generation,
+greedy or sampled: chat-template the prompt with one image placeholder per
+image, patchify each image (``encoders/qwen3_vl_encoder.make_image_processor``),
 expand the placeholders to each image's token count, then prefill + decode
 (``models/qwen3_vl.Qwen3VLGenerator``) on ``device`` and decode the text.
 
 ``precision``: "bf16" (the vision attention on K8), "int8" (adds every
 decoder projection on K5) or "int4" (adds every decoder projection on K7).
 The weights are quantized where they lie (on the card, by the quantizers'
-torch twins). "int4_awq" raises until ``models/awq.py`` is ported; so do
-``tp > 1``, a draft model, sampling (``temperature > 0``),
-``kv_dtype="int8"``, ``prefill_chunk``, ``generate_batch`` and
-``generate_stream`` (ROADMAP.md, Queue 1, item 3).
+torch twins). ``kv_dtype="int8"`` keeps the KV cache in s8 with scales and
+``prefill_chunk`` chunks the prompt's prefill (``models/qwen3_vl.py``).
+"int4_awq" raises until ``models/awq.py`` is ported; so do ``tp > 1``, a
+draft model, ``generate_batch`` and ``generate_stream`` (ROADMAP.md,
+Queue 1, item 3).
 
 ``params`` is a state dict of this package (``models/qwen3_vl.random_state``,
 ``params_from_jax``), with its ``config``, and the model runs where its
@@ -173,7 +174,8 @@ class QwenVLBackend:
     def generate(self, images: Sequence, prompt: str,
                  system: Optional[str] = None, max_new_tokens: int = 1024,
                  temperature: float = 0.0, top_p: float = 0.9) -> str:
-        """Greedy generation for one request (``temperature > 0`` raises)."""
+        """One request: greedy for ``temperature <= 0``, else sampled with
+        ``top_p`` (the generator's top-k 50 and nucleus filter, seed 0)."""
         ids, pixel_patches, grids = self._prepare(images, prompt, system)
         out_ids = self.generator.generate(
             np.asarray([ids], dtype=np.int64), pixel_patches=pixel_patches,

@@ -1,4 +1,4 @@
-"""Qwen3-VL in PyTorch: vision tower, text decoder and greedy generation.
+"""Qwen3-VL in PyTorch: vision tower, text decoder and generation.
 
 Port of ``emr2a_tpu/models/qwen3_vl.py`` with its names, its param layout
 (``Dense`` kernels (in, out), the ``kernel_q`` / ``kernel_p4`` quantized
@@ -22,17 +22,25 @@ version):
   K5.
 
 Decoder attention is plain PyTorch (XLA einsum in the JAX package, not a
-Pallas kernel). The KV cache is written in place. Out of this port, each
-raising ``NotImplementedError`` that names ROADMAP.md: the int8 KV cache
-(``quantize_kv``), chunked prefill (``chunked_prefill``,
-``auto_prefill_chunk``), sampling (``sample_rows``, ``filtered_log_probs``),
-speculative acceptance (``spec_accept``) and tensor parallelism (``mesh``).
-At batch 1 and a 2k prompt the one-shot prefill's f32 logits take about 0.7
-GB per layer, so nothing needs chunking there.
+Pallas kernel), and so are the generator's options, which JAX computes in
+XLA: the int8 KV cache (``quantize_kv``: s8 values with per-(batch,
+position, head) f32 scales, folded into the attention as JAX folds them, K
+scales onto the logits and V scales onto the probabilities), chunked
+prefill (``chunked_prefill``; ``auto_prefill_chunk`` picks the chunk when
+none is given, JAX's rule), per-row cache offsets (``cache_write`` with a
+(B,) offset vector) and sampling (``sample_rows``, ``filtered_log_probs``:
+temperature, top-k 50, top-p). The KV cache is written in place.
+Divergence: the sampler draws from a ``torch.Generator`` seeded from
+``generate``'s ``seed``, not from ``jax.random`` keys, so sampled streams
+follow the same distribution as JAX's but not its tokens. Out of this
+port, each raising ``NotImplementedError`` that names ROADMAP.md:
+speculative acceptance (``spec_accept``) and tensor parallelism
+(``mesh``).
 """
 
 from __future__ import annotations
 
+import logging
 from dataclasses import dataclass, field
 from typing import Dict, Mapping, Optional, Sequence, Tuple
 
@@ -446,18 +454,36 @@ def mrope_cos_sin(position_ids: torch.Tensor, inv_freq: np.ndarray,
     return torch.cos(emb), torch.sin(emb)
 
 
-def quantize_kv(x):
-    raise NotImplementedError(f"the int8 KV cache is {_NOT_PORTED}")
+def quantize_kv(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-(batch, position, head) absmax int8 quantization of fresh K/V
+    rows: (B, S, KV, HD) -> (s8 values, f32 scales (B, S, KV)); scale =
+    max(absmax / 127, 1e-8), values rounded half to even and clipped to
+    +-127 (the JAX package's codes and scales, byte for byte)."""
+    xf = x.float()
+    s = torch.clamp(xf.abs().amax(dim=-1) / 127.0, min=1e-8)
+    q = torch.clamp(torch.round(xf / s[..., None]), -127, 127).to(torch.int8)
+    return q, s
 
 
-def cache_write(buf: torch.Tensor, fresh: torch.Tensor, cache_pos: int
+def cache_write(buf: torch.Tensor, fresh: torch.Tensor, cache_pos
                 ) -> torch.Tensor:
-    """Write ``fresh`` (B, S, ...) into ``buf`` (B, L, ...) at position
-    ``cache_pos``, in place (JAX: ``dynamic_update_slice`` on an immutable
-    buffer). Per-row offsets (continuous batching) are not ported."""
-    if not isinstance(cache_pos, int):
-        raise NotImplementedError(f"per-row cache offsets are {_NOT_PORTED}")
-    buf[:, cache_pos:cache_pos + fresh.shape[1]] = fresh.to(buf.dtype)
+    """Write ``fresh`` (B, S, ...) into ``buf`` (B, L, ...) in place (JAX
+    returns a new buffer). ``cache_pos`` is one offset for every row (an
+    int: JAX's ``dynamic_update_slice``) or a (B,) vector of per-row
+    offsets (continuous batching: JAX's scatter with ``mode="drop"``):
+    positions at or past L are dropped, never wrapped."""
+    if isinstance(cache_pos, (int, np.integer)):
+        buf[:, cache_pos:cache_pos + fresh.shape[1]] = fresh.to(buf.dtype)
+        return buf
+    pos = torch.as_tensor(cache_pos, device=buf.device)
+    B, S, L = fresh.shape[0], fresh.shape[1], buf.shape[1]
+    if pos.shape != (B,):
+        raise ValueError(f"per-row offsets must be ({B},), got {tuple(pos.shape)}")
+    cols = pos.to(torch.int64)[:, None] + torch.arange(S, device=buf.device)[None, :]
+    cols = torch.where(cols < 0, cols + L, cols)   # JAX normalises negative indices
+    keep = (cols >= 0) & (cols < L)
+    rows = torch.arange(B, device=buf.device)[:, None].expand(B, S)
+    buf[rows[keep], cols[keep]] = fresh[keep].to(buf.dtype)
     return buf
 
 
@@ -521,9 +547,18 @@ class QwenTextDecoderLayer(nn.Module):
         k = rms_norm(k, self.k_norm_scale, cfg.rms_norm_eps)
         q, k = apply_rope(q, k, cos[:, :, None, :], sin[:, :, None, :])
 
-        if cache_kv is not None:
-            if len(cache_kv) == 4:
-                raise NotImplementedError(f"the int8 KV cache is {_NOT_PORTED}")
+        kq_scale = vq_scale = None   # (B, L, KV) f32 scales of an s8 cache
+        if cache_kv is not None and len(cache_kv) == 4:
+            # int8 KV cache: the fresh rows quantized at write time; the
+            # scales are folded into the attention below
+            ck, cks, cv, cvs = cache_kv
+            k_q, k_s = quantize_kv(k)
+            v_q, v_s = quantize_kv(v)
+            ck, cks = cache_write(ck, k_q, cache_pos), cache_write(cks, k_s, cache_pos)
+            cv, cvs = cache_write(cv, v_q, cache_pos), cache_write(cvs, v_s, cache_pos)
+            k_all, v_all, kq_scale, vq_scale = ck, cv, cks, cvs
+            new_cache = (ck, cks, cv, cvs)
+        elif cache_kv is not None:
             ck = cache_write(cache_kv[0], k, cache_pos)
             cv = cache_write(cache_kv[1], v, cache_pos)
             k_all, v_all = ck, cv
@@ -540,17 +575,29 @@ class QwenTextDecoderLayer(nn.Module):
             q_g = q.reshape(B, S, cfg.num_kv_heads, groups, hd)
             logits = torch.einsum("bqkgd,blkd->bkgql", q_g.float(),
                                   k_all.float()) * scale
+            if kq_scale is not None:
+                logits = logits * kq_scale.transpose(1, 2)[:, :, None, None, :]
             logits = logits + attn_mask[:, None, None, :, :]
-            probs = torch.softmax(logits, dim=-1).to(cfg.dtype)
+            probs = torch.softmax(logits, dim=-1)
+            if vq_scale is not None:
+                probs = probs * vq_scale.transpose(1, 2)[:, :, None, None, :]
+            probs = probs.to(cfg.dtype)
             attn = torch.einsum("bkgql,blkd->bqkgd", probs.float(),
                                 v_all.float()).to(cfg.dtype)
         else:
             k_rep = torch.repeat_interleave(k_all, groups, dim=2)
             v_rep = torch.repeat_interleave(v_all, groups, dim=2)
             logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k_rep.float()) * scale
+            if kq_scale is not None:
+                ks_rep = torch.repeat_interleave(kq_scale, groups, dim=2)
+                logits = logits * ks_rep.transpose(1, 2)[:, :, None, :]
             logits = logits + attn_mask[:, None, :, :]
-            probs = torch.softmax(logits, dim=-1).to(cfg.dtype)
+            probs = torch.softmax(logits, dim=-1)
             del logits
+            if vq_scale is not None:
+                vs_rep = torch.repeat_interleave(vq_scale, groups, dim=2)
+                probs = probs * vs_rep.transpose(1, 2)[:, :, None, :]
+            probs = probs.to(cfg.dtype)
             attn = torch.einsum("bhqk,bkhd->bqhd", probs.float(),
                                 v_rep.float()).to(cfg.dtype)
         x = x + self.o_proj(attn.reshape(B, S, nq))
@@ -851,50 +898,156 @@ def compute_mrope_position_ids(input_ids: np.ndarray,
     return out
 
 
-def sample_rows(*args, **kw):
-    raise NotImplementedError(f"sampling is {_NOT_PORTED}")
+# Sampling restricts to the top-k logits before the nucleus (top-p) filter;
+# k = 50 is the JAX package's value (Hugging Face's GenerationConfig default)
+SAMPLE_TOP_K = 50
 
 
-def filtered_log_probs(*args, **kw):
-    raise NotImplementedError(f"sampling is {_NOT_PORTED}")
+def _top_k_nucleus(logits: torch.Tensor, temp: torch.Tensor, top_p: torch.Tensor):
+    """The temperature-scaled top-k(SAMPLE_TOP_K) logits (B, k), descending,
+    with -inf past the nucleus (the smallest prefix of mass >= top_p,
+    always at least one), and their vocabulary indices."""
+    scaled = logits.float() / torch.clamp(temp.float(), min=1e-6)[:, None]
+    vals, idx = torch.topk(scaled, min(SAMPLE_TOP_K, scaled.shape[-1]), dim=-1)
+    probs = torch.softmax(vals, dim=-1)
+    cum = torch.cumsum(probs, dim=-1)
+    keep = torch.sum(cum - probs < top_p.float()[:, None], dim=-1)
+    cutoff = torch.gather(vals, -1, (keep - 1)[:, None])
+    return torch.where(vals < cutoff, float("-inf"), vals), idx
+
+
+def sample_rows(logits: torch.Tensor, generator: torch.Generator,
+                temp: torch.Tensor, top_p: torch.Tensor) -> torch.Tensor:
+    """Per-row temperature / top-k(50) / top-p sampling over (B, vocab)
+    logits, drawn from ``generator`` (on the logits' device; JAX: per-row
+    PRNG keys); rows with temp <= 0 take the raw argmax, exactly the greedy
+    path."""
+    greedy = torch.argmax(logits, dim=-1)
+    filtered, idx = _top_k_nucleus(logits, temp, top_p)
+    choice = torch.multinomial(torch.softmax(filtered, dim=-1), 1, generator=generator)
+    sampled = torch.gather(idx, -1, choice)[:, 0]
+    return torch.where(temp <= 0, greedy, sampled)
+
+
+def filtered_log_probs(logits: torch.Tensor, temp: torch.Tensor,
+                       top_p: torch.Tensor) -> torch.Tensor:
+    """Full-vocabulary (B, V) log-probabilities of the ``sample_rows``
+    distribution, -inf outside its support; rows with temp <= 0 are a point
+    mass on the argmax."""
+    B, V = logits.shape
+    filtered, idx = _top_k_nucleus(logits, temp, top_p)
+    full = torch.full((B, V), float("-inf"), device=logits.device)
+    full.scatter_(1, idx, torch.log_softmax(filtered, dim=-1))
+    greedy = torch.full((B, V), float("-inf"), device=logits.device)
+    greedy[torch.arange(B, device=logits.device), torch.argmax(logits, dim=-1)] = 0.0
+    return torch.where((temp <= 0)[:, None], greedy, full)
 
 
 def spec_accept(*args, **kw):
     raise NotImplementedError(f"speculative decoding is {_NOT_PORTED}")
 
 
-def chunked_prefill(*args, **kw):
-    raise NotImplementedError(f"chunked prefill is {_NOT_PORTED}")
-
-
-def auto_prefill_chunk(*args, **kw):
-    raise NotImplementedError(f"chunked prefill is {_NOT_PORTED}")
-
-
 def empty_kv_cache(text_cfg, batch: int, max_len: int, kv_dtype: str,
                    device=None):
-    """Per-layer (k, v) zeros (B, max_len, KV, HD) in the text dtype."""
-    if kv_dtype == "int8":
-        raise NotImplementedError(f"the int8 KV cache is {_NOT_PORTED}")
+    """Per-layer zeros (B, max_len, KV, HD): (k, v) in the text dtype, or
+    for ``kv_dtype="int8"`` (k s8, k scales f32 (B, max_len, KV), v s8, v
+    scales), the layout ``quantize_kv`` and ``cache_write`` fill."""
     shape = (batch, max_len, text_cfg.num_kv_heads, text_cfg.head_dim)
-    return [(torch.zeros(shape, dtype=text_cfg.dtype, device=device),
-             torch.zeros(shape, dtype=text_cfg.dtype, device=device))
+    zeros = lambda shp, dt: torch.zeros(shp, dtype=dt, device=device)
+    if kv_dtype == "int8":
+        return [(zeros(shape, torch.int8), zeros(shape[:3], torch.float32),
+                 zeros(shape, torch.int8), zeros(shape[:3], torch.float32))
+                for _ in range(text_cfg.num_layers)]
+    return [(zeros(shape, text_cfg.dtype), zeros(shape, text_cfg.dtype))
             for _ in range(text_cfg.num_layers)]
 
 
+def chunked_prefill(model: "Qwen3VLModel", input_ids, position_ids, true_len,
+                    pixel_patches, grid_thw, padded_len: int, max_len: int,
+                    cache, C: int, start: int = 0):
+    """Sequence-chunked prefill: embed the whole prompt once (the visual
+    splice and the deepstack gather index the whole prompt), then run the
+    decoder over padded_len / C chunks, each writing its KV rows at
+    ``start + chunk * C``. ``start > 0`` prefills a suffix behind a filled
+    cache region [0, start); ``true_len`` stays the whole sequence's length.
+    Each chunk's queries attend the same masked keys as the one-shot
+    prefill's (later cache rows are masked zeros either way), so the output
+    equals it; the per-layer f32 attention temps shrink from (B, heads, S,
+    L) to (B, heads, C, L), and each chunk reads the decoder weights again.
+    Returns (hidden (B, padded_len, D), cache)."""
+    if padded_len % C:
+        raise ValueError(f"prefill_chunk {C} must divide the prompt bucket "
+                         f"{padded_len}")
+    dev = input_ids.device
+    embeds, visual_mask, deepstack = model.embed_multimodal(
+        input_ids, pixel_patches, grid_thw)
+    gather = None
+    if visual_mask is not None and deepstack:
+        gather = visual_gather_indices(visual_mask, deepstack[0].shape[0])
+    k_idx = torch.arange(max_len, device=dev)[None, None, :]
+    hidden = []
+    for c0 in range(0, padded_len, C):
+        q_abs = start + c0 + torch.arange(C, device=dev)
+        mask = torch.where((k_idx <= q_abs[None, :, None])
+                           & (k_idx < true_len[:, None, None]),
+                           0.0, float("-inf")).float()
+        part = slice(c0, c0 + C)
+        h, cache = model.language_model(
+            embeds[:, part], position_ids[:, :, part], cache=cache,
+            cache_pos=start + c0, attn_mask=mask,
+            visual_mask=None if visual_mask is None else visual_mask[:, part],
+            deepstack=deepstack,
+            visual_gather_idx=None if gather is None else gather[:, part],
+            return_hidden=True)
+        hidden.append(h)
+    return torch.cat(hidden, dim=1), cache
+
+
+# Per-layer f32 attention-temp budget of the one-shot prefill, in bytes:
+# the JAX package's rule, which errs small because a chunk too small costs
+# only weight re-reads and one too large runs out of memory
+_PREFILL_TEMP_BUDGET = 2 * 2**30
+
+
+def auto_prefill_chunk(batch: int, num_heads: int, padded_len: int,
+                       max_len: int, budget: Optional[int] = None
+                       ) -> Optional[int]:
+    """A prefill chunk that keeps the per-layer (B, heads, C, max_len) f32
+    attention temps within ``budget`` bytes, or None where the one-shot
+    prefill fits: the largest divisor of ``padded_len`` that fits (the
+    chunks are equal slices), 1 with a warning where none does."""
+    if budget is None:
+        budget = _PREFILL_TEMP_BUDGET
+    per_row = batch * num_heads * max_len * 4
+    if padded_len * per_row <= budget:
+        return None
+    best = 1
+    for d in range(1, int(padded_len ** 0.5) + 1):
+        if padded_len % d:
+            continue
+        for c in (d, padded_len // d):
+            if best < c < padded_len and c * per_row <= budget:
+                best = c
+    if best * per_row > budget:
+        logging.getLogger(__name__).warning(
+            "auto_prefill_chunk: even chunk=1 exceeds the %d-byte temp budget "
+            "(B=%d heads=%d max_len=%d); proceeding with 1", budget, batch,
+            num_heads, max_len)
+    return best
+
+
 class Qwen3VLGenerator:
-    """Prefill + token-by-token greedy decode over a static KV cache. The
-    model holds its params (JAX: ``Qwen3VLGenerator(model, params)``)."""
+    """Prefill + token-by-token greedy or sampled decode over a static KV
+    cache. The model holds its params (JAX: ``Qwen3VLGenerator(model,
+    params)``). ``kv_dtype="int8"`` keeps the cache in s8 with scales;
+    ``prefill_chunk`` runs the prompt through the decoder that many tokens
+    at a time (None: ``auto_prefill_chunk`` decides)."""
 
     def __init__(self, model: Qwen3VLModel, max_new_tokens: int = 1024,
                  eos_token_id: int = 151645, kv_dtype: str = "bf16",
                  prefill_chunk: Optional[int] = None, mesh=None):
         if kv_dtype not in ("bf16", "int8"):
             raise ValueError(f"kv_dtype must be bf16 or int8: {kv_dtype}")
-        if kv_dtype == "int8":
-            raise NotImplementedError(f"the int8 KV cache is {_NOT_PORTED}")
-        if prefill_chunk is not None:
-            raise NotImplementedError(f"chunked prefill is {_NOT_PORTED}")
         if mesh is not None:
             raise NotImplementedError(f"tensor parallelism is {_NOT_PORTED}")
         self.model = model
@@ -902,6 +1055,7 @@ class Qwen3VLGenerator:
         self.max_new_tokens = max_new_tokens
         self.eos_token_id = eos_token_id
         self.kv_dtype = kv_dtype
+        self.prefill_chunk = prefill_chunk
 
     @property
     def device(self) -> torch.device:
@@ -938,19 +1092,29 @@ class Qwen3VLGenerator:
 
     def _prefill(self, input_ids, position_ids, true_len, pixel_patches,
                  grid_thw, padded_len: int, max_len: int):
-        """Causal AND key < true_len (right padding receives no attention).
-        Returns (cache, last-position logits (B, V), next rope position)."""
+        """Causal AND key < true_len (right padding receives no attention),
+        in one pass or in chunks (the explicit ``prefill_chunk``, else
+        ``auto_prefill_chunk``'s). Returns (cache, last-position logits (B,
+        V), next rope position)."""
         B = input_ids.shape[0]
         dev = input_ids.device
         cache = empty_kv_cache(self.config.text, B, max_len, self.kv_dtype, dev)
-        q_idx = torch.arange(padded_len, device=dev)[None, :, None]
-        k_idx = torch.arange(max_len, device=dev)[None, None, :]
-        mask = torch.where((k_idx <= q_idx) & (k_idx < true_len[:, None, None]),
-                           0.0, float("-inf")).float()
-        hidden, cache = self.model(input_ids, position_ids,
-                                   pixel_patches=pixel_patches, grid_thw=grid_thw,
-                                   cache=cache, cache_pos=0, attn_mask=mask,
-                                   return_hidden=True)
+        C = self.prefill_chunk
+        if C is None:
+            C = auto_prefill_chunk(B, self.config.text.num_heads, padded_len, max_len)
+        if C and padded_len > C:
+            hidden, cache = chunked_prefill(self.model, input_ids, position_ids,
+                                            true_len, pixel_patches, grid_thw,
+                                            padded_len, max_len, cache, C)
+        else:
+            q_idx = torch.arange(padded_len, device=dev)[None, :, None]
+            k_idx = torch.arange(max_len, device=dev)[None, None, :]
+            mask = torch.where((k_idx <= q_idx) & (k_idx < true_len[:, None, None]),
+                               0.0, float("-inf")).float()
+            hidden, cache = self.model(input_ids, position_ids,
+                                       pixel_patches=pixel_patches, grid_thw=grid_thw,
+                                       cache=cache, cache_pos=0, attn_mask=mask,
+                                       return_hidden=True)
         last_hidden = hidden[torch.arange(B, device=dev), true_len - 1]
         last_logits = self.model.language_model.project(last_hidden)
         next_pos_base = position_ids.amax(dim=(0, 2)) + 1
@@ -984,9 +1148,9 @@ class Qwen3VLGenerator:
         multiple; ``true_lens`` / ``position_ids`` serve rows of mixed
         length. ``chunk=K`` checks every K steps whether every row has
         stopped and skips the rest: the same tokens as the one-shot loop.
-        Greedy only: ``temperature > 0`` raises."""
-        if temperature > 0:
-            raise NotImplementedError(f"sampling is {_NOT_PORTED}")
+        ``temperature <= 0`` is greedy; otherwise each token is drawn by
+        ``sample_rows`` (top-k 50, then ``top_p``) from a ``torch.Generator``
+        on the model's device seeded with ``seed``."""
         max_new = max_new_tokens or self.max_new_tokens
         steps = -(-max_new // chunk) * chunk if chunk else max_new
         ids_t, pos_t, tl, patches, padded_len = self.device_inputs(
@@ -995,7 +1159,14 @@ class Qwen3VLGenerator:
         max_len = padded_len + steps
         cache, last_logits, next_pos_base = self._prefill(
             ids_t, pos_t, tl, patches, tuple(grid_thw), padded_len, max_len)
-        token = torch.argmax(last_logits, dim=-1)
+        if temperature > 0:
+            rng = torch.Generator(device=ids_t.device).manual_seed(seed)
+            temp = torch.full((ids_t.shape[0],), float(temperature), device=ids_t.device)
+            p = torch.full((ids_t.shape[0],), float(top_p), device=ids_t.device)
+            sample = lambda logits: sample_rows(logits, rng, temp, p)
+        else:
+            sample = lambda logits: torch.argmax(logits, dim=-1)
+        token = sample(last_logits)
         done = torch.zeros_like(token, dtype=torch.bool)
         eos = self.eos_token_id
         out = []
@@ -1005,7 +1176,7 @@ class Qwen3VLGenerator:
                 break
             logits, cache = self._decode_step(cache, token, step_i, padded_len,
                                               max_len, tl, next_pos_base)
-            nxt = torch.argmax(logits, dim=-1)
+            nxt = sample(logits)
             out.append(token)
             done = done | (token == eos)
             token = torch.where(done, torch.full_like(nxt, eos), nxt)

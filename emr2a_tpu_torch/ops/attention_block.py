@@ -25,12 +25,23 @@ scheduled by groups of ``block_b`` items, LN and the Q/K/V projections run
 once over a group's ``block_b * S`` rows, the attention per item, the
 out-projection over the group's rows. Its plain version,
 ``fused_ln_attention_merged_reference``, follows that schedule and equals
-K3's plain version exactly; on the card K3m (``csrc/attention_block.cu``,
-``emr2a_fused_ln_attention_merged``) runs the group schedule in a bounded
-scratch and equals K3 bit for bit. ``block_b`` matters only with
-``merge_batch``; a ``block_b`` above B takes one group, and a short last
-group takes the place of the TPU kernel's batch padding (the outputs are
-the same).
+K3's plain version exactly. ``block_b`` matters only with ``merge_batch``;
+a ``block_b`` above B takes one group, and a short last group takes the
+place of the TPU kernel's batch padding (the outputs are the same).
+
+Divergence: K3m's group on the card is a multiple of ``block_b`` chosen
+from the L2 size and the SM count (``merged_group``), not ``block_b``
+itself. The TPU variant keeps a group's tile in VMEM; here a group's Q/K/V
+and attention output stay in L2, and a group of ``block_b`` items gives
+grids too small for 132 SMs. So the group grows by ``block_b`` until its
+out-projection's 128 x 128 tiles cover the SMs ``MERGED_WAVES`` times (24
+items at ViT-B: 228 tiles), while its scratch (4 G S d bf16 values) stays
+within ``MERGED_L2_SHARE`` of L2. Consecutive groups
+alternate between two streams and two scratch sets
+(``csrc/attention_block.cu``, ``emr2a_fused_ln_attention_merged``), so one
+group's LN and Q/K/V run beside the last one's attention and
+out-projection. Each output row keeps K3's K-loop and each item its
+attention, so K3m equals K3 bit for bit at every group size.
 
 A CPU tensor goes to the plain version; a CUDA tensor goes to the CUDA
 kernel in ``csrc/attention_block.cu`` (bf16, head dim 64, d % 128 == 0,
@@ -57,6 +68,7 @@ does.
 
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
@@ -77,6 +89,14 @@ KERNEL_HEAD_DIM = 64
 LAUNCHES = 0
 MERGED_LAUNCHES = 0
 INT8_LAUNCHES = 0
+
+# K3m's group on the card: how many times its out-projection tiles must
+# cover the SMs, and the share of L2 its scratch may take (1.5 waves was the
+# fastest of the groups timed on the card, PERF.md section 6); the GEMM's
+# tile rows (csrc/gemm.cuh, GEMM_BM)
+MERGED_WAVES = 1.5
+MERGED_L2_SHARE = 0.6
+GEMM_BM = 128
 
 # The JAX package's working VMEM budget (emr2a_tpu/ops/attention_block.py)
 VMEM_BUDGET_BYTES = 14 * 1024 * 1024
@@ -190,6 +210,53 @@ def _sdpa(q, k, v, valid_len: int, dtype) -> torch.Tensor:
     return torch.einsum("bhqk,bkhd->bqhd", probs, v)
 
 
+def merged_group(B: int, S: int, d: int, block_b: int, sms: int,
+                 l2_bytes: int, waves: float = MERGED_WAVES,
+                 l2_share: float = MERGED_L2_SHARE) -> int:
+    """K3m's group on the card: the least multiple of ``block_b`` whose
+    out-projection (``ceil(G S / 128) * d / 128`` tiles) covers ``sms``
+    SMs ``waves`` times, grown only while the next size's Q/K/V and
+    attention-output scratch (``4 G S d`` bf16 values) fits ``l2_share``
+    of ``l2_bytes`` and the group stays within B. B items at most
+    ``block_b`` take one group of B; a group of ``block_b`` is kept
+    whatever its scratch."""
+    if block_b < 1 or B < 1:
+        raise ValueError(f"block_b and B must be >= 1, got {block_b}, {B}")
+    if B <= block_b:
+        return B
+    tiles = lambda g: -(-g * S // GEMM_BM) * (d // GEMM_BN)
+    fits = lambda g: 4 * g * S * d * 2 <= l2_share * l2_bytes
+    G = block_b
+    while tiles(G) < waves * sms and G + block_b <= B and fits(G + block_b):
+        G += block_b
+    return G
+
+
+@functools.lru_cache(maxsize=None)
+def device_caps(index: int) -> tuple:
+    """(SM count, L2 bytes) of CUDA device ``index``, from the runtime's
+    device attributes."""
+    import ctypes
+    fn = _build.kernel_function("emr2a_device_caps", [ctypes.c_void_p] * 2)
+    sms, l2 = ctypes.c_int(0), ctypes.c_int(0)
+    with torch.cuda.device(index):
+        _build.check(fn(ctypes.addressof(sms), ctypes.addressof(l2)), "device_caps")
+    return sms.value, l2.value
+
+
+_SIDE_STREAMS: dict = {}
+
+
+def _side_stream(current: "torch.cuda.Stream") -> "torch.cuda.Stream":
+    """K3m's second stream on ``current``'s device, never ``current``
+    itself (streams come from PyTorch's pool, which hands them out in
+    turn)."""
+    side = _SIDE_STREAMS.get(current.device)
+    if side is None or side.cuda_stream == current.cuda_stream:
+        side = _SIDE_STREAMS[current.device] = torch.cuda.Stream(current.device)
+    return side
+
+
 def fused_ln_attention(x: torch.Tensor, ln_scale, ln_bias, wq, bq, wk, bk,
                        wv, bv, wo, bo, num_heads: int, eps: float = 1e-6,
                        head_group: int = 6, block_b: int = 1,
@@ -231,22 +298,19 @@ def fused_ln_attention(x: torch.Tensor, ln_scale, ln_bias, wq, bq, wk, bk,
     if B == 0:
         return x.clone()
 
-    # K3's scratch holds all B items; K3m's one group, reused by every group
-    rows = S * (min(block_b, B) if merge_batch else B)
-    qkv = torch.empty((3, rows, d), dtype=x.dtype, device=x.device)
-    attn = torch.empty((rows, d), dtype=x.dtype, device=x.device)
     out = torch.empty_like(x)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    ptrs = [t.data_ptr() for t in (*named.values(), qkv, attn, out)]
+    current = torch.cuda.current_stream(x.device)
     with torch.cuda.device(x.device):
         if merge_batch:
-            fn = _build.kernel_function("emr2a_fused_ln_attention_merged",
-                                        _argtypes(merged=True))
-            err = fn(*ptrs, B, S, d, num_heads, valid_len, block_b,
-                     float(eps), stream)
+            err = _launch_merged(named, out, B, S, d, num_heads, valid_len,
+                                 block_b, eps, current)
         else:
+            # K3's scratch holds all B items
+            qkv = torch.empty((3, B * S, d), dtype=x.dtype, device=x.device)
+            attn = torch.empty((B * S, d), dtype=x.dtype, device=x.device)
             fn = _build.kernel_function("emr2a_fused_ln_attention", _argtypes())
-            err = fn(*ptrs, B, S, d, num_heads, valid_len, float(eps), stream)
+            err = fn(*(t.data_ptr() for t in (*named.values(), qkv, attn, out)),
+                     B, S, d, num_heads, valid_len, float(eps), current.cuda_stream)
     global LAUNCHES, MERGED_LAUNCHES
     if merge_batch:
         _build.check(err, "fused_ln_attention (merge_batch)")
@@ -255,6 +319,30 @@ def fused_ln_attention(x: torch.Tensor, ln_scale, ln_bias, wq, bq, wk, bk,
         _build.check(err, "fused_ln_attention")
         LAUNCHES += 1
     return out
+
+
+def _launch_merged(named: dict, out, B, S, d, num_heads, valid_len, block_b,
+                   eps, current) -> int:
+    """K3m: the group from ``merged_group``, one scratch set a group in
+    flight (two where there is more than one group), the groups alternating
+    between ``current`` and a side stream forked from it and joined back
+    (events, which a CUDA graph captures)."""
+    x = named["x"]
+    G = merged_group(B, S, d, block_b, *device_caps(x.device.index))
+    sets = 1 if G >= B else 2
+    qkv = torch.empty((sets, 3, G * S, d), dtype=x.dtype, device=x.device)
+    attn = torch.empty((sets, G * S, d), dtype=x.dtype, device=x.device)
+    side = _side_stream(current) if sets == 2 else current
+    fn = _build.kernel_function("emr2a_fused_ln_attention_merged",
+                                _argtypes(merged=True))
+    if side is not current:
+        side.wait_stream(current)
+    err = fn(*(t.data_ptr() for t in (*named.values(), qkv, attn, out)),
+             B, S, d, num_heads, valid_len, G, float(eps), current.cuda_stream,
+             side.cuda_stream)
+    if side is not current:
+        current.wait_stream(side)
+    return err
 
 
 def _check_kernel_shape(S: int, d: int, num_heads: int) -> None:
@@ -272,7 +360,7 @@ def _check_kernel_shape(S: int, d: int, num_heads: int) -> None:
 def _argtypes(merged: bool = False):
     import ctypes
     p, i = ctypes.c_void_p, ctypes.c_int
-    return [p] * 14 + [i] * (6 if merged else 5) + [ctypes.c_float, p]
+    return [p] * 14 + [i] * (6 if merged else 5) + [ctypes.c_float] + [p] * (2 if merged else 1)
 
 
 # ---------------------------------------------------------------------------

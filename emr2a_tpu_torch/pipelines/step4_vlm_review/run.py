@@ -13,8 +13,11 @@ confidence, abstain -> 0.5) and writes ``vlm_audit_summary.json`` and
         --model_path /path/to/Qwen3-VL-8B --precision int4
 
 ``--device`` defaults to ``cuda``; ``--precision`` is bf16, int8 or int4
-(int4_awq raises until it is ported). ``--compile_cache`` (JAX's cache) is
-gone; ``--kv_cache int8``, ``--prefill_chunk``, ``--draft_model``,
+(int4_awq raises until it is ported); ``--kv_cache int8`` keeps the judge's
+KV cache in s8 with per-(position, head) scales and ``--prefill_chunk C``
+runs the prompt through the decoder C tokens at a time (without it the
+generator chunks only where the one-shot prefill's attention temps exceed
+its budget). ``--compile_cache`` (JAX's cache) is gone; ``--draft_model``,
 ``--tp > 1``, ``--vlm_batch_size > 1`` and ``--serving continuous`` raise
 ``NotImplementedError`` (ROADMAP.md, Queue 1, item 3).
 """
@@ -292,11 +295,13 @@ def build_parser() -> argparse.ArgumentParser:
                              "accuracy cost, validate on your cohort); "
                              "int4_awq is not ported yet")
     parser.add_argument("--kv_cache", default="bf16", choices=["bf16", "int8"],
-                        help="judge KV-cache precision (int8 is not ported "
-                             "yet)")
+                        help="judge KV-cache precision; int8 keeps s8 "
+                             "values with per-(position, head) scales folded "
+                             "into the attention math")
     parser.add_argument("--prefill_chunk", type=int, default=None,
-                        help="sequence-chunked prompt prefill (not ported "
-                             "yet)")
+                        help="sequence-chunked prompt prefill (C tokens per "
+                             "pass, the one-shot prefill's output); C must "
+                             "divide the prompt bucket")
     parser.add_argument("--draft_model", default=None,
                         help="draft checkpoint for speculative decoding (not "
                              "ported yet)")

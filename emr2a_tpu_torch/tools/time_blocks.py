@@ -25,9 +25,13 @@ the first shape; the bound (the larger of the bytes over 3.35 TB/s and
 the operations over the dense peak of their type; for K2 also the byte
 floor of its f32 h1 and q2 round trips); and the SHA-256 of the output's
 bytes, so that two trees' outputs on the same seeded inputs can be
-compared. Prints one line per shape and, with ``--out``, writes the
-records as JSON. Uses only the wrappers' public functions, so the same
-file times an older tree of the port.
+compared. K3m's records also carry its group, its number of groups and
+its device launches a call. ``--k3m_variants`` also times K3m's schedule
+variants (its group from the rule, ``block_b``, or the least that covers
+the SMs once, twice or three times, on one stream or two) against K3 at every shape, bit for bit against K3, in
+turns. Prints one line per shape and, with ``--out``, writes the records
+as JSON. Uses only the wrappers' public functions (K3m's group where the
+tree has its rule), so the same file times an older tree of the port.
 """
 
 from __future__ import annotations
@@ -240,6 +244,9 @@ def block_record(kernel: str, shape, ops: dict, plain: bool) -> dict:
         if not torch.equal(got, k3):
             raise AssertionError(f"k3m {tag}: not bit-identical to K3")
         rec["bit_identical_to_k3"] = True
+        if hasattr(attention_block, "merged_group"):   # an older tree has no rule
+            rec.update(k3m_schedule(B, S))
+            tag += f", group {rec['group']} x {rec['groups']}"
     del got
     rec.update(_timed(fn))
     y = _timed(yard)
@@ -264,6 +271,91 @@ def block_record(kernel: str, shape, ops: dict, plain: bool) -> dict:
               f"{k} {v:.4f}" for k, v in rec["device_ms_by_kernel"].items())
           + f"; output sha256 {rec['out_sha256'][:16]}", flush=True)
     return rec
+
+
+def k3m_schedule(B: int, S: int) -> dict:
+    """K3m's group at (B, S) on this card (``merged_group``), its number
+    of groups and its device launches a call (4 a group: LN, Q/K/V, the
+    attention core, the out-projection)."""
+    from emr2a_tpu_torch.ops import attention_block
+    G = attention_block.merged_group(B, S, D, BLOCK_B, *attention_block.device_caps(
+        torch.cuda.current_device()))
+    groups = -(-B // G)
+    return {"group": G, "groups": groups, "device_launches_per_call": 4 * groups,
+            "streams": 2 if groups > 1 else 1}
+
+
+# K3m's schedules timed against each other (--k3m_variants): (name, the
+# group: the rule's (None), block_b's, or the least covering the SMs that
+# many times with no L2 limit; streams)
+K3M_VARIANTS = (
+    ("rule group, 2 streams", None, 2),
+    ("rule group, 1 stream", None, 1),
+    ("block_b group, 2 streams", "block_b", 2),
+    ("block_b group, 1 stream", "block_b", 1),
+    ("one-wave group, 2 streams", 1.0, 2),
+    ("two-wave group, 2 streams", 2.0, 2),
+    ("three-wave group, 2 streams", 3.0, 2),
+)
+
+
+def _variant_group(rule, spec, B: int, S: int, caps) -> int:
+    if spec == "block_b":
+        return min(BLOCK_B, B)
+    kw = {} if spec is None else {"waves": spec, "l2_share": 1.0}
+    return rule(B, S, D, BLOCK_B, *caps, **kw)
+
+
+def k3m_variants(ops: dict, rounds: int = 2) -> list:
+    """K3m's schedule variants at every shape of SHAPES, each bit for bit
+    against K3, chained and CUDA-graph ms a call, in ``rounds`` turns
+    (variant order reversed every other turn); K3 in the same turns."""
+    from emr2a_tpu_torch.ops import attention_block
+
+    ln, aw = ops["ln"], ops["attn"]
+    rule, side = attention_block.merged_group, attention_block._side_stream
+    out = []
+    try:
+        for B, S in SHAPES:
+            x = ops["x"][(B, S)]
+            k3 = lambda: attention_block.fused_ln_attention(
+                x, *ln, *aw, num_heads=H, valid_len=VALID)
+            want = k3()
+            caps = attention_block.device_caps(torch.cuda.current_device())
+            runs = [("K3", None, None)] + list(K3M_VARIANTS)
+            times = {name: [] for name, *_ in runs}
+            for r in range(rounds):
+                for name, spec, n_streams in (runs if r % 2 == 0 else runs[::-1]):
+                    if n_streams is None:
+                        fn = k3
+                    else:
+                        g = _variant_group(rule, spec, B, S, caps)
+                        attention_block.merged_group = lambda *a, g=g, **kw: g
+                        if n_streams == 1:   # every group on the current stream
+                            attention_block._side_stream = lambda current: current
+                        fn = lambda: attention_block.fused_ln_attention(
+                            x, *ln, *aw, num_heads=H, valid_len=VALID, block_b=BLOCK_B,
+                            merge_batch=True)
+                        if not torch.equal(fn(), want):
+                            raise AssertionError(f"k3m {name} at {(B, S)}: not K3's bits")
+                    t = timings(fn, iters=20)
+                    times[name].append((t["chained_ms"], graph_ms(fn)))
+                    attention_block.merged_group, attention_block._side_stream = rule, side
+            for name, spec, n_streams in runs:
+                rec = {"shape": (B, S), "variant": name,
+                       "group": None if n_streams is None
+                       else _variant_group(rule, spec, B, S, caps),
+                       "streams": n_streams,
+                       "chained_ms": min(c for c, _ in times[name]),
+                       "graph_ms": min(g for _, g in times[name])}
+                out.append(rec)
+                print(f"k3m variant ({B}, {S}, {D}) {name}"
+                      + ("" if n_streams is None else f" (group {rec['group']})")
+                      + f": chained {rec['chained_ms']:.4f}, graph {rec['graph_ms']:.4f} ms",
+                      flush=True)
+    finally:
+        attention_block.merged_group, attention_block._side_stream = rule, side
+    return out
 
 
 KERNELS = ("k1", "k1_bf16_gelu", "k2", "k2_bf16_gelu", "k3", "k3m", "k4")
@@ -296,6 +388,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--kernels", default=",".join(KERNELS))
     ap.add_argument("--out", default=None)
+    ap.add_argument("--k3m_variants", action="store_true",
+                    help="also time K3m's schedule variants against K3")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("no CUDA device: the timings need the card", file=sys.stderr)
@@ -304,10 +398,12 @@ def main(argv=None) -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60).stdout.strip()
     print(f"card: {card}", flush=True)
-    records = block_records(tuple(args.kernels.split(",")))
+    records = block_records(tuple(args.kernels.split(",")) if args.kernels else ())
+    variants = k3m_variants(operands()) if args.k3m_variants else None
     if args.out:
         with open(args.out, "w") as f:
-            json.dump({"card": card, "records": records}, f, indent=1)
+            json.dump({"card": card, "records": records, "k3m_variants": variants}, f,
+                      indent=1)
     return 0
 
 

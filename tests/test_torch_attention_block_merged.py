@@ -97,3 +97,68 @@ def test_merged_refuses_block_b_below_one_and_devices_without_a_kernel(rng):
         fused_ln_attention(*(v.to("meta") for v in t), num_heads=2, block_b=2,
                            merge_batch=True)
     assert attention_block.MERGED_LAUNCHES == before
+
+
+# -- K3m's group on the card (``merged_group``), a pure function -------------
+
+H100_SMS, H100_L2 = 132, 50 * 2**20
+
+
+def _tiles(G, S, d):
+    return -(-G * S // 128) * (d // 128)
+
+
+def _scratch(G, S, d):
+    return 4 * G * S * d * 2
+
+
+@pytest.mark.parametrize("S,d", [(197, 768), (200, 768), (577, 768), (40, 256)])
+@pytest.mark.parametrize("block_b", [1, 2, 3, 4, 8, 64])
+def test_merged_group_rule(S, d, block_b):
+    """The group is a multiple of block_b and at most B (all of B where B
+    <= block_b), its scratch within the stated share of L2 unless it is one
+    block_b, and the least such multiple whose out-projection covers the
+    SMs MERGED_WAVES times where B and L2 allow one."""
+    share = attention_block.MERGED_L2_SHARE * H100_L2
+    fill = attention_block.MERGED_WAVES * H100_SMS
+    for B in (1, 2, 3, 5, 8, 13, 16, 32, 37, 96, 128, 200):
+        G = attention_block.merged_group(B, S, d, block_b, H100_SMS, H100_L2)
+        assert 1 <= G <= B
+        if B <= block_b:
+            assert G == B
+            continue
+        assert G % block_b == 0
+        assert G == block_b or _scratch(G, S, d) <= share
+        if G > block_b:       # the least multiple that fills the SMs
+            assert _tiles(G - block_b, S, d) < fill
+        if _tiles(G, S, d) < fill:       # stopped short: B or L2 forbid more
+            assert G + block_b > B or _scratch(G + block_b, S, d) > share
+
+
+def test_merged_group_at_vit_b():
+    """ViT-B at block_b 4: 24 items, 38 x 6 = 228 out-projection tiles for
+    1.5 waves on 132 SMs, about 29 MB of scratch; one wave is 16 items (25 x
+    6 = 150 tiles, about 20 MB); a smaller L2 or SM count takes fewer."""
+    assert (attention_block.MERGED_WAVES, attention_block.MERGED_L2_SHARE) == (1.5, 0.6)
+    assert attention_block.merged_group(32, 200, 768, 4, H100_SMS, H100_L2) == 24
+    assert attention_block.merged_group(128, 197, 768, 4, H100_SMS, H100_L2) == 24
+    assert attention_block.merged_group(128, 200, 768, 4, H100_SMS, H100_L2, waves=1.0) == 16
+    assert _scratch(24, 200, 768) == 29_491_200 and _scratch(16, 200, 768) == 19_660_800
+    assert attention_block.merged_group(128, 200, 768, 4, 66, H100_L2) == 12
+    assert attention_block.merged_group(128, 200, 768, 4, H100_SMS, 20 * 2**20) == 8
+    assert attention_block.merged_group(3, 200, 768, 4, H100_SMS, H100_L2) == 3
+    assert attention_block.merged_group(37, 200, 768, 4, H100_SMS, H100_L2) == 24
+    assert attention_block.merged_group(20, 200, 768, 4, H100_SMS, H100_L2) == 20
+    with pytest.raises(ValueError, match="block_b"):
+        attention_block.merged_group(4, 200, 768, 0, H100_SMS, H100_L2)
+
+
+@pytest.mark.parametrize("B,block_b", [(37, 4), (3, 4), (32, 16)])
+def test_merged_plain_version_equals_k3_at_card_groups(rng, B, block_b):
+    """The plain version at the card's group (the rule's G as its block_b)
+    equals K3's plain version exactly."""
+    t = [torch.from_numpy(v.astype(np.float32)).to(torch.bfloat16)
+         for v in _inputs(rng, B, 12, 128).values()]
+    G = attention_block.merged_group(B, 12, 128, block_b, H100_SMS, H100_L2)
+    got = fused_ln_attention_merged_reference(*t, num_heads=2, block_b=G, valid_len=10)
+    assert torch.equal(got, fused_ln_attention_reference(*t, num_heads=2, valid_len=10))

@@ -14,7 +14,9 @@ duplicate keys; K3 and K4 at S = 385 and 577 (the attention core's
 streamed K/V) and at valid_len 256 and 257 (its last resident and first
 streamed key count); K3m (the merged-batch LN+attention block) bit for bit
 against K3 at B = 1, 5, 128 and block_b 1, 3, 4, 8, at valid_len < S, S = 1,
-S = 384 and S = 577; K1 and K2 with act_dtype=bf16; K2's and K4's s8
+S = 384 and S = 577, and on its card schedule (the group from the SM count
+and L2 size, on two streams or one) at (32, 200), (96, 200), (128, 197),
+(2, 577), B = 37 and B < block_b, also replayed in a CUDA graph; K1 and K2 with act_dtype=bf16; K2's and K4's s8
 products (the persistent s8 wgmma GEMM) bit for bit against torch._int_mm
 on the codes and scales the kernels leave in their scratch, at T = 1 to
 6,437 and at K4's edge shapes; the inputs the wrappers must
@@ -156,6 +158,52 @@ def test_merged_attention_kernel_edges(cuda, B, S, d, H, valid_len, block_b):
     assert torch.equal(got, want)
     _assert_matches(got[:, :valid_len], attention_block.fused_ln_attention_merged_reference(
         *args, num_heads=H, valid_len=valid_len, block_b=block_b)[:, :valid_len])
+
+
+@pytest.mark.parametrize("B,S,valid_len,block_b", [
+    (32, 200, 197, 4), (96, 200, 197, 4), (128, 197, 197, 4), (2, 577, 570, 4),
+    (37, 200, 197, 4), (3, 200, 197, 4), (37, 200, 197, 1)])
+@pytest.mark.parametrize("streams", [2, 1])
+def test_merged_schedule_on_the_card_equals_k3_bit_for_bit(cuda, monkeypatch, B, S,
+                                                            valid_len, block_b, streams):
+    """K3m's card schedule (the rule's group from this card's SM count and L2
+    size, groups alternating on two streams, or on one) at the main path's
+    shapes, a B that is not a multiple of the group, and B < block_b."""
+    if streams == 1:       # every group on the current stream
+        monkeypatch.setattr(attention_block, "_side_stream", lambda current: current)
+    args = _attn_args(torch.Generator(device="cuda").manual_seed(B + S), B, S, 768)
+    G = attention_block.merged_group(B, S, 768, block_b,
+                                     *attention_block.device_caps(torch.cuda.current_device()))
+    assert G == B if B <= block_b else G % block_b == 0
+    got = attention_block.fused_ln_attention(*args, num_heads=12, valid_len=valid_len,
+                                             block_b=block_b, merge_batch=True)
+    want = attention_block.fused_ln_attention(*args, num_heads=12, valid_len=valid_len)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("B", [32, 37])
+def test_merged_schedule_replays_in_a_cuda_graph(cuda, B):
+    """The fork into the side stream and the join back are captured in a
+    CUDA graph; replays on new inputs equal K3 bit for bit."""
+    gen = torch.Generator(device="cuda").manual_seed(B)
+    x, *rest = _attn_args(gen, B, 200, 768)
+    run = lambda: attention_block.fused_ln_attention(x, *rest, num_heads=12, valid_len=197,
+                                                     block_b=4, merge_batch=True)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        run()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        out = run()
+    for _ in range(2):
+        x.copy_(_rn(gen, B, 200, 768))
+        graph.replay()
+        want = attention_block.fused_ln_attention(x, *rest, num_heads=12, valid_len=197)
+        torch.cuda.synchronize()
+        assert torch.equal(out, want)
 
 
 def test_merged_attention_refuses_what_the_kernel_does_not_take(cuda):

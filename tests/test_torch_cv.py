@@ -316,13 +316,60 @@ def test_missing_matplotlib_skips_only_the_png(dataset, tmp_path, monkeypatch, c
 
 
 def test_vlm_review_and_unported_encoders_raise(dataset, tmp_path, monkeypatch):
+    """``--vlm_review`` runs (``judge/review.py`` is ported; its output is
+    held against JAX's below); an encoder family not ported yet raises."""
     monkeypatch.chdir(tmp_path)
     base = ["--manifest_path", str(dataset), "--output_dir", str(tmp_path / "out"),
             "--image_encoder", "fake", "--text_encoder", "fake",
             "--experiment_id", "vr", "--device", "cpu"]
-    with pytest.raises(NotImplementedError, match=r"judge/review\.py"):
-        port_runner.main(base + ["--vlm_review"])
+    port_runner.main(base + ["--vlm_review", "--vlm_model_path", "fake"])
+    review = json.loads((tmp_path / "out" / "exp_vr" / "vlm_review_summary.json").read_text())
+    assert len(review["vlm_predictions"]) == 24
     with pytest.raises(NotImplementedError, match="not yet ported"):
         port_runner.load_or_encode_embeddings(
             [], port_runner.BaseConfig(), "dino", "fake", "cpu", 4,
             fusion="image_only")
+
+
+REVIEW_SCRIPT = ["PJP,0.85,covered", "Viral,0.6,uncovered",
+                 "Diagnosis: Normal\nConfidence: 70\nCoverage: partial",
+                 '{"diagnosis": "Bacterial", "confidence": 0.9, "coverage": "covered"}',
+                 "not parseable at all", '{"diagnosis": "Flu"}', "uncertain, 0.3",
+                 "Diagnosis: Viral\nConfidence: 1.2.3"]
+
+
+@pytest.mark.parametrize("script", [None, REVIEW_SCRIPT])
+def test_vlm_review_section_matches_jax(dataset, tmp_path, monkeypatch, script):
+    """``--vlm_review --vlm_model_path fake``: the port's ``vlm_review``
+    section and its evidence montages equal the JAX runner's, with the fake
+    backend's default answer (no diagnosis: every review abstains) and with
+    a script of every output format (both packages' ``load_backend`` give
+    the same scripted fake)."""
+    import emr2a_tpu.judge.review as jax_review
+    from emr2a_tpu.judge.backends import FakeVLMBackend as JaxFake
+    from PIL import Image
+
+    import emr2a_tpu_torch.judge.review as port_review
+    from emr2a_tpu_torch.judge.backends import FakeVLMBackend as PortFake
+    if script is not None:
+        monkeypatch.setattr(jax_review, "load_backend",
+                            lambda *a, **kw: JaxFake(script=list(script)))
+        monkeypatch.setattr(port_review, "load_backend",
+                            lambda *a, **kw: PortFake(script=list(script)))
+    got, want = _run_both(tmp_path, monkeypatch, dataset,
+                          ["--experiment_id", "vr", "--vlm_review", "--vlm_model_path", "fake"])
+    _assert_experiment_equal(got / "exp_vr", want / "exp_vr")
+    review = lambda root: json.loads(
+        (root / "exp_vr" / "vlm_review_summary.json").read_text(encoding="utf-8"))
+    assert review(got) == review(want)
+    if script is None:
+        assert set(review(got)["vlm_predictions"]) == {None}
+    else:
+        assert {"PJP", "Viral", "Normal", "Bacterial", "uncertain", None} == \
+            set(review(got)["vlm_predictions"])
+    files = lambda root: sorted(str(p.relative_to(root)) for p in
+                                (root / "exp_vr" / "vlm_review").rglob("*.png"))
+    assert files(got) == files(want) and len(files(got)) > 24
+    for name in files(got):
+        assert np.array_equal(np.asarray(Image.open(got / name)),
+                              np.asarray(Image.open(want / name))), name

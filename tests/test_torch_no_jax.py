@@ -4,7 +4,7 @@ last four): in a fresh interpreter, import every module of
 ``emr2a_tpu_torch``, run the step1 CLI on a raw CSV + folder tree, the
 fake-encoder step2 CLI, the step3 CLI (``--device cpu``), the database CLI
 (``build`` and ``query --cpu``), the CV runner (``--device cpu``, fake
-encoders), the step4 CLI on its fold files (``--model_path fake``,
+encoders, ``--vlm_review`` with the fake judge), the step4 CLI on its fold files (``--model_path fake``,
 ``--device cpu``) and the layer-breakdown tool (``--device cpu``, ``tune
 --merge_batch``), then check that no module of jax, jaxlib, flax, optax,
 sklearn, pandas, transformers, safetensors or ``emr2a_tpu`` was
@@ -25,6 +25,7 @@ import importlib, os, pkgutil, sys
 import emr2a_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(emr2a_tpu_torch.__path__,
                                                "emr2a_tpu_torch.")]
+assert "emr2a_tpu_torch.judge.review" in names
 for name in names:
     importlib.import_module(name)
 manifest, out, data_root = sys.argv[1], sys.argv[2], sys.argv[3]
@@ -49,7 +50,7 @@ os.chdir(out)
 cv_main(["--manifest_path", manifest, "--output_dir", out + "/cv",
          "--image_encoder", "fake", "--text_encoder", "fake",
          "--experiment_id", "nj", "--cv_folds", "2", "--pca_dim", "4",
-         "--device", "cpu"])
+         "--device", "cpu", "--vlm_review", "--vlm_model_path", "fake"])
 from emr2a_tpu_torch.pipelines.step4_vlm_review.run import main as step4_main
 step4_main(["--exp_dir", out + "/cv/exp_nj", "--manifest_path", manifest,
             "--output_dir", out + "/step4", "--model_path", "fake",
@@ -100,6 +101,10 @@ def test_port_imports_no_jax(tmp_path):
     hits = (tmp_path / "out" / "hits.jsonl").read_text().splitlines()
     assert len(hits) == 4
     assert (tmp_path / "out" / "cv" / "exp_nj" / "fold_2" / "metrics.json").exists()
+    review = json.loads((tmp_path / "out" / "cv" / "exp_nj" / "vlm_review_summary.json")
+                        .read_text())
+    assert len(review["vlm_predictions"]) == 4
+    assert (tmp_path / "out" / "cv" / "exp_nj" / "vlm_review" / "evidence_0").is_dir()
     details = (tmp_path / "out" / "step4" / "vlm_audit_details.jsonl").read_text()
     assert len(details.splitlines()) == 3
     assert (tmp_path / "out" / "step4" / "vlm_audit_summary.json").exists()

@@ -9,7 +9,7 @@ one state dict (f32 on the CPU, so every kernel takes its plain version):
 - greedy generation: identical tokens to JAX's (and HF's), invariant to the
   prompt bucket, ``chunk=`` equal to the one-shot loop, and identical
   tokens with the int8 (K5) and int4 (K7) decoders of
-  ``quantize_qwen_text_params``;
+  ``quantize_qwen_text_params``; the options still unported raise;
 - ``params_from_jax`` / ``params_to_jax`` round trip, the JAX package's host
   helpers (M-RoPE positions, vision groups, gather indices) equal;
 - checkpoints: the port's own safetensors reader equals the ``safetensors``
@@ -250,16 +250,26 @@ def test_vision_groups_are_exact(tiny, rng, monkeypatch):
 
 
 def test_not_ported_options_raise(tiny):
+    """What stays unported raises with its ROADMAP item: tensor parallelism,
+    speculative decoding, AWQ and batched / continuous serving. (The int8
+    KV cache, chunked prefill, per-row offsets and sampling are held
+    against JAX in ``tests/test_torch_qwen3_vl_options.py``.)"""
+    from emr2a_tpu_torch.judge.qwen_backend import QwenVLBackend, quantize_decoder
     _, _, _, _, pcfg, state = tiny
     model = pq.Qwen3VLModel.from_params(pcfg, state)
-    for kw in (dict(kv_dtype="int8"), dict(prefill_chunk=4), dict(mesh=object())):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            pq.Qwen3VLGenerator(model, **kw)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pq.Qwen3VLGenerator(model).generate(np.array([[3, 4]]), temperature=0.7)
-    for fn in (pq.sample_rows, pq.spec_accept, pq.chunked_prefill, pq.quantize_kv):
+        pq.Qwen3VLGenerator(model, mesh=object())
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        pq.spec_accept(None)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        quantize_decoder(state, "int4_awq")
+    for kw in (dict(tp=2), dict(draft_model_path="draft")):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
-            fn(None)
+            QwenVLBackend(config=pcfg, params=state, **kw)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        QwenVLBackend.generate_batch(None, [])
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        QwenVLBackend.generate_stream(None, [])
 
 
 @pytest.mark.parametrize("shard", [None, "20KB"])

@@ -1,0 +1,350 @@
+"""The judge generator's options in the port against the JAX package, on the
+tiny random-init HF Qwen3-VL of ``tests/test_qwen3_vl_parity.py`` loaded into
+both packages from one state dict (f32 on the CPU) and on seeded numpy
+inputs:
+
+- ``quantize_kv``: s8 codes and f32 scales byte-identical to JAX's;
+- the int8 KV cache: greedy tokens equal to JAX's int8-cache tokens (and to
+  the bf16 cache's), on a 2-row batch and the multimodal path;
+- ``cache_write`` with per-row offsets: equal to JAX's scatter, dropped
+  positions included;
+- chunked prefill: last-position logits equal to the one-shot prefill's
+  (within 1e-5: f32 products blocked otherwise) and to JAX's chunked
+  prefill's (within 1e-4, the port's bar for the full forward), greedy
+  tokens equal to JAX's, also with the int8 cache; ``auto_prefill_chunk``
+  equal to JAX's on a grid that includes non-power-of-two buckets; the
+  generator's automatic chunk when the budget is forced small;
+- sampling: ``filtered_log_probs`` within 1e-6 of JAX's; ``sample_rows``
+  greedy on temp <= 0 rows, inside the filtered support, repeatable for a
+  seed, and with empirical frequencies over 20,000 draws within a total
+  variation of 0.03 of exp(``filtered_log_probs``) (the expected distance at
+  that count is under 0.02 for at most 50 outcomes); the sampled generator
+  repeatable for a seed, ``chunk=`` equal to the one-shot loop, and
+  ``QwenVLBackend.generate`` with ``temperature > 0``.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import emr2a_tpu.models.qwen3_vl as jq
+from emr2a_tpu_torch.models import qwen3_vl as pq
+from emr2a_tpu_torch.models.convert import params_from_jax
+
+torch.set_num_threads(1)
+transformers = pytest.importorskip("transformers")
+
+IDS = np.array([[3, 5, 8, 13, 21, 34, 55, 89, 144, 6, 7],
+                [7, 2, 9, 31, 4, 16, 25, 36, 49, 64, 81]], np.int64)
+
+
+def tiny_hf_model():
+    from transformers import Qwen3VLConfig as HFConfig
+    from transformers import Qwen3VLForConditionalGeneration
+    cfg = HFConfig(
+        vision_config=dict(
+            depth=3, hidden_size=32, intermediate_size=64, num_heads=2,
+            patch_size=4, temporal_patch_size=2, spatial_merge_size=2,
+            out_hidden_size=48, num_position_embeddings=64,
+            deepstack_visual_indexes=[0, 1], in_channels=3),
+        text_config=dict(
+            vocab_size=200, hidden_size=48, num_hidden_layers=2,
+            num_attention_heads=4, num_key_value_heads=2, head_dim=12,
+            intermediate_size=96, rope_theta=10000.0,
+            rope_scaling={"rope_type": "default", "mrope_section": [2, 2, 2]},
+            max_position_embeddings=512),
+        image_token_id=190, video_token_id=191, vision_start_token_id=192,
+        tie_word_embeddings=True,
+        attn_implementation="eager")
+    torch.manual_seed(0)
+    return Qwen3VLForConditionalGeneration(cfg).eval(), cfg
+
+
+@pytest.fixture(scope="module")
+def tiny():
+    """(JAX config, JAX params, port model) from one state dict."""
+    model, cfg = tiny_hf_model()
+    sd = {k: v.detach().numpy() for k, v in model.state_dict().items()}
+    jparams = jq.convert_hf_qwen3_vl(sd, vision_depth=3, text_layers=2)
+    jcfg = jq.qwen3_vl_config_from_hf(cfg.to_dict())
+    pcfg = pq.qwen3_vl_config_from_hf(cfg.to_dict())
+    state = params_from_jax(pq.convert_hf_qwen3_vl(sd, vision_depth=3, text_layers=2))
+    return jcfg, jparams, pq.Qwen3VLModel.from_params(pcfg, state)
+
+
+@pytest.fixture(scope="module")
+def multimodal():
+    """One 16 x 16 image's patches, its grid and a prompt around its 16
+    image tokens (the tokens span several 4-token chunks)."""
+    from emr2a_tpu_torch.encoders.qwen3_vl_encoder import QwenImageProcessor
+    proc = QwenImageProcessor(patch_size=4, temporal_patch_size=2, merge_size=2,
+                              min_pixels=16, max_pixels=16384)
+    rng = np.random.RandomState(0)
+    out = proc(images=[(rng.rand(16, 16, 3) * 255).astype(np.uint8)])
+    grid = tuple(tuple(int(x) for x in g) for g in out["image_grid_thw"])
+    per = int(np.prod(grid[0])) // 4
+    ids = np.asarray([[5, 6, 192] + [190] * per + [5, 6, 7]], np.int64)
+    return out["pixel_values"], grid, ids
+
+
+def _jax_gen(tiny, **kw):
+    jcfg, jparams, _ = tiny
+    return jq.Qwen3VLGenerator(jq.Qwen3VLModel(jcfg), jparams, eos_token_id=-1, **kw)
+
+
+# -- the int8 KV cache -------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", [np.float32, "bf16"])
+def test_quantize_kv_codes_and_scales_equal_jax_byte_for_byte(dtype):
+    rng = np.random.RandomState(1)
+    x = (rng.randn(2, 9, 3, 16) * rng.choice([1e-3, 1.0, 40.0], (2, 9, 3, 1))
+         ).astype(np.float32)
+    x[0, 2] = 0.0                      # all-zero rows take the 1e-8 floor
+    x[1, 4, 1, :4] = [127.0, -254.0, 63.5, 0.5]   # half-way codes
+    if dtype == "bf16":
+        jx = jnp.asarray(x, jnp.bfloat16)
+        tx = torch.from_numpy(np.array(jx.astype(jnp.float32))).to(torch.bfloat16)
+    else:
+        jx, tx = jnp.asarray(x), torch.from_numpy(x)
+    want_q, want_s = jq.quantize_kv(jx)
+    got_q, got_s = pq.quantize_kv(tx)
+    assert got_q.dtype == torch.int8 and got_s.dtype == torch.float32
+    assert got_q.numpy().tobytes() == np.asarray(want_q).tobytes()
+    assert got_s.numpy().tobytes() == np.asarray(want_s).tobytes()
+
+
+def test_int8_kv_cache_tokens_equal_jax(tiny, multimodal):
+    """Greedy tokens with the s8 cache equal JAX's s8-cache tokens and the
+    bf16 cache's, on a 2-row batch and the multimodal path."""
+    model = tiny[2]
+    gen = pq.Qwen3VLGenerator(model, eos_token_id=-1, kv_dtype="int8")
+    want = np.asarray(_jax_gen(tiny, kv_dtype="int8").generate(
+        IDS, max_new_tokens=8, prompt_bucket=16))
+    got = gen.generate(IDS, max_new_tokens=8, prompt_bucket=16)
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(
+        got, pq.Qwen3VLGenerator(model, eos_token_id=-1).generate(
+            IDS, max_new_tokens=8, prompt_bucket=16))
+    pixels, grid, ids = multimodal
+    want = np.asarray(_jax_gen(tiny, kv_dtype="int8").generate(
+        ids, pixel_patches=pixels, grid_thw=grid, max_new_tokens=6))
+    got = gen.generate(ids, pixel_patches=pixels, grid_thw=grid, max_new_tokens=6)
+    np.testing.assert_array_equal(got, want)
+
+
+def test_int8_kv_cache_layout():
+    cfg = pq.QwenTextConfig(num_layers=2, num_kv_heads=2, head_dim=12)
+    cache = pq.empty_kv_cache(cfg, 3, 20, "int8")
+    assert len(cache) == 2
+    k, ks, v, vs = cache[0]
+    assert k.shape == v.shape == (3, 20, 2, 12) and k.dtype == v.dtype == torch.int8
+    assert ks.shape == vs.shape == (3, 20, 2) and ks.dtype == vs.dtype == torch.float32
+
+
+# -- per-row cache offsets ---------------------------------------------------
+
+@pytest.mark.parametrize("offsets", [[0, 4, 2], [5, 0, 9], [-2, 3, 6], 3])
+def test_cache_write_per_row_offsets_equal_jax(offsets):
+    """Per-row windows past L drop their overflow (never wrap); negative
+    offsets are normalised as JAX's indexing does; a scalar offset is the
+    shared slice write."""
+    rng = np.random.RandomState(2)
+    buf = rng.randn(3, 8, 2, 4).astype(np.float32)
+    fresh = rng.randn(3, 3, 2, 4).astype(np.float32)
+    pos = np.asarray(offsets) if isinstance(offsets, list) else offsets
+    want = np.asarray(jq.cache_write(jnp.asarray(buf), jnp.asarray(fresh),
+                                     jnp.asarray(pos)))
+    tb = torch.from_numpy(buf.copy())
+    got = pq.cache_write(tb, torch.from_numpy(fresh),
+                         torch.from_numpy(pos) if isinstance(pos, np.ndarray) else pos)
+    assert got is tb                       # in place
+    np.testing.assert_array_equal(got.numpy(), want)
+    scales = rng.rand(3, 8).astype(np.float32)
+    fresh_s = rng.rand(3, 3).astype(np.float32)
+    want = np.asarray(jq.cache_write(jnp.asarray(scales), jnp.asarray(fresh_s),
+                                     jnp.asarray(pos)))
+    got = pq.cache_write(torch.from_numpy(scales.copy()), torch.from_numpy(fresh_s),
+                         torch.from_numpy(pos) if isinstance(pos, np.ndarray) else pos)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+# -- chunked prefill ---------------------------------------------------------
+
+@pytest.mark.parametrize("B,heads,bucket,max_len,budget", [
+    (8, 32, 1024, 1536, None), (32, 32, 1024, 1536, None), (8, 32, 4096, 4192, None),
+    (1, 32, 2048, 3072, None), (16, 32, 2048, 2560, None), (1, 1, 1000, 1000, 1),
+    (1, 1, 1000, 1000, 900_000), (3, 4, 96, 160, 20_000), (2, 6, 360, 400, 50_000),
+    (4, 8, 768, 1024, 3_000_000), (1, 1, 97, 97, 1_000)])
+def test_auto_prefill_chunk_equals_jax(B, heads, bucket, max_len, budget):
+    assert pq.auto_prefill_chunk(B, heads, bucket, max_len, budget=budget) == \
+        jq.auto_prefill_chunk(B, heads, bucket, max_len, budget=budget)
+
+
+def _prefill_logits(gen, ids, pixels=None, grid=(), bucket=16, max_len=24):
+    ids_t, pos_t, tl, patches, padded = gen.device_inputs(ids, pixels, grid, bucket)
+    with torch.inference_mode():
+        return gen._prefill(ids_t, pos_t, tl, patches, grid, padded, max_len)[1].numpy()
+
+
+def _jax_prefill_logits(tiny, C, ids, pixels=None, grid=(), bucket=16, max_len=24):
+    gen = _jax_gen(tiny, prefill_chunk=C)
+    padded = -(-ids.shape[1] // bucket) * bucket
+    pos = jq.compute_mrope_position_ids(ids, grid, gen.config.image_token_id)
+    pad = padded - ids.shape[1]
+    _, logits, _ = gen._prefill_math(
+        gen.params, jnp.asarray(np.pad(ids, [(0, 0), (0, pad)])),
+        jnp.asarray(np.pad(pos, [(0, 0), (0, 0), (0, pad)])),
+        jnp.full((ids.shape[0],), ids.shape[1], jnp.int32),
+        None if pixels is None else jnp.asarray(pixels), grid, padded, max_len)
+    return np.asarray(logits)
+
+
+@pytest.mark.parametrize("C", [4, 8])
+def test_chunked_prefill_logits_equal_one_shot_and_jax(tiny, multimodal, C):
+    model = tiny[2]
+    one = _prefill_logits(pq.Qwen3VLGenerator(model), IDS)
+    got = _prefill_logits(pq.Qwen3VLGenerator(model, prefill_chunk=C), IDS)
+    np.testing.assert_allclose(got, one, atol=1e-5, rtol=1e-5)
+    np.testing.assert_allclose(got, _jax_prefill_logits(tiny, C, IDS), atol=1e-4, rtol=1e-4)
+    pixels, grid, ids = multimodal
+    kw = dict(pixels=pixels, grid=grid, bucket=8, max_len=30)
+    one = _prefill_logits(pq.Qwen3VLGenerator(model), ids, **kw)
+    got = _prefill_logits(pq.Qwen3VLGenerator(model, prefill_chunk=C), ids, **kw)
+    np.testing.assert_allclose(got, one, atol=1e-5, rtol=1e-5)
+    np.testing.assert_allclose(got, _jax_prefill_logits(tiny, C, ids, **kw),
+                               atol=1e-4, rtol=1e-4)
+
+
+def test_chunked_prefill_tokens_equal_jax(tiny, multimodal):
+    """Greedy tokens with chunked prefill (also with the s8 cache, and an
+    image block across chunk boundaries) equal JAX's."""
+    model = tiny[2]
+    for kw, n in ((dict(prefill_chunk=4), 8), (dict(prefill_chunk=8, kv_dtype="int8"), 8)):
+        want = np.asarray(_jax_gen(tiny, **kw).generate(IDS, max_new_tokens=n,
+                                                        prompt_bucket=16))
+        got = pq.Qwen3VLGenerator(model, eos_token_id=-1, **kw).generate(
+            IDS, max_new_tokens=n, prompt_bucket=16)
+        np.testing.assert_array_equal(got, want, err_msg=str(kw))
+    pixels, grid, ids = multimodal
+    want = np.asarray(_jax_gen(tiny, prefill_chunk=4).generate(
+        ids, pixel_patches=pixels, grid_thw=grid, max_new_tokens=6, prompt_bucket=8))
+    got = pq.Qwen3VLGenerator(model, eos_token_id=-1, prefill_chunk=4).generate(
+        ids, pixel_patches=pixels, grid_thw=grid, max_new_tokens=6, prompt_bucket=8)
+    np.testing.assert_array_equal(got, want)
+
+
+def test_auto_chunked_prefill_when_the_budget_is_small(tiny, monkeypatch):
+    """With no explicit chunk the generator chunks where the one-shot temps
+    exceed the budget: a forced budget of 1 byte chunks by 1 token, with
+    the one-shot tokens."""
+    model = tiny[2]
+    want = pq.Qwen3VLGenerator(model, eos_token_id=-1).generate(
+        IDS, max_new_tokens=6, prompt_bucket=16)
+    calls = []
+    real = pq.chunked_prefill
+    monkeypatch.setattr(pq, "chunked_prefill",
+                        lambda *a, **kw: calls.append(a[9]) or real(*a, **kw))
+    monkeypatch.setattr(pq, "_PREFILL_TEMP_BUDGET", 1)
+    got = pq.Qwen3VLGenerator(model, eos_token_id=-1).generate(
+        IDS, max_new_tokens=6, prompt_bucket=16)
+    assert calls == [1]
+    np.testing.assert_array_equal(got, want)
+    with pytest.raises(ValueError, match="must divide"):
+        pq.Qwen3VLGenerator(model, prefill_chunk=5).generate(IDS, max_new_tokens=2,
+                                                              prompt_bucket=16)
+
+
+# -- sampling ----------------------------------------------------------------
+
+def _logits(B=4, V=300, seed=3):
+    rng = np.random.RandomState(seed)
+    return (rng.randn(B, V) * rng.choice([0.5, 2.0, 6.0], (B, 1))).astype(np.float32)
+
+
+@pytest.mark.parametrize("temp,top_p", [
+    ([0.7, 1.0, 1.3, 0.2], [0.9, 1.0, 0.5, 0.95]), ([0.0, 0.8, -1.0, 2.0], [0.9, 0.9, 1.0, 0.1])])
+def test_filtered_log_probs_equal_jax(temp, top_p):
+    x = _logits()
+    want = np.asarray(jq.filtered_log_probs(jnp.asarray(x), jnp.asarray(temp, jnp.float32),
+                                            jnp.asarray(top_p, jnp.float32)))
+    got = pq.filtered_log_probs(torch.from_numpy(x), torch.tensor(temp),
+                                torch.tensor(top_p)).numpy()
+    np.testing.assert_array_equal(np.isfinite(got), np.isfinite(want))
+    np.testing.assert_allclose(got[np.isfinite(got)], want[np.isfinite(want)], atol=1e-6)
+
+
+def test_sample_rows_greedy_support_and_seed():
+    x = torch.from_numpy(_logits())
+    temp, top_p = torch.tensor([0.0, 0.9, 1.2, -1.0]), torch.tensor([0.9, 0.8, 0.95, 1.0])
+    support = torch.isfinite(pq.filtered_log_probs(x, temp, top_p))
+    draws = [pq.sample_rows(x, torch.Generator().manual_seed(s), temp, top_p)
+             for s in range(200)]
+    for tok in draws:
+        assert tok[0] == torch.argmax(x[0]) and tok[3] == torch.argmax(x[3])
+        assert support[torch.arange(4), tok].all()
+    again = pq.sample_rows(x, torch.Generator().manual_seed(7), temp, top_p)
+    assert torch.equal(again, draws[7])
+    assert len({int(t[1]) for t in draws}) > 1          # the sampled rows vary
+
+
+def test_sample_rows_follows_the_filtered_distribution():
+    """20,000 draws a row: the empirical frequencies within a total
+    variation of 0.03 of exp(filtered_log_probs)."""
+    x = torch.from_numpy(_logits(B=3, V=120, seed=5))
+    temp, top_p = torch.tensor([0.7, 1.0, 1.5]), torch.tensor([0.9, 1.0, 0.7])
+    n = 20_000
+    want = torch.exp(pq.filtered_log_probs(x, temp, top_p))
+    gen = torch.Generator().manual_seed(11)
+    counts = torch.zeros_like(want)
+    for _ in range(n // 500):
+        tok = pq.sample_rows(x.repeat_interleave(500, 0), gen,
+                             temp.repeat_interleave(500), top_p.repeat_interleave(500))
+        counts.index_put_((torch.arange(3).repeat_interleave(500), tok),
+                          torch.ones(tok.shape[0]), accumulate=True)
+    tv = 0.5 * (counts / n - want).abs().sum(dim=-1)
+    assert (tv < 0.03).all(), tv
+
+
+def test_sampled_generation_repeats_for_a_seed_and_chunks_equal(tiny):
+    model = tiny[2]
+    gen = pq.Qwen3VLGenerator(model, eos_token_id=-1)
+    kw = dict(max_new_tokens=10, prompt_bucket=16, temperature=0.8, top_p=0.9)
+    a = gen.generate(IDS, seed=3, **kw)
+    np.testing.assert_array_equal(gen.generate(IDS, seed=3, **kw), a)
+    np.testing.assert_array_equal(gen.generate(IDS, seed=3, chunk=3, **kw), a)
+    assert not np.array_equal(gen.generate(IDS, seed=4, **kw), a)
+    greedy = gen.generate(IDS, max_new_tokens=10, prompt_bucket=16)
+    np.testing.assert_array_equal(
+        gen.generate(IDS, max_new_tokens=10, prompt_bucket=16, temperature=0.0, seed=9),
+        greedy)
+
+
+def test_backend_generates_with_sampling_int8_cache_and_chunks():
+    """``QwenVLBackend`` passes temperature / top_p, ``kv_dtype`` and
+    ``prefill_chunk`` to the generator (a tiny model at the stub
+    tokenizer's vocabulary, random weights)."""
+    from emr2a_tpu_torch.judge.qwen_backend import QwenVLBackend
+    from emr2a_tpu_torch.tools.stub_tokenizer import WordTokenizer
+    cfg = pq.Qwen3VLConfig(
+        vision=pq.QwenVisionConfig(depth=1, hidden_size=32, intermediate_size=64,
+                                   num_heads=2, patch_size=4, out_hidden_size=48,
+                                   num_position_embeddings=64,
+                                   deepstack_visual_indexes=(0,)),
+        text=pq.QwenTextConfig(hidden_size=48, num_layers=2, num_heads=4, num_kv_heads=2,
+                               head_dim=12, intermediate_size=96, mrope_section=(2, 2, 2),
+                               tie_word_embeddings=False))
+    state = pq.random_state(cfg, seed=0, device="cpu")
+    outs = {}
+    for name, kw in (("greedy", {}), ("int8", dict(kv_dtype="int8")),
+                     ("chunked", dict(prefill_chunk=16))):
+        backend = QwenVLBackend(config=cfg, params=state, device="cpu",
+                                tokenizer=WordTokenizer(), prompt_bucket=32, **kw)
+        assert backend.generator.kv_dtype == kw.get("kv_dtype", "bf16")
+        assert backend.generator.prefill_chunk == kw.get("prefill_chunk")
+        outs[name] = backend.generate([], "is the label right", max_new_tokens=6)
+    assert outs["int8"] == outs["greedy"] == outs["chunked"]
+    assert len(outs["greedy"].split()) == 6
+    sampled = [backend.generate([], "is the label right", max_new_tokens=6,
+                                temperature=0.9) for _ in range(2)]
+    assert sampled[0] == sampled[1]        # seed 0 on every call
