@@ -108,6 +108,34 @@ Phases, each of which fails the run (non-zero exit) if it fails:
     path, as JAX's does). A stub
     word-level tokenizer stands in for Qwen's.
 
+    Then ``Qwen3VLEncoder`` on the bf16 judge's model (no second copy):
+    the taps (blocks 24 to 26, mean-pooled, averaged) of two cohort slices
+    and the masked mean of the cohort's 12 clinical texts, no kernel
+    launched (one image a forward takes the flat vision attention; the
+    bf16 decoder has no kernel); the same weights cut to 2 vision blocks
+    and 2 text layers, card against CPU (cosine >= 0.9998); the CV runner
+    on a combined npz with those Qwen text rows (``--text_encoder
+    qwen3_vl_8b``), card and ``--device cpu`` folds equal; step2
+    ``--encoder_type qwen3_vl_8b --model_path`` on a checkpoint directory
+    written from the cut weights (``tools/qwen_checkpoint``: config.json and
+    model.safetensors at the 8B's widths) for 2 patients.
+12b. The encoder zoo, between the main path and the judge: step2's CLI
+    with ``--encoder_type vit`` (timm ViT-B/16, random weights from seed 0)
+    plain f32, ``--fast`` (K1 + K3 on every block of every device batch)
+    and ``--fast int8`` (K2 + K4); CLIP at
+    openai/clip-vit-large-patch14-336's geometry (random weights, a stub
+    character tokenizer) with ``fast="int8"`` (K2 with quick_gelu on every
+    vision block, the vision attention's projections and every text
+    projection on K5: the reference's rule refuses the fused attention at
+    S = 577 even in int8) and ``fast=True`` (no fused kernel: the rule
+    refuses both halves in bf16), 8 slices and 16 texts; CLIP ViT-B/16's
+    12-block vision tower with ``fast=True`` (K1 with quick_gelu, K3) on
+    32 slices; step2 ``--encoder_type dino`` (DINOv3 ViT-L/16)
+    with ``--fast`` and ``--fast int8`` (every projection on K5) at batch
+    16. Each run's launch counts, read just after it, equal its blocks'
+    and 0 for every other kernel; its rows against the same weights' plain
+    tower on the CPU (f32, or int8 for the int8 runs; cosine >= 0.999);
+    each tower's slices/s at its batch.
 13. Layer breakdown (``tools/layer_breakdown.main``, in-process, ViT-B/16
     block at B = 96): ``--what tune --merge_batch`` (K3m + K1), ``--what
     tune`` (K3 + K1), ``--what tune --act_bf16`` (K3 + K1's bf16 gelu) and
@@ -116,7 +144,13 @@ Phases, each of which fails the run (non-zero exit) if it fails:
     0), and each prints its ms/iter.
 
 Phase 3 also holds K1's and K2's bf16 gelu epilogues bit for bit against
-``gelu_tanh_bf16`` on 400,000 values. The main path starts from raw data: step1 builds the manifest from the
+``gelu_tanh_bf16`` on 400,000 values, their bf16 quick_gelu epilogues bit
+for bit against the ``quick_gelu_bf16`` device function (which agrees with
+the plain version within one bf16 ulp) and their f32 quick_gelu within
+2^-20 (K2's f32 h1) and one bf16 ulp (K1's) of the plain version; and
+times K1 with quick_gelu at CLIP ViT-B/16's (32, 200), K2 with quick_gelu
+and K4 at CLIP ViT-L/14-336's width, (8, 584, 1,024), m = 4,096, 16 heads,
+valid_len 577, against their plain versions. The main path starts from raw data: step1 builds the manifest from the
 cohort's CSVs and folders (every patient matched, slices in natural order,
 the hand-written manifest's patients), step2 and the later phases read it,
 and step3 (``--test_size 0.3``) runs on the card and with ``--device cpu``,
@@ -265,6 +299,11 @@ BLOCK_RECORDS = (
     ("k1_bf16_gelu", "fused_ln_mlp act_dtype=bf16", "mlp.cu", "emr2a_tpu/ops/mlp.py:75"),
     ("k2_bf16_gelu", "fused_ln_mlp_int8 act_dtype=bf16", "mlp_int8.cu",
      "emr2a_tpu/ops/mlp.py:194"),
+    ("k1_quick_gelu", "fused_ln_mlp activation=quick_gelu", "mlp.cu", "emr2a_tpu/ops/mlp.py:75"),
+    ("k2_quick_gelu", "fused_ln_mlp_int8 activation=quick_gelu", "mlp_int8.cu",
+     "emr2a_tpu/ops/mlp.py:194"),
+    ("k4_clip_l", "fused_ln_attention_int8 ViT-L/14-336", "attention_block_int8.cu",
+     "emr2a_tpu/ops/attention_block.py:436"),
 )
 LONG_SEQ = (2, 577, 768, 12, 570)   # ViT-B width at S = 577, which the routing rule admits
 
@@ -355,6 +394,10 @@ def kernel_phase(card: str) -> list:
     records = block_phase(card)
     long_sequence_check()
     gelu_epilogue_check()
+    quick = quick_gelu_epilogue_check()
+    for rec in records:
+        if rec["name"].endswith("quick_gelu"):
+            rec["quick_gelu_epilogue_check"] = {"values": GELU_VALUES, **quick}
 
     g = torch.Generator(device="cuda").manual_seed(0)
     T, d, m = 32 * 200, 768, 3072
@@ -364,8 +407,13 @@ def kernel_phase(card: str) -> list:
     # gate/up and down projections at its prefill, T = 2048, and its decode,
     # T = 1), at the PubMedBERT shapes (T = 32 texts x 256 tokens) and at
     # T = 32: bit for bit, single and chained times beside cuBLAS bf16 on the
-    # dequantized weight (tools/time_linears.py)
-    records.append(linear_record("k5", card, extra=((32, 768, 3072),)))
+    # dequantized weight (tools/time_linears.py); also at the encoder zoo's
+    # shapes: DINOv3 ViT-L int8 at T = 16 x 201 (1024->1024/4096,
+    # 4096->1024), CLIP ViT-L/14-336 int8's vision attention at T = 8 x 584
+    # and its text tower at T = 8 x 77 (768->768/3072, 3072->768)
+    records.append(linear_record("k5", card, extra=(
+        (32, 768, 3072), (3216, 1024, 1024), (3216, 1024, 4096), (3216, 4096, 1024),
+        (4672, 1024, 1024), (616, 768, 768), (616, 768, 3072), (616, 3072, 768))))
 
     # the shared row quantize: codes and scales equal the plain version's
     for xq in (x2, torch.randn(T, m, generator=g, device="cuda")):
@@ -1001,6 +1049,321 @@ def throughput_phase(encoders: dict, card: str) -> None:
                   f"({card})", flush=True)
 
 
+# -- the encoder zoo: step2's encoder types at full width ---------------------
+
+ZOO_SLICES = 8               # slices of the first patient held against the CPU
+CLIP_L_BATCH, DINO_BATCH = 8, 16
+# openai/clip-vit-large-patch14-336's text tower
+CLIP_L_TEXT = dict(vocab_size=49408, max_length=77, hidden_size=768, num_layers=12,
+                   num_heads=12, mlp_dim=3072, activation="quick_gelu", eos_token_id=49407)
+
+
+class ClipCharTokenizer:
+    """A stub CLIP BPE tokenizer: <|startoftext|> 49406, one id per
+    character, <|endoftext|> 49407, padded with 49407 to ``max_length``.
+    Nothing is downloaded."""
+
+    def __call__(self, texts, max_length=77, **kw):
+        ids = np.full((len(texts), max_length), 49407, np.int64)
+        for i, t in enumerate(texts):
+            toks = [49406] + [1 + ord(c) % 49000 for c in t[:max_length - 2]] + [49407]
+            ids[i, :len(toks)] = toks
+        return {"input_ids": ids, "attention_mask": (ids != 49407).astype(np.int64)}
+
+
+def hold(tag: str, got, want, limit: float = 0.999, what: str = "") -> float:
+    """Row cosines of ``got`` against ``want``; fail below ``limit``."""
+    cos = cosines(np.stack(got), np.stack(want))
+    if not np.isfinite(cos).all() or cos.min() < limit:
+        fail(f"{tag}: disagrees with {what}: cosine {cos}")
+    return float(cos.min())
+
+
+def tower_throughput(tag: str, encoder, batch: int, card: str) -> float:
+    """Slices/s of ``encoder``'s image tower at ``batch`` on seeded pixels
+    (median of 20 forwards, CUDA events), and the device time of one
+    forward by kernel (``torch.profiler``: the six largest, and the sum's
+    share of the forward)."""
+    from emr2a_tpu_torch.ops.preprocess import preprocess_images
+    from emr2a_tpu_torch.tools.time_blocks import device_breakdown
+    size = encoder.preprocess.resize_size if not encoder.preprocess.shortest_edge \
+        else encoder.preprocess.crop_size
+    u8 = torch.randint(0, 256, (batch, size, size, 3), dtype=torch.uint8, device="cuda",
+                       generator=torch.Generator(device="cuda").manual_seed(2))
+    with torch.inference_mode():
+        pixels = preprocess_images(u8, encoder.preprocess)
+        forward = lambda: encoder.image_model(pixels)
+        ms = median_ms(forward, iters=20)
+        by_kernel = device_breakdown(forward, calls=3)
+    rate = batch / ms * 1e3
+    top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:6]
+    print(f"tower throughput {tag}: {rate:.1f} slices/s at batch {batch}, median {ms:.3f} ms "
+          f"a batch; device ms a forward {sum(by_kernel.values()):.3f} (busy share "
+          f"{sum(by_kernel.values()) / ms:.2f}), largest: "
+          + ", ".join(f"{k[:60]} {v:.3f}" for k, v in top) + f" ({card})", flush=True)
+    return rate
+
+
+def zoo_step2_run(tag: str, args: list, manifest_path: Path, out_dir: Path, want: dict,
+                  dim: int, plain, limit_what: str, card: str, n_compare: int = ZOO_SLICES):
+    """step2's CLI (``build_embeddings.main``) with ``args`` on the cohort:
+    the launch counts, read just after, equal ``want`` (every block of every
+    device batch) and 0 for every other kernel; the artifacts; the first
+    patient's first slices against ``plain`` (the same random weights on the
+    CPU). Returns (the encoder step2 built, its launches)."""
+    from emr2a_tpu_torch.pipelines.step2_embeddings import build_embeddings as step2
+
+    built = []
+    make = step2.create_encoder
+    step2.create_encoder = lambda *a, **k: built.append(make(*a, **k)) or built[-1]
+    try:
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.time()
+        step2.main(["--manifest_path", str(manifest_path), "--output_dir", str(out_dir),
+                    "--device", "cuda", *args])
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        launches = read_counts()
+    finally:
+        step2.create_encoder = make
+    check_launches(f"step2 {tag}", launches, want)
+    npz = np.load(out_dir / "embeddings.npz")
+    meta = json.loads((out_dir / "embeddings_meta.json").read_text())
+    if meta["embedding_dim"] != dim or len(npz.files) != meta["num_patients"]:
+        fail(f"step2 {tag}: meta {meta}")
+    for pid in npz.files:
+        e = npz[pid]
+        if e.shape != (40, dim) or not np.isfinite(e).all():
+            fail(f"step2 {tag} {pid}: embeddings {e.shape}, finite={np.isfinite(e).all()}")
+    first = [Path(p) for p in json.loads(manifest_path.read_text(encoding="utf-8")
+                                         .splitlines()[0])["slices"][:n_compare]]
+    cos = hold(f"step2 {tag}", list(npz[npz.files[0]][:n_compare]),
+               list(plain.encode_images(first)), what=limit_what)
+    print(f"step2 {' '.join(args)}: {len(npz.files)} patients x 40 slices in {wall:.2f} s "
+          f"(encoder build and host decode included); launches {launches}; first "
+          f"{n_compare} slices vs {limit_what}: min cosine {cos:.6f} ({card})", flush=True)
+    return built[0], launches
+
+
+def vit_zoo_phase(work: Path, manifest_path: Path, card: str) -> dict:
+    """step2's default ``--encoder_type vit`` (timm ViT-B/16, random weights
+    from seed 0) three ways: plain f32 (no kernel), ``--fast`` (K1 + K3 on
+    every block) and ``--fast int8`` (K2 + K4)."""
+    from emr2a_tpu_torch.encoders.vit_encoder import ViTEncoder
+
+    plain = ViTEncoder(device="cpu")
+    cfg = plain.image_model.config
+    if not (cfg.hidden_size == 768 and cfg.num_layers == 12 and cfg.mlp_dim == 3072
+            and cfg.pooling == "avg_fc_norm"):
+        fail("step2's vit is not timm ViT-B/16")
+    blocks = 12 * 24                     # 12 blocks x 24 device batches (12 patients x 2)
+    runs = {}
+    for tag, args, want in (
+            ("vit", [], {}),
+            ("vit --fast", ["--fast"], {"fused_ln_mlp": blocks, "fused_ln_attention": blocks}),
+            ("vit --fast int8", ["--fast", "int8"],
+             {"fused_ln_mlp_int8": blocks, "fused_ln_attention_int8": blocks})):
+        enc, runs["step2 " + tag] = zoo_step2_run(
+            tag, ["--encoder_type", "vit", *args], manifest_path,
+            work / "zoo" / tag.replace(" ", "_"), want, 768, plain,
+            "the f32 plain tower on the CPU", card)
+        tower_throughput(f"step2 {tag} (timm ViT-B/16)", enc, 32, card)
+        del enc
+    return runs
+
+
+def clip_zoo_phase(image_paths: dict, card: str) -> dict:
+    """CLIP at openai/clip-vit-large-patch14-336's geometry (random weights
+    from seed 0, the stub tokenizer) with ``fast="int8"`` and ``fast=True``
+    on one device batch of 8 slices and 16 texts; then CLIP ViT-B/16's
+    12-block vision tower with ``fast=True`` on a batch of 32."""
+    import dataclasses as dc
+
+    from emr2a_tpu_torch.encoders.clip_encoder import CLIPEncoder
+    from emr2a_tpu_torch.models.clip import CLIPConfig
+    from emr2a_tpu_torch.models.text import CLIPTextConfig
+    from emr2a_tpu_torch.models.vit import CLIP_VIT_B16_VISION, CLIP_VIT_L14_336_VISION
+
+    tok = ClipCharTokenizer()
+    paths = next(iter(image_paths.values()))
+    texts = clinical_texts(16)
+    cfg = CLIPConfig(vision=CLIP_VIT_L14_336_VISION, text=CLIPTextConfig(**CLIP_L_TEXT),
+                     projection_dim=768)
+    t0 = time.time()
+    cpu = CLIPEncoder.random_init(cfg, tokenizer=tok, seed=0, device="cpu")
+    params = {"image": cpu.image_model.state_dict(), "text": cpu.text_model.state_dict()}
+    int8_cpu = CLIPEncoder(config=cfg, params=params, tokenizer=tok, device="cpu", fast="int8")
+    want_f32 = {"image": cpu.encode_images(paths[:2]), "text": cpu.encode_batch_texts(texts[:8])}
+    want_int8 = {"image": int8_cpu.encode_images(paths[:2]),
+                 "text": int8_cpu.encode_batch_texts(texts[:8])}
+    print(f"CLIP ViT-L/14-336 (vision 1024 x 24, 16 heads, MLP 4096, 336 px, patch 14; text "
+          f"768 x 12, context 77, vocab 49,408; projection 768; quick_gelu): random weights "
+          f"(seed 0) and the CPU's f32 and int8 plain towers in {time.time() - t0:.1f} s",
+          flush=True)
+    runs = {}
+    n_layers, n_text = cfg.vision.num_layers, cfg.text.num_layers
+    for tag, fast in (("int8", "int8"), ("bf16", True)):
+        enc = CLIPEncoder(config=cfg, params=params, tokenizer=tok, device="cuda", fast=fast,
+                          max_batch=CLIP_L_BATCH)
+        for what, run, want in (
+                ("image", lambda: enc.encode_images(paths[:CLIP_L_BATCH]),
+                 {"fused_ln_mlp_int8": n_layers, "linear_w8a8": 4 * n_layers}
+                 if fast == "int8" else {}),
+                ("text", lambda: enc.encode_batch_texts(texts),
+                 {"linear_w8a8": 6 * n_text * -(-len(texts) // CLIP_L_BATCH)}
+                 if fast == "int8" else {})):
+            torch.cuda.synchronize()
+            reset_counts()
+            got = run()
+            torch.cuda.synchronize()
+            launches = read_counts()
+            check_launches(f"clip ViT-L/14-336 {tag} {what}", launches, want)
+            runs[f"clip ViT-L/14-336 {tag} {what}"] = launches
+            ref = (want_int8 if fast == "int8" else want_f32)[what]
+            cos = hold(f"clip {tag} {what}", list(got[:len(ref)]), list(ref),
+                       what=f"the {'int8' if fast == 'int8' else 'f32'} plain tower on the CPU")
+            cos32 = cosines(np.stack(got[:len(ref)]), np.stack(want_f32[what])).min()
+            print(f"clip ViT-L/14-336 fast={fast!r} {what}: {len(got)} rows "
+                  f"{np.stack(got).shape}; launches {launches}; min cosine {cos:.6f} against "
+                  f"the CPU's {'int8' if fast == 'int8' else 'f32'} plain tower, {cos32:.6f} "
+                  f"against f32 ({card})", flush=True)
+        tower_throughput(f"CLIP ViT-L/14-336 fast={fast!r}", enc, CLIP_L_BATCH, card)
+        del enc
+    del cpu, int8_cpu, params
+    # K1's quick_gelu epilogue on a real path: CLIP ViT-B/16's whole vision
+    # tower (its text tower is cut to one layer and not run)
+    b16 = CLIPConfig(vision=CLIP_VIT_B16_VISION, text=CLIPTextConfig(num_layers=1),
+                     projection_dim=512)
+    n_b16 = b16.vision.num_layers
+    cpu = CLIPEncoder.random_init(b16, seed=0, device="cpu")
+    params = {"image": cpu.image_model.state_dict(), "text": cpu.text_model.state_dict()}
+    enc = CLIPEncoder(config=b16, params=params, device="cuda", fast=True, max_batch=32)
+    torch.cuda.synchronize()
+    reset_counts()
+    got = enc.encode_images(paths[:32])
+    torch.cuda.synchronize()
+    launches = read_counts()
+    check_launches("clip ViT-B/16 fast", launches,
+                   {"fused_ln_mlp": n_b16, "fused_ln_attention": n_b16})
+    runs["clip ViT-B/16 fast"] = launches
+    cos = hold("clip ViT-B/16 fast", list(got[:ZOO_SLICES]),
+               list(cpu.encode_images(paths[:ZOO_SLICES])), what="the f32 plain tower")
+    print(f"clip ViT-B/16 vision, {n_b16} blocks, fast=True: 32 slices, launches {launches} (K1 "
+          f"with quick_gelu, K3); min cosine {cos:.6f} against the f32 plain tower on the CPU "
+          f"({card})", flush=True)
+    tower_throughput("CLIP ViT-B/16 fast=True", enc, 32, card)
+    return runs
+
+
+def dino_zoo_phase(work: Path, manifest_path: Path, card: str) -> dict:
+    """step2 ``--encoder_type dino`` (DINOv3 ViT-L/16, 4 registers, random
+    weights from seed 0) with ``--fast`` (bf16, no fused path) and ``--fast
+    int8`` (every block projection on K5) at batch 16."""
+    from emr2a_tpu_torch.encoders.dino_encoder import DINOEncoder
+
+    t0 = time.time()
+    plain = DINOEncoder(device="cpu")
+    cfg = plain.config
+    if not (cfg.hidden_size == 1024 and cfg.num_layers == 24 and cfg.num_heads == 16
+            and cfg.num_register_tokens == 4 and cfg.rope_theta == 100.0):
+        fail("step2's dino is not DINOv3 ViT-L/16")
+    int8_plain = DINOEncoder(device="cpu", fast="int8",
+                             params=plain.image_model.state_dict())
+    print(f"DINOv3 ViT-L/16 CPU f32 and int8 plain towers in {time.time() - t0:.1f} s",
+          flush=True)
+    batches = 12 * -(-40 // DINO_BATCH)
+    runs = {}
+    for tag, args, want, ref in (
+            ("dino --fast", ["--fast"], {}, (plain, "the f32 plain tower on the CPU")),
+            ("dino --fast int8", ["--fast", "int8"],
+             {"linear_w8a8": 6 * cfg.num_layers * batches},
+             (int8_plain, "the int8 plain tower on the CPU"))):
+        enc, runs["step2 " + tag] = zoo_step2_run(
+            tag, ["--encoder_type", "dino", "--batch_size", str(DINO_BATCH), *args],
+            manifest_path, work / "zoo" / tag.replace(" ", "_"), want, 1024, *ref, card,
+            n_compare=4)
+        tower_throughput(f"step2 {tag} (DINOv3 ViT-L/16)", enc, DINO_BATCH, card)
+        del enc
+    return runs
+
+
+def quick_gelu_epilogue_check() -> dict:
+    """K1's and K2's quick_gelu epilogues, as ``gelu_epilogue_check``: fc1
+    weights zero and b1 = the 400,000 values, so that the h1 scratch is the
+    epilogue's activation of them. The bf16 epilogues (flags 3) against the
+    ``quick_gelu_bf16`` device function (``emr2a_activation_values``) bit for
+    bit, and that device function against the plain version within one bf16
+    ulp; the f32 epilogues (flags 2) against ``x * torch.sigmoid(1.702 x)``:
+    K2's f32 h1 within 2^-20 relative, K1's bf16-rounded h1 within one bf16
+    ulp. These calls bypass the wrappers and their launch counts."""
+    import ctypes
+    from emr2a_tpu_torch.ops import _build, mlp
+
+    v = torch.from_numpy((np.random.RandomState(3).randn(GELU_VALUES) * 3)
+                         .astype(np.float32)).to(torch.bfloat16)
+    T, d, m = 8, 128, GELU_VALUES
+    dev, bf = torch.device("cuda"), torch.bfloat16
+    x = torch.randn(T, d, device=dev).to(bf)
+    ln_s, ln_b = torch.ones(d, device=dev, dtype=bf), torch.zeros(d, device=dev, dtype=bf)
+    b1, b2 = v.to(dev), torch.zeros(d, device=dev, dtype=bf)
+    stream = torch.cuda.current_stream().cuda_stream
+    p, i = ctypes.c_void_p, ctypes.c_int
+    ptrs = lambda *ts: [t.data_ptr() for t in ts]
+    k1 = _build.kernel_function("emr2a_fused_ln_mlp", mlp._argtypes())
+    k2 = _build.kernel_function("emr2a_fused_ln_mlp_int8",
+                                [p] * 15 + [i, i, i, i, ctypes.c_float, p])
+    values = _build.kernel_function("emr2a_activation_values", [p, p, i, i, p])
+    w1, w2 = torch.zeros(d, m, device=dev, dtype=bf), torch.zeros(m, d, device=dev, dtype=bf)
+    w1q, w2q = w1.to(torch.int8), w2.to(torch.int8)
+    w1s, w2s = torch.ones(m, device=dev), torch.ones(d, device=dev)
+    vf = v.float()
+    out = {}
+    for act in (3, 2):
+        h1, h1_8 = torch.empty(T, m, device=dev, dtype=bf), torch.empty(T, m, device=dev)
+        _build.check(k1(*ptrs(x, ln_s, ln_b, w1, b1, w2, b2, h1, torch.empty_like(x)),
+                        T, d, m, act, 1e-6, stream), "fused_ln_mlp")
+        scratch = (torch.empty(T, d, device=dev, dtype=torch.int8), torch.empty(T, device=dev),
+                   h1_8, torch.empty(T, m, device=dev, dtype=torch.int8),
+                   torch.empty(T, device=dev), torch.empty_like(x))
+        _build.check(k2(*ptrs(x, ln_s, ln_b, w1q, w1s, b1, w2q, w2s, b2, *scratch),
+                        T, d, m, act, 1e-6, stream), "fused_ln_mlp_int8")
+        fn, b1_f32 = torch.empty(m, device=dev), b1.float()
+        _build.check(values(b1_f32.data_ptr(), fn.data_ptr(), m, act, stream),
+                     "activation_values")
+        torch.cuda.synchronize()
+        h1, h1_8, fn = h1.cpu().float(), h1_8.cpu(), fn.cpu()
+        if act == 3:
+            bad = (h1 != fn.to(bf).float()).sum().item() + (h1_8 != fn).sum().item()
+            if bad:
+                fail(f"act_dtype=bf16 quick_gelu: the epilogues differ from the device "
+                     f"function at {bad} values")
+            plain = mlp.quick_gelu_bf16(vf)
+            diff = (fn != plain).sum().item()
+            ulp = ((fn - plain).abs() / plain.abs().clamp_min(1e-30)).max().item()
+            if ulp > 2 ** -7:
+                fail(f"quick_gelu_bf16 on the card differs from the plain version by {ulp}")
+            out["bf16_device_function_vs_plain_values_differing"] = diff
+            print(f"fused_ln_mlp / fused_ln_mlp_int8 act_dtype=bf16 quick_gelu: epilogues "
+                  f"bit-identical to the quick_gelu_bf16 device function on {GELU_VALUES} "
+                  f"values x {T} rows; that function differs from the plain version at "
+                  f"{diff} values (max relative {ulp:.3g}, within one bf16 ulp)", flush=True)
+        else:
+            plain = vf * torch.sigmoid(1.702 * vf)
+            rel = ((h1_8 - plain).abs() / plain.abs().clamp_min(2 ** -20)).max().item()
+            k1_diff = (h1 != plain.to(bf).float()).sum().item()
+            k1_rel = ((h1 - plain.to(bf).float()).abs()
+                      / plain.to(bf).float().abs().clamp_min(2 ** -20)).max().item()
+            if rel > 2 ** -20 or k1_rel > 2 ** -7:
+                fail(f"f32 quick_gelu epilogues: relative error {rel} (K2), {k1_rel} (K1)")
+            out["f32_k2_max_rel_err"], out["f32_k1_values_differing"] = rel, k1_diff
+            print(f"fused_ln_mlp_int8 f32 quick_gelu epilogue: max relative error {rel:.3g} "
+                  f"against x * sigmoid(1.702 x) (limit 2^-20); fused_ln_mlp's bf16-rounded "
+                  f"one differs at {k1_diff} of {GELU_VALUES} values, within one bf16 ulp",
+                  flush=True)
+    return out
+
+
 # -- the step4 judge: Qwen3-VL-8B with K7, K8 (and K5) ------------------------
 
 DECODE_TOKENS = 32          # timed decode steps per precision
@@ -1233,14 +1596,9 @@ def reduced_depth_check(cfg, state: dict, images: list, card: str) -> None:
     also with the int8 KV cache and with a prefill in two chunks, under the
     same limits."""
     from emr2a_tpu_torch.judge.qwen_backend import QwenVLBackend
-    from emr2a_tpu_torch.models.qwen3_vl import Qwen3VLConfig, Qwen3VLGenerator
+    from emr2a_tpu_torch.models.qwen3_vl import Qwen3VLGenerator
 
-    small = Qwen3VLConfig(
-        vision=dataclasses.replace(cfg.vision, depth=2, deepstack_visual_indexes=(0,)),
-        text=dataclasses.replace(cfg.text, num_layers=2))
-    keep = re.compile(r"visual\.(blocks\.[01]\.|deepstack_mergers\.0\.|merger\.|patch_embed\.|"
-                      r"pos_embed)|language_model\.(layers\.[01]\.|embed_tokens|final_ln|lm_head)")
-    sub = {k: v for k, v in state.items() if keep.match(k)}
+    small, sub = reduced_state(cfg, state)
     from emr2a_tpu_torch.tools.stub_tokenizer import WordTokenizer
     tok = WordTokenizer()
     prompt = "Is the predicted label consistent with the evidence? Answer in JSON."
@@ -1329,6 +1687,133 @@ def reduced_depth_check(cfg, state: dict, images: list, card: str) -> None:
             if control_ok:
                 fail(f"reduced-depth {prec}{opt}: the limits do not refuse the "
                      f"{CONTROL_OF[prec]} control")
+
+
+def reduced_state(cfg, state: dict):
+    """The 8B's weights cut to 2 vision blocks (deepstack at 0) and 2 text
+    layers at full width, and their config."""
+    from emr2a_tpu_torch.models.qwen3_vl import Qwen3VLConfig
+
+    small = Qwen3VLConfig(
+        vision=dataclasses.replace(cfg.vision, depth=2, deepstack_visual_indexes=(0,)),
+        text=dataclasses.replace(cfg.text, num_layers=2))
+    keep = re.compile(r"visual\.(blocks\.[01]\.|deepstack_mergers\.0\.|merger\.|patch_embed\.|"
+                      r"pos_embed)|language_model\.(layers\.[01]\.|embed_tokens|final_ln|lm_head)")
+    return small, {k: v for k, v in state.items() if keep.match(k)}
+
+
+def qwen_encoder_phase(work: Path, manifest_path: Path, cfg, state: dict, model,
+                       images: list, card: str) -> dict:
+    """``Qwen3VLEncoder`` on the judge's random bf16 8B (its model passed in,
+    no second copy): the tap embedding of two cohort slices and the masked
+    mean of the cohort's clinical texts; the same weights cut to 2 vision
+    blocks and 2 text layers on the card against the CPU; the CV driver on
+    the Qwen text rows (card and CPU folds equal); step2 ``--encoder_type
+    qwen3_vl_8b --model_path`` on a checkpoint directory written from the
+    cut weights."""
+    from emr2a_tpu_torch.analysis import run_cv_experiments as runner
+    from emr2a_tpu_torch.data.manifest import load_manifest
+    from emr2a_tpu_torch.encoders.qwen3_vl_encoder import Qwen3VLEncoder
+    from emr2a_tpu_torch.tools.qwen_checkpoint import write_checkpoint
+    from emr2a_tpu_torch.tools.stub_tokenizer import WordTokenizer
+
+    tok = WordTokenizer()
+    enc = Qwen3VLEncoder(model=model, tokenizer=tok)
+    if enc.tap_indices != (24, 25, 26):
+        fail(f"Qwen3VLEncoder taps {enc.tap_indices}, expected the last three of 27 blocks")
+    arrays = [np.asarray(im) for im in images]
+    manifest = load_manifest(manifest_path)
+    pids = sorted(r["patient_id"] for r in manifest)
+    texts = clinical_texts(len(pids))
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.time()
+    img = enc.encode_batch_images(arrays)
+    torch.cuda.synchronize()
+    t_img = time.time() - t0
+    t0 = time.time()
+    txt = enc.encode_batch_texts(texts)
+    torch.cuda.synchronize()
+    t_txt = time.time() - t0
+    launches = read_counts()
+    check_launches("Qwen3VLEncoder", launches, {})
+    img, txt = np.stack(img), np.stack(txt)
+    if img.shape != (len(images), 1152) or txt.shape != (len(texts), 4096) \
+            or not (np.isfinite(img).all() and np.isfinite(txt).all()):
+        fail(f"Qwen3VLEncoder at 8B width: {img.shape} image, {txt.shape} text rows")
+    print(f"Qwen3VLEncoder at Qwen3-VL-8B width (the judge's bf16 weights): {len(images)} "
+          f"images {arrays[0].shape} -> taps {enc.tap_indices} mean-pooled, {img.shape} in "
+          f"{t_img:.2f} s; {len(texts)} clinical texts -> masked mean of the final hidden "
+          f"state (bucket 128), {txt.shape} in {t_txt:.2f} s; launches {launches} (one image "
+          f"a forward: the flat vision attention, no K8; the bf16 decoder has no kernel) "
+          f"({card})", flush=True)
+
+    small, sub = reduced_state(cfg, state)
+    reduced = {}
+    for dev in ("cuda", "cpu"):
+        e = Qwen3VLEncoder(config=small, params={k: v.to(dev) for k, v in sub.items()},
+                           device=dev, tokenizer=tok)
+        reduced[dev] = (np.stack(e.encode_batch_images(arrays)),
+                        np.stack(e.encode_batch_texts(texts[:4])))
+        del e
+    for i, what in enumerate(("image taps", "text mean")):
+        cos = hold(f"Qwen3VLEncoder reduced-depth {what}", list(reduced["cuda"][i]),
+                   list(reduced["cpu"][i]), limit=MIN_LOGIT_COSINE["bf16"],
+                   what="the CPU's plain versions")
+        err = np.abs(reduced["cuda"][i] - reduced["cpu"][i]).max()
+        print(f"Qwen3VLEncoder reduced-depth (2 vision blocks, 2 text layers, full width) "
+              f"{what}: card vs CPU min cosine {cos:.6f} (limit {MIN_LOGIT_COSINE['bf16']}), "
+              f"max_abs_err {err:.5f} ({card})", flush=True)
+
+    # the CV driver with --text_encoder qwen3_vl_8b rows, card and CPU
+    cv = work / "cv_qwen"
+    cv.mkdir()
+    bf16 = np.load(work / "bf16" / "embeddings.npz")
+    np.savez_compressed(cv / "cohort.npz", patient_ids=np.asarray(pids),
+                        image_matrix=np.stack([bf16[p].mean(0) for p in pids]),
+                        text_matrix=txt.astype(np.float32))
+    for dev in ("cuda", "cpu"):
+        runner.main(["--manifest_path", str(manifest_path), "--output_dir", str(cv / dev),
+                     "--experiment_id", "qwen", "--skip_encoding", "--embeddings_path",
+                     str(cv / "cohort.npz"), "--text_encoder", "qwen3_vl_8b", "--fusion",
+                     "concat", "--cv_folds", "3", "--device", dev])
+    compare_cv("qwen3_vl_8b text", cv / "cuda" / "exp_qwen", cv / "cpu" / "exp_qwen")
+
+    # step2's --model_path route on a checkpoint directory at the 8B's widths
+    from emr2a_tpu_torch.pipelines.step2_embeddings import build_embeddings as step2
+    t0 = time.time()
+    ckpt = write_checkpoint(work / "qwen_ckpt", small, sub)
+    size = (ckpt / "model.safetensors").stat().st_size / 2 ** 30
+    two = work / "qwen_manifest.jsonl"
+    two.write_text("".join(line + "\n" for line in
+                           manifest_path.read_text(encoding="utf-8").splitlines()[:2]),
+                   encoding="utf-8")
+    t_write = time.time() - t0
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.time()
+    step2.main(["--manifest_path", str(two), "--encoder_type", "qwen3_vl_8b", "--model_path",
+                str(ckpt), "--device", "cuda", "--output_dir", str(work / "qwen_step2")])
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    step2_launches = read_counts()
+    check_launches("step2 qwen3_vl_8b", step2_launches, {})
+    npz = np.load(work / "qwen_step2" / "embeddings.npz")
+    first = json.loads(two.read_text(encoding="utf-8").splitlines()[0])
+    if len(npz.files) != 2 or any(npz[p].shape != (40, 1152) or not np.isfinite(npz[p]).all()
+                                  for p in npz.files):
+        fail(f"step2 qwen3_vl_8b: {[(p, npz[p].shape) for p in npz.files]}")
+    e = Qwen3VLEncoder(config=small, params=sub, tokenizer=tok)
+    want = e.encode_images([Path(p) for p in first["slices"][:2]])
+    cos = hold("step2 qwen3_vl_8b --model_path", list(npz[first["patient_id"]][:2]),
+               list(want), limit=0.9999, what="the encoder on the same weights in memory")
+    print(f"step2 --encoder_type qwen3_vl_8b --model_path (config.json + "
+          f"{size:.2f} GiB model.safetensors at the 8B's widths, depth 2, written in "
+          f"{t_write:.1f} s): 2 patients x 40 slices in {wall:.2f} s (load included); "
+          f"launches {step2_launches}; min cosine {cos:.6f} against the encoder on the same "
+          f"weights in memory ({card})", flush=True)
+    del e, enc
+    return {"Qwen3VLEncoder": launches}
 
 
 def sampled_phase(backend, request: dict, card: str) -> dict:
@@ -1515,6 +2000,7 @@ def judge_phase(work: Path, manifest_path: Path, card: str) -> dict:
     images = [Image.open(p).convert("RGB").resize((256, 256))
               for p in evidence["query_images"][:2]]
     reduced_depth_check(cfg, state, images, card)
+    qwen = qwen_encoder_phase(work, manifest_path, cfg, state, m, images, card)
 
     be = backends["int4"]
     n_text, h_text = count_calls(be.model.language_model)
@@ -1545,7 +2031,7 @@ def judge_phase(work: Path, manifest_path: Path, card: str) -> dict:
     review = review_phase(work, manifest_path, be, card)
     del backends, state, be, base, m
     torch.cuda.empty_cache()
-    return {"runs": runs, "step4": step4, "sampled": sampled, "review": review}
+    return {"runs": runs, "step4": step4, "sampled": sampled, "review": review, "qwen": qwen}
 
 
 def step1_phase(work: Path) -> Path:
@@ -1653,6 +2139,11 @@ def main_path_phase(work: Path, records: list, card: str) -> None:
     cv_phase(work, bf16["npz"], manifest_path, encoders["int8"], card)
     throughput_phase(encoders, card)
     del encoders, plain_cpu, int8_cpu
+    t0 = time.time()
+    zoo = {**vit_zoo_phase(work, manifest_path, card), **clip_zoo_phase(image_paths, card),
+           **dino_zoo_phase(work, manifest_path, card)}
+    torch.cuda.empty_cache()
+    print(f"encoder zoo phases in {time.time() - t0:.1f} s", flush=True)
     judge = judge_phase(work, manifest_path, card)
     runs = judge["runs"]
     paths = {"text": text["launches"],
@@ -1664,11 +2155,47 @@ def main_path_phase(work: Path, records: list, card: str) -> None:
         if name in ("linear_w8a8", "linear_w4a8", "frame_flash_attention", "fused_attention"):
             rec["launches_by_path"] = {p: c[name] for p, c in paths.items() if c[name]}
             rec["launches"] = sum(rec["launches_by_path"].values())
+    zoo_launches(records, zoo, {"step2 biomedclip bf16": bf16["launches"],
+                                "step2 biomedclip int8": int8["launches"]})
     for prec, r in runs.items():
         print(f"judge summary {prec}: prefill {r['prefill_ms']:.3f} ms (bound "
               f"{r['prefill_bound']['bound_ms']:.3f}), decode {r['decode_ms_per_token']:.3f} "
               f"ms/token (bound {r['decode_bound']['bound_ms']:.3f}), peak "
               f"{r['peak_gib']:.2f} GiB, tree {r['tree_gib']:.2f} GiB ({card})", flush=True)
+
+
+# the zoo paths each record takes its launches from (its counter's count
+# there): K1 with gelu and with quick_gelu share one counter, as do K2's
+ZOO_PATHS = {
+    "fused_ln_mlp": ("step2 vit --fast",),
+    "fused_ln_attention": ("step2 vit --fast", "clip ViT-B/16 fast"),
+    "fused_ln_mlp_int8": ("step2 vit --fast int8",),
+    "fused_ln_attention_int8": ("step2 vit --fast int8",),
+    "linear_w8a8": ("clip ViT-L/14-336 int8 image", "clip ViT-L/14-336 int8 text",
+                    "step2 dino --fast int8"),
+    "fused_ln_mlp activation=quick_gelu": ("clip ViT-B/16 fast",),
+    "fused_ln_mlp_int8 activation=quick_gelu": ("clip ViT-L/14-336 int8 image",),
+}
+
+
+def zoo_launches(records: list, zoo: dict, biomedclip: dict) -> None:
+    """Each record's launches by path, the zoo's paths added: step2's
+    BioMedCLIP runs for the tower kernels, then ZOO_PATHS."""
+    for rec in records:
+        name = rec["name"]
+        counter = name.split(" ")[0]
+        by_path = dict(rec.get("launches_by_path", {}))
+        if not by_path and name in ("fused_ln_mlp", "fused_ln_attention",
+                                    "fused_ln_mlp_int8", "fused_ln_attention_int8"):
+            by_path = {p: c[counter] for p, c in biomedclip.items() if c[counter]}
+        for path in ZOO_PATHS.get(name, ()):
+            if zoo[path][counter]:
+                by_path[path] = zoo[path][counter]
+        if by_path:
+            rec["launches_by_path"] = by_path
+            rec["launches"] = sum(by_path.values())
+        else:
+            rec.setdefault("launches", 0)
 
 
 LAYER_BREAKDOWN_RUNS = (

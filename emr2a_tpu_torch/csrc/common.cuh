@@ -1,5 +1,6 @@
 // Helpers shared by the port's kernels: the bf16 type, 16-byte vectors,
-// warp reductions, the tanh gelu and the s8/int4 byte transposes.
+// warp reductions, the tanh gelu, CLIP's quick_gelu and the s8/int4 byte
+// transposes.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -59,6 +60,29 @@ __device__ __forceinline__ float gelu_tanh_bf16(float v) {
   c = round_bf16(tanhf(c));
   c = round_bf16(__fadd_rn(c, 1.0f));
   c = round_bf16(__fmul_rn(c, 0.5f));
+  return __fmul_rn(v, c);
+}
+
+// CLIP's quick_gelu, v * sigmoid(1.702 v), evaluated in f32 as
+// v / (1 + exp(-1.702 v)) with the accurate expf (within 2 ulp), the
+// division rounded once: within a few f32 ulp of the plain version's
+// v * torch.sigmoid(1.702 v)
+__device__ __forceinline__ float quick_gelu(float v) {
+  return __fdiv_rn(v, __fadd_rn(1.0f, expf(__fmul_rn(-1.702f, v))));
+}
+
+// quick_gelu of a bf16 value evaluated in bf16, as XLA evaluates
+// v * jax.nn.sigmoid(1.702 * v) on a bf16 array (act_dtype=bfloat16 in
+// emr2a_tpu/ops/mlp.py): the constant rounded to bf16 (1.703125), each op
+// of the logistic's expansion 1 / (1 + exp(-x)) computed in f32 and rounded
+// to bf16, but the last product, which is exact in f32 and is rounded by
+// the caller to the output type.
+__device__ __forceinline__ float quick_gelu_bf16(float v) {
+  const float k = 1.703125f;              // bf16(1.702)
+  float c = round_bf16(__fmul_rn(k, v));
+  c = round_bf16(expf(-c));
+  c = round_bf16(__fadd_rn(1.0f, c));
+  c = round_bf16(__fdiv_rn(1.0f, c));
   return __fmul_rn(v, c);
 }
 

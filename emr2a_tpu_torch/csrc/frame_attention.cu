@@ -42,9 +42,11 @@
 // bf16 depth is 16). The softmax runs in the log2 domain: the scale times
 // log2(e) is folded into one FFMA with the running maximum, the
 // exponentials are ex2.approx, and only a ragged last tile is masked. A
-// warp whose rows all lie past S skips the arithmetic. Not wgmma/TMA: a 72-wide bf16 row (144 bytes) fits no TMA
-// swizzle span, and the mma.sync schedule could be checked on the card
-// within one change; the wgmma version is queued (ROADMAP.md, Queue 2).
+// warp whose rows all lie past S skips the arithmetic. Not wgmma/TMA: a
+// 72-wide bf16 row (144 bytes) fits no TMA swizzle span, and the mma.sync
+// schedule could be checked on the card within one change; a wgmma
+// version is not queued, and the gap to SDPA stays recorded in PERF.md,
+// section 7.
 #include <math_constants.h>
 
 #include "flash.cuh"

@@ -20,6 +20,8 @@
 //   EPI_BIAS_RESIDUAL  residual + bf16(acc + bias)       (fc2 / out-proj)
 //   EPI_BIAS_GELU_BF16 bf16(gelu_tanh_bf16(bf16(acc + bias)))
 //                                                        (fc1, act_dtype=bf16)
+//   EPI_BIAS_QGELU, EPI_BIAS_QGELU_BF16: the same two with CLIP's quick_gelu
+//                      (quick_gelu, quick_gelu_bf16 in common.cuh)
 //
 // Bound on the H100: 2*M*N*K bf16 operations over 989 TFLOP/s; at ViT-B
 // (M = B * 200, K and N 768 or 3072) every product does some 400 to 1,000
@@ -55,7 +57,10 @@
 
 namespace emr2a {
 
-enum Epilogue { EPI_BIAS = 0, EPI_BIAS_GELU = 1, EPI_BIAS_RESIDUAL = 2, EPI_BIAS_GELU_BF16 = 3 };
+enum Epilogue {
+  EPI_BIAS = 0, EPI_BIAS_GELU = 1, EPI_BIAS_RESIDUAL = 2, EPI_BIAS_GELU_BF16 = 3,
+  EPI_BIAS_QGELU = 4, EPI_BIAS_QGELU_BF16 = 5
+};
 
 constexpr int GEMM_BM = 128;                        // rows of a tile
 constexpr int GEMM_BK = 64;                         // k of a stage: 128 bytes of A's row
@@ -339,6 +344,12 @@ gemm_bf16_kernel(const __grid_constant__ CUtensorMap amap,
           } else if (EPI == EPI_BIAS_GELU_BF16) {
             v0 = gelu_tanh_bf16(round_bf16(v0));
             v1 = gelu_tanh_bf16(round_bf16(v1));
+          } else if (EPI == EPI_BIAS_QGELU) {
+            v0 = quick_gelu(v0);
+            v1 = quick_gelu(v1);
+          } else if (EPI == EPI_BIAS_QGELU_BF16) {
+            v0 = quick_gelu_bf16(round_bf16(v0));
+            v1 = quick_gelu_bf16(round_bf16(v1));
           }
           __nv_bfloat162 pk = __floats2bfloat162_rn(v0, v1);
           w[jj] = *reinterpret_cast<uint32_t*>(&pk);

@@ -17,6 +17,7 @@
 //   EPI_S8_GELU_F32   out f32  = gelu_tanh(y)             (K2 fc1)
 //   EPI_S8_RESIDUAL   out bf16 = residual + bf16(y)       (K2 fc2, K4 out-proj)
 //   EPI_S8_GELU_BF16  out f32  = gelu_tanh_bf16(bf16(y))  (K2 fc1, act_dtype=bf16)
+//   EPI_S8_QGELU_F32, EPI_S8_QGELU_BF16: the same two with CLIP's quick_gelu
 // (the gelu expressions of common.cuh; K7 folds its group sums first, below).
 // The s32 sums are exact, so every output is the plain version's
 // (torch._int_mm or the f32 matmul of the codes, then the same rescale) bit
@@ -93,7 +94,10 @@
 
 namespace emr2a {
 
-enum EpilogueS8 { EPI_S8_BF16 = 0, EPI_S8_GELU_F32 = 1, EPI_S8_RESIDUAL = 2, EPI_S8_GELU_BF16 = 3 };
+enum EpilogueS8 {
+  EPI_S8_BF16 = 0, EPI_S8_GELU_F32 = 1, EPI_S8_RESIDUAL = 2, EPI_S8_GELU_BF16 = 3,
+  EPI_S8_QGELU_F32 = 4, EPI_S8_QGELU_BF16 = 5
+};
 
 constexpr int WG_BM = 128;       // weight columns of a tile (two m64 tiles)
 constexpr int WG_BK = 128;       // k of a stage (K7: one group)
@@ -325,11 +329,16 @@ __device__ __forceinline__ void fence_fragments(uint32_t (&a)[MT][4]) {
 template <int EPI, int MT>
 __device__ __forceinline__ void wg_store(void* out, uint2 residual, size_t at,
                                          float (&v)[2 * MT]) {
-  if constexpr (EPI == EPI_S8_GELU_F32 || EPI == EPI_S8_GELU_BF16) {
+  if constexpr (EPI == EPI_S8_GELU_F32 || EPI == EPI_S8_GELU_BF16 || EPI == EPI_S8_QGELU_F32 ||
+                EPI == EPI_S8_QGELU_BF16) {
     static_assert(MT == 2, "the f32 epilogues take 4 columns a thread");
 #pragma unroll
-    for (int c = 0; c < 4; ++c)
-      v[c] = EPI == EPI_S8_GELU_F32 ? gelu_tanh(v[c]) : gelu_tanh_bf16(round_bf16(v[c]));
+    for (int c = 0; c < 4; ++c) {
+      if constexpr (EPI == EPI_S8_GELU_F32) v[c] = gelu_tanh(v[c]);
+      else if constexpr (EPI == EPI_S8_GELU_BF16) v[c] = gelu_tanh_bf16(round_bf16(v[c]));
+      else if constexpr (EPI == EPI_S8_QGELU_F32) v[c] = quick_gelu(v[c]);
+      else v[c] = quick_gelu_bf16(round_bf16(v[c]));
+    }
     *reinterpret_cast<float4*>(static_cast<float*>(out) + at) = make_float4(v[0], v[1], v[2], v[3]);
   } else {
     uint32_t pk[MT];

@@ -8,9 +8,11 @@
 //   h1  = gelu_tanh((q1 @ W1q) * s_row * s_col + b1)       s32 products, f32
 //   q2  = q8(h1)                        over the whole f32 row of m values
 //   y   = x + bf16((q2 @ W2q) * s_row * s_col + b2)
-// With act_bf16 (JAX's act_dtype=bfloat16) the fc1 value is rounded to bf16
+// With bit 0 of act (JAX's act_dtype=bfloat16) the fc1 value is rounded to bf16
 // and the gelu evaluated in bf16 (gelu_tanh_bf16 in common.cuh), carried
-// back to f32 before the row quantize; the f32 path is unchanged.
+// back to f32 before the row quantize; the f32 path is unchanged. With the
+// quick_gelu flag (bit 1 of act, as in mlp.cu) the same two paths evaluate
+// CLIP's quick_gelu / quick_gelu_bf16 instead.
 //
 // Bound on the H100: at ViT-B (T = B*200, d = 768, m = 3072) the products are
 // 4*T*d*m s8 operations, 0.0305 ms at T = 6,400 over 1,979 TOP/s. The f32 h1
@@ -39,7 +41,8 @@ extern "C" int emr2a_fused_ln_mlp_int8(const void* x, const void* ln_scale,
                                        const void* b1, const void* w2, const void* w2_scale,
                                        const void* b2, void* hq, void* hs, void* h1, void* q2,
                                        void* s2, void* out, int T, int d, int m,
-                                       int act_bf16, float eps, void* stream) {
+                                       int act, float eps, void* stream) {
+  if (act < 0 || act > 3) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   int sms = 0;
   cudaError_t err = current_sms(&sms);
@@ -66,8 +69,12 @@ extern "C" int emr2a_fused_ln_mlp_int8(const void* x, const void* ln_scale,
   p1.N = m;
   const int8_t* w1q = static_cast<const int8_t*>(w1);
   const int8_t* hqc = static_cast<const int8_t*>(hq);
-  err = act_bf16 ? launch_gemm_s8_wgmma<false, EPI_S8_GELU_BF16>(hqc, &w1q, p1, sms, st)
-                 : launch_gemm_s8_wgmma<false, EPI_S8_GELU_F32>(hqc, &w1q, p1, sms, st);
+  switch (act) {   // bit 0: bf16 act_dtype; bit 1: quick_gelu
+    case 0: err = launch_gemm_s8_wgmma<false, EPI_S8_GELU_F32>(hqc, &w1q, p1, sms, st); break;
+    case 1: err = launch_gemm_s8_wgmma<false, EPI_S8_GELU_BF16>(hqc, &w1q, p1, sms, st); break;
+    case 2: err = launch_gemm_s8_wgmma<false, EPI_S8_QGELU_F32>(hqc, &w1q, p1, sms, st); break;
+    default: err = launch_gemm_s8_wgmma<false, EPI_S8_QGELU_BF16>(hqc, &w1q, p1, sms, st);
+  }
   if (err != cudaSuccess) return static_cast<int>(err);
 
   QuantParams qp2 = {};

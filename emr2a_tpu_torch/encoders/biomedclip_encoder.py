@@ -17,13 +17,17 @@ tree (or a tokenizer) ``encode_batch_texts`` raises.
 
 from __future__ import annotations
 
-import dataclasses
 from typing import List, Mapping, Optional
 
 import numpy as np
 import torch
 
-from emr2a_tpu_torch.encoders.jit_encoder import BatchedImageTextEncoder
+from emr2a_tpu_torch.encoders.jit_encoder import (
+    BatchedImageTextEncoder,
+    fast_config,
+    fast_state,
+    load_hf,
+)
 from emr2a_tpu_torch.models.clip import (
     BioMedCLIPConfig,
     BioMedCLIPImageTower,
@@ -34,14 +38,8 @@ from emr2a_tpu_torch.models.convert import (
     convert_biomedclip_image_tower,
     convert_biomedclip_text_tower,
     load_state_dict,
-    params_from_jax,
-    params_to_jax,
 )
 from emr2a_tpu_torch.models.layers import load_params
-from emr2a_tpu_torch.models.quantize import (
-    quantize_params_tree,
-    quantize_tower_params,
-)
 from emr2a_tpu_torch.models.text import BertConfig
 from emr2a_tpu_torch.models.vit import BIOMEDCLIP_VIT_B16
 from emr2a_tpu_torch.ops.preprocess import BIOMEDCLIP_PREPROCESS
@@ -57,46 +55,9 @@ def default_biomedclip_config() -> BioMedCLIPConfig:
         projection_dim=512, text_proj="mlp")
 
 
-def _fast_config(config: BioMedCLIPConfig) -> BioMedCLIPConfig:
-    """bf16 towers; the image tower gets the fused LN+attention and LN+MLP
-    kernels."""
-    return dataclasses.replace(
-        config,
-        vision=dataclasses.replace(config.vision, dtype=torch.bfloat16,
-                                   fused_mlp=True, fused_attn=True),
-        text=(dataclasses.replace(config.text, dtype=torch.bfloat16)
-              if config.text is not None else None))
-
-
-def _fast_params(params: Mapping, fast) -> dict:
-    """Cast f32 params to bf16; with ``fast="int8"`` then quantize the image
-    trunk and the text tree."""
-    params = {k: torch.as_tensor(v) for k, v in params.items()}
-    params = {k: v.to(torch.bfloat16) if v.dtype == torch.float32 else v
-              for k, v in params.items()}
-    if fast != "int8":
-        return params
-    tree = params_to_jax(params)
-    tree["image"]["trunk"] = quantize_tower_params(tree["image"]["trunk"])
-    if "text" in tree:
-        tree["text"] = quantize_params_tree(tree["text"])
-    return params_from_jax(tree)
-
-
 def _sub(params: Mapping, prefix: str) -> dict:
     return {k[len(prefix):]: torch.as_tensor(v) for k, v in params.items()
             if k.startswith(prefix)}
-
-
-def _load_tokenizer(model_path):
-    """The checkpoint directory's HF tokenizer, from local files only, or
-    None when there is none (or no ``transformers``)."""
-    try:
-        from transformers import AutoTokenizer
-        return AutoTokenizer.from_pretrained(str(model_path),
-                                             local_files_only=True)
-    except Exception:
-        return None
 
 
 class BioMedCLIPEncoder(BatchedImageTextEncoder):
@@ -109,7 +70,7 @@ class BioMedCLIPEncoder(BatchedImageTextEncoder):
         if config is None:
             config = default_biomedclip_config()
         if fast:
-            config = _fast_config(config)
+            config = fast_config(config)
         if model_path is not None:
             sd = load_state_dict(model_path)
             params = {f"image.{k}": v for k, v in convert_biomedclip_image_tower(
@@ -119,11 +80,11 @@ class BioMedCLIPEncoder(BatchedImageTextEncoder):
                                convert_biomedclip_text_tower(
                                    sd, config.text.num_layers).items()})
             if tokenizer is None:
-                tokenizer = _load_tokenizer(model_path)
+                tokenizer = load_hf(model_path)
         if params is None:
             raise ValueError("BioMedCLIPEncoder needs model_path or params")
         if fast:
-            params = _fast_params(params, fast)
+            params = fast_state(params, fast)
         self.config = config
         self.context_length = context_length
         self._tokenizer = tokenizer

@@ -25,7 +25,8 @@ returns with the first exact-resize encoder).
 
 from __future__ import annotations
 
-from typing import Callable, List, Optional
+import dataclasses
+from typing import Callable, List, Mapping, Optional
 
 import numpy as np
 import torch
@@ -35,6 +36,45 @@ from emr2a_tpu_torch.data.images import group_by_shape, resize_to
 from emr2a_tpu_torch.encoders.base import BaseEncoder
 from emr2a_tpu_torch.ops.preprocess import PreprocessSpec, preprocess_images
 from emr2a_tpu_torch.ops.similarity import l2_normalize_rows
+
+
+def fast_state(state: Mapping, fast) -> dict:
+    """The encoders' ``fast`` cut of a state dict: every f32 tensor cast to
+    bf16 and, with ``fast="int8"``, every tower level of the tree quantized
+    W8A8 (``models/quantize.quantize_params_tree``), in the JAX package's
+    order (cast, then quantize)."""
+    from emr2a_tpu_torch.models.convert import params_from_jax, params_to_jax
+    from emr2a_tpu_torch.models.quantize import quantize_params_tree
+
+    state = {k: torch.as_tensor(v) for k, v in state.items()}
+    state = {k: v.to(torch.bfloat16) if v.dtype == torch.float32 else v
+             for k, v in state.items()}
+    if fast != "int8":
+        return state
+    return params_from_jax(quantize_params_tree(params_to_jax(state)))
+
+
+def fast_config(config):
+    """bf16 towers; the image tower gets the fused LN+attention and LN+MLP
+    kernels (BioMedCLIP's and CLIP's configs)."""
+    return dataclasses.replace(
+        config,
+        vision=dataclasses.replace(config.vision, dtype=torch.bfloat16,
+                                   fused_mlp=True, fused_attn=True),
+        text=(dataclasses.replace(config.text, dtype=torch.bfloat16)
+              if config.text is not None else None))
+
+
+def load_hf(model_path, cls_name: str = "AutoTokenizer"):
+    """A checkpoint directory's HF tokenizer (or another ``transformers``
+    auto class, e.g. ``AutoImageProcessor``) from local files only, or None
+    when there is none (or no ``transformers``)."""
+    try:
+        import transformers
+        return getattr(transformers, cls_name).from_pretrained(
+            str(model_path), local_files_only=True)
+    except Exception:
+        return None
 
 
 class BatchedImageTextEncoder(BaseEncoder):

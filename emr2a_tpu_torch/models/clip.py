@@ -1,6 +1,10 @@
-"""BioMedCLIP's two towers.
+"""The dual-tower CLIP-style models: CLIP and BioMedCLIP.
 
-Port of ``emr2a_tpu/models/clip.py``: ``BioMedCLIPImageTower`` (the timm
+Port of ``emr2a_tpu/models/clip.py``. ``CLIPImageTower``: the HF CLIP vision
+tower (``vision``, pre-LN, quick_gelu, the post-LN cls token) and a
+bias-free ``visual_projection``; ``CLIPTextTower``: ``CLIPTextTransformer``
+(``text``, EOT-pooled) and a bias-free ``text_projection``.
+``BioMedCLIPImageTower`` (the timm
 ViT-B/16 trunk, cls-pooled, then a bias-free linear head into the 512-d
 CLIP space) and ``BioMedCLIPTextTower`` (PubMedBERT, cls-pooled, then
 open_clip's ``proj="mlp"`` head: bias-free ``proj_fc1`` and ``proj_fc2``
@@ -18,8 +22,53 @@ import torch.nn.functional as F
 from torch import nn
 
 from emr2a_tpu_torch.models.layers import Dense
-from emr2a_tpu_torch.models.text import BertConfig, BertEncoder
+from emr2a_tpu_torch.models.text import (
+    BertConfig,
+    BertEncoder,
+    CLIPTextConfig,
+    CLIPTextTransformer,
+)
 from emr2a_tpu_torch.models.vit import ViTConfig, VisionTransformer
+
+
+@dataclass(frozen=True)
+class CLIPConfig:
+    vision: ViTConfig
+    text: CLIPTextConfig
+    projection_dim: int = 512
+
+
+class CLIPImageTower(nn.Module):
+    """Vision tower + projection; unnormalised embeddings."""
+
+    def __init__(self, config: CLIPConfig, device=None):
+        super().__init__()
+        self.config = config
+        self.vision = VisionTransformer(config.vision, device=device)
+        self.visual_projection = Dense(config.vision.hidden_size,
+                                       config.projection_dim, use_bias=False,
+                                       dtype=config.vision.dtype, device=device)
+
+    def forward(self, pixels: torch.Tensor) -> torch.Tensor:
+        """pixels (B, H, W, 3) -> (B, proj)."""
+        return self.visual_projection(self.vision(pixels))
+
+
+class CLIPTextTower(nn.Module):
+
+    def __init__(self, config: CLIPConfig, device=None):
+        super().__init__()
+        self.config = config
+        self.text = CLIPTextTransformer(config.text, device=device)
+        self.text_projection = Dense(config.text.hidden_size,
+                                     config.projection_dim, use_bias=False,
+                                     dtype=config.text.dtype, device=device)
+
+    def forward(self, input_ids: torch.Tensor,
+                attention_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """input_ids (B, S) -> (B, proj); the causal mask and EOT pooling
+        make ``attention_mask`` unused, as in the JAX package."""
+        return self.text_projection(self.text(input_ids))
 
 
 @dataclass(frozen=True)

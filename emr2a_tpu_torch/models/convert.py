@@ -8,6 +8,15 @@ minimal state-dict reader.
   as they are), so the mapping only renames: ``block_i`` -> ``blocks.i``
   and a LayerNorm's ``scale`` -> ``weight``. ``params_to_jax`` is its
   inverse.
+- ``convert_timm_vit(sd)`` and ``convert_hf_vit(sd)``: a timm ViT (fused
+  qkv) or an HF ``ViTModel`` state dict -> the ``VisionTransformer`` state
+  dict; ``convert_hf_clip_vision`` / ``convert_hf_clip_text`` and
+  ``convert_hf_clip_image_tower`` / ``convert_hf_clip_text_tower``: an HF
+  ``CLIPModel`` state dict -> ``VisionTransformer`` /
+  ``CLIPTextTransformer`` and ``CLIPImageTower`` / ``CLIPTextTower`` state
+  dicts. Counterparts of the JAX package's converters of the same names
+  (``emr2a_tpu/models/convert.py:55-200``); DINOv3's is
+  ``models/dinov3.convert_hf_dinov3``.
 - ``convert_biomedclip_image_tower(sd)``: an open_clip BiomedCLIP state dict
   (``visual.trunk.*`` timm ViT with fused qkv, ``visual.head.proj``) -> the
   ``BioMedCLIPImageTower`` state dict. Counterpart of
@@ -159,6 +168,125 @@ def _timm_vit_tree(sd, num_layers: int, prefix: str) -> dict:
                     "fc2": _dense(sd, p + "mlp.fc2")},
         }
     return tree
+
+
+def convert_timm_vit(sd: Mapping[str, np.ndarray], num_layers: int,
+                     prefix: str = "") -> Dict[str, torch.Tensor]:
+    """timm ViT state dict (numpy) -> ``VisionTransformer`` state dict."""
+    return params_from_jax(_timm_vit_tree(sd, num_layers, prefix))
+
+
+def _hf_vit_tree(sd, num_layers: int, prefix: str) -> dict:
+    e = prefix + "embeddings."
+    tree = {
+        "patch_embed": _patch_conv_to_dense(
+            sd[e + "patch_embeddings.projection.weight"],
+            sd.get(e + "patch_embeddings.projection.bias")),
+        "cls_token": sd[e + "cls_token"],
+        "pos_embed": sd[e + "position_embeddings"],
+        "final_ln": _ln(sd, prefix + "layernorm"),
+    }
+    for i in range(num_layers):
+        p = f"{prefix}encoder.layer.{i}."
+        tree[f"block_{i}"] = {
+            "ln1": _ln(sd, p + "layernorm_before"),
+            "attn": {
+                "q_proj": _dense(sd, p + "attention.attention.query"),
+                "k_proj": _dense(sd, p + "attention.attention.key"),
+                "v_proj": _dense(sd, p + "attention.attention.value"),
+                "out_proj": _dense(sd, p + "attention.output.dense"),
+            },
+            "ln2": _ln(sd, p + "layernorm_after"),
+            "mlp": {"fc1": _dense(sd, p + "intermediate.dense"),
+                    "fc2": _dense(sd, p + "output.dense")},
+        }
+    return tree
+
+
+def convert_hf_vit(sd: Mapping[str, np.ndarray], num_layers: int,
+                   prefix: str = "") -> Dict[str, torch.Tensor]:
+    """HF ``ViTModel`` state dict (numpy) -> ``VisionTransformer`` state
+    dict."""
+    return params_from_jax(_hf_vit_tree(sd, num_layers, prefix))
+
+
+# ---------------------------------------------------------------------------
+# HF CLIP
+# ---------------------------------------------------------------------------
+
+def _clip_encoder_layers(sd, prefix: str, num_layers: int) -> dict:
+    blocks = {}
+    for i in range(num_layers):
+        p = f"{prefix}encoder.layers.{i}."
+        blocks[f"block_{i}"] = {
+            "ln1": _ln(sd, p + "layer_norm1"),
+            "attn": {
+                "q_proj": _dense(sd, p + "self_attn.q_proj"),
+                "k_proj": _dense(sd, p + "self_attn.k_proj"),
+                "v_proj": _dense(sd, p + "self_attn.v_proj"),
+                "out_proj": _dense(sd, p + "self_attn.out_proj"),
+            },
+            "ln2": _ln(sd, p + "layer_norm2"),
+            "mlp": {"fc1": _dense(sd, p + "mlp.fc1"),
+                    "fc2": _dense(sd, p + "mlp.fc2")},
+        }
+    return blocks
+
+
+def _hf_clip_vision_tree(sd, num_layers: int, prefix: str) -> dict:
+    e = prefix + "embeddings."
+    tree = {
+        "patch_embed": _patch_conv_to_dense(sd[e + "patch_embedding.weight"]),
+        "cls_token": sd[e + "class_embedding"].reshape(1, 1, -1),
+        "pos_embed": sd[e + "position_embedding.weight"][None],
+        # HF's attribute is the typo'd "pre_layrnorm"
+        "pre_ln": _ln(sd, prefix + ("pre_layrnorm" if prefix + "pre_layrnorm.weight" in sd
+                                    else "pre_layernorm")),
+        "final_ln": _ln(sd, prefix + "post_layernorm"),
+    }
+    tree.update(_clip_encoder_layers(sd, prefix, num_layers))
+    return tree
+
+
+def _hf_clip_text_tree(sd, num_layers: int, prefix: str) -> dict:
+    e = prefix + "embeddings."
+    tree = {
+        "token_embed": {"embedding": sd[e + "token_embedding.weight"]},
+        "pos_embed": sd[e + "position_embedding.weight"][None],
+        "final_ln": _ln(sd, prefix + "final_layer_norm"),
+    }
+    tree.update(_clip_encoder_layers(sd, prefix, num_layers))
+    return tree
+
+
+def convert_hf_clip_vision(sd: Mapping[str, np.ndarray], num_layers: int,
+                           prefix: str = "vision_model.") -> Dict[str, torch.Tensor]:
+    """HF ``CLIPVisionTransformer`` -> ``VisionTransformer`` state dict."""
+    return params_from_jax(_hf_clip_vision_tree(sd, num_layers, prefix))
+
+
+def convert_hf_clip_text(sd: Mapping[str, np.ndarray], num_layers: int,
+                         prefix: str = "text_model.") -> Dict[str, torch.Tensor]:
+    """HF ``CLIPTextTransformer`` -> ``CLIPTextTransformer`` state dict."""
+    return params_from_jax(_hf_clip_text_tree(sd, num_layers, prefix))
+
+
+def convert_hf_clip_image_tower(sd: Mapping[str, np.ndarray],
+                                num_layers: int) -> Dict[str, torch.Tensor]:
+    """HF ``CLIPModel`` state dict -> ``CLIPImageTower`` state dict."""
+    return params_from_jax({
+        "vision": _hf_clip_vision_tree(sd, num_layers, "vision_model."),
+        "visual_projection": {"kernel": sd["visual_projection.weight"].T},
+    })
+
+
+def convert_hf_clip_text_tower(sd: Mapping[str, np.ndarray],
+                               num_layers: int) -> Dict[str, torch.Tensor]:
+    """HF ``CLIPModel`` state dict -> ``CLIPTextTower`` state dict."""
+    return params_from_jax({
+        "text": _hf_clip_text_tree(sd, num_layers, "text_model."),
+        "text_projection": {"kernel": sd["text_projection.weight"].T},
+    })
 
 
 def convert_biomedclip_image_tower(sd: Mapping[str, np.ndarray],

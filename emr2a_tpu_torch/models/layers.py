@@ -293,6 +293,15 @@ class TransformerBlock(nn.Module):
         return x + self.mlp(self.ln2(x))
 
 
+def make_causal_mask(seq_len: int, dtype: torch.dtype = torch.float32,
+                     device=None) -> torch.Tensor:
+    """Additive causal mask (1, 1, S, S): -inf above the diagonal, 0 on and
+    below it."""
+    mask = torch.triu(torch.full((seq_len, seq_len), float("-inf"),
+                                 dtype=dtype, device=device), diagonal=1)
+    return mask[None, None]
+
+
 def make_padding_mask(attention_mask: torch.Tensor,
                       dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """(B, S) 1/0 mask -> additive (B, 1, 1, S): 0 where kept, the f32

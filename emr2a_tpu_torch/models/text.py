@@ -1,7 +1,14 @@
-"""The BERT text tower (PubMedBERT-256, BioMedCLIP's text side).
+"""The text towers: CLIP's text transformer and BERT (PubMedBERT-256,
+BioMedCLIP's text side).
 
-Port of ``emr2a_tpu/models/text.py:BertConfig`` / ``BertLayer`` /
-``BertEncoder``: token, learned position and token-type embeddings, an
+Port of ``emr2a_tpu/models/text.py``. ``CLIPTextTransformer``: token and
+learned position embeddings, pre-LN ``TransformerBlock``s under an additive
+causal mask (``make_causal_mask``), a final LN, and the hidden state at the
+first eos token ("EOT pooling", as HF takes the argmax of ``ids == eos``).
+Its masked attention never takes a fused block, so with W8A8 params its
+projections run K5 through ``Int8Dense``.
+
+``BertConfig`` / ``BertLayer`` / ``BertEncoder``: token, learned position and token-type embeddings, an
 embedding LayerNorm, post-LN blocks (``LN(x + attn(x))``,
 ``LN(x + mlp(x))``, eps 1e-12) with an additive padding mask, and the
 poolings ``cls`` (open_clip's BiomedCLIP), ``pooler`` (HF's tanh pooler) and
@@ -11,8 +18,7 @@ poolings ``cls`` (open_clip's BiomedCLIP), ``pooler`` (HF's tanh pooler) and
 
 The masked attention never takes a fused block, so with W8A8 params every
 projection runs the streaming W8A8 op (K5) through ``Int8Dense``
-(``models/layers.py``). ``CLIPTextTransformer`` is not ported yet: it comes
-with the CLIP encoders.
+(``models/layers.py``).
 """
 
 from __future__ import annotations
@@ -28,8 +34,24 @@ from emr2a_tpu_torch.models.layers import (
     Dense,
     Mlp,
     MultiHeadAttention,
+    TransformerBlock,
+    make_causal_mask,
     make_padding_mask,
 )
+
+
+@dataclass(frozen=True)
+class CLIPTextConfig:
+    vocab_size: int = 49408
+    max_length: int = 77
+    hidden_size: int = 512
+    num_layers: int = 12
+    num_heads: int = 8
+    mlp_dim: int = 2048
+    activation: str = "quick_gelu"
+    ln_eps: float = 1e-5
+    eos_token_id: int = 49407
+    dtype: torch.dtype = torch.float32
 
 
 @dataclass(frozen=True)
@@ -57,6 +79,36 @@ class Embed(nn.Module):
 
     def forward(self, ids: torch.Tensor) -> torch.Tensor:
         return F.embedding(ids, self.embedding)
+
+
+class CLIPTextTransformer(nn.Module):
+
+    def __init__(self, config: CLIPTextConfig, device=None):
+        super().__init__()
+        cfg = self.config = config
+        kw = dict(dtype=cfg.dtype, device=device)
+        d = cfg.hidden_size
+        self.token_embed = Embed(cfg.vocab_size, d, **kw)
+        self.pos_embed = nn.Parameter(torch.zeros(1, cfg.max_length, d, **kw))
+        self.blocks = nn.ModuleList(
+            TransformerBlock(d, cfg.num_heads, cfg.mlp_dim,
+                             activation=cfg.activation, ln_eps=cfg.ln_eps, **kw)
+            for _ in range(cfg.num_layers))
+        self.final_ln = nn.LayerNorm(d, eps=cfg.ln_eps, **kw)
+
+    def forward(self, input_ids: torch.Tensor) -> torch.Tensor:
+        """input_ids (B, S), padded to max_length with the pad / eos id ->
+        (B, hidden) at the first eos position (position 0 where a row has
+        none, as argmax gives)."""
+        B, S = input_ids.shape
+        tok = self.token_embed(input_ids)
+        x = tok + self.pos_embed[:, :S].to(tok.dtype)
+        mask = make_causal_mask(S, device=x.device)
+        for block in self.blocks:
+            x = block(x, mask)
+        x = self.final_ln(x)
+        eot = (input_ids == self.config.eos_token_id).to(torch.int32).argmax(dim=-1)
+        return x[torch.arange(B, device=x.device), eot]
 
 
 class BertLayer(nn.Module):

@@ -45,6 +45,20 @@ class ViTConfig:
         return (self.image_size // self.patch_size) ** 2
 
 
+# The zoo's presets (emr2a_tpu/models/vit.py:56-67).
+# HF CLIP vision towers: pre-LN, quick_gelu, a bias-free patch embed,
+# the post-LN cls token ("pooler").
+CLIP_VIT_B16_VISION = ViTConfig(
+    activation="quick_gelu", use_pre_layernorm=True, patch_bias=False,
+    pooling="cls_ln", ln_eps=1e-5)
+CLIP_VIT_L14_336_VISION = ViTConfig(
+    image_size=336, patch_size=14, hidden_size=1024, num_layers=24,
+    num_heads=16, mlp_dim=4096, activation="quick_gelu",
+    use_pre_layernorm=True, patch_bias=False, pooling="cls_ln", ln_eps=1e-5)
+# HF ViTModel: LN over the tokens, then the mean of the patches.
+HF_VIT_B16 = ViTConfig(ln_eps=1e-12, pooling="mean")
+# timm global_pool="avg": the mean of the patch tokens, then fc_norm.
+TIMM_VIT_B16 = ViTConfig(ln_eps=1e-6, pooling="avg_fc_norm")
 # timm ViT-B/16 inside open_clip's BiomedCLIP: token pooling, eps 1e-6.
 BIOMEDCLIP_VIT_B16 = ViTConfig(ln_eps=1e-6, pooling="cls")
 

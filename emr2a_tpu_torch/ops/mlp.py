@@ -6,7 +6,9 @@ Port of ``emr2a_tpu/ops/mlp.py:fused_ln_mlp`` (Pallas ``_mlp_kernel``):
 
 ``gelu`` (the default) is evaluated in the tanh approximation, as the TPU
 kernel does (it has no erf); the other activations of ``models/layers.py``
-are accepted by the plain version, the CUDA kernel takes ``gelu`` only.
+are accepted by the plain version, the CUDA kernel takes those of
+``CUDA_ACTIVATIONS``: ``gelu`` and CLIP's ``quick_gelu`` (x * sigmoid(1.702
+x)). Any other activation raises on a CUDA tensor.
 
 Rounding points, as in the TPU kernel: LN statistics in f32 and the LN
 output rounded to ``x.dtype``; fc1 accumulated in f32, + b1 and the tanh
@@ -55,8 +57,16 @@ by the products' summation order, which may move a value across a bf16
 rounding boundary (``tests/test_torch_act_dtype.py``: bit for bit in bf16 on
 its inputs, atol 2e-3 in f32). The card's kernels evaluate the same sequence
 (``csrc/common.cuh``; ``chip_smoke.py`` holds their gelu epilogues to
-``gelu_tanh_bf16`` bit for bit on the same 400,000 values); they take
-``gelu`` only.
+``gelu_tanh_bf16`` bit for bit on the same 400,000 values).
+
+``quick_gelu`` in bf16 (``quick_gelu_bf16``) is XLA's evaluation of ``v *
+jax.nn.sigmoid(1.702 * v)`` on a bf16 array: the constant rounded to bf16
+(1.703125), the logistic expanded as 1 / (1 + exp(-x)) with each op
+computed in f32 and rounded to bf16, and the last product left to the
+caller's rounding (``tests/test_torch_encoders_zoo.py`` holds it to XLA bit
+for bit on 400,000 values). In f32 it is ``x * torch.sigmoid(1.702 x)``,
+within a few f32 ulp of XLA's. The card's epilogues evaluate the same
+sequences (``quick_gelu``, ``quick_gelu_bf16`` in ``csrc/common.cuh``).
 """
 
 from __future__ import annotations
@@ -104,7 +114,26 @@ def gelu_tanh_bf16(v: torch.Tensor) -> torch.Tensor:
 _BF16_K0 = 0.796875          # sqrt(2 / pi)
 _BF16_K1 = 0.044677734375    # 0.044715
 
+
+def quick_gelu_bf16(v: torch.Tensor) -> torch.Tensor:
+    """``v * jax.nn.sigmoid(1.702 * v)`` of bf16 values (given in any float
+    type) as XLA evaluates it in bf16: returns f32, whose only rounding
+    left is the caller's cast to the output type."""
+    r = lambda t: t.to(torch.bfloat16).float()
+    v = r(v)
+    c = r(v * _BF16_QUICK)
+    c = r(torch.exp(-c))
+    c = r(1.0 + c)
+    c = r(1.0 / c)
+    return v * c
+
+
+_BF16_QUICK = 1.703125       # 1.702 rounded to bf16
+
 ACT_DTYPES = (torch.float32, torch.bfloat16)
+# the activations the CUDA kernels evaluate in their fc1 epilogue, and
+# their flag bit (bit 0 of the kernels' flags is the bf16 act_dtype)
+CUDA_ACTIVATIONS = {"gelu": 0, "quick_gelu": 2}
 
 
 def _activate(h: torch.Tensor, activation: str, act_dtype) -> torch.Tensor:
@@ -116,6 +145,8 @@ def _activate(h: torch.Tensor, activation: str, act_dtype) -> torch.Tensor:
         return _kernel_activation(activation)(h)
     if activation == "gelu":
         return gelu_tanh_bf16(h)
+    if activation == "quick_gelu":
+        return quick_gelu_bf16(h)
     return _kernel_activation(activation)(h.to(torch.bfloat16)).float()
 
 
@@ -204,9 +235,7 @@ def fused_ln_mlp(x: torch.Tensor, ln_scale, ln_bias, w1, b1, w2, b2,
         raise ValueError(f"no kernel for device {x.device}")
     if act_dtype not in ACT_DTYPES:
         raise ValueError(f"act_dtype must be one of {ACT_DTYPES}, got {act_dtype}")
-    if activation != "gelu":
-        raise ValueError(f"the CUDA kernel evaluates gelu only, got "
-                         f"{activation!r}")
+    act = _cuda_act_flags(activation, act_dtype)
     if x.dim() != 2:
         raise ValueError(f"x must be (T, d), got {tuple(x.shape)}")
     T, d = x.shape
@@ -233,12 +262,20 @@ def fused_ln_mlp(x: torch.Tensor, ln_scale, ln_bias, w1, b1, w2, b2,
     with torch.cuda.device(x.device):
         err = fn(x.data_ptr(), ln_scale.data_ptr(), ln_bias.data_ptr(),
                  w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
-                 h1.data_ptr(), out.data_ptr(), T, d, m,
-                 int(act_dtype == torch.bfloat16), float(eps), stream)
+                 h1.data_ptr(), out.data_ptr(), T, d, m, act, float(eps), stream)
     _build.check(err, "fused_ln_mlp")
     global LAUNCHES
     LAUNCHES += 1
     return out
+
+
+def _cuda_act_flags(activation: str, act_dtype) -> int:
+    """The kernels' activation flags, or raise for an activation they do
+    not evaluate."""
+    if activation not in CUDA_ACTIVATIONS:
+        raise ValueError(f"the CUDA kernel evaluates {sorted(CUDA_ACTIVATIONS)} "
+                         f"only, got {activation!r}")
+    return CUDA_ACTIVATIONS[activation] | int(act_dtype == torch.bfloat16)
 
 
 def _argtypes():
@@ -295,9 +332,7 @@ def fused_ln_mlp_int8(x: torch.Tensor, ln_scale, ln_bias, w1_q, w1_scale, b1,
         raise ValueError(f"no kernel for device {x.device}")
     if act_dtype not in ACT_DTYPES:
         raise ValueError(f"act_dtype must be one of {ACT_DTYPES}, got {act_dtype}")
-    if activation != "gelu":
-        raise ValueError(f"the CUDA kernel evaluates gelu only, got "
-                         f"{activation!r}")
+    act = _cuda_act_flags(activation, act_dtype)
     if x.dim() != 2:
         raise ValueError(f"x must be (T, d), got {tuple(x.shape)}")
     T, d = x.shape
@@ -332,8 +367,7 @@ def fused_ln_mlp_int8(x: torch.Tensor, ln_scale, ln_bias, w1_q, w1_scale, b1,
     with torch.cuda.device(dev):
         err = fn(*(t.data_ptr() for t in (
             x, ln_scale, ln_bias, w1_q, w1_scale, b1, w2_q, w2_scale, b2,
-            hq, hs, h1, q2, s2, out)), T, d, m,
-            int(act_dtype == torch.bfloat16), float(eps), stream)
+            hq, hs, h1, q2, s2, out)), T, d, m, act, float(eps), stream)
     _build.check(err, "fused_ln_mlp_int8")
     global INT8_LAUNCHES
     INT8_LAUNCHES += 1

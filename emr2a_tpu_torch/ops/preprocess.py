@@ -38,9 +38,22 @@ class PreprocessSpec:
     std: Tuple[float, float, float] = (0.26862954, 0.26130258, 0.27577711)
 
 
+# HF CLIPProcessor geometry + OpenAI CLIP statistics.
+CLIP_PREPROCESS = PreprocessSpec()
 # open_clip default transform (BiomedCLIP): HF CLIPProcessor geometry and
 # OpenAI CLIP statistics.
 BIOMEDCLIP_PREPROCESS = PreprocessSpec()
+# HF ViTImageProcessor: exact resize, 0.5 statistics, bilinear.
+VIT_PREPROCESS = PreprocessSpec(shortest_edge=False, method="bilinear",
+                                mean=(0.5, 0.5, 0.5), std=(0.5, 0.5, 0.5))
+# timm vit_base_patch16_224 (augreg): crop_pct 0.9 -> resize 248, crop 224.
+TIMM_VIT_PREPROCESS = PreprocessSpec(resize_size=248, mean=(0.5, 0.5, 0.5),
+                                     std=(0.5, 0.5, 0.5))
+# DINOv3 (DINOv3ViTImageProcessorFast defaults): exact 224 x 224 resize,
+# bilinear, ImageNet statistics, no crop.
+DINOV3_PREPROCESS = PreprocessSpec(shortest_edge=False, method="bilinear",
+                                   mean=(0.485, 0.456, 0.406),
+                                   std=(0.229, 0.224, 0.225))
 
 
 def _keys_cubic(x: torch.Tensor) -> torch.Tensor:

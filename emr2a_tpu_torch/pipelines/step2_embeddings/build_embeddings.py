@@ -4,14 +4,19 @@ Port of ``emr2a_tpu/pipelines/step2_embeddings/build_embeddings.py`` with
 the same CLI and artifacts: ``embeddings.npz`` keyed by patient_id with one
 slice-embedding matrix per patient, and ``embeddings_meta.json``
 {num_patients, patients, embedding_dim}. Failed patients are logged and
-skipped. Differences: ``--device`` defaults to ``cuda``; ``--fast`` is the
-bf16 tower on the hand-written CUDA kernels (K1, K3) and ``--fast int8``
-the W8A8 tower on theirs (K2, K4); ``--data_parallel`` raises (one GPU, no
-mesh); the JAX compile-cache flag is gone (eager PyTorch has no compile
-step to cache).
+skipped. Every ``--encoder_type`` builds through ``encoders.create_encoder``
+as in JAX: ``vit`` (timm ViT-B/16) and ``dino`` (DINOv3 ViT-L/16) take
+random weights without ``--model_path``; ``clip``, ``biomedclip`` and the
+Qwen types need one. Differences: ``--device`` defaults to ``cuda``;
+``--fast`` is the bf16 tower, whose blocks run the hand-written CUDA kernels
+(K1, K3) where the reference's rule admits them (ViT, BioMedCLIP, CLIP
+ViT-B; DINOv3 is the dtype cut), and ``--fast int8`` the W8A8 tower (K2, K4;
+DINOv3's projections on K5); the Qwen types refuse ``--fast``, as in JAX;
+``--data_parallel`` raises (one GPU, no mesh); the JAX compile-cache flag is
+gone (eager PyTorch has no compile step to cache).
 
     python -m emr2a_tpu_torch.pipelines.step2_embeddings.run \\
-        --encoder_type biomedclip --fast int8 --device cuda --model_path <ckpt>
+        --encoder_type vit --fast int8 --device cuda
 """
 
 from __future__ import annotations
@@ -48,7 +53,8 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--fast", nargs="?", const="bf16", default=None,
                         choices=["bf16", "int8"],
                         help="'--fast' = bf16 tower on the fused CUDA "
-                             "kernels (biomedclip); '--fast int8' = W8A8 "
+                             "kernels (vit, biomedclip, clip; dino: bf16); "
+                             "'--fast int8' = W8A8 "
                              "tower on the int8 kernels")
     return parser
 

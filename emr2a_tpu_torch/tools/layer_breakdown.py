@@ -115,14 +115,12 @@ def _image_tower(num_layers: Optional[int], device: torch.device):
     """BioMedCLIP's image tower, bf16 with the fused blocks, random weights
     from seed 0 (the script's tower is flax-initialised from PRNGKey(0):
     the two packages' random towers differ)."""
-    from emr2a_tpu_torch.encoders.biomedclip_encoder import (
-        _fast_config,
-        default_biomedclip_config,
-    )
+    from emr2a_tpu_torch.encoders.biomedclip_encoder import default_biomedclip_config
+    from emr2a_tpu_torch.encoders.jit_encoder import fast_config
     from emr2a_tpu_torch.models.clip import BioMedCLIPImageTower, init_tower
 
-    config = _fast_config(dataclasses.replace(default_biomedclip_config(),
-                                              text=None))
+    config = fast_config(dataclasses.replace(default_biomedclip_config(),
+                                             text=None))
     if num_layers is not None:
         config = dataclasses.replace(config, vision=dataclasses.replace(
             config.vision, num_layers=num_layers))

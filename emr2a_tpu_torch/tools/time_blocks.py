@@ -1,8 +1,9 @@
 """Time the tower's fused blocks on the card: K1 (``fused_ln_mlp``, also with
-``act_dtype=bf16``), K2 (``fused_ln_mlp_int8``, also with
-``act_dtype=bf16``), K3 (``fused_ln_attention``), K3m (its
-``merge_batch=True`` schedule, block_b 4) and K4
-(``fused_ln_attention_int8``).
+``act_dtype=bf16`` and with CLIP's quick_gelu), K2 (``fused_ln_mlp_int8``,
+also with ``act_dtype=bf16`` and with quick_gelu at ViT-L/14-336's width),
+K3 (``fused_ln_attention``), K3m (its ``merge_batch=True`` schedule,
+block_b 4) and K4 (``fused_ln_attention_int8``, also at ViT-L/14-336's
+width).
 
     python -m emr2a_tpu_torch.tools.time_blocks [--kernels k2,k4] [--out FILE]
 
@@ -11,7 +12,10 @@ Shapes: the main path's, at BioMedCLIP ViT-B/16 width (d = 768, m = 3,072,
 200 (K1 and K2 at T = 6,400), the layer breakdown's B = 96 x 200 (T =
 19,200) and the tower's throughput batch of 128 at S = 197 (T = 25,216);
 K1's and K2's bf16 gelu at the first two, K2 at the first and the
-last. At each shape the kernel is held against its plain version (atol =
+last; K1 with quick_gelu (CLIP ViT-B/16) at the first; K2 with quick_gelu
+and K4 at CLIP ViT-L/14-336's width (d = 1,024, m = 4,096, 16 heads,
+valid_len 577) at a batch of 8 images padded to S = 584 (``k2_quick_gelu``,
+``k4_clip_l``). At each shape the kernel is held against its plain version (atol =
 rtol = 1e-2 and row cosine >= 0.9999 on the valid rows; K3m bit for bit
 against K3), then timed with ``time_linears.timings`` (median and
 quartiles of 100 single launches, each with the wrapper's host work, and
@@ -53,6 +57,11 @@ D, M, H, VALID = 768, 3072, 12, 197
 # (B, S) of step2's device batch, the layer breakdown and the tower's batch
 SHAPES = ((32, 200), (96, 200), (128, 197))
 BLOCK_B = 4
+# (d, m, heads, valid_len) of each width, and the (B, S) timed there
+WIDTHS = {"vit_b": ((D, M, H, VALID), SHAPES),
+          "clip_l": ((1024, 4096, 16, 577), ((8, 584),))}
+# the kernels timed at CLIP ViT-L/14-336's width; the rest at ViT-B's
+CLIP_L_KERNELS = ("k2_quick_gelu", "k4_clip_l")
 
 
 def bound(nbytes: float, ops=()) -> dict:
@@ -82,20 +91,21 @@ def close(got: torch.Tensor, want: torch.Tensor) -> float:
     return (got - want).abs().max().item()
 
 
-def operands(seed: int = 0) -> dict:
-    """Seeded bf16 block weights at ViT-B width, their W8A8 codes (quantized
-    on the card, as ``fast="int8"`` does) and one (B, S, d) input per shape
-    of SHAPES."""
+def operands(seed: int = 0, width: str = "vit_b") -> dict:
+    """Seeded bf16 block weights at ``width`` (ViT-B by default), their W8A8
+    codes (quantized on the card, as ``fast="int8"`` does) and one (B, S,
+    d) input per shape timed there."""
     from emr2a_tpu_torch.models.quantize import quantize_weight_int8_torch
 
+    (d, m, heads, valid), shapes = WIDTHS[width]
     g = torch.Generator(device="cuda").manual_seed(seed)
 
     def rn(*shape, std=1.0):
         return (torch.randn(*shape, generator=g, device="cuda") * std).to(torch.bfloat16)
 
-    ln = ((1.0 + rn(D, std=0.1).float()).to(torch.bfloat16), rn(D, std=0.1))
-    mlp_w = (rn(D, M, std=0.02), rn(M, std=0.02), rn(M, D, std=0.02), rn(D, std=0.02))
-    attn_w = [rn(D, D, std=0.02) if i % 2 == 0 else rn(D, std=0.02) for i in range(8)]
+    ln = ((1.0 + rn(d, std=0.1).float()).to(torch.bfloat16), rn(d, std=0.1))
+    mlp_w = (rn(d, m, std=0.02), rn(m, std=0.02), rn(m, d, std=0.02), rn(d, std=0.02))
+    attn_w = [rn(d, d, std=0.02) if i % 2 == 0 else rn(d, std=0.02) for i in range(8)]
     attn_q, mlp_q = [], []
     for i in (0, 2, 4, 6):
         q, s = quantize_weight_int8_torch(attn_w[i])
@@ -103,17 +113,17 @@ def operands(seed: int = 0) -> dict:
     for i in (0, 2):
         q, s = quantize_weight_int8_torch(mlp_w[i])
         mlp_q += [q, s.reshape(-1), mlp_w[i + 1]]
-    xs = {shape: rn(*shape, D) for shape in SHAPES}
+    xs = {shape: rn(*shape, d) for shape in shapes}
     return {"ln": ln, "mlp": mlp_w, "mlp_q": mlp_q, "attn": attn_w, "attn_q": attn_q,
-            "x": xs}
+            "x": xs, "dims": (d, m, heads, valid)}
 
 
-def plain_bf16_mlp(x2, ln, w):
+def plain_bf16_mlp(x2, ln, w, activation: str = "gelu"):
     """The block in plain bf16 PyTorch (cuBLAS products), a yardstick."""
-    from emr2a_tpu_torch.ops.mlp import gelu_tanh
+    from emr2a_tpu_torch.ops.mlp import _kernel_activation
     w1, b1, w2, b2 = w
     h = torch.nn.functional.layer_norm(x2, (x2.shape[-1],), ln[0], ln[1], 1e-6)
-    return x2 + (gelu_tanh(h @ w1 + b1) @ w2 + b2)
+    return x2 + (_kernel_activation(activation)(h @ w1 + b1) @ w2 + b2)
 
 
 def plain_bf16_attention(x, ln, w, heads: int, valid_len: int):
@@ -186,32 +196,36 @@ def block_record(kernel: str, shape, ops: dict, plain: bool) -> dict:
     from emr2a_tpu_torch.ops import attention_block, mlp
 
     B, S = shape
+    D, M, H, VALID = ops["dims"]
     x = ops["x"][shape]
     ln, mw, aw, aq = ops["ln"], ops["mlp"], ops["attn"], ops["attn_q"]
     x2 = x.reshape(B * S, D)
     rows = slice(None)
     extra = {}
-    if kernel in ("k2", "k2_bf16_gelu"):
+    activation = "quick_gelu" if kernel.endswith("quick_gelu") else "gelu"
+    if kernel.startswith("k2"):
         act = torch.bfloat16 if kernel == "k2_bf16_gelu" else torch.float32
         mq = ops["mlp_q"]
-        fn = lambda: mlp.fused_ln_mlp_int8(x2, *ln, *mq, act_dtype=act)
-        ref = lambda: mlp.fused_ln_mlp_int8_reference(x2, *ln, *mq, act_dtype=act)
+        fn = lambda: mlp.fused_ln_mlp_int8(x2, *ln, *mq, activation=activation, act_dtype=act)
+        ref = lambda: mlp.fused_ln_mlp_int8_reference(x2, *ln, *mq, activation=activation,
+                                                      act_dtype=act)
         yard = int_mm_version(mlp, ref, mq[0::3])
         bnd = bound(nbytes(x2, *ln, *mq) + nbytes(x2), [("int8", 4 * B * S * D * M)])
         # f32 h1 written and read back, its codes q2 written and read back
         extra["h1_floor_ms"] = B * S * M * (2 * 4 + 2) / HBM_BYTES_PER_S * 1e3
         tag = f"T={B * S}, {D}->{M}->{D}"
-    elif kernel in ("k1", "k1_bf16_gelu"):
+    elif kernel.startswith("k1"):
         act = torch.bfloat16 if kernel == "k1_bf16_gelu" else torch.float32
-        fn = lambda: mlp.fused_ln_mlp(x2, *ln, *mw, act_dtype=act)
-        ref = lambda: mlp.fused_ln_mlp_reference(x2, *ln, *mw, act_dtype=act)
-        yard = lambda: plain_bf16_mlp(x2, ln, mw)
+        fn = lambda: mlp.fused_ln_mlp(x2, *ln, *mw, activation=activation, act_dtype=act)
+        ref = lambda: mlp.fused_ln_mlp_reference(x2, *ln, *mw, activation=activation,
+                                                 act_dtype=act)
+        yard = lambda: plain_bf16_mlp(x2, ln, mw, activation)
         bnd = bound(nbytes(x2, *ln, *mw) + nbytes(x2), [("bf16", 4 * B * S * D * M)])
         tag = f"T={B * S}, {D}->{M}->{D}"
     else:
         attn_ops = 4 * B * H * S * VALID * (D // H)
         rows = slice(0, VALID)
-        if kernel == "k4":
+        if kernel.startswith("k4"):
             fn = lambda: attention_block.fused_ln_attention_int8(
                 x, *ln, *aq, num_heads=H, valid_len=VALID)
             ref = lambda: attention_block.fused_ln_attention_int8_reference(
@@ -250,7 +264,7 @@ def block_record(kernel: str, shape, ops: dict, plain: bool) -> dict:
     del got
     rec.update(_timed(fn))
     y = _timed(yard)
-    rec.update({"yardstick": "int_mm plain" if kernel in ("k2", "k2_bf16_gelu", "k4")
+    rec.update({"yardstick": "int_mm plain" if kernel[:2] in ("k2", "k4")
                 else "plain bf16",
                 "yardstick_ms": y["ms"], "yardstick_chained_ms": y["chained_ms"],
                 "yardstick_graph_ms": y["graph_ms"], **bnd, "library_ms": None,
@@ -358,28 +372,39 @@ def k3m_variants(ops: dict, rounds: int = 2) -> list:
     return out
 
 
-KERNELS = ("k1", "k1_bf16_gelu", "k2", "k2_bf16_gelu", "k3", "k3m", "k4")
+KERNELS = ("k1", "k1_bf16_gelu", "k2", "k2_bf16_gelu", "k3", "k3m", "k4",
+           "k1_quick_gelu", "k2_quick_gelu", "k4_clip_l")
 
 
 def shapes_of(kernel: str) -> tuple:
     """The (B, S) a kernel is timed at: K1's and K2's bf16 gelu at the first
     two of SHAPES (the second is the layer breakdown's, where they run), K2
-    at step2's and the tower's batch, the others at all three."""
+    at step2's and the tower's batch, K1's quick_gelu at step2's, the
+    ViT-L/14-336 kernels at their width's one shape, the others at all
+    three."""
+    if kernel in CLIP_L_KERNELS:
+        return WIDTHS["clip_l"][1]
     if kernel in ("k1_bf16_gelu", "k2_bf16_gelu"):
         return SHAPES[:2]
     if kernel == "k2":
         return SHAPES[0], SHAPES[2]
+    if kernel == "k1_quick_gelu":
+        return SHAPES[:1]
     return SHAPES
 
 
 def block_records(kernels=KERNELS, seed: int = 0) -> dict:
     """Every kernel of ``kernels`` at each of its shapes; the plain version
     timed at the first shape."""
-    ops = operands(seed)
+    ops = {}
     out = {}
     for kernel in kernels:
+        width = "clip_l" if kernel in CLIP_L_KERNELS else "vit_b"
+        if width not in ops:
+            ops[width] = operands(seed, width)
         shapes = shapes_of(kernel)
-        out[kernel] = [block_record(kernel, s, ops, plain=i == 0) for i, s in enumerate(shapes)]
+        out[kernel] = [block_record(kernel, s, ops[width], plain=i == 0)
+                       for i, s in enumerate(shapes)]
         torch.cuda.empty_cache()
     return out
 

@@ -16,10 +16,13 @@ streamed key count); K3m (the merged-batch LN+attention block) bit for bit
 against K3 at B = 1, 5, 128 and block_b 1, 3, 4, 8, at valid_len < S, S = 1,
 S = 384 and S = 577, and on its card schedule (the group from the SM count
 and L2 size, on two streams or one) at (32, 200), (96, 200), (128, 197),
-(2, 577), B = 37 and B < block_b, also replayed in a CUDA graph; K1 and K2 with act_dtype=bf16; K2's and K4's s8
+(2, 577), B = 37 and B < block_b, also replayed in a CUDA graph; K1 and K2 with act_dtype=bf16
+and with CLIP's quick_gelu (K2 at ViT-L/14-336's width, d = 1,024, m =
+4,096; its epilogues against their device functions); K2's and K4's s8
 products (the persistent s8 wgmma GEMM) bit for bit against torch._int_mm
 on the codes and scales the kernels leave in their scratch, at T = 1 to
-6,437 and at K4's edge shapes; the inputs the wrappers must
+6,437, at K4's edge shapes and at ViT-L/14-336's (8, 584, 1,024), 16 heads,
+valid_len 577; the inputs the wrappers must
 refuse, and the launch counters. Each test skips without a CUDA card. On the card (the suite's
 conftest imports JAX, which that machine lacks):
 
@@ -121,8 +124,8 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
                          *margs[4:])
     with pytest.raises(ValueError, match="divisible by 128"):
         mlp.fused_ln_mlp(*_mlp_args(gen, 64, 192, 512))
-    with pytest.raises(ValueError, match="gelu only"):
-        mlp.fused_ln_mlp(*margs, activation="quick_gelu")
+    with pytest.raises(ValueError, match="only, got 'silu'"):
+        mlp.fused_ln_mlp(*margs, activation="silu")
 
 
 # -- K3m: the merged-batch schedule of K3 ------------------------------------
@@ -291,6 +294,84 @@ def test_act_bf16_gelu_epilogues_equal_gelu_tanh_bf16_bit_for_bit(cuda):
     assert not torch.equal(got[0][1], got[1][1])
 
 
+# -- K1 and K2 with CLIP's quick_gelu ---------------------------------------
+
+@pytest.mark.parametrize("act_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("T", [1, 300, 6400])
+def test_quick_gelu_kernels_match_plain(cuda, T, act_dtype):
+    """K1 at CLIP ViT-B/16's width and K2 at ViT-L/14-336's, with
+    ``activation="quick_gelu"``, against their plain versions."""
+    gen = torch.Generator(device="cuda").manual_seed(T + 11)
+    args = _mlp_args(gen, T, 768, 3072)
+    before = mlp.LAUNCHES
+    got = mlp.fused_ln_mlp(*args, activation="quick_gelu", act_dtype=act_dtype)
+    torch.cuda.synchronize()
+    assert mlp.LAUNCHES == before + 1
+    _assert_matches(got, mlp.fused_ln_mlp_reference(*args, activation="quick_gelu",
+                                                     act_dtype=act_dtype))
+    assert not torch.equal(got, mlp.fused_ln_mlp(*args, act_dtype=act_dtype))
+    args8 = _mlp8_args(gen, T, 1024, 4096)
+    before = mlp.INT8_LAUNCHES
+    got = mlp.fused_ln_mlp_int8(*args8, activation="quick_gelu", act_dtype=act_dtype)
+    torch.cuda.synchronize()
+    assert mlp.INT8_LAUNCHES == before + 1
+    _assert_matches(got, mlp.fused_ln_mlp_int8_reference(*args8, activation="quick_gelu",
+                                                          act_dtype=act_dtype))
+
+
+def test_quick_gelu_epilogues_equal_their_device_functions(cuda):
+    """As the gelu check above, with the quick_gelu flag: K1's and K2's bf16
+    epilogues equal ``quick_gelu_bf16``'s device function
+    (``emr2a_activation_values``) bit for bit, and the plain version within
+    one bf16 ulp; the f32 epilogues within 2^-20 of ``x *
+    torch.sigmoid(1.702 x)`` (the accurate expf, a division)."""
+    import ctypes
+
+    import numpy as np
+
+    from emr2a_tpu_torch.ops import _build
+    T, d, m, bf = 4, 128, 400_000, torch.bfloat16
+    v = torch.from_numpy((np.random.RandomState(3).randn(m) * 3).astype(np.float32)).to(bf)
+    x = _rn(torch.Generator(device="cuda").manual_seed(0), T, d)
+    ln_s, ln_b = torch.ones(d, device=cuda, dtype=bf), torch.zeros(d, device=cuda, dtype=bf)
+    b1, b2 = v.to(cuda), torch.zeros(d, device=cuda, dtype=bf)
+    stream = torch.cuda.current_stream().cuda_stream
+    p, i = ctypes.c_void_p, ctypes.c_int
+    ptrs = lambda *ts: [t.data_ptr() for t in ts]
+    k1 = _build.kernel_function("emr2a_fused_ln_mlp", mlp._argtypes())
+    k2 = _build.kernel_function("emr2a_fused_ln_mlp_int8",
+                                [p] * 15 + [i, i, i, i, ctypes.c_float, p])
+    values = _build.kernel_function("emr2a_activation_values", [p, p, i, i, p])
+    w1, w2 = torch.zeros(d, m, device=cuda, dtype=bf), torch.zeros(m, d, device=cuda, dtype=bf)
+    w1q, w2q = w1.to(torch.int8), w2.to(torch.int8)
+    w1s, w2s = torch.ones(m, device=cuda), torch.ones(d, device=cuda)
+    for act in (3, 2):
+        h1, h1_8 = torch.empty(T, m, device=cuda, dtype=bf), torch.empty(T, m, device=cuda)
+        _build.check(k1(*ptrs(x, ln_s, ln_b, w1, b1, w2, b2, h1, torch.empty_like(x)),
+                        T, d, m, act, 1e-6, stream), "fused_ln_mlp")
+        scratch = (torch.empty(T, d, device=cuda, dtype=torch.int8),
+                   torch.empty(T, device=cuda), h1_8,
+                   torch.empty(T, m, device=cuda, dtype=torch.int8),
+                   torch.empty(T, device=cuda), torch.empty_like(x))
+        _build.check(k2(*ptrs(x, ln_s, ln_b, w1q, w1s, b1, w2q, w2s, b2, *scratch),
+                        T, d, m, act, 1e-6, stream), "fused_ln_mlp_int8")
+        device_fn = torch.empty(m, device=cuda)
+        vf = b1.float()
+        _build.check(values(vf.data_ptr(), device_fn.data_ptr(), m, act, stream),
+                     "activation_values")
+        torch.cuda.synchronize()
+        if act == 3:
+            assert torch.equal(h1, device_fn.to(bf).expand(T, m))
+            assert torch.equal(h1_8, device_fn.expand(T, m))
+            plain = mlp.quick_gelu_bf16(vf)
+            torch.testing.assert_close(device_fn, plain, rtol=2 ** -7, atol=2 ** -20)
+        else:
+            plain = vf * torch.sigmoid(1.702 * vf)
+            torch.testing.assert_close(h1_8, plain.expand(T, m), rtol=2 ** -20, atol=2 ** -20)
+            torch.testing.assert_close(h1.float(), plain.to(bf).float().expand(T, m),
+                                       rtol=2 ** -7, atol=2 ** -20)
+
+
 # -- W8A8: the row quantize, K5, K2, K4 ------------------------------------
 
 def _w8(gen, K, N, std=0.02):
@@ -325,7 +406,12 @@ def test_quantize_rows_codes_equal_plain(cuda, dtype, rows, K):
                                    (31, 3072, 768), (300, 768, 3072), (1100, 4096, 1024),
                                    (2048, 4096, 4096), (8192, 3072, 3072), (1, 12288, 1024),
                                    (16, 12288, 1024), (1, 4096, 12288), (3, 160, 256),
-                                   (40, 160, 256)])
+                                   (40, 160, 256),
+                                   # the encoder zoo's: DINOv3 ViT-L at 16 x 201 tokens,
+                                   # CLIP ViT-L/14-336's vision at 8 x 584, its text at 8 x 77
+                                   (3216, 1024, 1024), (3216, 1024, 4096), (3216, 4096, 1024),
+                                   (4672, 1024, 1024), (616, 768, 768), (616, 768, 3072),
+                                   (616, 3072, 768)])
 @pytest.mark.parametrize("use_bias", [True, False])
 def test_linear_w8a8_kernel_equals_plain(cuda, T, K, N, use_bias):
     gen = torch.Generator(device="cuda").manual_seed(T + K)
@@ -388,7 +474,7 @@ def _mlp8_args(gen, T, d, m):
 
 
 @pytest.mark.parametrize("T,d,m", [(1, 768, 3072), (7, 768, 3072), (300, 768, 3072),
-                                   (6437, 768, 3072), (129, 256, 512)])
+                                   (6437, 768, 3072), (129, 256, 512), (4672, 1024, 4096)])
 def test_fused_ln_mlp_int8_kernel_matches_plain(cuda, T, d, m):
     args = _mlp8_args(torch.Generator(device="cuda").manual_seed(T), T, d, m)
     args[0][0] = 0.0                                    # an all-zero row
@@ -411,7 +497,7 @@ def _attn8_args(gen, B, S, d):
 @pytest.mark.parametrize("B,S,d,H,valid_len", [
     (1, 17, 128, 2, 13), (3, 50, 768, 12, 50), (32, 200, 768, 12, 197),
     (1, 384, 256, 4, 300), (2, 8, 768, 12, 1), (1, 385, 256, 4, 300),
-    (2, 577, 768, 12, 570), (2, 260, 256, 4, 257),
+    (2, 577, 768, 12, 570), (2, 260, 256, 4, 257), (8, 584, 1024, 16, 577),
 ])
 def test_fused_ln_attention_int8_kernel_matches_plain(cuda, B, S, d, H, valid_len):
     args = _attn8_args(torch.Generator(device="cuda").manual_seed(S), B, S, d)
@@ -451,9 +537,9 @@ def _rescale(acc, row_scale, w_scale, bias):
     return (y + bias.float()).to(torch.bfloat16)
 
 
-@pytest.mark.parametrize("act_bf16", [0, 1])
+@pytest.mark.parametrize("act_bf16", [0, 1, 2, 3])     # the kernel's flags: 2 = quick_gelu
 @pytest.mark.parametrize("T,d,m", [(1, 768, 3072), (7, 768, 3072), (300, 768, 3072),
-                                   (6437, 768, 3072), (129, 256, 512)])
+                                   (6437, 768, 3072), (129, 256, 512), (4672, 1024, 4096)])
 def test_fused_ln_mlp_int8_products_equal_int_mm(cuda, T, d, m, act_bf16):
     import ctypes
     from emr2a_tpu_torch.ops import _build
@@ -482,11 +568,14 @@ def test_fused_ln_mlp_int8_products_equal_int_mm(cuda, T, d, m, act_bf16):
     pre = _int_mm(hq, w1q).float() * hs.reshape(-1, 1)
     pre = pre * w1s.reshape(1, -1)
     pre = pre + b1.float()
+    quick = act_bf16 & 2
+    act, act_bf16 = ("quick_gelu" if quick else "gelu"), act_bf16 & 1
+    exact = mlp.quick_gelu_bf16 if quick else mlp.gelu_tanh_bf16
     if act_bf16:
-        assert torch.equal(h1, mlp.gelu_tanh_bf16(pre)), \
-            (h1 - mlp.gelu_tanh_bf16(pre)).abs().max()
+        assert torch.equal(h1, exact(pre)), (h1 - exact(pre)).abs().max()
     else:
-        torch.testing.assert_close(h1, mlp.gelu_tanh(pre), rtol=2 ** -20, atol=2 ** -20)
+        f32 = mlp._kernel_activation(act)
+        torch.testing.assert_close(h1, f32(pre), rtol=2 ** -20, atol=2 ** -20)
     # h1's codes are the row quantize's of the h1 scratch
     q2_want, s2_want = quant.quantize_rows_s8_reference(h1)
     assert torch.equal(q2, q2_want) and torch.equal(s2, s2_want.reshape(-1))
@@ -494,13 +583,13 @@ def test_fused_ln_mlp_int8_products_equal_int_mm(cuda, T, d, m, act_bf16):
     assert torch.equal(out, want), (out.float() - want.float()).abs().max()
     if act_bf16:                                        # so the whole block is the plain one's
         assert torch.equal(out, mlp.fused_ln_mlp_int8_reference(
-            x, s, b, w1q, w1s, b1, w2q, w2s, b2, act_dtype=torch.bfloat16))
+            x, s, b, w1q, w1s, b1, w2q, w2s, b2, activation=act, act_dtype=torch.bfloat16))
 
 
 @pytest.mark.parametrize("B,S,d,H,valid_len", [
     (1, 17, 128, 2, 13), (3, 50, 768, 12, 50), (32, 200, 768, 12, 197),
     (1, 384, 256, 4, 300), (2, 8, 768, 12, 1), (1, 385, 256, 4, 300),
-    (2, 577, 768, 12, 570), (2, 260, 256, 4, 257),
+    (2, 577, 768, 12, 570), (2, 260, 256, 4, 257), (8, 584, 1024, 16, 577),
 ])
 def test_fused_ln_attention_int8_products_equal_int_mm_bit_for_bit(cuda, B, S, d, H,
                                                                    valid_len):
@@ -565,8 +654,8 @@ def test_int8_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     margs = list(_mlp8_args(gen, 16, 768, 3072))
     with pytest.raises(TypeError, match="float32"):
         mlp.fused_ln_mlp_int8(*margs[:4], margs[4].to(torch.bfloat16), *margs[5:])
-    with pytest.raises(ValueError, match="gelu only"):
-        mlp.fused_ln_mlp_int8(*margs, activation="quick_gelu")
+    with pytest.raises(ValueError, match="only, got 'relu'"):
+        mlp.fused_ln_mlp_int8(*margs, activation="relu")
     x, s, b, *ws4 = _attn8_args(gen, 2, 16, 768)
     with pytest.raises(ValueError, match="contiguous"):
         attention_block.fused_ln_attention_int8(

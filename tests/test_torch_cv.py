@@ -317,7 +317,15 @@ def test_missing_matplotlib_skips_only_the_png(dataset, tmp_path, monkeypatch, c
 
 def test_vlm_review_and_unported_encoders_raise(dataset, tmp_path, monkeypatch):
     """``--vlm_review`` runs (``judge/review.py`` is ported; its output is
-    held against JAX's below); an encoder family not ported yet raises."""
+    held against JAX's below). Every encoder family is ported: the default
+    ``--text_encoder qwen3_vl_8b`` without a model path raises JAX's
+    ``ValueError`` in both drivers (JAX's passes no path, so every
+    checkpoint-only encoder raises there), and a ``dino`` image encoder (a
+    random tower, small in both packages) encodes the cohort."""
+    import dataclasses
+
+    import emr2a_tpu.encoders.dino_encoder as jax_dino
+    import emr2a_tpu_torch.encoders.dino_encoder as port_dino
     monkeypatch.chdir(tmp_path)
     base = ["--manifest_path", str(dataset), "--output_dir", str(tmp_path / "out"),
             "--image_encoder", "fake", "--text_encoder", "fake",
@@ -325,10 +333,25 @@ def test_vlm_review_and_unported_encoders_raise(dataset, tmp_path, monkeypatch):
     port_runner.main(base + ["--vlm_review", "--vlm_model_path", "fake"])
     review = json.loads((tmp_path / "out" / "exp_vr" / "vlm_review_summary.json").read_text())
     assert len(review["vlm_predictions"]) == 24
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        port_runner.load_or_encode_embeddings(
-            [], port_runner.BaseConfig(), "dino", "fake", "cpu", 4,
-            fusion="image_only")
+    errors = []
+    for runner in (jax_runner, port_runner):
+        with pytest.raises(ValueError) as e:
+            runner.load_or_encode_embeddings(
+                [], runner.BaseConfig(), "fake", "qwen3_vl_8b", "cpu", 4,
+                fusion="text_only")
+        errors.append(str(e.value))
+    assert errors[0] == errors[1] == "Qwen3VLEncoder needs model_path or (config, params)"
+    from emr2a_tpu_torch.data.manifest import load_manifest
+    manifest = load_manifest(dataset)[:4]
+    dims = []
+    for runner, mod in ((jax_runner, jax_dino), (port_runner, port_dino)):
+        monkeypatch.setattr(mod, "DINOV3_VITL16", dataclasses.replace(
+            mod.DINOV3_VITL16, hidden_size=64, num_layers=1, num_heads=2, mlp_dim=128))
+        out = runner.load_or_encode_embeddings(
+            manifest, runner.BaseConfig(), "dino", "fake", "cpu", 4, fusion="image_only")
+        assert sorted(out) == sorted(r["patient_id"] for r in manifest)
+        dims.append({v["image"].shape for v in out.values()})
+    assert dims[0] == dims[1] == {(64,)}
 
 
 REVIEW_SCRIPT = ["PJP,0.85,covered", "Viral,0.6,uncovered",

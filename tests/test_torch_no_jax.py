@@ -5,8 +5,9 @@ last four): in a fresh interpreter, import every module of
 fake-encoder step2 CLI, the step3 CLI (``--device cpu``), the database CLI
 (``build`` and ``query --cpu``), the CV runner (``--device cpu``, fake
 encoders, ``--vlm_review`` with the fake judge), the step4 CLI on its fold files (``--model_path fake``,
-``--device cpu``) and the layer-breakdown tool (``--device cpu``, ``tune
---merge_batch``), then check that no module of jax, jaxlib, flax, optax,
+``--device cpu``), the layer-breakdown tool (``--device cpu``, ``tune
+--merge_batch``) and every encoder of the zoo at a small width (ViT, DINOv3
+and CLIP in f32 and W8A8, Qwen3-VL's taps and text mean), then check that no module of jax, jaxlib, flax, optax,
 sklearn, pandas, transformers, safetensors or ``emr2a_tpu`` was
 imported."""
 
@@ -26,6 +27,8 @@ import emr2a_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(emr2a_tpu_torch.__path__,
                                                "emr2a_tpu_torch.")]
 assert "emr2a_tpu_torch.judge.review" in names
+assert {"emr2a_tpu_torch.encoders.vit_encoder", "emr2a_tpu_torch.encoders.clip_encoder",
+        "emr2a_tpu_torch.encoders.dino_encoder", "emr2a_tpu_torch.models.dinov3"} <= set(names)
 for name in names:
     importlib.import_module(name)
 manifest, out, data_root = sys.argv[1], sys.argv[2], sys.argv[3]
@@ -58,6 +61,50 @@ step4_main(["--exp_dir", out + "/cv/exp_nj", "--manifest_path", manifest,
 from emr2a_tpu_torch.tools.layer_breakdown import main as lb_main
 lb_main(["--device", "cpu", "--what", "tune", "--merge_batch", "--batch", "1",
          "--iters", "1"])
+import dataclasses
+import numpy as np
+from emr2a_tpu_torch.encoders import CLIPEncoder, DINOEncoder, Qwen3VLEncoder, ViTEncoder
+from emr2a_tpu_torch.encoders.qwen3_vl_encoder import make_image_processor
+from emr2a_tpu_torch.models import qwen3_vl as pq
+from emr2a_tpu_torch.models.clip import CLIPConfig
+from emr2a_tpu_torch.models.dinov3 import DINOv3Config
+from emr2a_tpu_torch.models.text import CLIPTextConfig
+from emr2a_tpu_torch.models.vit import CLIP_VIT_B16_VISION, TIMM_VIT_B16
+
+class Tok:
+    def __call__(self, texts, max_length=16, return_tensors="np", **kw):
+        one = isinstance(texts, str)
+        ids = np.full((1 if one else len(texts), max_length), 99, np.int64)
+        ids[:, :3] = [98, 7, 99]
+        return {"input_ids": ids[:, :5] if one else ids, "attention_mask": np.ones_like(ids)}
+
+img = [np.full((40, 40, 3), 90, np.uint8)]
+small = dict(patch_size=32, hidden_size=64, num_layers=1, num_heads=2, mlp_dim=128)
+text = CLIPTextConfig(vocab_size=100, max_length=16, hidden_size=64, num_layers=1,
+                      num_heads=2, mlp_dim=128, eos_token_id=99)
+shapes = []
+for fast in (False, "int8"):
+    shapes.append(ViTEncoder(config=dataclasses.replace(TIMM_VIT_B16, **small), device="cpu",
+                             fast=fast).encode_batch_images(img)[0].shape)
+    shapes.append(DINOEncoder(config=DINOv3Config(hidden_size=64, num_layers=1, num_heads=2,
+                                                  mlp_dim=128),
+                              device="cpu", fast=fast).encode_batch_images(img)[0].shape)
+    clip = CLIPEncoder.random_init(CLIPConfig(
+        vision=dataclasses.replace(CLIP_VIT_B16_VISION, **small), text=text, projection_dim=32),
+        tokenizer=Tok(), device="cpu", fast=fast)
+    shapes += [clip.encode_batch_images(img)[0].shape, clip.encode_batch_texts(["a"])[0].shape]
+qcfg = pq.Qwen3VLConfig(
+    vision=pq.QwenVisionConfig(depth=2, hidden_size=32, intermediate_size=64, num_heads=2,
+                               patch_size=4, out_hidden_size=48, num_position_embeddings=64,
+                               deepstack_visual_indexes=(0,)),
+    text=pq.QwenTextConfig(vocab_size=200, hidden_size=48, num_layers=1, num_heads=4,
+                           num_kv_heads=2, head_dim=12, intermediate_size=96,
+                           mrope_section=(2, 2, 2)))
+qwen = Qwen3VLEncoder(config=qcfg, params=pq.random_state(qcfg, device="cpu"), device="cpu",
+                      tokenizer=Tok(), image_processor=make_image_processor(
+                          qcfg.vision, min_pixels=16, max_pixels=4096))
+shapes += [qwen.encode_batch_images(img)[0].shape, qwen.encode_batch_texts(["a"])[0].shape]
+print("ENCODERS", shapes)
 loaded = sorted(
     m for m in sys.modules
     if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "sklearn",
@@ -113,3 +160,5 @@ def test_port_imports_no_jax(tmp_path):
     step3 = json.loads((tmp_path / "out" / "step3" / "retrieval_results.json").read_text())
     assert "image_top1" in step3
     assert "merge=True" in proc.stdout
+    assert ("ENCODERS [(64,), (64,), (32,), (32,), (64,), (64,), (32,), (32,), (32,), (48,)]"
+            in proc.stdout), proc.stdout[-2000:]

@@ -186,11 +186,34 @@ def test_step2_cli_fake_encoder_matches_jax(tmp_path):
             == (tmp_path / "jax" / "embeddings_meta.json").read_bytes())
 
 
-def test_step2_cli_rejects_unported_choices(cohort, tmp_path):
+def test_step2_cli_rejects_unported_choices(cohort, tmp_path, monkeypatch):
+    """Every encoder type is ported: the CLI raises where JAX's raises, with
+    JAX's exception and message (``clip`` without a checkpoint, a Qwen type
+    with ``--fast``), and the default ``vit`` (a random tower, here at a
+    small width in both packages) writes the cohort's artifacts.
+    ``--data_parallel`` has no one-GPU counterpart and exits."""
+    import dataclasses
+
+    import emr2a_tpu.encoders.vit_encoder as jax_vit
+    import emr2a_tpu_torch.encoders.vit_encoder as port_vit
     root, _ = cohort
-    args = ["--manifest_path", str(root / "manifest.jsonl"),
-            "--device", "cpu", "--output_dir", str(tmp_path)]
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        step2.main(args + ["--encoder_type", "clip"])
+    args = ["--manifest_path", str(root / "manifest.jsonl"), "--device", "cpu"]
+    for extra in (["--encoder_type", "clip"], ["--encoder_type", "qwen3_vl", "--fast"],
+                  ["--encoder_type", "qwen3_vl_2b"]):
+        errors = []
+        for module in (jax_step2, step2):
+            with pytest.raises(ValueError) as e:
+                module.main(args + ["--output_dir", str(tmp_path / "x")] + extra)
+            errors.append(str(e.value))
+        assert errors[0] == errors[1], extra
     with pytest.raises(SystemExit):
-        step2.main(args + ["--encoder_type", "fake", "--data_parallel"])
+        step2.main(args + ["--output_dir", str(tmp_path), "--encoder_type", "fake",
+                           "--data_parallel"])
+    for mod in (jax_vit, port_vit):
+        monkeypatch.setattr(mod, "TIMM_VIT_B16", dataclasses.replace(
+            mod.TIMM_VIT_B16, patch_size=32, hidden_size=64, num_layers=1,
+            num_heads=2, mlp_dim=128))
+    step2.main(args + ["--output_dir", str(tmp_path / "vit")])      # the default type
+    npz = np.load(tmp_path / "vit" / "embeddings.npz")
+    assert npz.files == ["P000", "P001", "P002"]
+    assert all(npz[p].shape == (5, 64) and np.isfinite(npz[p]).all() for p in npz.files)
