@@ -81,8 +81,14 @@ Phases, each of which fails the run (non-zero exit) if it fails:
 12. Judge: Qwen3-VL-8B at full width (random weights, seed 0, on the card)
     in bf16, int8 and int4 (``QwenVLBackend``): one 7-image audit request
     of the cohort each, with every vision block on K8 and every decoder
-    projection on K5 (int8) or K7 (int4); prefill and decode times (CUDA
-    events) and peak memory; the K5 / K7 calls of one more decode step and
+    projection on K5 (int8) or K7 (int4), every decode step but the first
+    replayed from a CUDA graph (the launch counts and decoder forwards
+    include the replays); prefill time, decode ms a step eager and replayed
+    from the graph from the same state (CUDA events; equal tokens, and one
+    replayed step equal to the eager step bit for bit: KV cache, logits,
+    tokens), the kernel launches a token and the replayed steps' busy share
+    (``torch.profiler``), and peak memory; the K5 / K7 calls of one more
+    decode step and
     the device launches their kernel library issued for them: one GEMV
     launch a call, with no separate row quantize. Then the same weights cut to 2 vision blocks
     and 2 text layers, last-position prefill logits on the card against
@@ -100,7 +106,26 @@ Phases, each of which fails the run (non-zero exit) if it fails:
     support, the same tokens for the same seed. Then step4
     (``run_vlm_audit_pipeline``) on the cohort's CV experiment with the
     int4 judge: 4 cases, 64 new tokens, both artifacts, every case through
-    K7 and K8; and the CV runner's ``_run_vlm_review`` (the G2 review) on
+    K7 and K8. Then serving: the 12 audit requests of the cohort's CV folds
+    (new-token budgets 16 to 64, two sampled) on the int4 and the bf16
+    judge, one at a time (``generate``), in static batches of 8
+    (``generate_batch``) and through continuous batching at 4 and 8 slots
+    (``generate_stream``): host wall, cases/s and tokens/s of each, every
+    run's K7 / K8 launches equal to its replayed and prefilled forwards, and
+    the host ms of its graph captures; each greedy request's batched stream
+    equal to the one at a time, or its first difference a near-tie (the
+    B = 1 top-two logit gap within 0.75 in int4, 0.2 in bf16; the B = 1
+    logits rebuilt on the generator must choose the one-at-a-time token),
+    and the static batch rebuilt there choosing the batch's token at each
+    first difference, its distance from the B = 1 logits printed; the
+    8-slot wave served again on the kept slot state and graphs, every
+    stream equal to the first wave's and its first replayed chunk step bit
+    for bit equal to the eager step; on the int4 judge a wave on a fresh
+    state with every draw, one per slot a step and one per insert, inside
+    its filtered support (counted on the card, in the graph); step4
+    with ``vlm_batch_size=4`` and with ``serving="continuous"`` (artifacts'
+    rows, launches); the JSONL serve CLI on a file with a bad line and a
+    missing image. Last, the CV runner's ``_run_vlm_review`` (the G2 review) on
     the cohort's CV folds with the int4 judge passed in through
     ``VLMReviewModule(backend=...)``: 2 reviews, new tokens capped at 32,
     every review's text generated, K7 on every decoder forward (a review's
@@ -178,6 +203,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from emr2a_tpu_torch.tools.profile_judge import SERVING_BUDGETS
 from emr2a_tpu_torch.tools.time_blocks import bound, close, nbytes
 from emr2a_tpu_torch.tools.time_linears import timing_text, timings
 
@@ -1449,11 +1475,33 @@ def judge_kernel_phase(card: str) -> list:
     return records
 
 
-def count_calls(module) -> list:
-    """A one-element counter of ``module``'s forward calls (and the hook)."""
-    n = [0]
-    hook = module.register_forward_pre_hook(lambda mod, args, *kw: n.__setitem__(0, n[0] + 1))
-    return [n, hook]
+class ForwardCount:
+    """``module``'s forwards since this count began, read as ``.n``: its
+    eager calls (a pre-hook, which ignores the calls a CUDA graph capture
+    makes: they launch nothing) plus the forwards that graph replays ran
+    (``models/cuda_graph.replayed_forwards``)."""
+
+    def __init__(self, module):
+        from emr2a_tpu_torch.models.cuda_graph import replayed_forwards
+        self.module, self.eager = module, 0
+        self.base = replayed_forwards(module)
+        self.hook = module.register_forward_pre_hook(self._seen)
+
+    def _seen(self, *args):
+        if not torch.cuda.is_current_stream_capturing():
+            self.eager += 1
+
+    @property
+    def n(self) -> int:
+        from emr2a_tpu_torch.models.cuda_graph import replayed_forwards
+        return self.eager + replayed_forwards(self.module) - self.base
+
+    def remove(self) -> None:
+        self.hook.remove()
+
+
+def nonzero(launches: dict) -> dict:
+    return {k: v for k, v in launches.items() if v}
 
 
 def check_launches(tag: str, launches: dict, want: dict) -> None:
@@ -1489,6 +1537,90 @@ def judge_bounds(model, prec: str, padded: int, grids, max_len: int) -> dict:
             "decode": bound(nbytes(*lm.values()) + cache)}
 
 
+def decode_timings(gen, state, steps: int, tag: str) -> dict:
+    """``steps`` decode steps from ``state`` (a ``DecodeState`` with room
+    for 2 * steps + 1), eagerly and replayed from a CUDA graph (the
+    generator's path), each timed with CUDA events from the same start
+    (the step counter, tokens and done flags put back; the KV rows the
+    steps rewrite get the same values): the tokens must be equal and one
+    more replayed step must equal the same step run eagerly on a copy of
+    the state, bit for bit (``cuda_graph.replay_matches_eager``). Launches
+    a token: the kernels of one profiled eager step (a replay launches the
+    same ones); busy share: the profiled device time of the replayed steps
+    over their wall (the eager step's device time where the profiler does
+    not see a graph's kernels)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from emr2a_tpu_torch.models.cuda_graph import StepGraph, replay_matches_eager
+    from emr2a_tpu_torch.tools.profile_judge import _self_device_us
+    token0, done0 = state.token.clone(), state.done.clone()
+
+    def reset():
+        state.step.zero_()
+        state.token.copy_(token0)
+        state.done.copy_(done0)
+
+    def timed(run) -> float:
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        reset()
+        torch.cuda.synchronize()
+        ev[0].record()
+        run()
+        ev[1].record()
+        ev[1].synchronize()
+        return ev[0].elapsed_time(ev[1]) / steps
+
+    def eager():
+        for _ in range(steps):
+            gen.decode_step(state)
+
+    eager_ms = timed(eager)
+    eager_tokens = state.out[:, :steps].clone()
+    runner = StepGraph(gen.decode_step, state, state.token.device)
+    reset()
+    runner.run(2)                       # the warm-up, the capture, one replay
+    graph_ms = timed(lambda: runner.run(steps))
+    if not torch.equal(state.out[:, :steps], eager_tokens):
+        fail(f"judge {tag}: the graph's tokens differ from the eager steps'")
+    diffs = replay_matches_eager(runner)
+    if diffs:
+        fail(f"judge {tag}: a replayed decode step differs from the eager step in {diffs}")
+
+    def device_ms(prof) -> tuple:
+        us = [(_self_device_us(e), e.count) for e in prof.key_averages()]
+        return sum(u for u, _ in us if u > 0) / 1e3, sum(n for u, n in us if u > 0)
+
+    reset()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        gen.decode_step(state)
+        torch.cuda.synchronize()
+    step_device_ms, launches = device_ms(prof)
+    reset()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        runner.run(steps)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    graph_device_ms = device_ms(prof)[0]
+    traced = graph_device_ms > 0
+    busy = (graph_device_ms if traced else step_device_ms * steps) / wall
+    out = {"eager_ms": eager_ms, "graph_ms": graph_ms, "capture_ms": runner.capture_ms,
+           "launches_per_token": launches,
+           "step_device_ms": step_device_ms, "busy_share": busy,
+           "busy_from": "graph replays" if traced else "eager step's device time",
+           "bit_identical": True}
+    print(f"judge {tag} decode at B = 1: eager {eager_ms:.3f} ms/step, CUDA graph "
+          f"{graph_ms:.3f} ms/step (CUDA events, {steps} steps each, equal tokens; the "
+          f"warm-up step and capture {runner.capture_ms:.1f} ms, host clock; one "
+          f"replayed step equal to the eager step bit for bit: cache, logits, tokens); "
+          f"{launches} kernel launches a token; device {step_device_ms:.3f} ms a step; "
+          f"busy share of the replayed steps {busy:.3f} (from the {out['busy_from']})",
+          flush=True)
+    return out
+
+
 def decode_step_kernels(step) -> dict:
     """The K5 / K7 wrapper calls one call of ``step`` (a decode step) makes,
     and the device launches their kernel library issues for them, by kind
@@ -1512,8 +1644,8 @@ def judge_request(prec: str, backend, request: dict, card: str, tag: str = None)
     tag = tag or prec
     gen = backend.generator
     model = backend.model
-    n_text, h_text = count_calls(model.language_model)
-    n_vis, h_vis = count_calls(model.visual)
+    n_text = ForwardCount(model.language_model)
+    n_vis = ForwardCount(model.visual)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
@@ -1524,48 +1656,46 @@ def judge_request(prec: str, backend, request: dict, card: str, tag: str = None)
     wall = time.time() - t0
     launches = read_counts()
     peak = torch.cuda.max_memory_allocated()
-    h_text.remove()
-    h_vis.remove()
+    n_text.remove()
+    n_vis.remove()
     n_proj = 7 * len(model.language_model.layers)
     kernel = {"int8": "linear_w8a8", "int4": "linear_w4a8"}.get(prec)
-    want = {"frame_flash_attention": len(model.visual.blocks) * n_vis[0]}
+    want = {"frame_flash_attention": len(model.visual.blocks) * n_vis.n}
     if kernel:
-        want[kernel] = n_proj * n_text[0]
+        want[kernel] = n_proj * n_text.n
     check_launches(f"judge {tag}", launches, want)
-    if n_vis[0] != 1 or not isinstance(text, str):
-        fail(f"judge {tag}: {n_vis[0]} vision forwards, output {type(text)}")
+    if n_vis.n != 1 or not isinstance(text, str):
+        fail(f"judge {tag}: {n_vis.n} vision forwards, output {type(text)}")
 
     ids, patches, grids = backend._prepare(request["images"], request["prompt"],
                                            request["system"])
     with torch.inference_mode():
         ids_t, pos_t, tl, patches_t, padded = gen.device_inputs(
             np.asarray([ids]), patches, tuple(grids), backend.prompt_bucket)
-        max_len = padded + DECODE_TOKENS + 1     # one more step, profiled
-        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
         torch.cuda.synchronize()
         ev[0].record()
-        cache, logits, npb = gen._prefill(ids_t, pos_t, tl, patches_t, tuple(grids),
-                                          padded, max_len)
+        gen._prefill(ids_t, pos_t, tl, patches_t, tuple(grids), padded,
+                     padded + 2 * DECODE_TOKENS + 2)
         ev[1].record()
-        token = torch.argmax(logits, dim=-1)
-        for i in range(DECODE_TOKENS):
-            logits, cache = gen._decode_step(cache, token, i, padded, max_len, tl, npb)
-            token = torch.argmax(logits, dim=-1)
-        ev[2].record()
-        ev[2].synchronize()
-        kernels = decode_step_kernels(lambda: gen._decode_step(
-            cache, token, DECODE_TOKENS, padded, max_len, tl, npb))
-    if not torch.isfinite(logits.float()).all():
+        ev[1].synchronize()
+        state = gen.start(np.asarray([ids]), patches, tuple(grids), 2 * DECODE_TOKENS + 2,
+                          prompt_bucket=backend.prompt_bucket)
+        decode = decode_timings(gen, state, DECODE_TOKENS, tag)
+        kernels = decode_step_kernels(lambda: gen.decode_step(state))
+    if not torch.isfinite(state.logits.float()).all():
         fail(f"judge {tag}: non-finite logits")
+    max_len = state.max_len
     tree = sum(t.numel() * t.element_size() for t in
                {t.data_ptr(): t for t in model.state_dict().values()}.values())
     bounds = judge_bounds(model, prec, padded, grids, max_len)
     out = {"prefill_ms": ev[0].elapsed_time(ev[1]),
-           "decode_ms_per_token": ev[1].elapsed_time(ev[2]) / DECODE_TOKENS,
+           "decode_ms_per_token": decode["eager_ms"], "graph_ms_per_token": decode["graph_ms"],
+           "decode": decode,
            "prefill_bound": bounds["prefill"], "decode_bound": bounds["decode"],
            "prompt_tokens": len(ids), "padded": padded, "wall_s": wall,
            "peak_gib": peak / 2**30, "tree_gib": tree / 2**30, "launches": launches,
-           "forwards": n_text[0], "decode_kernels_per_token": kernels}
+           "forwards": n_text.n, "decode_kernels_per_token": kernels}
     if kernel and not (kernels[f"{kernel} calls"] >= n_proj
                        and kernels[f"{kernel} GEMV"] == kernels[f"{kernel} calls"]
                        and sum(kernels.values()) == 2 * kernels[f"{kernel} calls"]):
@@ -1573,10 +1703,11 @@ def judge_request(prec: str, backend, request: dict, card: str, tag: str = None)
              f"should be one GEMV launch")
     print(f"judge {tag}: {len(request['images'])} images, {len(ids)} prompt tokens "
           f"(bucket {padded}); generate {DECODE_TOKENS} tokens in {wall:.2f} s "
-          f"(host clock, {n_text[0]} decoder forwards); prefill "
+          f"(host clock, {n_text.n} decoder forwards); prefill "
           f"{out['prefill_ms']:.3f} ms (bound {bounds['prefill']['bound_ms']:.3f}, "
           f"{bounds['prefill']['bound_by']}), decode {out['decode_ms_per_token']:.3f} "
-          f"ms/token (bound {bounds['decode']['bound_ms']:.3f}, bytes) (CUDA events, "
+          f"ms/token eager, {out['graph_ms_per_token']:.3f} replayed from a CUDA graph "
+          f"(bound {bounds['decode']['bound_ms']:.3f}, bytes) (CUDA events, "
           f"{DECODE_TOKENS} steps); peak memory {out['peak_gib']:.2f} GiB with the "
           f"three trees resident (this tree {out['tree_gib']:.2f} GiB); launches "
           f"{launches}; one more decode step's K5/K7 calls and device launches "
@@ -1614,7 +1745,7 @@ def reduced_depth_check(cfg, state: dict, images: list, card: str) -> None:
                 kw = ({"kv_dtype": "int8"} if "kv_dtype" in opt else
                       {"prefill_chunk": padded // 2} if "prefill_chunk" in opt else {})
                 gen = Qwen3VLGenerator(be.model, **kw)
-                n_text, hook = count_calls(be.model.language_model)
+                n_text = ForwardCount(be.model.language_model)
                 if dev == "cuda":
                     torch.cuda.synchronize()
                     reset_counts()
@@ -1622,16 +1753,16 @@ def reduced_depth_check(cfg, state: dict, images: list, card: str) -> None:
                     inputs = gen.device_inputs(np.asarray([ids]), patches, tuple(grids), 16)
                     _, last, _ = gen._prefill(*inputs[:4], tuple(grids), inputs[4],
                                               inputs[4] + 1)
-                hook.remove()
+                n_text.remove()
                 logits[prec + opt, dev] = last[0].float().cpu()
                 if dev == "cuda":
                     torch.cuda.synchronize()
                     kernel = {"int8": "linear_w8a8", "int4": "linear_w4a8"}.get(prec)
                     want = {"frame_flash_attention": 2,
-                            **({kernel: 14 * n_text[0]} if kernel else {})}
+                            **({kernel: 14 * n_text.n} if kernel else {})}
                     check_launches(f"reduced-depth {prec}{opt}", read_counts(), want)
-                    if n_text[0] != (2 if "prefill_chunk" in kw else 1):
-                        fail(f"reduced-depth {prec}{opt}: {n_text[0]} decoder passes")
+                    if n_text.n != (2 if "prefill_chunk" in kw else 1):
+                        fail(f"reduced-depth {prec}{opt}: {n_text.n} decoder passes")
             del be
 
     def agreement(a, b, prec):
@@ -1816,6 +1947,35 @@ def qwen_encoder_phase(work: Path, manifest_path: Path, cfg, state: dict, model,
     return {"Qwen3VLEncoder": launches}
 
 
+def support_check(sample):
+    """``sample`` (``qwen3_vl.sample_rows``) wrapped to count, on the
+    device (so that a CUDA graph captures the count with the step and every
+    replay runs it): the draws, those outside their step's filtered support
+    (``filtered_log_probs`` of the very logits they were drawn from), and
+    the least and most tokens a sampled row's support kept. Returns
+    (wrapped, stats)."""
+    from emr2a_tpu_torch.models import qwen3_vl
+
+    stats = {k: torch.zeros((), dtype=torch.int64, device="cuda")
+             for k in ("draws", "outside", "kept_max")}
+    stats["kept_min"] = torch.full((), 10**9, dtype=torch.int64, device="cuda")
+
+    def checked(logits, keys, temp, top_p):
+        tok = sample(logits, keys, temp, top_p)
+        lp = qwen3_vl.filtered_log_probs(logits, temp, top_p)
+        kept = torch.isfinite(lp).sum(dim=-1)
+        sampled = temp > 0
+        stats["draws"] += tok.shape[0]
+        stats["outside"] += (~torch.isfinite(lp.gather(1, tok[:, None]))).sum()
+        torch.minimum(stats["kept_min"], torch.where(sampled, kept, 10**9).min(),
+                       out=stats["kept_min"])
+        torch.maximum(stats["kept_max"], torch.where(sampled, kept, 0).max(),
+                      out=stats["kept_max"])
+        return tok
+
+    return checked, stats
+
+
 def sampled_phase(backend, request: dict, card: str) -> dict:
     """A sampled generation on ``backend`` (the int4 judge), the audit
     request, temperature 0.7, top_p 0.9, seed SAMPLED_SEED, twice: every
@@ -1828,17 +1988,10 @@ def sampled_phase(backend, request: dict, card: str) -> dict:
     ids, patches, grids = backend._prepare(request["images"], request["prompt"],
                                            request["system"])
     real = qwen3_vl.sample_rows
-    kept, outside = [], []
-
-    def checked(logits, rng, temp, top_p):
-        tok = real(logits, rng, temp, top_p)
-        lp = qwen3_vl.filtered_log_probs(logits, temp, top_p)
-        kept.append(int(torch.isfinite(lp).sum()))
-        outside.append(int((~torch.isfinite(lp.gather(1, tok[:, None]))).sum()))
-        return tok
-
-    n_text, h_text = count_calls(backend.model.language_model)
-    n_vis, h_vis = count_calls(backend.model.visual)
+    checked, stats = support_check(real)
+    gen.release()           # a kept graph of this shape would not run the check
+    n_text = ForwardCount(backend.model.language_model)
+    n_vis = ForwardCount(backend.model.visual)
     torch.cuda.synchronize()
     reset_counts()
     qwen3_vl.sample_rows = checked
@@ -1849,21 +2002,24 @@ def sampled_phase(backend, request: dict, card: str) -> dict:
                                 prompt_bucket=backend.prompt_bucket) for _ in range(2)]
     finally:
         qwen3_vl.sample_rows = real
+        gen.release()
     torch.cuda.synchronize()
     launches = read_counts()
-    h_text.remove()
-    h_vis.remove()
+    n_text.remove()
+    n_vis.remove()
     check_launches("sampled", launches, {
-        "frame_flash_attention": len(backend.model.visual.blocks) * n_vis[0],
-        "linear_w4a8": 7 * len(backend.model.language_model.layers) * n_text[0]})
-    if len(kept) != 2 * (SAMPLED_TOKENS + 1) or sum(outside):
-        fail(f"sampled: {sum(outside)} tokens outside their filtered support "
-             f"({len(kept)} draws)")
+        "frame_flash_attention": len(backend.model.visual.blocks) * n_vis.n,
+        "linear_w4a8": 7 * len(backend.model.language_model.layers) * n_text.n})
+    draws, outside = int(stats["draws"]), int(stats["outside"])
+    if draws != 2 * (SAMPLED_TOKENS + 1) or outside:
+        fail(f"sampled: {outside} tokens outside their filtered support "
+             f"({draws} draws)")
     if not np.array_equal(streams[0], streams[1]):
         fail("sampled: the same seed gave other tokens")
     print(f"sampled (int4 judge, temperature 0.7, top_p 0.9, seed {SAMPLED_SEED}): "
-          f"{SAMPLED_TOKENS} tokens twice, equal; every one of {len(kept)} draws inside "
-          f"its filtered support ({min(kept)} to {max(kept)} tokens kept of top-k "
+          f"{SAMPLED_TOKENS} tokens twice, equal; every one of {draws} draws inside "
+          f"its filtered support ({int(stats['kept_min'])} to {int(stats['kept_max'])} "
+          f"tokens kept of top-k "
           f"{qwen3_vl.SAMPLE_TOP_K}); tokens {streams[0][0].tolist()}; launches "
           f"{launches} ({card})", flush=True)
     return launches
@@ -1901,8 +2057,8 @@ def review_phase(work: Path, manifest_path: Path, backend, card: str) -> dict:
     args = argparse.Namespace(vlm_model_path=None, device="cuda", vlm_prompt=None,
                               output_dir=str(work / "review"))
     capped = CappedBackend(backend)
-    n_text, h_text = count_calls(backend.model.language_model)
-    n_vis, h_vis = count_calls(backend.model.visual)
+    n_text = ForwardCount(backend.model.language_model)
+    n_vis = ForwardCount(backend.model.visual)
     torch.cuda.synchronize()
     reset_counts()
     t0 = time.time()
@@ -1912,26 +2068,401 @@ def review_phase(work: Path, manifest_path: Path, backend, card: str) -> dict:
     torch.cuda.synchronize()
     wall = time.time() - t0
     launches = read_counts()
-    h_text.remove()
-    h_vis.remove()
+    n_text.remove()
+    n_vis.remove()
     # one montage a request is one frame, which the vision tower (as JAX's)
     # attends on its flat path, not K8's frame batch
     check_launches("review", launches, {
-        "linear_w4a8": 7 * len(backend.model.language_model.layers) * n_text[0]})
+        "linear_w4a8": 7 * len(backend.model.language_model.layers) * n_text.n})
     evidence = sorted(p.name for p in (work / "review" / "exp_cohort" / "vlm_review").iterdir())
-    if (len(capped.texts) != REVIEW_SAMPLES or n_vis[0] != REVIEW_SAMPLES
+    if (len(capped.texts) != REVIEW_SAMPLES or n_vis.n != REVIEW_SAMPLES
             or not all(isinstance(t, str) and t.strip() for t in capped.texts)
             or len(review["vlm_predictions"]) != REVIEW_SAMPLES
             or evidence != [f"evidence_{i}" for i in range(REVIEW_SAMPLES)]):
         fail(f"review: {len(capped.texts)} outputs {[len(t) for t in capped.texts]} chars, "
-             f"{n_vis[0]} vision forwards, evidence {evidence}")
+             f"{n_vis.n} vision forwards, evidence {evidence}")
     print(f"review (_run_vlm_review, int4 judge, max_new_tokens capped at "
           f"{REVIEW_NEW_TOKENS} of 512): {REVIEW_SAMPLES} reviews in {wall:.2f} s (host "
           f"clock), every one generated text ({[len(t.split()) for t in capped.texts]} "
           f"words); predictions {review['vlm_predictions']}, agreement_rate "
-          f"{review['agreement_rate']}; {n_text[0]} decoder forwards; launches {launches} "
+          f"{review['agreement_rate']}; {n_text.n} decoder forwards; launches {launches} "
           f"({card})", flush=True)
     return launches
+
+
+# The serving phase's workload: the 12 audit requests of the cohort's CV
+# folds with SERVING_BUDGETS' new-token budgets (heterogeneous, so that
+# slots refill), the last two drawn at temperature 0.7, top_p 0.9 (seed 0,
+# as QwenVLBackend.generate draws them)
+SERVING_SAMPLED = (10, 11)
+SERVING_MAX_NEW = 64
+SERVING_SUPPORT_WAVE = slice(6, 12)   # the int4 wave whose draws are checked
+
+
+def fold_requests(work: Path, manifest_path: Path) -> list:
+    """The audit requests of the cohort's CV folds (the card's run), built
+    as step4 builds them: each fold's test patients with their stored top
+    neighbours, the majority label as the prediction."""
+    from collections import Counter
+
+    from emr2a_tpu_torch.data.manifest import load_manifest
+    from emr2a_tpu_torch.judge.audit import VLMAuditModule
+    from emr2a_tpu_torch.judge.backends import FakeVLMBackend
+    from emr2a_tpu_torch.pipelines.step4_vlm_review.run import (
+        load_retrieval_results_from_folds,
+    )
+
+    data = load_retrieval_results_from_folds(work / "cv" / "cuda" / "exp_cohort", 100)
+    manifest = load_manifest(manifest_path)
+    by_id = {r["patient_id"]: r for r in manifest}
+    audit = VLMAuditModule(backend=FakeVLMBackend())
+    requests = []
+    for pid, labels, scores, pids in zip(data["test_patient_ids"], data["all_top_labels"],
+                                         data["all_top_scores"],
+                                         data["all_top_patient_ids"]):
+        neighbors = [(n, label, float(score)) for label, score, n in zip(labels, scores, pids)]
+        evidence = audit.construct_evidence_package(by_id[pid], neighbors, manifest, work)
+        requests.append(audit._build_audit_request(
+            evidence, Counter(labels).most_common(1)[0][0]))
+    return requests
+
+
+def generate_steps(backend, max_new: int) -> int:
+    """The steps (and so the cache length) of the backend's generations
+    of ``max_new`` tokens: whole decode chunks."""
+    chunk = backend.decode_chunk
+    return -(-max_new // chunk) * chunk if chunk else max_new
+
+
+def b1_logits(backend, request: dict, indices: set) -> dict:
+    """{k: the B = 1 greedy logits (f32, on the card) that chose token k of
+    ``request``'s one-at-a-time stream (the prefill's for token 0)} for
+    each k in ``indices``: the generation rebuilt on the generator (the
+    same inputs, steps and cache length), stepped one replay at a time
+    (bit for bit its eager steps, ``decode_timings``)."""
+    from emr2a_tpu_torch.models.cuda_graph import StepGraph
+    gen = backend.generator
+    ids, patches, grids = backend._prepare(request["images"], request["prompt"],
+                                           request["system"])
+    out = {}
+    with torch.inference_mode():
+        state = gen.start(np.asarray([ids]), patches, tuple(grids),
+                          generate_steps(backend, request["max_new_tokens"]),
+                          prompt_bucket=backend.prompt_bucket)
+        runner = StepGraph(gen.decode_step, state, state.token.device)
+        for k in range(max(indices) + 1):
+            runner.run(1 if k else 0)
+            if k in indices:
+                out[k] = state.logits[0].to(torch.float32, copy=True)
+    return out
+
+
+def top_two_gap(logits: torch.Tensor) -> float:
+    top = torch.topk(logits, 2).values
+    return float(top[0] - top[1])
+
+
+def static_batch_logits(backend, requests: list, row_steps: dict) -> dict:
+    """A second witness of ``generate_batch``: its static batch of
+    ``requests`` rebuilt on the generator (the same inputs, steps and
+    cache length), stepped one replay at a time; {row: the f32 logits that
+    chose token ``row_steps[row]`` of that row}."""
+    from emr2a_tpu_torch.models.cuda_graph import StepGraph
+    gen = backend.generator
+    out = {}
+    with torch.inference_mode():
+        state = gen.start(**backend.batch_inputs(requests),
+                          steps=generate_steps(backend, SERVING_MAX_NEW),
+                          prompt_bucket=backend.prompt_bucket)
+        runner = StepGraph(gen.decode_step, state, state.token.device)
+        for k in range(max(row_steps.values()) + 1):
+            runner.run(1 if k else 0)
+            for row, step in row_steps.items():
+                if step == k:
+                    out[row] = state.logits[row].to(torch.float32, copy=True)
+    return out
+
+
+def serving_run(tag: str, backend, fn, requests: list, prec: str) -> dict:
+    """One serving call with the counts reset just before: its token rows
+    (recorded from the backend's text decoding), host wall, launches, and
+    the K7 / K8 launches checked against the replayed and prefilled
+    forwards, and the graph captures it made (warm-up steps and captures,
+    host ms)."""
+    from emr2a_tpu_torch.models import cuda_graph
+    rows, host = [], [0.0]
+    decode_row, prepare = backend._decode_row, backend._prepare
+    backend._decode_row = lambda row: rows.append(np.asarray(row)) or decode_row(row)
+
+    def timed_prepare(*args):
+        t = time.perf_counter()
+        out = prepare(*args)
+        host[0] += time.perf_counter() - t
+        return out
+
+    backend._prepare = timed_prepare
+    n_text = ForwardCount(backend.model.language_model)
+    n_vis = ForwardCount(backend.model.visual)
+    torch.cuda.synchronize()
+    reset_counts()
+    captures, capture_ms = cuda_graph.CAPTURES, cuda_graph.CAPTURE_MS
+    t0 = time.perf_counter()
+    try:
+        texts = fn()
+    finally:
+        backend._decode_row, backend._prepare = decode_row, prepare
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    n_text.remove()
+    n_vis.remove()
+    want = {"frame_flash_attention": len(backend.model.visual.blocks) * n_vis.n}
+    if prec == "int4":
+        want["linear_w4a8"] = 7 * len(backend.model.language_model.layers) * n_text.n
+    check_launches(f"serving {prec} {tag}", launches, want)
+    if len(rows) != len(requests) or not all(isinstance(t, str) for t in texts):
+        fail(f"serving {prec} {tag}: {len(rows)} rows for {len(requests)} requests")
+    eos = backend.generator.eos_token_id
+    useful = 0
+    for row, req in zip(rows, requests):
+        row = row[:req["max_new_tokens"]]
+        stop = np.nonzero(row == eos)[0]
+        useful += int(stop[0]) + 1 if len(stop) else len(row)
+    return {"rows": rows, "wall_s": wall, "prepare_s": host[0], "launches": launches,
+            "captures": cuda_graph.CAPTURES - captures,
+            "capture_ms": cuda_graph.CAPTURE_MS - capture_ms, "forwards": n_text.n,
+            "vision_forwards": n_vis.n, "tokens": useful,
+            "tokens_per_s": useful / wall, "cases_per_s": len(requests) / wall}
+
+
+def support_wave(be, wave: list, batching, card: str) -> None:
+    """One continuous wave at 8 slots on a fresh slot state with the
+    batcher's draws counted on the device (``support_check``, captured with
+    the chunk step): every draw, greedy or sampled, inside its filtered
+    support, one per slot a step and one per insert."""
+    real = batching.sample_rows
+    checked, stats = support_check(real)
+    for b in be._batchers.values():
+        b.release()
+    batching.sample_rows = checked
+    try:
+        be.generate_stream(wave, max_new_tokens=SERVING_MAX_NEW, n_slots=8)
+        batcher = next(b for b in be._batchers.values() if b._runners)
+        steps = batcher._runners[True].steps
+    finally:
+        batching.sample_rows = real
+        for b in be._batchers.values():
+            b.release()
+    draws, outside = int(stats["draws"]), int(stats["outside"])
+    want = batcher.n_slots * steps + len(wave)
+    if draws != want or outside or int(stats["kept_max"]) < 2:
+        fail(f"serving support: {outside} of {draws} draws outside their filtered support "
+             f"(expected {want} draws; kept {int(stats['kept_min'])} to "
+             f"{int(stats['kept_max'])})")
+    print(f"serving int4 support wave ({len(wave)} requests, 2 sampled, 8 slots, fresh "
+          f"state): every one of {draws} draws inside its filtered support ({steps} chunk "
+          f"steps; a sampled row kept {int(stats['kept_min'])} to {int(stats['kept_max'])} "
+          f"tokens of top-k 50) ({card})", flush=True)
+
+
+def serving_phase(work: Path, manifest_path: Path, backends: dict, card: str) -> dict:
+    """Batched and continuous serving of the cohort's fold requests on the
+    int4 and the bf16 judge: one at a time (``generate``), static batches of
+    8 (``generate_batch``) and continuous batching at 4 and 8 slots
+    (``generate_stream``), each greedy request's stream against the one at
+    a time (equal, or a near-tie at the first difference, within the
+    precision's logit limit), the static batch's logits there read again
+    from a second witness; continuous 8 served again on the kept slot state
+    and graphs (every stream equal to the first wave's, the first replayed
+    chunk step equal to the eager step bit for bit); on the int4 judge a
+    wave with every draw checked inside its filtered support; step4 with
+    ``--vlm_batch_size 4`` and with ``--serving continuous``; the JSONL
+    service. Returns the launch counts by path, the rates and the peak
+    memory."""
+    from emr2a_tpu_torch.judge import serve
+    from emr2a_tpu_torch.models import serving as batching
+    from emr2a_tpu_torch.pipelines.step4_vlm_review.run import run_vlm_audit_pipeline
+
+    requests = fold_requests(work, manifest_path)
+    if len(requests) != len(SERVING_BUDGETS) or any(r is None for r in requests):
+        fail(f"serving: {len(requests)} fold requests, expected {len(SERVING_BUDGETS)}")
+    for i, r in enumerate(requests):
+        r["max_new_tokens"] = SERVING_BUDGETS[i]
+        if i in SERVING_SAMPLED:
+            r.update(temperature=0.7, top_p=0.9, seed=0)
+    greedy = [i for i in range(len(requests)) if i not in SERVING_SAMPLED]
+    torch.cuda.reset_peak_memory_stats()
+    counts, rates = {}, {}
+    for prec in ("int4", "bf16"):
+        be, limit = backends[prec], MAX_LOGIT_ABS_ERR[prec]
+
+        def continuous(n_slots):
+            return lambda: be.generate_stream(requests, max_new_tokens=SERVING_MAX_NEW,
+                                              n_slots=n_slots)
+
+        def batcher8():
+            return next(b for k, b in be._batchers.items()
+                        if k[1:] == (8, SERVING_MAX_NEW))
+
+        modes = {
+            "one at a time": lambda: [be.generate(
+                r["images"], r["prompt"], system=r["system"],
+                max_new_tokens=r["max_new_tokens"],
+                temperature=r.get("temperature", 0.0), top_p=0.9) for r in requests],
+            "generate_batch 8": lambda: [t for lo in range(0, len(requests), 8)
+                                         for t in be.generate_batch(
+                                             requests[lo:lo + 8],
+                                             max_new_tokens=SERVING_MAX_NEW)],
+            "continuous 4": continuous(4),
+            "continuous 8": continuous(8),
+            "continuous 8 again": continuous(8)}
+        runs = {}
+        for tag, fn in modes.items():
+            runner = None
+            if tag == "continuous 8 again":
+                # the kept slot state and graph: the first replayed chunk
+                # step held against the eager step on a copy of the state
+                runner = batcher8()._runners[True]
+                runner.verify = True
+            runs[tag] = run = serving_run(tag, be, fn, requests, prec)
+            if runner is not None:
+                if runner.mismatches != [] or batcher8()._runners[True] is not runner \
+                        or run["captures"]:
+                    fail(f"serving {prec} {tag}: the replayed chunk step differs from the "
+                         f"eager step in {runner.mismatches}, or the wave captured "
+                         f"{run['captures']} graphs")
+                for i, req in enumerate(requests):
+                    n = req["max_new_tokens"]
+                    if not np.array_equal(run["rows"][i][:n], runs["continuous 8"]["rows"][i][:n]):
+                        fail(f"serving {prec} {tag}: request {i}'s stream differs from the "
+                             f"first wave's")
+        ref = runs["one at a time"]["rows"]
+        batched = [tag for tag in runs if tag not in ("one at a time", "continuous 8 again")]
+        first = {}      # (tag, request) -> its first token that differs from one at a time
+        for tag in batched:
+            for i in greedy:
+                n = requests[i]["max_new_tokens"]
+                diff = np.nonzero(runs[tag]["rows"][i][:n] != ref[i][:n])[0]
+                if len(diff):
+                    first[tag, i] = int(diff[0])
+        need = {}
+        for (_, i), k in first.items():
+            need.setdefault(i, set()).add(k)
+        b1 = {(i, k): lg for i, ks in need.items()
+              for k, lg in b1_logits(be, requests[i], ks).items()}
+        for (i, k), lg in b1.items():
+            if int(torch.argmax(lg)) != int(ref[i][k]):
+                fail(f"serving {prec}: request {i} rebuilt at B = 1 chose another token at "
+                     f"{k} than one at a time did")
+        for tag in batched:
+            ties = [(i, k, round(top_two_gap(b1[i, k]), 4))
+                    for (t, i), k in sorted(first.items()) if t == tag]
+            for i, k, gap in ties:
+                if gap > limit:
+                    fail(f"serving {prec} {tag}: request {i} differs from one at a time at "
+                         f"token {k}, where the B = 1 top-two gap is {gap:.4f} (limit {limit})")
+            runs[tag].update(equal=len(greedy) - len(ties), compared=len(greedy),
+                             near_ties=ties)
+        # the static batch's logits at each first difference, read again on
+        # the generator: they must choose the batch's token, and their
+        # distance from the B = 1 logits is what a near-tie has to absorb
+        drift = []
+        for lo in range(0, len(requests), 8):
+            rows = {i - lo: step for i, step, _ in runs["generate_batch 8"]["near_ties"]
+                    if lo <= i < lo + 8}
+            if not rows:
+                continue
+            witness = static_batch_logits(be, requests[lo:lo + 8], rows)
+            for row, step in rows.items():
+                i, w = lo + row, witness[row]
+                if int(torch.argmax(w)) != int(runs["generate_batch 8"]["rows"][i][step]):
+                    fail(f"serving {prec}: the static batch rebuilt chose another token for "
+                         f"request {i} at token {step} than generate_batch did")
+                drift.append((i, step, round(float((w - b1[i, step]).abs().max()), 4),
+                              round(top_two_gap(w), 4)))
+        sampled = [all(np.array_equal(runs[t]["rows"][i][:requests[i]["max_new_tokens"]],
+                                      ref[i]) for t in ("continuous 4", "continuous 8"))
+                   for i in SERVING_SAMPLED]
+        for tag, run in runs.items():
+            counts[f"serving {prec} {tag}"] = run["launches"]
+            rates[f"{prec} {tag}"] = {k: run[k] for k in (
+                "wall_s", "prepare_s", "tokens", "tokens_per_s", "cases_per_s", "forwards",
+                "captures", "capture_ms")}
+            extra = ("" if tag == "one at a time" else
+                     "; every stream equal to the first wave's, its first replayed chunk step "
+                     "equal to the eager step bit for bit" if tag == "continuous 8 again" else
+                     f"; {run['equal']} of {run['compared']} greedy streams equal to one at "
+                     f"a time, the others' first difference (request, token, B = 1 top-two "
+                     f"gap) {run['near_ties']}, all within {limit}")
+            print(f"serving {prec} {tag}: {len(requests)} cases in {run['wall_s']:.3f} s "
+                  f"(host clock; {run['prepare_s']:.3f} s of it in the backend's host "
+                  f"preprocessing, {run['capture_ms']:.1f} ms in {run['captures']} graph "
+                  f"warm-ups and captures): {run['cases_per_s']:.3f} cases/s, "
+                  f"{run['tokens']} tokens, {run['tokens_per_s']:.1f} tokens/s; "
+                  f"{run['forwards']} decoder forwards{extra}; launches "
+                  f"{nonzero(run['launches'])} ({card})", flush=True)
+        print(f"serving {prec}: the static batch of 8 rebuilt on the generator chose the "
+              f"batch's token at every first difference; (request, token, max |batch - "
+              f"B = 1| logit, batch top-two gap) {drift} ({card})", flush=True)
+        print(f"serving {prec}: the sampled requests' streams equal to one at a time's at "
+              f"4 and 8 slots: {sampled} (their logits differ in the last bits, as the "
+              f"greedy rows' do) ({card})", flush=True)
+        if prec == "int4":
+            support_wave(be, requests[SERVING_SUPPORT_WAVE], batching, card)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"serving: peak memory {peak:.2f} GiB with the three judges resident ({card})",
+          flush=True)
+
+    be = backends["int4"]
+    exp_dir = work / "cv" / "cuda" / "exp_cohort"
+    for tag, mode in (("static", dict(vlm_batch_size=4)),
+                      ("continuous", dict(vlm_batch_size=4, serving="continuous"))):
+        out = work / f"step4_{tag}"
+
+        def step4():
+            run_vlm_audit_pipeline(exp_dir, manifest_path, out, max_samples=STEP4_CASES,
+                                   backend=be, vlm_max_new_tokens=STEP4_NEW_TOKENS, **mode)
+            return [line for line in (out / "vlm_audit_details.jsonl").read_text().splitlines()]
+
+        run = serving_run(f"step4 {tag}", be, step4,
+                          [{"max_new_tokens": STEP4_NEW_TOKENS}] * STEP4_CASES, "int4")
+        summary = json.loads((out / "vlm_audit_summary.json").read_text())
+        details = (out / "vlm_audit_details.jsonl").read_text().splitlines()
+        if len(details) != STEP4_CASES or len(summary["audit_results"]) != STEP4_CASES:
+            fail(f"step4 {tag}: {len(details)} detail rows")
+        counts[f"step4_int4 {tag}"] = run["launches"]
+        print(f"step4 --vlm_batch_size 4{' --serving continuous' if 'serving' in mode else ''}"
+              f" (int4 judge): {STEP4_CASES} cases in {run['wall_s']:.2f} s (host clock); "
+              f"{run['forwards']} decoder forwards, {run['vision_forwards']} vision forwards; "
+              f"decisions {summary['audit_summary']}; launches {nonzero(run['launches'])} "
+              f"({card})",
+              flush=True)
+
+    images = requests[0]["images"][:2]
+    paths = [work / f"serve_{i}.png" for i in range(2)]
+    for img, path in zip(images, paths):
+        img.save(path)
+    inp, res = work / "serve_in.jsonl", work / "serve_out.jsonl"
+    inp.write_text("\n".join([
+        json.dumps({"id": "a", "prompt": "Is the label right?",
+                    "images": [str(p) for p in paths]}),
+        "not json {",
+        json.dumps({"id": "b", "prompt": "Describe the slice.", "images": [str(paths[0])],
+                    "temperature": 0.7, "seed": 5, "max_new_tokens": 8}),
+        json.dumps({"id": "c", "prompt": "x", "images": [str(work / "missing.png")]})]) + "\n")
+    t0 = time.time()
+    serve.main(["--model_path", "int4 judge", "--input", str(inp), "--output", str(res),
+                "--n_slots", "4", "--max_new_tokens", "16"], backend=be)
+    lines = {r["id"]: r for r in map(json.loads, res.read_text().splitlines())}
+    if not (set(lines) == {"a", "b", "c", "line_2"} and lines["a"]["ok"] and lines["b"]["ok"]
+            and all(isinstance(lines[k]["output"], str) for k in "ab")
+            and not lines["c"]["ok"] and "not found" in lines["c"]["error"]
+            and "invalid JSON" in lines["line_2"]["error"]):
+        fail(f"serve CLI: responses {lines}")
+    print(f"serve CLI (int4 judge, 4 slots): {len(lines)} response lines in "
+          f"{time.time() - t0:.2f} s: a and b served, c image not found, line 2 invalid "
+          f"JSON ({card})", flush=True)
+    return {"counts": counts, "rates": rates, "peak_gib": peak}
 
 
 def judge_phase(work: Path, manifest_path: Path, card: str) -> dict:
@@ -2003,8 +2534,8 @@ def judge_phase(work: Path, manifest_path: Path, card: str) -> dict:
     qwen = qwen_encoder_phase(work, manifest_path, cfg, state, m, images, card)
 
     be = backends["int4"]
-    n_text, h_text = count_calls(be.model.language_model)
-    n_vis, h_vis = count_calls(be.model.visual)
+    n_text = ForwardCount(be.model.language_model)
+    n_vis = ForwardCount(be.model.visual)
     exp_dir = work / "cv" / "cuda" / "exp_cohort"
     torch.cuda.synchronize()
     reset_counts()
@@ -2014,24 +2545,28 @@ def judge_phase(work: Path, manifest_path: Path, card: str) -> dict:
     torch.cuda.synchronize()
     wall = time.time() - t0
     step4 = read_counts()
-    h_text.remove()
-    h_vis.remove()
+    n_text.remove()
+    n_vis.remove()
     check_launches("step4", step4, {
-        "frame_flash_attention": len(be.model.visual.blocks) * n_vis[0],
-        "linear_w4a8": 7 * len(be.model.language_model.layers) * n_text[0]})
+        "frame_flash_attention": len(be.model.visual.blocks) * n_vis.n,
+        "linear_w4a8": 7 * len(be.model.language_model.layers) * n_text.n})
     summary = json.loads((work / "step4" / "vlm_audit_summary.json").read_text())
     details = (work / "step4" / "vlm_audit_details.jsonl").read_text().splitlines()
-    if n_vis[0] != STEP4_CASES or len(details) != STEP4_CASES or \
+    if n_vis.n != STEP4_CASES or len(details) != STEP4_CASES or \
             len(summary["audit_results"]) != STEP4_CASES or "metrics" not in summary:
-        fail(f"step4: {n_vis[0]} vision forwards, {len(details)} detail rows")
+        fail(f"step4: {n_vis.n} vision forwards, {len(details)} detail rows")
     print(f"step4 (int4 judge): {STEP4_CASES} cases, {STEP4_NEW_TOKENS} new tokens each, "
-          f"in {wall:.2f} s (host clock); {n_text[0]} decoder forwards; decisions "
+          f"in {wall:.2f} s (host clock); {n_text.n} decoder forwards; decisions "
           f"{summary['audit_summary']}; launches {step4}; artifacts written ({card})",
           flush=True)
+    t0 = time.time()
+    serving = serving_phase(work, manifest_path, backends, card)
+    print(f"serving phase in {time.time() - t0:.1f} s", flush=True)
     review = review_phase(work, manifest_path, be, card)
     del backends, state, be, base, m
     torch.cuda.empty_cache()
-    return {"runs": runs, "step4": step4, "sampled": sampled, "review": review, "qwen": qwen}
+    return {"runs": runs, "step4": step4, "sampled": sampled, "review": review, "qwen": qwen,
+            "serving": serving}
 
 
 def step1_phase(work: Path) -> Path:
@@ -2149,7 +2684,7 @@ def main_path_phase(work: Path, records: list, card: str) -> None:
     paths = {"text": text["launches"],
              **{"judge " + tag: r["launches"] for tag, r in runs.items()},
              "judge int4 sampled": judge["sampled"], "step4_int4": judge["step4"],
-             "review_int4": judge["review"]}
+             "review_int4": judge["review"], **judge["serving"]["counts"]}
     for rec in records:
         name = rec["name"]
         if name in ("linear_w8a8", "linear_w4a8", "frame_flash_attention", "fused_attention"):
@@ -2160,8 +2695,13 @@ def main_path_phase(work: Path, records: list, card: str) -> None:
     for prec, r in runs.items():
         print(f"judge summary {prec}: prefill {r['prefill_ms']:.3f} ms (bound "
               f"{r['prefill_bound']['bound_ms']:.3f}), decode {r['decode_ms_per_token']:.3f} "
-              f"ms/token (bound {r['decode_bound']['bound_ms']:.3f}), peak "
+              f"ms/token eager, {r['graph_ms_per_token']:.3f} from the CUDA graph (bound "
+              f"{r['decode_bound']['bound_ms']:.3f}; {r['decode']['launches_per_token']} "
+              f"launches a token, busy {r['decode']['busy_share']:.3f}), peak "
               f"{r['peak_gib']:.2f} GiB, tree {r['tree_gib']:.2f} GiB ({card})", flush=True)
+    for tag, r in judge["serving"]["rates"].items():
+        print(f"serving summary {tag}: {r['cases_per_s']:.3f} cases/s, {r['tokens_per_s']:.1f} "
+              f"tokens/s ({r['tokens']} tokens in {r['wall_s']:.3f} s) ({card})", flush=True)
 
 
 # the zoo paths each record takes its launches from (its counter's count

@@ -7,16 +7,21 @@ waterfall (``judge/parsers.py``), threshold gating (accept / reject at or
 above their thresholds, else abstain), batch aggregation and NEEDS_REVIEW
 routing.
 
+``audit_batch`` serves one case at a time, or ``vlm_batch_size`` cases per
+prefill and decode (the backend's ``generate_batch``), or every case
+through continuous batching (``serving="continuous"``: its
+``generate_stream``), as the JAX package does.
+
 Divergences (ROADMAP.md, Queue 3):
-- ``audit_batch`` serves one case at a time (``vlm_batch_size=1``,
-  ``serving="static"``); batched and continuous serving raise
-  ``NotImplementedError`` until ``generate_batch`` / ``generate_stream``
-  are ported.
 - ``query_vlm_audit`` degrades to abstain only where the JAX package's
   reasons for it are: no backend, no usable image, an unreadable image
   file, or an output the parser cannot read (the parser itself never
   raises). Every other exception propagates: a CUDA error stops the run
-  instead of turning every case into an abstain.
+  instead of turning every case into an abstain. The batched and
+  continuous paths keep the same rule: a case with no usable or readable
+  evidence image abstains alone, and a failed ``generate_batch`` /
+  ``generate_stream`` raises where the JAX package retries the cases in
+  smaller batches and abstains on what still fails.
 - The one-case loop passes ``max_new_tokens`` (step4's
   ``--vlm_max_new_tokens``) to the backend; the JAX package's one-case loop
   drops it and generates its default 1024 tokens.
@@ -299,25 +304,63 @@ class VLMAuditModule:
                     vlm_batch_size: int = 1,
                     serving: str = "static",
                     max_new_tokens: int = 1024) -> Dict:
-        """One case at a time, as the reference's loop does. The JAX
-        package's batched (``vlm_batch_size > 1``) and continuous
-        (``serving="continuous"``) serving are not ported yet and raise."""
-        if vlm_batch_size > 1 or serving != "static":
-            raise NotImplementedError(
-                "batched and continuous audit serving are not ported yet "
-                "(ROADMAP.md, Queue 1, item 3)")
+        """``vlm_batch_size > 1`` serves that many cases per prefill and
+        decode through the backend's ``generate_batch``;
+        ``serving="continuous"`` (``vlm_batch_size`` slots, batched even at
+        1) streams every case through its ``generate_stream``. Default: one
+        case at a time, as the reference's loop does. A case whose evidence
+        has no usable or readable image abstains on its own; a failed
+        generation raises (the JAX package falls back to smaller batches,
+        then to abstains)."""
         logger.info("Starting VLM audit on %d samples", len(query_patients))
         samples = list(zip(query_patients, top_neighbors_list,
                            retrieval_predictions))
         vlm_results: List[Optional[Dict]] = []
-        for idx, (query_patient, top_neighbors, pred_label) in enumerate(samples):
-            logger.info("Auditing sample %d/%d: %s", idx + 1, len(samples),
-                        query_patient.get("patient_id", "unknown"))
-            evidence = self.construct_evidence_package(
-                query_patient, top_neighbors, manifest, output_dir, base_dir)
-            vlm_results.append(self.query_vlm_audit(
-                evidence, pred_label, prompt_template=prompt_template,
-                max_new_tokens=max_new_tokens))
+        batched = ((vlm_batch_size > 1 or serving == "continuous")
+                   and self.backend is not None
+                   and hasattr(self.backend, "generate_batch"))
+        if batched:
+            requests: List[Optional[Dict]] = []
+            for query_patient, top_neighbors, pred_label in samples:
+                evidence = self.construct_evidence_package(
+                    query_patient, top_neighbors, manifest, output_dir, base_dir)
+                try:
+                    requests.append(self._build_audit_request(
+                        evidence, pred_label, prompt_template))
+                except OSError as e:
+                    logger.error("Unreadable evidence image: %s", e)
+                    requests.append(None)
+            vlm_results = [None] * len(samples)
+            live = [i for i, r in enumerate(requests) if r is not None]
+            if serving == "continuous" and hasattr(self.backend, "generate_stream"):
+                logger.info("Streaming %d audit cases through %d slots",
+                            len(live), vlm_batch_size)
+                groups = [(live, self.backend.generate_stream(
+                    [requests[i] for i in live], max_new_tokens=max_new_tokens,
+                    n_slots=vlm_batch_size))]
+            else:
+                groups = []
+                for lo in range(0, len(live), vlm_batch_size):
+                    chunk = live[lo:lo + vlm_batch_size]
+                    logger.info("Auditing batch of %d (samples %s)", len(chunk),
+                                [i + 1 for i in chunk])
+                    groups.append((chunk, self.backend.generate_batch(
+                        [requests[i] for i in chunk], max_new_tokens=max_new_tokens)))
+            for chunk, outputs in groups:
+                for i, output_text in zip(chunk, outputs):
+                    result = parse_audit_output(output_text)
+                    if result and requests[i]["cited_neighbors"]:
+                        result["cited_neighbors"] = requests[i]["cited_neighbors"]
+                    vlm_results[i] = result
+        else:
+            for idx, (query_patient, top_neighbors, pred_label) in enumerate(samples):
+                logger.info("Auditing sample %d/%d: %s", idx + 1, len(samples),
+                            query_patient.get("patient_id", "unknown"))
+                evidence = self.construct_evidence_package(
+                    query_patient, top_neighbors, manifest, output_dir, base_dir)
+                vlm_results.append(self.query_vlm_audit(
+                    evidence, pred_label, prompt_template=prompt_template,
+                    max_new_tokens=max_new_tokens))
 
         audit_results = []
         for (query_patient, top_neighbors, pred_label), vlm_result in zip(

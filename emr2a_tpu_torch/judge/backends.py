@@ -1,8 +1,9 @@
 """VLM generation backends for the judge layer.
 
 Port of ``emr2a_tpu/judge/backends.py``: the ``VLMBackend`` protocol, the
-canned-output ``FakeVLMBackend`` for tests and dry runs, and
-``load_backend``.
+canned-output ``FakeVLMBackend`` for tests and dry runs (with the batched
+and continuous protocols of the production backend, recording their
+calls), and ``load_backend``.
 
 One divergence: a Qwen backend that fails to load **raises** here. The JAX
 package logs the error and returns None, after which every audit case
@@ -50,6 +51,30 @@ class FakeVLMBackend:
         out = self.script[self._i % len(self.script)]
         self._i += 1
         return out
+
+    def generate_batch(self, requests, max_new_tokens=1024, temperature=0.0,
+                       top_p=0.9):
+        """The production backend's batched protocol; records each batch's
+        size in ``batch_calls``."""
+        self.batch_calls = getattr(self, "batch_calls", [])
+        self.batch_calls.append(len(requests))
+        return [self.generate(r["images"], r["prompt"], r.get("system"),
+                              max_new_tokens, temperature)
+                for r in requests]
+
+    def generate_stream(self, requests, max_new_tokens=1024, n_slots=8,
+                        temperature=0.0, top_p=0.9):
+        """The production backend's continuous-serving protocol; records
+        each call's request count, slot count and per-request temperatures
+        in ``stream_calls``."""
+        self.stream_calls = getattr(self, "stream_calls", [])
+        self.stream_calls.append({
+            "n": len(requests), "n_slots": n_slots,
+            "temperatures": [float(r.get("temperature", temperature) or 0.0)
+                             for r in requests]})
+        return [self.generate(r["images"], r["prompt"], r.get("system"),
+                              max_new_tokens, r.get("temperature", temperature))
+                for r in requests]
 
 
 def load_backend(model_path: Optional[str], device: str = "cuda",

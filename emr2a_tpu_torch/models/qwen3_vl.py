@@ -30,17 +30,33 @@ prefill (``chunked_prefill``; ``auto_prefill_chunk`` picks the chunk when
 none is given, JAX's rule), per-row cache offsets (``cache_write`` with a
 (B,) offset vector) and sampling (``sample_rows``, ``filtered_log_probs``:
 temperature, top-k 50, top-p). The KV cache is written in place.
-Divergence: the sampler draws from a ``torch.Generator`` seeded from
-``generate``'s ``seed``, not from ``jax.random`` keys, so sampled streams
-follow the same distribution as JAX's but not its tokens. Out of this
-port, each raising ``NotImplementedError`` that names ROADMAP.md:
-speculative acceptance (``spec_accept``) and tensor parallelism
-(``mesh``).
+
+Decode (JAX: a ``lax.scan`` inside one jit) is ``Qwen3VLGenerator.
+decode_step`` over a ``DecodeState`` it advances in place, reading its
+position from a 0-d step counter on the device (``cache_write``'s 0-d
+offset), so on a CUDA tensor ``generate`` replays it from a CUDA graph
+(``models/cuda_graph.py``); on a CPU tensor it runs eagerly. The generator
+keeps its graphs with their states by (batch, padded prompt, steps, greedy
+or sampled), up to ``_KEPT_GRAPH_BYTES`` of KV cache, and refills a kept
+state in place, so a later generation of the same shape only replays (JAX
+keeps its compiled programs the same way; its states are new each call).
+
+Divergence (ROADMAP.md Queue 3): the sampler is counter-based. Row b of a
+generation seeded ``seed`` has the stream key ``stream_keys(seed, b)``;
+its token g is a Gumbel-max over the filtered top-k whose uniforms hash
+(``draw_keys(key, g)``, candidate), so a draw reads no generator state
+and can be captured, and a request's stream depends only on its seed, row,
+prompt and the model (the continuous batcher's slots use row 0). JAX
+splits ``jax.random`` keys: the distribution is the same, the tokens are
+not. Out of this port, each raising ``NotImplementedError`` that names
+ROADMAP.md: speculative acceptance (``spec_accept``) and tensor
+parallelism (``mesh``).
 """
 
 from __future__ import annotations
 
 import logging
+from collections import OrderedDict
 from dataclasses import dataclass, field
 from typing import Dict, Mapping, Optional, Sequence, Tuple
 
@@ -49,6 +65,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from emr2a_tpu_torch.models.cuda_graph import StepGraph
 from emr2a_tpu_torch.models.layers import ACTIVATIONS, Dense, Int4Dense, Int8Dense
 from emr2a_tpu_torch.ops.vision_flash import (
     frame_flash_attention,
@@ -435,20 +452,35 @@ class QwenVisionTower(nn.Module):
 # ---------------------------------------------------------------------------
 
 
+_ROPE_TABLES: Dict = {}
+
+
+def _rope_tables(inv_freq: np.ndarray, mrope_section: Tuple[int, int, int],
+                 device: torch.device):
+    """The inverse frequencies and the h / w section masks on ``device``,
+    copied there once: a decode step captured in a CUDA graph may not copy
+    from the host."""
+    key = (inv_freq.tobytes(), tuple(mrope_section), str(device))
+    if key not in _ROPE_TABLES:
+        idx = np.arange(inv_freq.shape[0])
+        masks = []
+        for dim, offset in ((1, 1), (2, 2)):
+            length = mrope_section[dim] * 3
+            masks.append(torch.from_numpy(
+                (idx >= offset) & (idx < length) & ((idx - offset) % 3 == 0)).to(device))
+        _ROPE_TABLES[key] = (torch.from_numpy(inv_freq).to(device), masks)
+    return _ROPE_TABLES[key]
+
+
 def mrope_cos_sin(position_ids: torch.Tensor, inv_freq: np.ndarray,
                   mrope_section: Tuple[int, int, int]
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """position_ids (3, B, S) -> cos/sin (B, S, head_dim), interleaved
     t/h/w frequency layout."""
-    inv = torch.from_numpy(inv_freq).to(position_ids.device)
+    inv, masks = _rope_tables(inv_freq, mrope_section, position_ids.device)
     freqs = position_ids[..., None].float() * inv[None, None, None, :]
     freqs_t = freqs[0]
-    half = freqs.shape[-1]
-    idx = np.arange(half)
-    for dim, offset in ((1, 1), (2, 2)):
-        length = mrope_section[dim] * 3
-        sel = (idx >= offset) & (idx < length) & ((idx - offset) % 3 == 0)
-        mask = torch.from_numpy(sel).to(position_ids.device)
+    for dim, mask in zip((1, 2), masks):
         freqs_t = torch.where(mask[None, None, :], freqs[dim], freqs_t)
     emb = torch.cat([freqs_t, freqs_t], dim=-1)
     return torch.cos(emb), torch.sin(emb)
@@ -468,22 +500,38 @@ def quantize_kv(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
 def cache_write(buf: torch.Tensor, fresh: torch.Tensor, cache_pos
                 ) -> torch.Tensor:
     """Write ``fresh`` (B, S, ...) into ``buf`` (B, L, ...) in place (JAX
-    returns a new buffer). ``cache_pos`` is one offset for every row (an
-    int: JAX's ``dynamic_update_slice``) or a (B,) vector of per-row
-    offsets (continuous batching: JAX's scatter with ``mode="drop"``):
-    positions at or past L are dropped, never wrapped."""
-    if isinstance(cache_pos, (int, np.integer)):
-        buf[:, cache_pos:cache_pos + fresh.shape[1]] = fresh.to(buf.dtype)
-        return buf
-    pos = torch.as_tensor(cache_pos, device=buf.device)
+    returns a new buffer). ``cache_pos`` is one offset for every row, as an
+    int (a slice) or a 0-d device tensor (an ``index_copy_``, the start
+    clamped into [0, L - S] as JAX's ``dynamic_update_slice`` clamps a
+    traced start), or a (B,) vector of per-row offsets (continuous
+    batching: JAX's scatter with ``mode="drop"``): positions at or past L
+    are dropped, never wrapped. No branch reads a value back to the host,
+    so each can be captured in a CUDA graph."""
     B, S, L = fresh.shape[0], fresh.shape[1], buf.shape[1]
+    fresh = fresh.to(buf.dtype)
+    if isinstance(cache_pos, (int, np.integer)):
+        buf[:, cache_pos:cache_pos + S] = fresh
+        return buf
+    pos = torch.as_tensor(cache_pos, device=buf.device).to(torch.int64)
+    steps = torch.arange(S, device=buf.device)
+    if pos.dim() == 0:
+        return buf.index_copy_(1, torch.clamp(pos, 0, max(L - S, 0)) + steps, fresh)
     if pos.shape != (B,):
         raise ValueError(f"per-row offsets must be ({B},), got {tuple(pos.shape)}")
-    cols = pos.to(torch.int64)[:, None] + torch.arange(S, device=buf.device)[None, :]
+    cols = pos[:, None] + steps[None, :]
     cols = torch.where(cols < 0, cols + L, cols)   # JAX normalises negative indices
     keep = (cols >= 0) & (cols < L)
+    # A dropped position rewrites the row's first kept position with that
+    # position's own value (column 0 with its old value where the row keeps
+    # none), so duplicate indices carry equal values and the write stays
+    # exact without selecting the kept positions on the host.
+    first = torch.argmax(keep.to(torch.int32), dim=1, keepdim=True)
+    any_kept = keep.any(dim=1, keepdim=True)
+    src = torch.where(keep, steps[None, :], first)
+    dst = torch.where(keep, cols, torch.where(any_kept, cols.gather(1, first), 0))
     rows = torch.arange(B, device=buf.device)[:, None].expand(B, S)
-    buf[rows[keep], cols[keep]] = fresh[keep].to(buf.dtype)
+    lead = any_kept.view(B, 1, *([1] * (buf.dim() - 2)))
+    buf.index_put_((rows, dst), torch.where(lead, fresh[rows, src], buf[rows, dst]))
     return buf
 
 
@@ -916,15 +964,60 @@ def _top_k_nucleus(logits: torch.Tensor, temp: torch.Tensor, top_p: torch.Tensor
     return torch.where(vals < cutoff, float("-inf"), vals), idx
 
 
-def sample_rows(logits: torch.Tensor, generator: torch.Generator,
-                temp: torch.Tensor, top_p: torch.Tensor) -> torch.Tensor:
+_M32 = 0xFFFFFFFF
+
+
+def _mul32(x: torch.Tensor, c: int) -> torch.Tensor:
+    """(x * c) mod 2^32 for int64 ``x`` in [0, 2^32), in two 16-bit halves
+    of ``c`` so that no product leaves int64."""
+    lo = x * (c & 0xFFFF)
+    hi = ((x * (c >> 16)) & 0xFFFF) << 16
+    return (lo + hi) & _M32
+
+
+def _mix32(x: torch.Tensor) -> torch.Tensor:
+    """A 32-bit integer hash (a bijection of [0, 2^32)) on int64 tensors."""
+    x = x ^ (x >> 16)
+    x = _mul32(x, 0x7FEB352D)
+    x = x ^ (x >> 15)
+    x = _mul32(x, 0x846CA68B)
+    return x ^ (x >> 16)
+
+
+def stream_keys(seeds, rows) -> torch.Tensor:
+    """Per-row sampler stream keys from seeds and row numbers (int64
+    tensors or ints, broadcast): a request's stream depends on its seed and
+    its row of the seed's batch, nothing else."""
+    seeds = torch.as_tensor(seeds, dtype=torch.int64)
+    rows = torch.as_tensor(rows, dtype=torch.int64, device=seeds.device)
+    k = _mix32((seeds & _M32) ^ 0x9E3779B9)
+    k = _mix32(k ^ ((seeds >> 32) & _M32))
+    return _mix32(k ^ (rows & _M32))
+
+
+def draw_keys(streams: torch.Tensor, index) -> torch.Tensor:
+    """The keys of draw ``index`` (the position of the token in its row's
+    generated stream: an int or an int64 tensor, broadcast) of each
+    stream."""
+    index = torch.as_tensor(index, dtype=torch.int64, device=streams.device)
+    return _mix32(streams ^ _mix32((index & _M32) ^ 0x632BE5AB))
+
+
+def sample_rows(logits: torch.Tensor, keys, temp: torch.Tensor,
+                top_p: torch.Tensor) -> torch.Tensor:
     """Per-row temperature / top-k(50) / top-p sampling over (B, vocab)
-    logits, drawn from ``generator`` (on the logits' device; JAX: per-row
-    PRNG keys); rows with temp <= 0 take the raw argmax, exactly the greedy
-    path."""
+    logits; rows with temp <= 0 take the raw argmax, exactly the greedy
+    path. ``keys`` (B,) int64 are the rows' draw keys (``draw_keys``).
+    Each kept candidate gets a uniform from a hash of (key, candidate) and
+    the draw is the Gumbel-max over the filtered candidates, so a draw
+    reads no state but its key and can be captured in a CUDA graph (JAX:
+    per-row PRNG keys and ``jax.random.categorical``, also a Gumbel-max)."""
     greedy = torch.argmax(logits, dim=-1)
     filtered, idx = _top_k_nucleus(logits, temp, top_p)
-    choice = torch.multinomial(torch.softmax(filtered, dim=-1), 1, generator=generator)
+    salt = _mix32(torch.arange(filtered.shape[-1], device=logits.device) + 0x2545F491)
+    bits = _mix32(keys[:, None] ^ salt[None, :])
+    u = ((bits >> 8).float() + 0.5) * 2.0 ** -24
+    choice = torch.argmax(filtered - torch.log(-torch.log(u)), dim=-1, keepdim=True)
     sampled = torch.gather(idx, -1, choice)[:, 0]
     return torch.where(temp <= 0, greedy, sampled)
 
@@ -938,8 +1031,9 @@ def filtered_log_probs(logits: torch.Tensor, temp: torch.Tensor,
     filtered, idx = _top_k_nucleus(logits, temp, top_p)
     full = torch.full((B, V), float("-inf"), device=logits.device)
     full.scatter_(1, idx, torch.log_softmax(filtered, dim=-1))
-    greedy = torch.full((B, V), float("-inf"), device=logits.device)
-    greedy[torch.arange(B, device=logits.device), torch.argmax(logits, dim=-1)] = 0.0
+    vocab = torch.arange(V, device=logits.device)
+    greedy = torch.where(vocab[None, :] == torch.argmax(logits, dim=-1, keepdim=True),
+                         0.0, float("-inf"))
     return torch.where((temp <= 0)[:, None], greedy, full)
 
 
@@ -1036,12 +1130,55 @@ def auto_prefill_chunk(batch: int, num_heads: int, padded_len: int,
     return best
 
 
+# The KV-cache bytes of the decode states a generator keeps with their
+# graphs for reuse; past it the least recently used go first
+_KEPT_GRAPH_BYTES = 4 * 2**30
+
+
+def cache_bytes(cache) -> int:
+    """The bytes of a KV cache's buffers."""
+    return sum(t.numel() * t.element_size() for layer in cache for t in layer)
+
+
+@dataclass
+class DecodeState:
+    """One generation's device state, which ``Qwen3VLGenerator.decode_step``
+    advances in place, so that a CUDA graph captured over it replays the
+    step (JAX: the decode scan's carry). ``token`` (B,) is what each row
+    feeds next, ``step`` (a 0-d tensor) the steps taken, from which a step
+    reads its cache position, mask and rope positions; ``done`` (B,) the
+    rows that fed eos; ``out`` (B, steps) the fed tokens by step; ``logits``
+    the last step's (B, V). ``temp`` / ``top_p`` / ``streams`` (per-row
+    ``stream_keys``) are None for greedy decoding."""
+    cache: list
+    token: torch.Tensor
+    step: torch.Tensor
+    done: torch.Tensor
+    true_len: torch.Tensor
+    pos_base: torch.Tensor
+    out: torch.Tensor
+    logits: torch.Tensor
+    padded_len: int
+    max_len: int
+    temp: Optional[torch.Tensor] = None
+    top_p: Optional[torch.Tensor] = None
+    streams: Optional[torch.Tensor] = None
+
+
 class Qwen3VLGenerator:
     """Prefill + token-by-token greedy or sampled decode over a static KV
     cache. The model holds its params (JAX: ``Qwen3VLGenerator(model,
     params)``). ``kv_dtype="int8"`` keeps the cache in s8 with scales;
     ``prefill_chunk`` runs the prompt through the decoder that many tokens
-    at a time (None: ``auto_prefill_chunk`` decides)."""
+    at a time (None: ``auto_prefill_chunk`` decides).
+
+    Decoding on a CUDA tensor replays ``decode_step`` from a CUDA graph
+    (``models/cuda_graph.StepGraph``), the counterpart of JAX's decode scan
+    inside one jit: the first step runs eagerly on the capture stream as
+    the warm-up, the rest replay, and a failed capture raises. On a CPU
+    tensor every step runs eagerly. A graph is kept with its state for the
+    next generation of the same shape (``_KEPT_GRAPH_BYTES``; ``release``
+    drops them)."""
 
     def __init__(self, model: Qwen3VLModel, max_new_tokens: int = 1024,
                  eos_token_id: int = 151645, kv_dtype: str = "bf16",
@@ -1056,10 +1193,15 @@ class Qwen3VLGenerator:
         self.eos_token_id = eos_token_id
         self.kv_dtype = kv_dtype
         self.prefill_chunk = prefill_chunk
+        self._graphs: "OrderedDict[tuple, StepGraph]" = OrderedDict()
 
     @property
     def device(self) -> torch.device:
         return self.model.language_model.final_ln.weight.device
+
+    def release(self) -> None:
+        """Drop the kept decode graphs and their states."""
+        self._graphs.clear()
 
     def device_inputs(self, input_ids, pixel_patches=None, grid_thw=(),
                       prompt_bucket: int = 128, true_lens=None,
@@ -1091,14 +1233,20 @@ class Qwen3VLGenerator:
                 patches, padded_len)
 
     def _prefill(self, input_ids, position_ids, true_len, pixel_patches,
-                 grid_thw, padded_len: int, max_len: int):
+                 grid_thw, padded_len: int, max_len: int, cache=None):
         """Causal AND key < true_len (right padding receives no attention),
         in one pass or in chunks (the explicit ``prefill_chunk``, else
-        ``auto_prefill_chunk``'s). Returns (cache, last-position logits (B,
-        V), next rope position)."""
+        ``auto_prefill_chunk``'s), into ``cache`` (zeroed first) or a new
+        one. Returns (cache, last-position logits (B, V), next rope
+        position)."""
         B = input_ids.shape[0]
         dev = input_ids.device
-        cache = empty_kv_cache(self.config.text, B, max_len, self.kv_dtype, dev)
+        if cache is None:
+            cache = empty_kv_cache(self.config.text, B, max_len, self.kv_dtype, dev)
+        else:
+            for layer in cache:
+                for buf in layer:
+                    buf.zero_()
         C = self.prefill_chunk
         if C is None:
             C = auto_prefill_chunk(B, self.config.text.num_heads, padded_len, max_len)
@@ -1120,18 +1268,69 @@ class Qwen3VLGenerator:
         next_pos_base = position_ids.amax(dim=(0, 2)) + 1
         return cache, last_logits, next_pos_base
 
-    def _decode_step(self, cache, token, step_i: int, padded_len: int,
-                     max_len: int, true_len, next_pos_base):
-        B = token.shape[0]
-        dev = token.device
-        pos = (next_pos_base + step_i)[None, :, None].expand(3, B, 1)
-        k_idx = torch.arange(max_len, device=dev)[None, None, :]
-        mask = torch.where((k_idx < true_len[:, None, None])
-                           | ((k_idx >= padded_len) & (k_idx <= padded_len + step_i)),
+    @staticmethod
+    def _sample(state: DecodeState, logits: torch.Tensor, index) -> torch.Tensor:
+        """Each row's token ``index`` of its stream from ``logits``: the
+        argmax when greedy, else ``sample_rows`` with the rows' draw keys."""
+        if state.temp is None:
+            return torch.argmax(logits, dim=-1)
+        return sample_rows(logits, draw_keys(state.streams, index), state.temp,
+                           state.top_p)
+
+    def start(self, input_ids: np.ndarray, pixel_patches=None,
+              grid_thw: Tuple[Tuple[int, int, int], ...] = (), steps: int = 1,
+              temperature: float = 0.0, top_p: float = 1.0, seed: int = 0,
+              prompt_bucket: int = 128, true_lens=None,
+              position_ids=None, into: Optional[DecodeState] = None) -> DecodeState:
+        """Prefill and the first token: the state that ``decode_step``
+        advances, with room for ``steps`` steps; written into ``into`` (a
+        state of the same shape, which a captured graph reads) when given."""
+        ids_t, pos_t, tl, patches, padded_len = self.device_inputs(
+            input_ids, pixel_patches, grid_thw, prompt_bucket, true_lens,
+            position_ids)
+        max_len = padded_len + steps
+        cache, logits, next_pos_base = self._prefill(
+            ids_t, pos_t, tl, patches, tuple(grid_thw), padded_len, max_len,
+            cache=None if into is None else into.cache)
+        B, dev = ids_t.shape[0], ids_t.device
+        state = DecodeState(
+            cache=cache, token=torch.zeros((B,), dtype=torch.int64, device=dev),
+            step=torch.zeros((), dtype=torch.int64, device=dev),
+            done=torch.zeros((B,), dtype=torch.bool, device=dev), true_len=tl,
+            pos_base=next_pos_base,
+            out=torch.full((B, steps), self.eos_token_id, dtype=torch.int64, device=dev),
+            logits=logits, padded_len=padded_len, max_len=max_len)
+        if temperature > 0:
+            state.temp = torch.full((B,), float(temperature), device=dev)
+            state.top_p = torch.full((B,), float(top_p), device=dev)
+            state.streams = stream_keys(torch.full((B,), int(seed)), torch.arange(B)).to(dev)
+        state.token.copy_(self._sample(state, logits, 0))
+        if into is None:
+            return state
+        for name, value in vars(state).items():
+            if isinstance(value, torch.Tensor):
+                getattr(into, name).copy_(value)
+        return into
+
+    def decode_step(self, s: DecodeState) -> None:
+        """One decode step over ``s``, in place: feed each row's token (its
+        K/V written at ``padded_len + step``), keep the logits, draw the next
+        token (eos once the row has fed eos) and count the step. It reads
+        nothing back to the host, so a CUDA graph can capture it."""
+        B, dev, P = s.token.shape[0], s.token.device, s.padded_len
+        pos = (s.pos_base + s.step)[None, :, None].expand(3, B, 1)
+        k_idx = torch.arange(s.max_len, device=dev)[None, None, :]
+        mask = torch.where((k_idx < s.true_len[:, None, None])
+                           | ((k_idx >= P) & (k_idx <= P + s.step)),
                            0.0, float("-inf")).float()
-        logits, cache = self.model(token[:, None], pos, cache=cache,
-                                   cache_pos=padded_len + step_i, attn_mask=mask)
-        return logits[:, -1], cache
+        logits, _ = self.model(s.token[:, None], pos, cache=s.cache,
+                               cache_pos=P + s.step, attn_mask=mask)
+        s.logits.copy_(logits[:, -1])
+        nxt = self._sample(s, s.logits, s.step + 1)
+        s.out.index_copy_(1, s.step.view(1), s.token[:, None])
+        s.done |= s.token == self.eos_token_id
+        s.token.copy_(torch.where(s.done, self.eos_token_id, nxt))
+        s.step += 1
 
     @torch.inference_mode()
     def generate(self, input_ids: np.ndarray,
@@ -1149,38 +1348,36 @@ class Qwen3VLGenerator:
         length. ``chunk=K`` checks every K steps whether every row has
         stopped and skips the rest: the same tokens as the one-shot loop.
         ``temperature <= 0`` is greedy; otherwise each token is drawn by
-        ``sample_rows`` (top-k 50, then ``top_p``) from a ``torch.Generator``
-        on the model's device seeded with ``seed``."""
+        ``sample_rows`` (top-k 50, then ``top_p``) with the keys of row b's
+        stream ``stream_keys(seed, b)``. The host reads the rows' state once
+        per chunk and the tokens once."""
         max_new = max_new_tokens or self.max_new_tokens
         steps = -(-max_new // chunk) * chunk if chunk else max_new
-        ids_t, pos_t, tl, patches, padded_len = self.device_inputs(
-            input_ids, pixel_patches, grid_thw, prompt_bucket, true_lens,
-            position_ids)
-        max_len = padded_len + steps
-        cache, last_logits, next_pos_base = self._prefill(
-            ids_t, pos_t, tl, patches, tuple(grid_thw), padded_len, max_len)
-        if temperature > 0:
-            rng = torch.Generator(device=ids_t.device).manual_seed(seed)
-            temp = torch.full((ids_t.shape[0],), float(temperature), device=ids_t.device)
-            p = torch.full((ids_t.shape[0],), float(top_p), device=ids_t.device)
-            sample = lambda logits: sample_rows(logits, rng, temp, p)
-        else:
-            sample = lambda logits: torch.argmax(logits, dim=-1)
-        token = sample(last_logits)
-        done = torch.zeros_like(token, dtype=torch.bool)
+        key = runner = None
+        if self.device.type == "cuda":
+            B, S = np.shape(input_ids)
+            key = (B, -(-S // prompt_bucket) * prompt_bucket, steps, temperature > 0)
+            runner = self._graphs.pop(key, None)
+        s = self.start(input_ids, pixel_patches, grid_thw, steps, temperature,
+                       top_p, seed, prompt_bucket, true_lens, position_ids,
+                       into=None if runner is None else runner.state)
+        if runner is None:
+            runner = StepGraph(self.decode_step, s, s.token.device,
+                               forwards=(self.model.language_model,))
         eos = self.eos_token_id
-        out = []
-        for step_i in range(steps):
-            if chunk and step_i and step_i % chunk == 0 and bool(
-                    (done | (token == eos)).all()):
+        taken = 0
+        while taken < steps:
+            if chunk and taken and bool((s.done | (s.token == eos)).all()):
                 break
-            logits, cache = self._decode_step(cache, token, step_i, padded_len,
-                                              max_len, tl, next_pos_base)
-            nxt = sample(logits)
-            out.append(token)
-            done = done | (token == eos)
-            token = torch.where(done, torch.full_like(nxt, eos), nxt)
-        tokens = torch.stack(out, dim=1).cpu().numpy()
+            n = min(chunk or steps, steps - taken)
+            runner.run(n)
+            taken += n
+        tokens = s.out[:, :taken].cpu().numpy()
+        if key is not None:
+            self._graphs[key] = runner
+            while self._graphs and sum(cache_bytes(r.state.cache)
+                                       for r in self._graphs.values()) > _KEPT_GRAPH_BYTES:
+                self._graphs.popitem(last=False)
         if tokens.shape[1] < max_new:
             pad = np.full((tokens.shape[0], max_new - tokens.shape[1]), eos,
                           tokens.dtype)

@@ -17,9 +17,15 @@ confidence, abstain -> 0.5) and writes ``vlm_audit_summary.json`` and
 KV cache in s8 with per-(position, head) scales and ``--prefill_chunk C``
 runs the prompt through the decoder C tokens at a time (without it the
 generator chunks only where the one-shot prefill's attention temps exceed
-its budget). ``--compile_cache`` (JAX's cache) is gone; ``--draft_model``,
-``--tp > 1``, ``--vlm_batch_size > 1`` and ``--serving continuous`` raise
-``NotImplementedError`` (ROADMAP.md, Queue 1, item 3).
+its budget). ``--vlm_batch_size N`` audits N cases per prefill and decode
+(a static batch); ``--serving continuous`` streams every case through
+continuous batching with ``--vlm_batch_size`` slots, refilling a slot as
+soon as its case finishes. On the card each decode step replays a CUDA
+graph. ``--compile_cache`` (JAX's cache) is gone; ``--draft_model`` and
+``--tp > 1`` raise ``NotImplementedError`` (ROADMAP.md, Queue 1, item 3).
+
+    python -m emr2a_tpu_torch.pipelines.step4_vlm_review.run ... \
+        --serving continuous --vlm_batch_size 8
 """
 
 from __future__ import annotations
@@ -307,13 +313,18 @@ def build_parser() -> argparse.ArgumentParser:
                              "ported yet)")
     parser.add_argument("--serving", default="static",
                         choices=["static", "continuous"],
-                        help="audit scheduling; only 'static' with "
-                             "--vlm_batch_size 1 is ported")
+                        help="batched audit scheduling: 'static' = fixed "
+                             "batches of --vlm_batch_size cases through "
+                             "generate_batch; 'continuous' = a slot server "
+                             "(--vlm_batch_size slots) that refills a finished "
+                             "slot between decode chunks, so mixed output "
+                             "lengths don't wait on the slowest case")
     parser.add_argument("--vlm_max_new_tokens", type=int, default=1024,
                         help="judge generation budget per audit case")
     parser.add_argument("--vlm_batch_size", type=int, default=1,
-                        help="audit cases per prefill+decode (only 1 is "
-                             "ported)")
+                        help="audit cases served per prefill+decode (the "
+                             "slot count with --serving continuous); decode "
+                             "streams the weights once a step for every row")
     parser.add_argument("--tp", type=int, default=1,
                         help="tensor-parallel degree (only 1 is ported)")
     parser.add_argument("--device", type=str, default="cuda")

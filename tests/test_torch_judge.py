@@ -10,9 +10,10 @@
   writes the same ``vlm_audit_summary.json`` and details as JAX's, and the
   step4 CLI runs;
 - ``QwenVLBackend`` generates on a tiny random Qwen3-VL in bf16, int8 and
-  int4 on the CPU, and the port's divergences hold: a backend that fails to
-  load raises, batched serving raises, a backend error propagates out of
-  the audit.
+  int4 on the CPU, its batched and continuous serving give each request's
+  own text, and the port's divergences hold: a backend that fails to load
+  raises, a backend error propagates out of the audit (one case at a time,
+  batched or continuous).
 """
 
 import json
@@ -223,8 +224,15 @@ def test_qwen_backend_generates_on_the_cpu(precision):
     text = backend.generate(images, "Is the label right?", system="be brief",
                             max_new_tokens=5)
     assert isinstance(text, str) and len(text.split()) <= 5
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        backend.generate_batch([{"images": images, "prompt": "x"}])
+    # batched and continuous serving: each request's text is its own
+    # generate's (held against JAX in tests/test_torch_judge_serving.py)
+    requests = [{"images": images, "prompt": "Is the label right?", "system": "be brief"},
+                {"images": images[:1], "prompt": "x"}]
+    alone = [backend.generate(r["images"], r["prompt"], system=r.get("system"),
+                              max_new_tokens=5) for r in requests]
+    assert alone[0] == text
+    assert backend.generate_batch(requests, max_new_tokens=5) == alone
+    assert backend.generate_stream(requests, max_new_tokens=5, n_slots=2) == alone
 
 
 def test_divergences_raise_instead_of_abstaining(tmp_path):
@@ -233,10 +241,6 @@ def test_divergences_raise_instead_of_abstaining(tmp_path):
     assert isinstance(load_backend("fake:x"), FakeVLMBackend)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         _tiny_backend("int4_awq")
-    module = VLMAuditModule(backend=FakeVLMBackend())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        module.audit_batch([], [], [], [], [], [], tmp_path, vlm_batch_size=4)
-
     img = tmp_path / "q.png"
     Image.fromarray(np.zeros((8, 8, 3), np.uint8)).save(img)
     evidence = {"query_images": [str(img)], "query_text": "q", "neighbors": []}
@@ -246,6 +250,18 @@ def test_divergences_raise_instead_of_abstaining(tmp_path):
     module = VLMAuditModule(backend=FakeVLMBackend(fn=broken))
     with pytest.raises(RuntimeError, match="CUDA"):
         module.query_vlm_audit(evidence, "A")
+    # batched and continuous audits (ported) raise on a failed generation
+    # too, where JAX's retry smaller batches and then abstain
+    from emr2a_tpu.judge.audit import VLMAuditModule as JaxAudit
+    record = {"patient_id": "q", "label": "A", "slices": [str(img)], "meta": {}}
+    args = (["A"], [[0.9]], [["A"]], [record], [[]], [record], tmp_path)
+    for mode in (dict(vlm_batch_size=4), dict(serving="continuous")):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            module.audit_batch(*args, **mode)
+        jax_out = JaxAudit(backend=JaxFakeBackend(fn=broken)).audit_batch(*args, **mode)
+        assert jax_out["abstain_count"] == 1
+        want = JaxAudit(backend=JaxFakeBackend()).audit_batch(*args, **mode)
+        assert VLMAuditModule(backend=FakeVLMBackend()).audit_batch(*args, **mode) == want
     bad = tmp_path / "bad.png"
     bad.write_bytes(b"not a png")
     module = VLMAuditModule(backend=FakeVLMBackend())

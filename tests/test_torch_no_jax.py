@@ -7,7 +7,9 @@ fake-encoder step2 CLI, the step3 CLI (``--device cpu``), the database CLI
 encoders, ``--vlm_review`` with the fake judge), the step4 CLI on its fold files (``--model_path fake``,
 ``--device cpu``), the layer-breakdown tool (``--device cpu``, ``tune
 --merge_batch``) and every encoder of the zoo at a small width (ViT, DINOv3
-and CLIP in f32 and W8A8, Qwen3-VL's taps and text mean), then check that no module of jax, jaxlib, flax, optax,
+and CLIP in f32 and W8A8, Qwen3-VL's taps and text mean), the continuous
+batcher on a tiny Qwen3-VL (greedy and sampled rows) and the JSONL judge
+service with the fake backend, then check that no module of jax, jaxlib, flax, optax,
 sklearn, pandas, transformers, safetensors or ``emr2a_tpu`` was
 imported."""
 
@@ -27,6 +29,8 @@ import emr2a_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(emr2a_tpu_torch.__path__,
                                                "emr2a_tpu_torch.")]
 assert "emr2a_tpu_torch.judge.review" in names
+assert {"emr2a_tpu_torch.models.serving", "emr2a_tpu_torch.models.cuda_graph",
+        "emr2a_tpu_torch.judge.serve"} <= set(names)
 assert {"emr2a_tpu_torch.encoders.vit_encoder", "emr2a_tpu_torch.encoders.clip_encoder",
         "emr2a_tpu_torch.encoders.dino_encoder", "emr2a_tpu_torch.models.dinov3"} <= set(names)
 for name in names:
@@ -105,6 +109,20 @@ qwen = Qwen3VLEncoder(config=qcfg, params=pq.random_state(qcfg, device="cpu"), d
                           qcfg.vision, min_pixels=16, max_pixels=4096))
 shapes += [qwen.encode_batch_images(img)[0].shape, qwen.encode_batch_texts(["a"])[0].shape]
 print("ENCODERS", shapes)
+from emr2a_tpu_torch.models.serving import ContinuousBatcher
+srv = ContinuousBatcher(pq.Qwen3VLModel.from_params(qcfg, pq.random_state(qcfg, device="cpu")),
+                        n_slots=2, prompt_bucket=8, max_new_tokens=4, eos_token_id=-1, chunk=2)
+rows = srv.serve([{"input_ids": np.arange(2, 2 + n)[None]} for n in (3, 7, 5)]
+                 + [{"input_ids": np.arange(3, 9)[None], "temperature": 0.8, "seed": 1}])
+assert [r.shape for r in rows] == [(4,)] * 4, rows
+import json as _json
+from emr2a_tpu_torch.judge.serve import main as serve_main
+with open(out + "/requests.jsonl", "w") as f:
+    f.write(_json.dumps({"id": "r1", "prompt": "x"}) + "\nnot json\n")
+serve_main(["--model_path", "fake", "--device", "cpu", "--input", out + "/requests.jsonl",
+            "--output", out + "/responses.jsonl"])
+with open(out + "/responses.jsonl") as f:
+    print("SERVED", [_json.loads(line)["ok"] for line in f])
 loaded = sorted(
     m for m in sys.modules
     if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "sklearn",
@@ -148,6 +166,7 @@ def test_port_imports_no_jax(tmp_path):
     hits = (tmp_path / "out" / "hits.jsonl").read_text().splitlines()
     assert len(hits) == 4
     assert (tmp_path / "out" / "cv" / "exp_nj" / "fold_2" / "metrics.json").exists()
+    assert "SERVED [False, True]" in proc.stdout
     review = json.loads((tmp_path / "out" / "cv" / "exp_nj" / "vlm_review_summary.json")
                         .read_text())
     assert len(review["vlm_predictions"]) == 4

@@ -9,7 +9,8 @@ one state dict (f32 on the CPU, so every kernel takes its plain version):
 - greedy generation: identical tokens to JAX's (and HF's), invariant to the
   prompt bucket, ``chunk=`` equal to the one-shot loop, and identical
   tokens with the int8 (K5) and int4 (K7) decoders of
-  ``quantize_qwen_text_params``; the options still unported raise;
+  ``quantize_qwen_text_params``; the continuous batcher's rows equal
+  JAX's; the options still unported raise;
 - ``params_from_jax`` / ``params_to_jax`` round trip, the JAX package's host
   helpers (M-RoPE positions, vision groups, gather indices) equal;
 - checkpoints: the port's own safetensors reader equals the ``safetensors``
@@ -251,11 +252,16 @@ def test_vision_groups_are_exact(tiny, rng, monkeypatch):
 
 def test_not_ported_options_raise(tiny):
     """What stays unported raises with its ROADMAP item: tensor parallelism,
-    speculative decoding, AWQ and batched / continuous serving. (The int8
-    KV cache, chunked prefill, per-row offsets and sampling are held
-    against JAX in ``tests/test_torch_qwen3_vl_options.py``.)"""
+    speculative decoding (the generator's, the backend's and the batcher's)
+    and AWQ. Batched and continuous serving are ported: the batcher's rows
+    equal JAX's ``ContinuousBatcher``'s here (and in
+    ``tests/test_torch_serving.py``). (The int8 KV cache, chunked prefill,
+    per-row offsets and sampling are held against JAX in
+    ``tests/test_torch_qwen3_vl_options.py``.)"""
+    from emr2a_tpu.models.serving import ContinuousBatcher as JaxBatcher
     from emr2a_tpu_torch.judge.qwen_backend import QwenVLBackend, quantize_decoder
-    _, _, _, _, pcfg, state = tiny
+    from emr2a_tpu_torch.models.serving import ContinuousBatcher
+    _, _, jcfg, jparams, pcfg, state = tiny
     model = pq.Qwen3VLModel.from_params(pcfg, state)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         pq.Qwen3VLGenerator(model, mesh=object())
@@ -266,10 +272,14 @@ def test_not_ported_options_raise(tiny):
     for kw in (dict(tp=2), dict(draft_model_path="draft")):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             QwenVLBackend(config=pcfg, params=state, **kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        QwenVLBackend.generate_batch(None, [])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        QwenVLBackend.generate_stream(None, [])
+    for kw in (dict(draft_model=model), dict(mesh=object())):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            ContinuousBatcher(model, **kw)
+    reqs = [{"input_ids": np.array([[5, 6, 7, 8, 9, 10][:n]], np.int64)} for n in (3, 6, 4)]
+    kw = dict(n_slots=2, prompt_bucket=8, max_new_tokens=5, eos_token_id=-1, chunk=2)
+    want = JaxBatcher(jq.Qwen3VLModel(jcfg), jparams, **kw).serve(reqs)
+    for got, w in zip(ContinuousBatcher(model, **kw).serve(reqs), want):
+        np.testing.assert_array_equal(got, np.asarray(w))
 
 
 @pytest.mark.parametrize("shard", [None, "20KB"])

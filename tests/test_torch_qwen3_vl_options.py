@@ -278,12 +278,12 @@ def test_sample_rows_greedy_support_and_seed():
     x = torch.from_numpy(_logits())
     temp, top_p = torch.tensor([0.0, 0.9, 1.2, -1.0]), torch.tensor([0.9, 0.8, 0.95, 1.0])
     support = torch.isfinite(pq.filtered_log_probs(x, temp, top_p))
-    draws = [pq.sample_rows(x, torch.Generator().manual_seed(s), temp, top_p)
-             for s in range(200)]
+    keys = lambda seed: pq.draw_keys(pq.stream_keys(seed, torch.arange(4)), 0)
+    draws = [pq.sample_rows(x, keys(s), temp, top_p) for s in range(200)]
     for tok in draws:
         assert tok[0] == torch.argmax(x[0]) and tok[3] == torch.argmax(x[3])
         assert support[torch.arange(4), tok].all()
-    again = pq.sample_rows(x, torch.Generator().manual_seed(7), temp, top_p)
+    again = pq.sample_rows(x, keys(7), temp, top_p)
     assert torch.equal(again, draws[7])
     assert len({int(t[1]) for t in draws}) > 1          # the sampled rows vary
 
@@ -295,10 +295,10 @@ def test_sample_rows_follows_the_filtered_distribution():
     temp, top_p = torch.tensor([0.7, 1.0, 1.5]), torch.tensor([0.9, 1.0, 0.7])
     n = 20_000
     want = torch.exp(pq.filtered_log_probs(x, temp, top_p))
-    gen = torch.Generator().manual_seed(11)
+    streams = pq.stream_keys(11, torch.arange(1500))
     counts = torch.zeros_like(want)
-    for _ in range(n // 500):
-        tok = pq.sample_rows(x.repeat_interleave(500, 0), gen,
+    for i in range(n // 500):
+        tok = pq.sample_rows(x.repeat_interleave(500, 0), pq.draw_keys(streams, i),
                              temp.repeat_interleave(500), top_p.repeat_interleave(500))
         counts.index_put_((torch.arange(3).repeat_interleave(500), tok),
                           torch.ones(tok.shape[0]), accumulate=True)
