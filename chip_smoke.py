@@ -71,7 +71,8 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    1e-5.
 10. Throughput of the bf16 and the int8 tower at batch 128, in turns.
 11. Judge kernels: K7 (W4A8 linear) at the 8B's four projection shapes,
-    T = 1 and T = 2048, bit for bit against its plain version, timed as K5
+    T = 1 and T = 2048 (and T = 5 and 40, a speculative verify's token
+    counts at B = 1 and at 8 slots), bit for bit against its plain version, timed as K5
     beside cuBLAS bf16 on the dequantized weight; the card's int8 and int4 weight
     quantizers against the numpy ones on a 4096 x 12288 matrix; K8 (per-frame
     vision attention) at (7, 1024, 16, 72) and K9 (the same kernel's second
@@ -125,7 +126,32 @@ Phases, each of which fails the run (non-zero exit) if it fails:
     its filtered support (counted on the card, in the graph); step4
     with ``vlm_batch_size=4`` and with ``serving="continuous"`` (artifacts'
     rows, launches); the JSONL serve CLI on a file with a bad line and a
-    missing image. Last, the CV runner's ``_run_vlm_review`` (the G2 review) on
+    missing image. Then speculative decoding and AWQ (``spec_awq_phase``),
+    with the int8 judge released: an int4_awq judge built from the bf16
+    weights on the card (calibration on 4 x 256 ids of the judge's prompts,
+    the search, the fold, K7's quantization, timed; every site's AWQ error
+    at most its RTN error, a consistency check of the search; the judge
+    request's last-position prefill logits' cosine to bf16 for int4 and
+    int4_awq, plain and with JAX's outlier-embedding fixture applied,
+    printed; the gate against RTN on that fixture at 4 layers, where
+    int4_awq's mean logits cosine must beat int4's by 0.005; step4 on 4
+    cases with it, every case through K7 and K8); speculative decoding at
+    B = 1 on the int4 judge, k = 4, with the self-draft and with a seeded
+    4-layer draft at the 8B's widths (built through ``QwenVLBackend(
+    draft_config=..., draft_params=...)``): each greedy stream against the
+    plain generator's (equal, or a near-tie within 0.75 at the first
+    difference), the kept cycle graph's first replayed cycle against the
+    eager cycle bit for bit, K7 and K8 launches against both models'
+    forwards, acceptance, tokens a cycle, the cycle's ms and ms per token
+    beside plain graph decode's; a sampled speculative generation twice
+    (the same tokens, every emitted token inside the target's filtered
+    support, counted in the graph); speculative continuous serving of the
+    12 fold requests at 8 slots with the self-draft (greedy streams against
+    one at a time, rates beside plain continuous 8's, K7 at T = 40) and
+    step4 through the speculative backend. The reduced-depth check also
+    runs int4_awq (int4's limits and control), whose AWQ computed on the
+    card picks the CPU's alphas.
+    Last, the CV runner's ``_run_vlm_review`` (the G2 review) on
     the cohort's CV folds with the int4 judge passed in through
     ``VLMReviewModule(backend=...)``: 2 reviews, new tokens capped at 32,
     every review's text generated, K7 on every decoder forward (a review's
@@ -190,6 +216,7 @@ before the last is the kernels' JSON record; the last line is
 from __future__ import annotations
 
 import argparse
+import contextlib
 import copy
 import dataclasses
 import json
@@ -1405,13 +1432,25 @@ DECODE_TOKENS = 32          # timed decode steps per precision
 # card's logits against the CPU's of another precision (an int8 decoder
 # where bf16 is expected, int4 where int8 is, int8 where int4 is), which the
 # check also runs. The card against every CPU precision is printed.
-MIN_LOGIT_COSINE = {"bf16": 0.9998, "int8": 0.997, "int4": 0.997}
-MAX_LOGIT_ABS_ERR = {"bf16": 0.2, "int8": 0.75, "int4": 0.75}
-CONTROL_OF = {"bf16": "int8", "int8": "int4", "int4": "int8"}
+# int4_awq is int4 on folded weights: int4's limits and control.
+MIN_LOGIT_COSINE = {"bf16": 0.9998, "int8": 0.997, "int4": 0.997, "int4_awq": 0.997}
+MAX_LOGIT_ABS_ERR = {"bf16": 0.2, "int8": 0.75, "int4": 0.75, "int4_awq": 0.75}
+CONTROL_OF = {"bf16": "int8", "int8": "int4", "int4": "int8", "int4_awq": "int8"}
+REDUCED_PRECISIONS = ("bf16", "int8", "int4", "int4_awq")
+DECODER_KERNEL = {"int8": "linear_w8a8", "int4": "linear_w4a8", "int4_awq": "linear_w4a8"}
 STEP4_CASES, STEP4_NEW_TOKENS = 4, 64
 OPTION_CHUNK = 512           # the chunked prefill's chunk: 4 chunks of the 2,048 bucket
 SAMPLED_TOKENS, SAMPLED_SEED = 16, 1234
 REVIEW_SAMPLES, REVIEW_NEW_TOKENS = 2, 32   # the review's 512 new tokens, capped
+
+
+# K7 at the speculative phase's token counts: a B = 1 verify of k + 1 = 5
+# tokens (the GEMV, up to 16 rows) and 8 slots of 5 (T = 40: the wgmma
+# GEMM, whose tiles were tuned for T = 2,048), at the 8B's four shapes
+SPEC_LINEAR_T = (5, 40)
+SPEC_LINEAR_SHAPES = [(T, K, N) for T in SPEC_LINEAR_T
+                      for K, N in ((4096, 4096), (4096, 1024), (4096, 12288), (12288, 4096))]
+K7_AT = {}      # T -> K7's chained ms summed over the four shapes
 
 
 def judge_kernel_phase(card: str) -> list:
@@ -1438,7 +1477,15 @@ def judge_kernel_phase(card: str) -> list:
     print("quantize_weight_int4/int8 on the card: bytes equal the numpy "
           "recipes' (4096 x 12288)", flush=True)
     del w, wp, ws, q8, s8
-    records = [linear_record("k7", card)]
+    records = [linear_record("k7", card, extra=SPEC_LINEAR_SHAPES)]
+    for T in SPEC_LINEAR_T:
+        rows = [r for r in records[0]["shapes"] if r["T"] == T]
+        K7_AT[T] = sum(r["chained_ms"] for r in rows)
+        parts = ", ".join("%s %.4f" % (r["shape"], r["chained_ms"]) for r in rows)
+        print(f"linear_w4a8 at T = {T} (a speculative verify, "
+              f"{'B = 1, k = 4' if T == 5 else '8 slots x (k + 1)'}; the "
+              f"{'GEMV' if T <= 16 else 'wgmma GEMM'} path): {K7_AT[T]:.4f} ms chained for "
+              f"one decoder layer's four projection shapes ({parts}) ({card})", flush=True)
 
     sdpa = torch.nn.functional.scaled_dot_product_attention
     for name, module, shape, replaces in (
@@ -1733,12 +1780,16 @@ def reduced_depth_check(cfg, state: dict, images: list, card: str) -> None:
     from emr2a_tpu_torch.tools.stub_tokenizer import WordTokenizer
     tok = WordTokenizer()
     prompt = "Is the predicted label consistent with the evidence? Answer in JSON."
-    logits = {}
-    for prec in ("bf16", "int8", "int4"):
+    logits, alphas = {}, {}
+    for prec in REDUCED_PRECISIONS:
         for dev in ("cuda", "cpu"):
             params = sub if dev == "cuda" else {k: v.cpu() for k, v in sub.items()}
-            be = QwenVLBackend(config=small, params=params, tokenizer=tok, precision=prec,
-                               prompt_bucket=16)
+            with awq_reports() as reports:
+                be = QwenVLBackend(config=small, params=params, tokenizer=tok, precision=prec,
+                                   prompt_bucket=16)
+            if reports:
+                alphas[dev] = ({l: e["alpha"] for l, e in reports[0]["report"].items()},
+                               reports[0]["s"])
             ids, patches, grids = be._prepare(images, prompt, None)
             padded = -(-len(ids) // 16) * 16
             for opt in REDUCED_OPTIONS:
@@ -1757,7 +1808,7 @@ def reduced_depth_check(cfg, state: dict, images: list, card: str) -> None:
                 logits[prec + opt, dev] = last[0].float().cpu()
                 if dev == "cuda":
                     torch.cuda.synchronize()
-                    kernel = {"int8": "linear_w8a8", "int4": "linear_w4a8"}.get(prec)
+                    kernel = DECODER_KERNEL.get(prec)
                     want = {"frame_flash_attention": 2,
                             **({kernel: 14 * n_text.n} if kernel else {})}
                     check_launches(f"reduced-depth {prec}{opt}", read_counts(), want)
@@ -1771,7 +1822,13 @@ def reduced_depth_check(cfg, state: dict, images: list, card: str) -> None:
         return cos, err, np.isfinite(err) and cos >= MIN_LOGIT_COSINE[prec] \
             and err <= MAX_LOGIT_ABS_ERR[prec]
 
-    for prec in ("bf16", "int8", "int4"):
+    if alphas["cuda"][0] != alphas["cpu"][0]:
+        fail(f"reduced-depth int4_awq: the card's AWQ picked alphas {alphas['cuda'][0]}, the "
+             f"CPU's {alphas['cpu'][0]}")
+    print(f"reduced-depth int4_awq: AWQ on the card ({alphas['cuda'][1]:.2f} s) and on the "
+          f"CPU ({alphas['cpu'][1]:.2f} s, host clock) picked the same alphas "
+          f"{alphas['cuda'][0]} ({card})", flush=True)
+    for prec in REDUCED_PRECISIONS:
         a, b = logits[prec, "cuda"], logits[prec, "cpu"]
         cos, err, ok = agreement(a, b, prec)
         top_card, top_cpu = int(a.argmax()), int(b.argmax())
@@ -1785,7 +1842,7 @@ def reduced_depth_check(cfg, state: dict, images: list, card: str) -> None:
               f"+-{b.abs().max().item():.3f}), greedy token "
               f"{'equal' if top_card == top_cpu else f'{top_card} vs {top_cpu}'} "
               f"(CPU top-2 gap {gap:.5f}) ({card})", flush=True)
-        for other in ("bf16", "int8", "int4"):
+        for other in REDUCED_PRECISIONS:
             o_cos, o_err, _ = agreement(a, logits[other, "cpu"], prec)
             print(f"reduced-depth card {prec} vs CPU {other}: cosine {o_cos:.6f}, "
                   f"max_abs_err {o_err:.5f}", flush=True)
@@ -2183,12 +2240,13 @@ def static_batch_logits(backend, requests: list, row_steps: dict) -> dict:
     return out
 
 
-def serving_run(tag: str, backend, fn, requests: list, prec: str) -> dict:
+def serving_run(tag: str, backend, fn, requests: list, prec: str, draft=None) -> dict:
     """One serving call with the counts reset just before: its token rows
     (recorded from the backend's text decoding), host wall, launches, and
     the K7 / K8 launches checked against the replayed and prefilled
-    forwards, and the graph captures it made (warm-up steps and captures,
-    host ms)."""
+    forwards (a speculative ``draft`` model's too, where it is not the
+    judge's own), and the graph captures it made (warm-up steps and
+    captures, host ms)."""
     from emr2a_tpu_torch.models import cuda_graph
     rows, host = [], [0.0]
     decode_row, prepare = backend._decode_row, backend._prepare
@@ -2203,6 +2261,9 @@ def serving_run(tag: str, backend, fn, requests: list, prec: str) -> dict:
     backend._prepare = timed_prepare
     n_text = ForwardCount(backend.model.language_model)
     n_vis = ForwardCount(backend.model.visual)
+    other = draft is not None and draft is not backend.model
+    if other:
+        d_text, d_vis = ForwardCount(draft.language_model), ForwardCount(draft.visual)
     torch.cuda.synchronize()
     reset_counts()
     captures, capture_ms = cuda_graph.CAPTURES, cuda_graph.CAPTURE_MS
@@ -2217,8 +2278,14 @@ def serving_run(tag: str, backend, fn, requests: list, prec: str) -> dict:
     n_text.remove()
     n_vis.remove()
     want = {"frame_flash_attention": len(backend.model.visual.blocks) * n_vis.n}
-    if prec == "int4":
+    if prec in ("int4", "int4_awq"):
         want["linear_w4a8"] = 7 * len(backend.model.language_model.layers) * n_text.n
+    if other:
+        d_text.remove()
+        d_vis.remove()
+        want["frame_flash_attention"] += len(draft.visual.blocks) * d_vis.n
+        if "linear_w4a8" in want:
+            want["linear_w4a8"] += 7 * len(draft.language_model.layers) * d_text.n
     check_launches(f"serving {prec} {tag}", launches, want)
     if len(rows) != len(requests) or not all(isinstance(t, str) for t in texts):
         fail(f"serving {prec} {tag}: {len(rows)} rows for {len(requests)} requests")
@@ -2231,7 +2298,8 @@ def serving_run(tag: str, backend, fn, requests: list, prec: str) -> dict:
     return {"rows": rows, "wall_s": wall, "prepare_s": host[0], "launches": launches,
             "captures": cuda_graph.CAPTURES - captures,
             "capture_ms": cuda_graph.CAPTURE_MS - capture_ms, "forwards": n_text.n,
-            "vision_forwards": n_vis.n, "tokens": useful,
+            "vision_forwards": n_vis.n, "draft_forwards": d_text.n if other else None,
+            "tokens": useful,
             "tokens_per_s": useful / wall, "cases_per_s": len(requests) / wall}
 
 
@@ -2292,7 +2360,7 @@ def serving_phase(work: Path, manifest_path: Path, backends: dict, card: str) ->
             r.update(temperature=0.7, top_p=0.9, seed=0)
     greedy = [i for i in range(len(requests)) if i not in SERVING_SAMPLED]
     torch.cuda.reset_peak_memory_stats()
-    counts, rates = {}, {}
+    counts, rates, one_at_a_time = {}, {}, {}
     for prec in ("int4", "bf16"):
         be, limit = backends[prec], MAX_LOGIT_ABS_ERR[prec]
 
@@ -2302,7 +2370,7 @@ def serving_phase(work: Path, manifest_path: Path, backends: dict, card: str) ->
 
         def batcher8():
             return next(b for k, b in be._batchers.items()
-                        if k[1:] == (8, SERVING_MAX_NEW))
+                        if k[1:] == (8, SERVING_MAX_NEW, False))
 
         modes = {
             "one at a time": lambda: [be.generate(
@@ -2336,7 +2404,7 @@ def serving_phase(work: Path, manifest_path: Path, backends: dict, card: str) ->
                     if not np.array_equal(run["rows"][i][:n], runs["continuous 8"]["rows"][i][:n]):
                         fail(f"serving {prec} {tag}: request {i}'s stream differs from the "
                              f"first wave's")
-        ref = runs["one at a time"]["rows"]
+        ref = one_at_a_time[prec] = runs["one at a time"]["rows"]
         batched = [tag for tag in runs if tag not in ("one at a time", "continuous 8 again")]
         first = {}      # (tag, request) -> its first token that differs from one at a time
         for tag in batched:
@@ -2462,7 +2530,422 @@ def serving_phase(work: Path, manifest_path: Path, backends: dict, card: str) ->
     print(f"serve CLI (int4 judge, 4 slots): {len(lines)} response lines in "
           f"{time.time() - t0:.2f} s: a and b served, c image not found, line 2 invalid "
           f"JSON ({card})", flush=True)
-    return {"counts": counts, "rates": rates, "peak_gib": peak}
+    return {"counts": counts, "rates": rates, "peak_gib": peak, "requests": requests,
+            "one_at_a_time": one_at_a_time}
+
+
+# The speculative and AWQ phase (after serving): k proposals a cycle, the
+# new tokens of the B = 1 runs, the shallow draft's depth and seed, and the
+# cycles timed from a CUDA graph
+SPEC_K, SPEC_NEW_TOKENS, SHALLOW_LAYERS, SHALLOW_SEED = 4, 32, 4, 1
+SPEC_CYCLES_TIMED = 8
+# AWQ's gate against RTN (``tools/awq_depth.py``): JAX's outlier-embedding
+# fixture on the judge's first AWQ_GATE_LAYERS layers at full width, the
+# logits cosine to bf16 averaged over 512 seeded ids. int4_awq must gain
+# AWQ_GATE_MARGIN over int4 there, about a third of the gain measured at 2
+# to 8 layers (PERF.md, section 5). At 36 layers, with the fixture, the two
+# sit within 0.004 of each other, inside the bf16 fold's own 0.003, so the
+# full depth's cosines are printed only.
+AWQ_GATE_LAYERS, AWQ_GATE_MARGIN = 4, 0.005
+
+
+@contextlib.contextmanager
+def awq_reports():
+    """``models/awq.awq_quantize_qwen_text_params`` recorded while the
+    context is open: each call's report and host seconds (the card's work
+    synchronised)."""
+    from emr2a_tpu_torch.models import awq
+    real, reports = awq.awq_quantize_qwen_text_params, []
+
+    def recorded(model, *args, **kw):
+        t0 = time.perf_counter()
+        out = real(model, *args, **kw)
+        if model.language_model.final_ln.weight.is_cuda:
+            torch.cuda.synchronize()
+        reports.append({"report": out[1], "s": time.perf_counter() - t0})
+        return out
+
+    awq.awq_quantize_qwen_text_params = recorded
+    try:
+        yield reports
+    finally:
+        awq.awq_quantize_qwen_text_params = real
+
+
+def awq_depth_gate(cfg, state: dict, tok, card: str) -> dict:
+    """int4_awq against int4 on the outlier fixture at AWQ_GATE_LAYERS
+    layers (``tools/awq_depth.awq_cosines``): fails unless int4_awq's
+    logits cosine to bf16, averaged over positions, beats int4's by
+    AWQ_GATE_MARGIN."""
+    from emr2a_tpu_torch.tools import awq_depth
+    cos = awq_depth.awq_cosines(cfg, awq_depth.outlier_state(state), AWQ_GATE_LAYERS, tok)
+    if not cos["int4_awq"]["mean"] >= cos["int4"]["mean"] + AWQ_GATE_MARGIN:
+        fail(f"int4_awq (outlier fixture, {AWQ_GATE_LAYERS} layers): mean logits cosine to "
+             f"bf16 {cos['int4_awq']['mean']:.6f}, not {AWQ_GATE_MARGIN} above int4's "
+             f"{cos['int4']['mean']:.6f}")
+    print(f"int4_awq gate (JAX's outlier-embedding fixture on the judge's first "
+          f"{AWQ_GATE_LAYERS} layers at full width; alpha > 0 at {len(cos['alpha_pos'])} of "
+          f"{4 * AWQ_GATE_LAYERS} sites): logits cosine to bf16 over "
+          f"{awq_depth.EVAL_TOKENS} seeded ids, mean int4 {cos['int4']['mean']:.6f}, int4_awq "
+          f"{cos['int4_awq']['mean']:.6f} (at least int4's + {AWQ_GATE_MARGIN}); last "
+          f"position int4 {cos['int4']['last']:.6f}, int4_awq {cos['int4_awq']['last']:.6f} "
+          f"({card})", flush=True)
+    return {k: cos[k] for k in ("int4", "int4_awq", "alpha_pos")}
+
+
+def prefill_logits(backend, request: dict) -> torch.Tensor:
+    """The last-position prefill logits (f32) of ``request`` on ``backend``."""
+    gen = backend.generator
+    ids, patches, grids = backend._prepare(request["images"], request["prompt"],
+                                           request["system"])
+    with torch.inference_mode():
+        inputs = gen.device_inputs(np.asarray([ids]), patches, tuple(grids),
+                                   backend.prompt_bucket)
+        _, last, _ = gen._prefill(*inputs[:4], tuple(grids), inputs[4], inputs[4] + 1)
+    return last[0].float()
+
+
+def accept_support_check(accept):
+    """``qwen3_vl.spec_accept`` wrapped to count on the device (captured
+    with the cycle): the tokens each call emits (the accepted drafts and the
+    correction or bonus) and those outside the target's filtered support."""
+    stats = {k: torch.zeros((), dtype=torch.int64, device="cuda")
+             for k in ("emitted", "outside")}
+
+    def checked(drafts, q_lp, p_lp, keys):
+        emitted, n_acc = accept(drafts, q_lp, p_lp, keys)
+        valid = torch.arange(emitted.shape[1], device=emitted.device)[None, :] <= n_acc[:, None]
+        finite = torch.isfinite(p_lp.gather(2, emitted[:, :, None])[..., 0])
+        stats["emitted"] += valid.sum()
+        stats["outside"] += (valid & ~finite).sum()
+        return emitted, n_acc
+
+    return checked, stats
+
+
+def near_ties(tag: str, base, requests: list, rows: list, ref: list, indices, limit: float):
+    """Each greedy request's stream against one at a time: equal, or its
+    first difference a near-tie of the B = 1 logits rebuilt on ``base``'s
+    generator (their argmax the one-at-a-time token, their top-two gap
+    within ``limit``). Returns the (request, token, gap) of the ties."""
+    first = {}
+    for i in indices:
+        n = requests[i]["max_new_tokens"]
+        diff = np.nonzero(np.asarray(rows[i])[:n] != np.asarray(ref[i])[:n])[0]
+        if len(diff):
+            first[i] = int(diff[0])
+    ties = []
+    for i, k in sorted(first.items()):
+        lg = b1_logits(base, requests[i], {k})[k]
+        gap = round(top_two_gap(lg), 4)
+        if int(torch.argmax(lg)) != int(ref[i][k]) or gap > limit:
+            fail(f"{tag}: request {i} differs from one at a time at token {k}, where the "
+                 f"B = 1 logits choose {int(torch.argmax(lg))} with top-two gap {gap:.4f} "
+                 f"(limit {limit})")
+        ties.append((i, k, gap))
+    return ties
+
+
+def spec_cycle_ms(spec, backend, request: dict) -> float:
+    """The device ms of one speculative cycle on ``request``: SPEC_CYCLES_TIMED
+    cycles replayed from a CUDA graph after the warm-up, the capture and one
+    replay, between two CUDA events (a finished row's cycle runs the same
+    kernels)."""
+    from emr2a_tpu_torch.models.cuda_graph import StepGraph
+    ids, patches, grids = backend._prepare(request["images"], request["prompt"],
+                                           request["system"])
+    with torch.inference_mode():
+        state = spec.start(np.asarray([ids]), patches, tuple(grids),
+                           max_new_tokens=SPEC_NEW_TOKENS, prompt_bucket=backend.prompt_bucket)
+        runner = StepGraph(spec.cycle, state, "cuda")
+        runner.run(2)
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        torch.cuda.synchronize()
+        ev[0].record()
+        runner.run(SPEC_CYCLES_TIMED)
+        ev[1].record()
+        ev[1].synchronize()
+    return ev[0].elapsed_time(ev[1]) / SPEC_CYCLES_TIMED
+
+
+def spec_awq_phase(work: Path, manifest_path: Path, cfg, state: dict, backends: dict,
+                   request: dict, runs: dict, serving: dict, card: str) -> dict:
+    """AWQ and speculative decoding on the judges the serving phase holds.
+
+    AWQ: an int4_awq judge built from the bf16 weights on the card
+    (``QwenVLBackend(precision="int4_awq")``: 4 x 256 calibration ids of the
+    judge's prompts through the stub tokenizer, the search, the fold and
+    K7's quantization); every site's AWQ error at most its RTN error (a
+    consistency check of the search's report: RTN, alpha 0, is one of its
+    candidates); the judge request's last-position prefill logits, cosine
+    to bf16 for int4 and int4_awq, printed, on the plain weights and with
+    JAX's outlier-embedding fixture (on the plain random weights AWQ's
+    diagonal objective takes alpha > 0 at a few sites where it does not
+    pay); the gate against RTN, ``awq_depth_gate``; step4 on 4 cases with
+    the int4_awq judge.
+
+    Speculative at B = 1 on the int4 judge, k = SPEC_K, the judge request:
+    the self-draft (the judge's own model) and a seeded shallow draft (the
+    8B's widths, SHALLOW_LAYERS decoder layers, quantized in int4, built
+    through ``QwenVLBackend(draft_config=..., draft_params=...)``). Each
+    greedy stream against the plain generator's (equal, or a near-tie
+    within int4's 0.75); the kept cycle graph's first replayed cycle of a
+    second generation against the eager cycle, bit for bit; K7 and K8
+    launches against the forwards of both models; acceptance, tokens a
+    cycle, the cycle's ms and ms per token beside plain graph decode's. A
+    sampled generation (temperature 0.7, top_p 0.9, seed SAMPLED_SEED) on
+    the shallow draft, twice: the same tokens, every emitted token inside
+    the target's filtered support and every draw inside its own (counted
+    on the card, in the graph).
+
+    Speculative continuous serving: the serving phase's 12 fold requests at
+    8 slots with the self-draft, greedy streams against one at a time,
+    rates beside plain continuous 8's; step4 on 4 cases through the
+    speculative backend. Returns the launch counts by path."""
+    from emr2a_tpu_torch.judge.qwen_backend import QwenVLBackend
+    from emr2a_tpu_torch.models import qwen3_vl, speculative
+    from emr2a_tpu_torch.models.speculative import SpeculativeGenerator
+    from emr2a_tpu_torch.pipelines.step4_vlm_review.run import run_vlm_audit_pipeline
+    from emr2a_tpu_torch.tools import awq_depth
+    from emr2a_tpu_torch.tools.stub_tokenizer import WordTokenizer
+
+    tok = WordTokenizer()
+    counts = {}
+    torch.cuda.reset_peak_memory_stats()
+    t_phase = time.time()
+
+    # -- AWQ ------------------------------------------------------------------
+    with awq_reports() as reports:
+        t0 = time.time()
+        awq_be = QwenVLBackend(config=cfg, params=state, tokenizer=tok, precision="int4_awq")
+        torch.cuda.synchronize()
+        build_s = time.time() - t0
+    report, awq_s = reports[0]["report"], reports[0]["s"]
+    sites = [(layer, site, e["err"][site]) for layer, e in report.items()
+             for site in ("qkv", "o", "gu", "down")]
+    worse = [(l, s_, e) for l, s_, e in sites if e["awq"] > e["rtn"]]
+    taken = sum(1 for e in report.values() for a in e["alpha"].values() if a > 0)
+    gain = [1 - e["awq"] / e["rtn"] for _, _, e in sites if e["rtn"] > 0]
+    if worse or len(sites) != 4 * cfg.text.num_layers:      # a consistency check
+        fail(f"int4_awq: {len(worse)} sites whose AWQ error exceeds RTN's: {worse[:4]}")
+    def cosines(judges: dict) -> dict:
+        ref = prefill_logits(judges["bf16"], request)
+        return {prec: torch.nn.functional.cosine_similarity(
+            prefill_logits(judges[prec], request), ref, dim=0).item()
+            for prec in ("int4", "int4_awq")}
+
+    cos = cosines({"bf16": backends["bf16"], "int4": backends["int4"], "int4_awq": awq_be})
+    loud = awq_depth.outlier_state(state)
+    with awq_reports() as loud_reports:
+        loud_judges = {prec: QwenVLBackend(config=cfg, params=loud, tokenizer=tok,
+                                           precision=prec)
+                       for prec in ("bf16", "int4", "int4_awq")}
+    loud_cos = cosines(loud_judges)
+    loud_taken = sum(1 for e in loud_reports[0]["report"].values()
+                     for a in e["alpha"].values() if a > 0)
+    del loud_judges, loud
+    torch.cuda.empty_cache()
+    print(f"int4_awq judge: AWQ (calibration on 4 x 256 ids, search over 5 alphas at "
+          f"{len(sites)} sites, fold, K7 quantization) in {awq_s:.2f} s on the card, the "
+          f"backend in {build_s:.2f} s (host clock); alpha > 0 at {taken} of {len(sites)} "
+          f"sites; every site's AWQ error <= its RTN error (relative gain median "
+          f"{np.median(gain):.4f}, max {max(gain):.4f}); the judge request's last-position "
+          f"prefill logits cosine to bf16 at full depth (printed, not gated): int4 "
+          f"{cos['int4']:.6f}, int4_awq {cos['int4_awq']:.6f}; with JAX's outlier-embedding "
+          f"fixture ({awq_depth.OUTLIER_CHANNELS} channels x {awq_depth.OUTLIER_FACTOR:g}; "
+          f"alpha > 0 at {loud_taken} sites): int4 {loud_cos['int4']:.6f}, int4_awq "
+          f"{loud_cos['int4_awq']:.6f} ({card})", flush=True)
+    gate = awq_depth_gate(cfg, state, tok, card)
+    exp_dir = work / "cv" / "cuda" / "exp_cohort"
+
+    def step4(tag: str, be, draft=None, prec="int4"):
+        out = work / f"step4_{tag}"
+
+        def go():
+            run_vlm_audit_pipeline(exp_dir, manifest_path, out, max_samples=STEP4_CASES,
+                                   backend=be, vlm_max_new_tokens=STEP4_NEW_TOKENS)
+            return (out / "vlm_audit_details.jsonl").read_text().splitlines()
+
+        run = serving_run(f"step4 {tag}", be, go,
+                          [{"max_new_tokens": STEP4_NEW_TOKENS}] * STEP4_CASES, prec, draft)
+        summary = json.loads((out / "vlm_audit_summary.json").read_text())
+        details = (out / "vlm_audit_details.jsonl").read_text().splitlines()
+        if len(details) != STEP4_CASES or len(summary["audit_results"]) != STEP4_CASES \
+                or run["vision_forwards"] < STEP4_CASES:
+            fail(f"step4 {tag}: {len(details)} detail rows, {run['vision_forwards']} vision "
+                 f"forwards")
+        counts[f"step4 {tag}"] = run["launches"]
+        print(f"step4 ({tag}): {STEP4_CASES} cases, {STEP4_NEW_TOKENS} new tokens each, in "
+              f"{run['wall_s']:.2f} s (host clock); {run['forwards']} judge decoder forwards, "
+              f"{run['vision_forwards']} judge vision forwards; decisions "
+              f"{summary['audit_summary']}; launches {nonzero(run['launches'])}; both "
+              f"artifacts written ({card})", flush=True)
+
+    step4("int4_awq", awq_be, prec="int4_awq")
+    del awq_be
+    torch.cuda.empty_cache()
+
+    # -- speculative at B = 1 -------------------------------------------------
+    base = backends["int4"]
+    eos, kv = base.generator.eos_token_id, base.generator.kv_dtype
+    self_be = copy.copy(base)
+    self_be._batchers = {}
+    self_be.spec_generator = SpeculativeGenerator(base.model, base.model, spec_k=SPEC_K,
+                                                  eos_token_id=eos, kv_dtype=kv)
+    shallow_cfg = dataclasses.replace(cfg, text=dataclasses.replace(
+        cfg.text, num_layers=SHALLOW_LAYERS))
+    shallow = qwen3_vl.random_state(shallow_cfg, seed=SHALLOW_SEED, device="cuda")
+    t0 = time.time()
+    shallow_be = QwenVLBackend(config=cfg, params=state, tokenizer=tok, precision="int4",
+                               draft_config=shallow_cfg, draft_params=shallow,
+                               spec_k=SPEC_K)
+    torch.cuda.synchronize()
+    n_shallow = sum(t.numel() for t in shallow.values()) / 1e9
+    del shallow
+    print(f"shallow draft: the 8B's widths cut to {SHALLOW_LAYERS} decoder layers, random "
+          f"weights (seed {SHALLOW_SEED}), {n_shallow:.3f} B parameters; the speculative int4 "
+          f"backend built in {time.time() - t0:.1f} s ({card})", flush=True)
+    ids, patches, grids = base._prepare(request["images"], request["prompt"], request["system"])
+    req = dict(request, max_new_tokens=SPEC_NEW_TOKENS)
+    with torch.inference_mode():
+        plain = base.generator.generate(np.asarray([ids]), patches, tuple(grids),
+                                        max_new_tokens=SPEC_NEW_TOKENS,
+                                        prompt_bucket=base.prompt_bucket,
+                                        chunk=base.decode_chunk)[0]
+    plain_ms = runs["int4"]["graph_ms_per_token"]
+    spec_rates = {}
+    for tag, be in (("self-draft", self_be), ("shallow draft", shallow_be)):
+        spec = be.spec_generator
+        fn = lambda: [be.generate(request["images"], request["prompt"], system=request["system"],
+                                  max_new_tokens=SPEC_NEW_TOKENS)]
+        first = serving_run(f"speculative {tag}", be, fn, [req], "int4", spec.dm)
+        ties = near_ties(f"speculative {tag}", base, [req], first["rows"], [plain], [0],
+                         MAX_LOGIT_ABS_ERR["int4"])
+        key = next(iter(spec._graphs))
+        runner = spec._graphs[key]
+        s = runner.state
+        # the tokens the cycles emitted within the budget (the last cycle may
+        # overshoot it; the first token is the prefill's)
+        cycles, accepted = int(s.cycles), int(s.accepted)
+        emitted = min(int(s.n_emitted), SPEC_NEW_TOKENS) - 1
+        runner.verify = True
+        again = serving_run(f"speculative {tag} again", be, fn, [req], "int4", spec.dm)
+        if runner.mismatches != [] or spec._graphs.get(key) is not runner or again["captures"] \
+                or not np.array_equal(again["rows"][0], first["rows"][0]):
+            fail(f"speculative {tag}: the replayed cycle differs from the eager cycle in "
+                 f"{runner.mismatches}, or the second generation captured {again['captures']} "
+                 f"graphs or gave other tokens")
+        counts[f"speculative {tag}"] = first["launches"]
+        cycle_ms = spec_cycle_ms(spec, be, request)
+        per_token = cycle_ms * cycles / emitted
+        spec_rates[tag] = {"cycle_ms": cycle_ms, "cycles": cycles, "accepted": accepted,
+                           "emitted": emitted, "emitted_past_budget": int(s.n_emitted) - 1 - emitted,
+                           "acceptance": accepted / (cycles * SPEC_K),
+                           "tokens_per_cycle": emitted / cycles, "ms_per_token": per_token,
+                           "plain_graph_ms_per_token": plain_ms, "near_ties": ties,
+                           "wall_s": first["wall_s"]}
+        print(f"speculative {tag} (int4 judge, k = {SPEC_K}, the judge request, "
+              f"{SPEC_NEW_TOKENS} new tokens): {cycles} cycles, {accepted} of "
+              f"{cycles * SPEC_K} drafts accepted (acceptance "
+              f"{spec_rates[tag]['acceptance']:.3f}, the last cycle's drafts past the budget "
+              f"included), {emitted} tokens within the budget after the prefill's "
+              f"({spec_rates[tag]['emitted_past_budget']} past it), {emitted / cycles:.3f} of "
+              f"them a cycle; a cycle {cycle_ms:.3f} ms replayed from its CUDA graph (CUDA "
+              f"events, {SPEC_CYCLES_TIMED} cycles), {per_token:.3f} ms per token within the "
+              f"budget against "
+              f"plain graph decode's {plain_ms:.3f}; generate in {first['wall_s']:.2f} s (host "
+              f"clock, prefills and capture included); the stream "
+              f"{'equal to the plain generator' if not ties else f'a near-tie {ties}'}; the "
+              f"second generation's first replayed cycle equal to the eager cycle bit for "
+              f"bit; {first['forwards']} judge decoder forwards, "
+              f"{first['draft_forwards'] if first['draft_forwards'] is not None else first['forwards']} "
+              f"counted for the draft; launches {nonzero(first['launches'])} ({card})",
+              flush=True)
+
+    spec = shallow_be.spec_generator
+    real_accept, real_sample = speculative.spec_accept, speculative.sample_rows
+    checked_acc, acc_stats = accept_support_check(real_accept)
+    checked_draw, draw_stats = support_check(real_sample)
+    spec.release()              # a kept graph would not run the checks
+    n_text, n_draft = ForwardCount(spec.tm.language_model), ForwardCount(spec.dm.language_model)
+    n_vis, n_dvis = ForwardCount(spec.tm.visual), ForwardCount(spec.dm.visual)
+    speculative.spec_accept, speculative.sample_rows = checked_acc, checked_draw
+    try:
+        torch.cuda.synchronize()
+        reset_counts()
+        streams = [spec.generate(np.asarray([ids]), patches, tuple(grids),
+                                 max_new_tokens=SPEC_NEW_TOKENS, prompt_bucket=base.prompt_bucket,
+                                 temperature=0.7, top_p=0.9, seed=SAMPLED_SEED)
+                   for _ in range(2)]
+        torch.cuda.synchronize()
+        launches = read_counts()
+    finally:
+        speculative.spec_accept, speculative.sample_rows = real_accept, real_sample
+        spec.release()
+        for c in (n_text, n_draft, n_vis, n_dvis):
+            c.remove()
+    check_launches("speculative sampled", launches, {
+        "frame_flash_attention": len(spec.tm.visual.blocks) * n_vis.n
+        + len(spec.dm.visual.blocks) * n_dvis.n,
+        "linear_w4a8": 7 * (len(spec.tm.language_model.layers) * n_text.n
+                            + len(spec.dm.language_model.layers) * n_draft.n)})
+    counts["speculative sampled"] = launches
+    emitted, outside = int(acc_stats["emitted"]), int(acc_stats["outside"])
+    draws, draws_out = int(draw_stats["draws"]), int(draw_stats["outside"])
+    if outside or draws_out or not emitted or not np.array_equal(streams[0], streams[1]):
+        fail(f"speculative sampled: {outside} of {emitted} emitted tokens outside the target's "
+             f"filtered support, {draws_out} of {draws} draws outside their own, or the same "
+             f"seed gave other tokens")
+    print(f"speculative sampled (shallow draft, temperature 0.7, top_p 0.9, seed "
+          f"{SAMPLED_SEED}, {SPEC_NEW_TOKENS} tokens) twice: equal streams; every one of "
+          f"{emitted} tokens the acceptance emitted inside the target's filtered support and "
+          f"every one of {draws} draws (the first token's and the draft's) inside its own "
+          f"(counted on the card, in the cycle's graph); tokens {streams[0][0].tolist()}; "
+          f"launches {nonzero(launches)} ({card})", flush=True)
+    shallow_be.spec_generator.release()
+    del shallow_be, spec
+    torch.cuda.empty_cache()
+
+    # -- speculative continuous serving -----------------------------------------
+    requests = serving["requests"]
+    ref = serving["one_at_a_time"]["int4"]
+    run = serving_run("speculative continuous 8", self_be,
+                      lambda: self_be.generate_stream(requests, max_new_tokens=SERVING_MAX_NEW,
+                                                      n_slots=8),
+                      requests, "int4", self_be.spec_generator.dm)
+    greedy = [i for i in range(len(requests)) if i not in SERVING_SAMPLED]
+    ties = near_ties("speculative continuous 8", base, requests, run["rows"], ref, greedy,
+                     MAX_LOGIT_ABS_ERR["int4"])
+    batcher = next(iter(self_be._batchers.values()))
+    cycles = batcher._runners["spec", True].steps
+    plain8 = serving["rates"]["int4 continuous 8"]
+    counts["speculative continuous 8"] = run["launches"]
+    spec_rates["continuous 8"] = {k: run[k] for k in ("wall_s", "tokens", "tokens_per_s",
+                                                      "cases_per_s", "forwards", "captures")}
+    spec_rates["continuous 8"].update(near_ties=ties, chunk_cycles=cycles,
+                                      plain_tokens_per_s=plain8["tokens_per_s"],
+                                      plain_cases_per_s=plain8["cases_per_s"],
+                                      k7_t40_ms=K7_AT.get(40))
+    print(f"speculative continuous 8 (int4 judge, self-draft, k = {SPEC_K}, the 12 fold "
+          f"requests, 2 sampled): {run['cases_per_s']:.3f} cases/s, {run['tokens_per_s']:.1f} "
+          f"tokens/s ({run['tokens']} tokens in {run['wall_s']:.3f} s, host clock) against "
+          f"plain continuous 8's {plain8['cases_per_s']:.3f} cases/s, "
+          f"{plain8['tokens_per_s']:.1f} tokens/s; {cycles} cycles, {run['forwards']} judge "
+          f"decoder forwards (draft steps included); {len(greedy) - len(ties)} of {len(greedy)} "
+          f"greedy streams equal to one at a time, near-ties {ties}; the verify's K7 at T = 40 "
+          f"{K7_AT.get(40, float('nan')):.4f} ms a layer (chained, phase 11) against "
+          f"{K7_AT.get(5, float('nan')):.4f} at T = 5; launches {nonzero(run['launches'])} "
+          f"({card})", flush=True)
+    step4("speculative", self_be, draft=self_be.spec_generator.dm)
+    for b in self_be._batchers.values():
+        b.release()
+    self_be.spec_generator.release()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"speculative and AWQ phase in {time.time() - t_phase:.1f} s (host clock); peak "
+          f"memory {peak:.2f} GiB ({card})", flush=True)
+    return {"counts": counts, "rates": spec_rates, "awq": {
+        "seconds": awq_s, "build_s": build_s, "alpha_positive": taken, "sites": len(sites),
+        "cosine": cos, "outlier_cosine": loud_cos, "gate": gate}, "peak_gib": peak}
 
 
 def judge_phase(work: Path, manifest_path: Path, card: str) -> dict:
@@ -2562,11 +3045,21 @@ def judge_phase(work: Path, manifest_path: Path, card: str) -> dict:
     t0 = time.time()
     serving = serving_phase(work, manifest_path, backends, card)
     print(f"serving phase in {time.time() - t0:.1f} s", flush=True)
+    # the judges' kept graphs and slot states go, and the int8 judge, which
+    # the later phases do not use
+    for judge in backends.values():
+        judge.generator.release()
+        for batcher in judge._batchers.values():
+            batcher.release()
+    del backends["int8"]
+    torch.cuda.empty_cache()
+    spec = spec_awq_phase(work, manifest_path, cfg, state, backends, request, runs, serving,
+                          card)
     review = review_phase(work, manifest_path, be, card)
     del backends, state, be, base, m
     torch.cuda.empty_cache()
     return {"runs": runs, "step4": step4, "sampled": sampled, "review": review, "qwen": qwen,
-            "serving": serving}
+            "serving": serving, "spec": spec}
 
 
 def step1_phase(work: Path) -> Path:
@@ -2684,7 +3177,8 @@ def main_path_phase(work: Path, records: list, card: str) -> None:
     paths = {"text": text["launches"],
              **{"judge " + tag: r["launches"] for tag, r in runs.items()},
              "judge int4 sampled": judge["sampled"], "step4_int4": judge["step4"],
-             "review_int4": judge["review"], **judge["serving"]["counts"]}
+             "review_int4": judge["review"], **judge["serving"]["counts"],
+             **judge["spec"]["counts"]}
     for rec in records:
         name = rec["name"]
         if name in ("linear_w8a8", "linear_w4a8", "frame_flash_attention", "fused_attention"):

@@ -12,12 +12,21 @@ batching (``models/serving.ContinuousBatcher``) with per-request sampling
 and budgets. On the card every decode step replays a CUDA graph.
 
 ``precision``: "bf16" (the vision attention on K8), "int8" (adds every
-decoder projection on K5) or "int4" (adds every decoder projection on K7).
-The weights are quantized where they lie (on the card, by the quantizers'
-torch twins). ``kv_dtype="int8"`` keeps the KV cache in s8 with scales and
-``prefill_chunk`` chunks the prompt's prefill (``models/qwen3_vl.py``).
-"int4_awq" raises until ``models/awq.py`` is ported; so do ``tp > 1`` and
-a draft model (ROADMAP.md, Queue 1, item 3).
+decoder projection on K5), "int4" (adds every decoder projection on K7) or
+"int4_awq" (int4 after the activation-aware scale fold of
+``models/awq.py``, calibrated on 4 x 256 ids of the judge's own prompt
+templates: the same kernels on folded weights). The weights are quantized
+where they lie (on the card, by the quantizers' torch twins; AWQ's search
+and fold run there too). ``kv_dtype="int8"`` keeps the KV cache in s8 with
+scales and ``prefill_chunk`` chunks the prompt's prefill
+(``models/qwen3_vl.py``).
+
+A draft (``draft_model_path``, or ``draft_config`` / ``draft_params``),
+quantized at the judge's precision, turns on speculative decoding: a
+single ``generate`` goes through ``models/speculative.SpeculativeGenerator``
+(``spec_k`` proposals a cycle, greedy or sampled), ``generate_stream``
+through the batcher's speculative chunk, and ``generate_batch`` ignores the
+draft, as JAX's does. ``tp > 1`` raises (ROADMAP.md, Queue 1, item 7).
 
 ``params`` is a state dict of this package (``models/qwen3_vl.random_state``,
 ``params_from_jax``), with its ``config``, and the model runs where its
@@ -43,29 +52,69 @@ from emr2a_tpu_torch.models.qwen3_vl import (
 
 logger = logging.getLogger(__name__)
 
-_NOT_PORTED = "not ported yet (ROADMAP.md, Queue 1, item 3)"
+_NOT_PORTED = "not ported yet (ROADMAP.md, Queue 1, item 7)"
 
 
-def quantize_decoder(state, precision: str):
-    """The decoder projections of a state dict in W8A8 / W4A8, quantized
-    where the weights lie; every other tensor is shared, not copied."""
+def _calib_ids_from_tokenizer(tokenizer, vocab_size: int, batch: int = 4, seq: int = 256):
+    """AWQ's calibration batch: the judge's own prompt templates
+    (``judge/prompts``' strings over 200 characters), tokenized and cut to
+    (batch, seq); random ids from ``RandomState(0)`` fill what the
+    tokenizer falls short of. (JAX's ``dir()`` scan also takes its prompts
+    module's docstring; the port reads the templates only.)"""
+    from emr2a_tpu_torch.judge import prompts
+    texts = [v for name, v in sorted(vars(prompts).items())
+             if not name.startswith("_") and isinstance(v, str) and len(v) > 200]
+    ids: List[int] = []
+    for t in texts:
+        try:
+            ids.extend(tokenizer(t, add_special_tokens=False)["input_ids"])
+        except Exception:
+            break
+    if len(ids) < batch * seq:
+        rng = np.random.RandomState(0)
+        ids = ids + rng.randint(2, max(3, vocab_size - 2), (batch * seq - len(ids),)).tolist()
+    return np.asarray(ids[:batch * seq], np.int64).reshape(batch, seq)
+
+
+def quantize_decoder(state, precision: str, model=None, tokenizer=None):
+    """The decoder projections of a state dict in W8A8 / W4A8 (int4_awq:
+    folded first, calibrated through ``model``, a ``Qwen3VLModel`` over
+    ``state``, on ``tokenizer``'s ids), quantized where the weights lie;
+    every other tensor is shared, not copied."""
     if precision == "bf16":
         return state
-    if precision == "int4_awq":
-        raise NotImplementedError(f"int4_awq (models/awq.py) is {_NOT_PORTED}")
-    if precision not in ("int8", "int4"):
+    if precision not in ("int8", "int4", "int4_awq"):
         raise ValueError(
             f"precision must be bf16|int8|int4|int4_awq, got {precision!r}")
     if precision == "int4":
         logger.warning(
             "precision=int4 is EXPERIMENTAL: group-128 4-bit RTN weights carry "
-            "a real accuracy cost; validate audit quality on your cohort, or "
-            "use int8")
-    from emr2a_tpu_torch.models.quantize import quantize_qwen_text_params
+            "a real accuracy cost; validate audit quality on your cohort, use "
+            "int4_awq (activation-aware folding, models/awq.py) to claw back "
+            "most of the RTN error, or use int8")
     tree = params_to_jax(state)
+    if precision == "int4_awq":
+        if model is None:
+            raise ValueError("int4_awq needs the model for calibration")
+        from emr2a_tpu_torch.models.awq import awq_quantize_qwen_text_params
+        calib = _calib_ids_from_tokenizer(tokenizer, model.config.text.vocab_size)
+        tree, report = awq_quantize_qwen_text_params(model, tree, calib, return_report=True)
+        taken = [e["alpha"][s] for e in report.values() for s in ("qkv", "o", "gu", "down")]
+        logger.info("int4_awq: calibrated on %d tokens; alpha>0 at %d/%d sites",
+                    calib.size, sum(1 for a in taken if a > 0), len(taken))
+        return params_from_jax(tree)
+    from emr2a_tpu_torch.models.quantize import quantize_qwen_text_params
     tree["language_model"] = quantize_qwen_text_params(
         tree["language_model"], precision=precision)
     return params_from_jax(tree)
+
+
+def _quantized_model(config, params, precision: str, tokenizer) -> Qwen3VLModel:
+    """The model over ``params`` at ``precision`` (int4_awq calibrates on a
+    bf16 model over the same tensors, no copy)."""
+    bf16 = Qwen3VLModel.from_params(config, params) if precision == "int4_awq" else None
+    return Qwen3VLModel.from_params(
+        config, quantize_decoder(params, precision, model=bf16, tokenizer=tokenizer))
 
 
 class QwenVLBackend:
@@ -76,13 +125,12 @@ class QwenVLBackend:
                  precision: str = "bf16",
                  standardize_images: Optional[int] = None,
                  kv_dtype: str = "bf16",
-                 draft_model_path: Optional[str] = None, spec_k: int = 4,
+                 draft_model_path: Optional[str] = None, draft_config=None,
+                 draft_params=None, spec_k: int = 4,
                  decode_chunk: Optional[int] = 64,
                  prefill_chunk: Optional[int] = None, tp: int = 1):
         if tp and int(tp) > 1:
             raise NotImplementedError(f"tensor parallelism is {_NOT_PORTED}")
-        if draft_model_path is not None:
-            raise NotImplementedError(f"speculative decoding is {_NOT_PORTED}")
         self.model_path = model_path
         self.prompt_bucket = prompt_bucket
         self.standardize_images = standardize_images
@@ -103,12 +151,25 @@ class QwenVLBackend:
         self.config = config
         self.tokenizer = tokenizer
         self.image_processor = image_processor
-        self.model = Qwen3VLModel.from_params(config, quantize_decoder(params, precision))
+        self.model = _quantized_model(config, params, precision, tokenizer)
         eos = getattr(tokenizer, "eos_token_id", None) or 151645
         self.generator = Qwen3VLGenerator(self.model, eos_token_id=int(eos),
                                           kv_dtype=kv_dtype,
                                           prefill_chunk=prefill_chunk)
         self._batchers = {}
+        self.spec_generator = None
+        if draft_model_path is not None or draft_params is not None:
+            from emr2a_tpu_torch.models.speculative import SpeculativeGenerator
+            if draft_params is None:
+                from emr2a_tpu_torch.models.checkpoint import load_qwen3_vl
+                draft_config, draft_params = load_qwen3_vl(draft_model_path)
+                draft_params = {k: v.to(device) for k, v in draft_params.items()}
+            if draft_config is None:
+                raise ValueError("draft_params need their config")
+            draft = _quantized_model(draft_config, draft_params, precision, tokenizer)
+            self.spec_generator = SpeculativeGenerator(self.model, draft, spec_k=spec_k,
+                                                       eos_token_id=int(eos),
+                                                       kv_dtype=kv_dtype)
 
     # -- prompt assembly --
 
@@ -184,8 +245,17 @@ class QwenVLBackend:
                  system: Optional[str] = None, max_new_tokens: int = 1024,
                  temperature: float = 0.0, top_p: float = 0.9) -> str:
         """One request: greedy for ``temperature <= 0``, else sampled with
-        ``top_p`` (the generator's top-k 50 and nucleus filter, seed 0)."""
+        ``top_p`` (the generator's top-k 50 and nucleus filter, seed 0);
+        through the speculative generator when a draft is loaded (greedy:
+        the same tokens as the plain path)."""
         ids, pixel_patches, grids = self._prepare(images, prompt, system)
+        if self.spec_generator is not None:
+            out_ids = self.spec_generator.generate(
+                np.asarray([ids], dtype=np.int64), pixel_patches=pixel_patches,
+                grid_thw=tuple(grids), max_new_tokens=max_new_tokens,
+                prompt_bucket=self.prompt_bucket, temperature=temperature,
+                top_p=top_p if temperature > 0 else 1.0)
+            return self._decode_row(out_ids[0])
         out_ids = self.generator.generate(
             np.asarray([ids], dtype=np.int64), pixel_patches=pixel_patches,
             grid_thw=tuple(grids), max_new_tokens=max_new_tokens,
@@ -200,7 +270,8 @@ class QwenVLBackend:
         right-padded to a shared bucket with per-row ``true_lens`` and
         position ids; every row's patches and grids are concatenated in row
         order. Decode streams the weights once a step for all rows, so N
-        cases cost about one case's decode time."""
+        cases cost about one case's decode time. A draft is not used here,
+        as in JAX."""
         if not requests:
             return []
         out_ids = self.generator.generate(
@@ -240,9 +311,11 @@ class QwenVLBackend:
         Request dicts as ``generate_batch``'s, plus optional per-request
         ``temperature`` / ``top_p`` / ``seed`` (default: the request's
         index) over the call's, and ``max_new_tokens`` (capped by the call's,
-        which sizes the KV cache). One batcher is kept per (bucket,
-        n_slots, max_new_tokens); only the one serving holds its slot state
-        and graphs (the others are released first)."""
+        which sizes the KV cache). With a draft loaded every slot serves
+        speculatively (the batcher's speculative chunk). One batcher is kept
+        per (bucket, n_slots, max_new_tokens, speculative); only the one
+        serving holds its slot state and graphs (the others are released
+        first)."""
         if not requests:
             return []
         from emr2a_tpu_torch.models.serving import ContinuousBatcher
@@ -250,13 +323,15 @@ class QwenVLBackend:
                 for r in requests]
         longest = max(len(ids) for ids, _, _ in rows)
         bucket = -(-longest // self.prompt_bucket) * self.prompt_bucket
-        key = (bucket, int(n_slots), int(max_new_tokens))
+        spec = self.spec_generator
+        key = (bucket, int(n_slots), int(max_new_tokens), spec is not None)
         if key not in self._batchers:
             gen = self.generator
             self._batchers[key] = ContinuousBatcher(
                 gen.model, n_slots=n_slots, prompt_bucket=bucket,
                 max_new_tokens=max_new_tokens, eos_token_id=gen.eos_token_id,
-                kv_dtype=gen.kv_dtype, prefill_chunk=gen.prefill_chunk)
+                kv_dtype=gen.kv_dtype, prefill_chunk=gen.prefill_chunk,
+                **({"draft_model": spec.dm, "spec_k": spec.spec_k} if spec else {}))
         reqs = []
         for i, (ids, patches, grids) in enumerate(rows):
             r = requests[i]

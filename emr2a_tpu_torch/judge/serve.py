@@ -15,7 +15,9 @@ line per request to the output file. With ``--follow`` it keeps tailing the
 input for new lines (a file-based request queue, no sockets), serving each
 new wave as it arrives; a ``{"cmd": "shutdown"}`` line or SIGINT stops it.
 ``--device`` defaults to ``cuda``; ``--model_path fake --device cpu`` serves
-the scripted backend's canned answers.
+the scripted backend's canned answers. ``--draft_model D --spec_k K``
+serves every slot speculatively (``models/serving.py``'s speculative
+chunk).
 
 Request line schema (only ``prompt`` is required):
 
@@ -222,8 +224,10 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--kv_cache", default="bf16",
                         choices=["bf16", "int8"])
     parser.add_argument("--draft_model", default=None,
-                        help="draft checkpoint for speculative continuous "
-                             "batching (not ported yet)")
+                        help="a small same-vocabulary draft checkpoint: "
+                             "every slot advances by draft-k/verify-1 cycles "
+                             "(greedy slots emit the judge's own tokens, "
+                             "sampled ones by rejection sampling)")
     parser.add_argument("--spec_k", type=int, default=4)
     parser.add_argument("--prefill_chunk", type=int, default=None,
                         help="sequence-chunked prompt prefill (C tokens "

@@ -35,6 +35,7 @@ capture, not the replays.
 
 from __future__ import annotations
 
+import gc
 import time
 import weakref
 from typing import Callable, Sequence
@@ -164,6 +165,14 @@ class StepGraph:
         def seen(module, *args):
             calls[module] += 1
 
+        # a graph that the cyclic collector frees during the capture (an old
+        # generator and the graph it kept refer to each other) releases its
+        # memory pool there, which invalidates the capture: collect first,
+        # as ``torch.cuda.graph`` does, and keep the collector off until the
+        # capture ends
+        gc.collect()
+        collecting = gc.isenabled()
+        gc.disable()
         t0 = time.perf_counter()
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.stream(self.stream):
@@ -177,6 +186,8 @@ class StepGraph:
                 self.step(self.state)
             finally:
                 graph.capture_end()
+                if collecting:
+                    gc.enable()
                 for hook in hooks:
                     hook.remove()
                 after = [getattr(m, name) for m, name in counters]

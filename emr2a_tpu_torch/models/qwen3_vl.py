@@ -48,8 +48,13 @@ its token g is a Gumbel-max over the filtered top-k whose uniforms hash
 and can be captured, and a request's stream depends only on its seed, row,
 prompt and the model (the continuous batcher's slots use row 0). JAX
 splits ``jax.random`` keys: the distribution is the same, the tokens are
-not. Out of this port, each raising ``NotImplementedError`` that names
-ROADMAP.md: speculative acceptance (``spec_accept``) and tensor
+not. Speculative acceptance (``spec_accept``, used by
+``models/speculative.py`` and the batcher's speculative chunk) draws its
+uniforms and its correction from the same hash, with the keys of
+``spec_keys`` (per request stream, cycle and position). ``awq_taps``
+reads the AWQ calibration's per-channel statistics (``models/awq.py``)
+through forward pre-hooks registered only while it is open. Out of this
+port, raising ``NotImplementedError`` that names ROADMAP.md: tensor
 parallelism (``mesh``).
 """
 
@@ -57,6 +62,7 @@ from __future__ import annotations
 
 import logging
 from collections import OrderedDict
+from contextlib import contextmanager
 from dataclasses import dataclass, field
 from typing import Dict, Mapping, Optional, Sequence, Tuple
 
@@ -72,7 +78,7 @@ from emr2a_tpu_torch.ops.vision_flash import (
     frame_flash_attention_reference,
 )
 
-_NOT_PORTED = "not ported yet (ROADMAP.md, Queue 1, item 3)"
+_NOT_PORTED = "not ported yet (ROADMAP.md, Queue 1, item 7)"
 
 # ---------------------------------------------------------------------------
 # Configs
@@ -1037,8 +1043,107 @@ def filtered_log_probs(logits: torch.Tensor, temp: torch.Tensor,
     return torch.where((temp <= 0)[:, None], greedy, full)
 
 
-def spec_accept(*args, **kw):
-    raise NotImplementedError(f"speculative decoding is {_NOT_PORTED}")
+def spec_keys(streams: torch.Tensor, index, width: int) -> torch.Tensor:
+    """(B, width) keys of the speculative cycle that starts at generated
+    position ``index`` (an int or an int64 tensor, broadcast with
+    ``streams``): column j < k keys the draft's draw j, column k + 1 the
+    acceptance (``spec_accept``). A cycle's keys are the draw key of its
+    first position (``draw_keys(streams, index)``) hashed with the column,
+    so a speculative stream depends on its seed, the cycle's position and
+    the column, nothing else."""
+    base = draw_keys(streams, index)
+    salt = _mix32(torch.arange(width, device=streams.device) + 0x5BD1E995)
+    return _mix32(base[..., None] ^ salt)
+
+
+def spec_accept(drafts: torch.Tensor, q_lp: torch.Tensor, p_lp: torch.Tensor,
+                keys: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Speculative rejection-sampling acceptance (the lossless scheme, JAX's
+    ``spec_accept``): accept draft x_j with probability min(1, p_j(x_j) /
+    q_j(x_j)); at the first rejection draw the correction from
+    normalize(max(p_j - q_j, 0)); when all k drafts are accepted draw the
+    bonus token from p_k. The emitted prefix is distributed exactly as
+    sampling from the target alone; with point-mass (greedy) rows it is the
+    longest argmax-matching prefix.
+
+    drafts (B, k) proposals drawn from q; q_lp (B, k, V) the draft's
+    log-probabilities at each proposal; p_lp (B, k + 1, V) the target's
+    (``filtered_log_probs``: at most ``SAMPLE_TOP_K`` tokens in each
+    support); keys (B,) int64 (column k + 1 of ``spec_keys``). Returns
+    (emitted (B, k + 1) int64, n_acc (B,)): emitted[:, :n_acc] are the
+    accepted drafts, emitted[:, n_acc] the correction or bonus.
+
+    Divergence (ROADMAP.md Queue 3): the uniforms and the correction's draw
+    are counter-based, not ``jax.random`` splits: uniform j hashes (key, j),
+    and the correction is a Gumbel-max over the top ``SAMPLE_TOP_K``
+    candidates of its distribution (the residual's support lies inside p's
+    filtered support) with uniforms hashing (key, candidate). The law is
+    JAX's; the tokens are not. Nothing is read back to the host, so a cycle
+    that calls it can be captured in a CUDA graph."""
+    B, k = drafts.shape
+    dev = drafts.device
+    u_bits = _mix32(keys[:, None] ^ _mix32(torch.arange(k, device=dev) + 0x27D4EB2F)[None, :])
+    u = ((u_bits >> 8).float() + 0.5) * 2.0 ** -24
+    p_at = p_lp[:, :k].gather(2, drafts[:, :, None])[..., 0]
+    q_at = q_lp.gather(2, drafts[:, :, None])[..., 0]
+    # q_at is finite (the drafts were drawn from q's support), so the ratio
+    # never meets -inf - -inf; p_at = -inf accepts with probability 0
+    accept = u < torch.exp(torch.clamp(p_at - q_at, max=0.0))
+    n_acc = torch.cumprod(accept.to(torch.int64), dim=1).sum(dim=1)
+    p_n = p_lp.gather(1, n_acc[:, None, None].expand(B, 1, p_lp.shape[-1]))[:, 0]
+    q_n = q_lp.gather(1, torch.clamp(n_acc, max=k - 1)[:, None, None].expand(
+        B, 1, q_lp.shape[-1]))[:, 0]
+    resid = torch.clamp(torch.exp(p_n) - torch.exp(q_n), min=0.0)
+    # an all-zero residual comes only from underflow: fall back to p
+    has_resid = resid.sum(dim=-1, keepdim=True) > 0
+    corr_lp = torch.where((n_acc == k)[:, None], p_n,
+                          torch.where(has_resid, torch.log(resid), p_n))
+    cand_lp, cand = torch.topk(corr_lp, min(SAMPLE_TOP_K, corr_lp.shape[-1]), dim=-1)
+    salt = _mix32(torch.arange(cand.shape[-1], device=dev) + 0x165667B1)
+    bits = _mix32(keys[:, None] ^ salt[None, :])
+    g = ((bits >> 8).float() + 0.5) * 2.0 ** -24
+    pick = torch.argmax(cand_lp - torch.log(-torch.log(g)), dim=-1, keepdim=True)
+    correction = cand.gather(1, pick)
+    emitted = torch.cat([drafts, torch.zeros_like(drafts[:, :1])], dim=1)
+    slot = torch.arange(k + 1, device=dev)[None, :] == n_acc[:, None]
+    return torch.where(slot, correction, emitted), n_acc
+
+
+# The decoder-layer modules whose inputs the AWQ calibration reads, by site
+# (JAX: ``QwenTextDecoderLayer._sow_awq``): the qkv input after the input
+# norm, the attention context (o_proj's input), the gate/up input after the
+# post-attention norm, silu(gate) * up (down_proj's input); the fused
+# serving layout's modules take the place of the split ones
+AWQ_SITES = {"qkv": ("q_proj", "qkv_proj"), "o": ("o_proj",),
+             "gu": ("gate_proj", "gate_up_proj"), "down": ("down_proj",)}
+
+
+@contextmanager
+def awq_taps(text_model: "QwenTextModel"):
+    """Per-channel activation statistics of every decoder layer's AWQ sites
+    (``AWQ_SITES``) while the context is open: yields {``layer_i``: {site:
+    [(2, K) f32 tensors of (amax, mean square) over all leading dimensions,
+    one a forward]}}, computed where the activations lie. Forward pre-hooks,
+    registered only inside the context, so the serving path and its CUDA
+    graphs pay nothing."""
+    stats, hooks = {}, []
+
+    def tap(layer_stats, site):
+        def hook(module, args):
+            a = args[0].float().abs().reshape(-1, args[0].shape[-1])
+            layer_stats[site].append(torch.stack([a.amax(dim=0), (a * a).mean(dim=0)]))
+        return hook
+
+    try:
+        for i, layer in enumerate(text_model.layers):
+            layer_stats = stats[f"layer_{i}"] = {site: [] for site in AWQ_SITES}
+            for site, names in AWQ_SITES.items():
+                module = next(getattr(layer, n) for n in names if hasattr(layer, n))
+                hooks.append(module.register_forward_pre_hook(tap(layer_stats, site)))
+        yield stats
+    finally:
+        for hook in hooks:
+            hook.remove()
 
 
 def empty_kv_cache(text_cfg, batch: int, max_len: int, kv_dtype: str,

@@ -48,11 +48,28 @@ How JAX's mechanisms carry over:
   logits. (Divergence: JAX splits a ``jax.random`` key per slot; the
   distribution is the same, the tokens are not.)
 
+- The speculative chunk (``draft_model``, JAX's ``_build_spec_chunk``):
+  the slot state holds the draft's cache too, the shared prefix and every
+  refill prefill run for both models, and an insert writes both caches. A
+  chunk step is one draft-k / verify-1 cycle of every slot
+  (``_spec_cycle`` over ``speculative.draft_and_verify``, the B = 1
+  generator's cycle too; a frozen slot's KV writes are dropped): k + 1
+  draft steps, one (B, k + 1)-token verify at
+  per-row offsets (``cache_write``'s (B,) branch; speculative slots never
+  take the ring), then the acceptance per row, greedy or mixed sampled
+  (``spec_accept``, with each slot's keys of the cycle that starts at its
+  generated count, ``qwen3_vl.spec_keys``). ``serve`` emits
+  ``emitted[..., :n_acc + 1]`` per slot and cycle, and each request's
+  first token at its insert; ``max_len``'s slack is ``2 * chunk * (k +
+  1)``. The runner is kept by (``"spec"``, sampling) and captured like the
+  plain chunk step.
+
 Greedy parity: each request's stream is exactly what
-``Qwen3VLGenerator.generate`` (B = 1, temperature 0) emits
-(``tests/test_torch_serving.py``). Out of this port, raising
-``NotImplementedError`` that names ROADMAP.md: the speculative chunk
-(``draft_model``) and tensor parallelism (``mesh``).
+``Qwen3VLGenerator.generate`` (B = 1, temperature 0) emits, with or
+without a draft (``tests/test_torch_serving.py``,
+``tests/test_torch_spec_serving.py``). Out of this port, raising
+``NotImplementedError`` that names ROADMAP.md: tensor parallelism
+(``mesh``).
 """
 
 from __future__ import annotations
@@ -73,8 +90,10 @@ from emr2a_tpu_torch.models.qwen3_vl import (
     draw_keys,
     empty_kv_cache,
     sample_rows,
+    spec_keys,
     stream_keys,
 )
+from emr2a_tpu_torch.models.speculative import draft_and_verify
 
 # A wave-level common prefix shorter than this is not worth its own
 # prefill (chat headers alone are a handful of tokens; the audit template
@@ -100,17 +119,23 @@ class ContinuousBatcher:
     steps per host round trip; ``prefill_chunk`` chunks refill prefills
     (None: each prefill's own ``auto_prefill_chunk``); ``shared_prefix``
     detects and shares a wave's common prefix; ``refill_batch`` caps a
-    batched refill (None: the policy in ``serve``)."""
+    batched refill (None: the policy in ``serve``).
+
+    ``draft_model`` (same vocabulary, holding its params; JAX's
+    ``draft_model`` / ``draft_params``) turns every slot speculative: a
+    chunk step becomes a draft-k / verify-1 cycle over all slots, so a
+    chunk of C cycles emits C to C * (k + 1) tokens a slot. Greedy slots
+    emit exactly their plain greedy streams; sampled slots go through
+    rejection sampling (``qwen3_vl.spec_accept``), so mixed waves serve
+    together."""
 
     def __init__(self, model: Qwen3VLModel, n_slots: int = 8,
                  prompt_bucket: int = 1024, max_new_tokens: int = 1024,
                  eos_token_id: int = 151645, kv_dtype: str = "bf16",
                  chunk: int = 16, draft_model: Optional[Qwen3VLModel] = None,
-                 prefill_chunk: Optional[int] = None,
+                 spec_k: int = 4, prefill_chunk: Optional[int] = None,
                  shared_prefix: bool = True, refill_batch: Optional[int] = None,
                  mesh=None, ring_decode: bool = True):
-        if draft_model is not None:
-            raise NotImplementedError(f"speculative continuous batching is {_NOT_PORTED}")
         if mesh is not None:
             raise NotImplementedError(f"tensor parallelism is {_NOT_PORTED}")
         if kv_dtype not in ("bf16", "int8"):
@@ -123,20 +148,34 @@ class ContinuousBatcher:
         self.eos_token_id = int(eos_token_id)
         self.kv_dtype = kv_dtype
         self.chunk = int(chunk)
-        self.max_len = self.prompt_bucket + self.max_new_tokens + 2 * self.chunk
+        self.draft_model = draft_model
+        self.spec_k = int(spec_k)
+        if draft_model is not None:
+            if draft_model.config.text.vocab_size != model.config.text.vocab_size:
+                raise ValueError("draft and target must share a vocabulary")
+            if self.spec_k < 1:
+                raise ValueError("spec_k must be >= 1")
+        # a speculative chunk step advances a slot by up to k + 1 positions
+        self.per_iter = self.spec_k + 1 if draft_model is not None else 1
+        self.max_len = (self.prompt_bucket + self.max_new_tokens
+                        + 2 * self.chunk * self.per_iter)
         self._auto_chunk = prefill_chunk is None
         self.prefill_chunk = prefill_chunk
         self.shared_prefix = bool(shared_prefix)
         self._refill_batch_arg = refill_batch
         self.refill_batch = 1
-        self.ring_decode = bool(ring_decode)
+        # speculative slots advance by their own accepted counts, so they
+        # keep per-row offsets (JAX's rule)
+        self.ring_decode = bool(ring_decode) and draft_model is None
         self._prefill_fns: Dict = {}
         self._prefix_fns: Dict = {}
         self._insert_fns: Dict[int, object] = {}
         self._state = None
-        self._runners: Dict[bool, StepGraph] = {}   # by wave kind: sampling or not
+        # by wave kind: sampling or not, ("spec", sampling) when speculative
+        self._runners: Dict = {}
         self._wave_lp = 0
         self._wave_prefix = None
+        self._wave_draft_prefix = None
 
     @property
     def device(self) -> torch.device:
@@ -144,8 +183,8 @@ class ContinuousBatcher:
 
     # -- device state -------------------------------------------------------
 
-    def _kv_bytes_per_row(self) -> int:
-        cfg = self.config.text
+    def _kv_bytes_per_row(self, text_cfg=None) -> int:
+        cfg = text_cfg or self.config.text
         kv = self.max_len * cfg.num_kv_heads * cfg.head_dim
         if self.kv_dtype == "int8":
             per_layer = 2 * (kv + self.max_len * cfg.num_kv_heads * 4)
@@ -169,21 +208,29 @@ class ContinuousBatcher:
             # the global decode-step counter that drives the ring's write slot
             "step0": ((), torch.int64, 0),
             "act": ((B,), torch.bool, False),
-            "toks": ((B, self.chunk), torch.int64, eos),
-            "logits": ((B, cfg.vocab_size), cfg.dtype, 0.0),
+            **({"toks": ((B, self.chunk, self.spec_k + 1), torch.int64, eos),
+                "accs": ((B, self.chunk), torch.int64, 0),
+                "logits": ((B, self.spec_k + 1, cfg.vocab_size), torch.float32, 0.0)}
+               if self.draft_model is not None else
+               {"toks": ((B, self.chunk), torch.int64, eos),
+                "logits": ((B, cfg.vocab_size), cfg.dtype, 0.0)}),
         }
 
     def _init_state(self) -> dict:
         dev = self.device
-        return {"cache": empty_kv_cache(self.config.text, self.n_slots, self.max_len,
-                                        self.kv_dtype, dev),
-                **{name: torch.full(shape, v, dtype=dt, device=dev)
-                   for name, (shape, dt, v) in self._fills().items()}}
+        state = {"cache": empty_kv_cache(self.config.text, self.n_slots, self.max_len,
+                                         self.kv_dtype, dev),
+                 **{name: torch.full(shape, v, dtype=dt, device=dev)
+                    for name, (shape, dt, v) in self._fills().items()}}
+        if self.draft_model is not None:
+            state["d_cache"] = empty_kv_cache(self.draft_model.config.text, self.n_slots,
+                                              self.max_len, self.kv_dtype, dev)
+        return state
 
     def _reset_state(self) -> None:
         """The kept state back to ``_init_state``'s values, in place."""
         st = self._state
-        for layer in st["cache"]:
+        for layer in st["cache"] + st.get("d_cache", []):
             for buf in layer:
                 buf.zero_()
         for name, (_, _, v) in self._fills().items():
@@ -249,14 +296,16 @@ class ContinuousBatcher:
             lcp = int(img[0])
         return lcp if lcp >= _MIN_SHARED_PREFIX else 0
 
-    def _build_prefix(self, Lp: int):
+    def _build_prefix(self, Lp: int, draft: bool = False):
         """Prefill of the Lp-token shared prefix (text only by construction)
-        into a fresh one-row cache, once per wave."""
-        model, L, C = self.model, self.max_len, self._fit_chunk(Lp, 1)
+        into a fresh one-row cache of the target (or the draft), once per
+        wave."""
+        model = self.draft_model if draft else self.model
+        L, C = self.max_len, self._fit_chunk(Lp, 1)
 
         def run(input_ids, position_ids):
             dev = input_ids.device
-            cache = empty_kv_cache(self.config.text, 1, L, self.kv_dtype, dev)
+            cache = empty_kv_cache(model.config.text, 1, L, self.kv_dtype, dev)
             tl = torch.full((1,), Lp, dtype=torch.int64, device=dev)
             if C and Lp > C:
                 _, cache = chunked_prefill(model, input_ids, position_ids, tl, None, (),
@@ -272,11 +321,14 @@ class ContinuousBatcher:
 
         return run
 
-    def _build_prefill(self, grid_thw, Lp: int, Bp: int):
+    def _build_prefill(self, grid_thw, Lp: int, Bp: int, draft: bool = False):
         """Prefill of Bp requests' suffixes [Lp, bucket) in one pass, each
         row starting from the wave's shared-prefix cache when Lp > 0.
-        Returns (cache, last-position f32 logits)."""
-        model, P, L = self.model, self.prompt_bucket, self.max_len
+        Returns (cache, last-position f32 logits); the draft's variant only
+        the cache (its first proposal comes from feeding the target's first
+        token)."""
+        model = self.draft_model if draft else self.model
+        P, L = self.prompt_bucket, self.max_len
         S2 = P - Lp
         C = self._fit_chunk(S2, Bp)
 
@@ -286,7 +338,7 @@ class ContinuousBatcher:
                 cache = [tuple(b.repeat(Bp, *([1] * (b.dim() - 1))) for b in layer)
                          for layer in prefix_cache]
             else:
-                cache = empty_kv_cache(self.config.text, Bp, L, self.kv_dtype, dev)
+                cache = empty_kv_cache(model.config.text, Bp, L, self.kv_dtype, dev)
             if C and S2 > C:
                 hidden, cache = chunked_prefill(model, input_ids, position_ids, true_len,
                                                 pixel_patches, grid_thw, S2, L, cache, C,
@@ -299,25 +351,34 @@ class ContinuousBatcher:
                 hidden, cache = model(input_ids, position_ids, pixel_patches=pixel_patches,
                                       grid_thw=grid_thw, cache=cache, cache_pos=Lp,
                                       attn_mask=mask, return_hidden=True)
+            if draft:
+                return cache
             last = hidden[torch.arange(Bp, device=dev), true_len - 1 - Lp]
             return cache, model.language_model.project(last).float()
 
         return run
 
     def _build_insert(self, Bp: int):
-        """Write Bp freshly prefilled rows into their slots of the state, in
-        place, and draw each one's first token from its prefill logits with
-        its slot's sampling config (temp <= 0: the argmax)."""
-        def run(cacheB, logits, pos_base, true_len, slots, streams, temp, top_p):
+        """Write Bp freshly prefilled rows (and the draft's, when
+        speculative) into their slots of the state, in place, and draw each
+        one's first token from its prefill logits with its slot's sampling
+        config (temp <= 0: the argmax). Returns the first tokens."""
+        def run(cacheB, logits, pos_base, true_len, slots, streams, temp, top_p,
+                d_cacheB=None):
             st = self._state
-            for layer, layerB in zip(st["cache"], cacheB):
-                for buf, rows in zip(layer, layerB):
-                    buf.index_copy_(0, slots, rows)
+            pairs = [(st["cache"], cacheB)]
+            if d_cacheB is not None:
+                pairs.append((st["d_cache"], d_cacheB))
+            for cache, rowsB in pairs:
+                for layer, layerB in zip(cache, rowsB):
+                    for buf, rows in zip(layer, layerB):
+                        buf.index_copy_(0, slots, rows)
             first = sample_rows(logits, draw_keys(streams, 0), temp, top_p)
             for name, value in (("cur", first), ("pos_base", pos_base), ("tl", true_len),
                                 ("streams", streams), ("temp", temp), ("top_p", top_p)):
                 st[name].index_copy_(0, slots, value)
             st["gen"].index_fill_(0, slots, 0)
+            return first
 
         return run
 
@@ -359,6 +420,40 @@ class ContinuousBatcher:
         gen.copy_(torch.where(act, gen + 1, gen))
         s += 1
 
+    def _spec_cycle(self, sampling: bool, st: dict) -> None:
+        """One draft-k / verify-1 cycle of every slot, in place (the body of
+        JAX's ``_build_spec_chunk`` scan): k + 1 draft steps for every slot
+        (the pending token, then its own proposals), one (B, k + 1)-token
+        verify of the target at per-row offsets, the acceptance per row
+        (greedy: the longest argmax-matching prefix; sampling: ``spec_accept``
+        with the slot's keys of the cycle that starts at its generated count,
+        ``spec_keys``), and each active slot's advance by its accepted count
+        plus one. Its emissions go to ``toks[:, step0 mod chunk]`` and their
+        accepted counts to ``accs``; rows whose pending token was eos stay
+        frozen and a row that emits eos freezes after the cycle. It reads
+        nothing back to the host."""
+        eos, k = self.eos_token_id, self.spec_k
+        cur, gen, act = st["cur"], st["gen"], st["act"]
+        dev = cur.device
+        act &= cur != eos
+        sampling = (st["temp"], st["top_p"]) if sampling else None
+        keys = None if sampling is None else spec_keys(st["streams"], gen, k + 2)
+        emitted, n_acc, logits = draft_and_verify(
+            self.model, self.draft_model, st["cache"], st["d_cache"], cur, gen, act, st["tl"],
+            st["pos_base"], self.prompt_bucket, self.max_len, k, sampling, keys)
+        st["logits"].copy_(logits)
+        valid = torch.arange(k + 1, device=dev)[None, :] <= n_acc[:, None]
+        hit = (valid & (emitted == eos)).any(dim=1)
+        emitted = torch.where(act[:, None], emitted, eos)
+        n_acc = torch.where(act, n_acc, 0)
+        column = torch.remainder(st["step0"], self.chunk).view(1)
+        st["toks"].index_copy_(1, column, emitted[:, None, :])
+        st["accs"].index_copy_(1, column, n_acc[:, None])
+        cur.copy_(torch.where(act, emitted.gather(1, n_acc[:, None])[:, 0], eos))
+        gen.copy_(torch.where(act, gen + n_acc + 1, gen))
+        act &= ~hit
+        st["step0"] += 1
+
     # -- host scheduler -------------------------------------------------------
 
     def _prefill_inputs(self, req: dict):
@@ -392,8 +487,9 @@ class ContinuousBatcher:
     def _grid_key(req: dict):
         return tuple(tuple(int(x) for x in g) for g in req.get("grid_thw", ()) or ())
 
-    def _prefill_batch(self, rows: List[tuple], Bp: int):
-        """One batched suffix prefill over Bp ``_prefill_inputs`` rows."""
+    def _prefill_batch(self, rows: List[tuple], Bp: int, draft: bool = False):
+        """One batched suffix prefill over Bp ``_prefill_inputs`` rows, of
+        the target or the draft."""
         ids = self._to_device(np.concatenate([r[1] for r in rows], axis=0), torch.int64)
         pos = self._to_device(np.concatenate([r[2] for r in rows], axis=1), torch.int64)
         tl = self._to_device([r[3] for r in rows], torch.int64)
@@ -401,17 +497,20 @@ class ContinuousBatcher:
         if rows[0][5] is not None:
             patches = self._to_device(np.concatenate([r[5] for r in rows], axis=0),
                                       self.config.vision.dtype)
+        if patches is not None and draft:
+            patches = patches.to(self.draft_model.config.vision.dtype)
         grid_thw = rows[0][0] * Bp
-        key = (grid_thw, self._wave_lp, Bp)
+        key = (grid_thw, self._wave_lp, Bp, draft)
         if key not in self._prefill_fns:
-            self._prefill_fns[key] = self._build_prefill(grid_thw, self._wave_lp, Bp)
-        return self._prefill_fns[key](self._wave_prefix, ids, pos, tl, patches)
+            self._prefill_fns[key] = self._build_prefill(grid_thw, self._wave_lp, Bp, draft)
+        prefix = self._wave_draft_prefix if draft else self._wave_prefix
+        return self._prefill_fns[key](prefix, ids, pos, tl, patches)
 
     def _prefill_shared_prefix(self, requests: Sequence[dict]) -> None:
         """Per-wave shared-prefix setup: detect the common prefix and
-        prefill it once."""
+        prefill it once for the target (and the draft)."""
         self._wave_lp = self._shared_prefix_len(requests)
-        self._wave_prefix = None
+        self._wave_prefix = self._wave_draft_prefix = None
         if not self._wave_lp:
             return
         Lp = self._wave_lp
@@ -422,19 +521,25 @@ class ContinuousBatcher:
                                          self.config.vision.spatial_merge_size)
         if Lp not in self._prefix_fns:
             self._prefix_fns[Lp] = self._build_prefix(Lp)
-        self._wave_prefix = self._prefix_fns[Lp](self._to_device(ids, torch.int64),
-                                                 self._to_device(pos, torch.int64))
+        ids, pos = self._to_device(ids, torch.int64), self._to_device(pos, torch.int64)
+        self._wave_prefix = self._prefix_fns[Lp](ids, pos)
+        if self.draft_model is not None:
+            if (Lp, True) not in self._prefix_fns:
+                self._prefix_fns[Lp, True] = self._build_prefix(Lp, draft=True)
+            self._wave_draft_prefix = self._prefix_fns[Lp, True](ids, pos)
 
-    def _fetch(self, toks: torch.Tensor):
-        """Start copying a chunk's tokens to the host: (host tensor, event
+    def _fetch(self, *tensors: torch.Tensor):
+        """Start copying a chunk's outputs to the host: (host tensors, event
         to wait on, None on the CPU)."""
-        if toks.device.type != "cuda":
-            return toks.clone(), None
-        host = torch.empty(toks.shape, dtype=toks.dtype, pin_memory=True)
-        host.copy_(toks, non_blocking=True)
+        if tensors[0].device.type != "cuda":
+            return [t.clone() for t in tensors], None
+        hosts = []
+        for t in tensors:
+            hosts.append(torch.empty(t.shape, dtype=t.dtype, pin_memory=True))
+            hosts[-1].copy_(t, non_blocking=True)
         event = torch.cuda.Event()
         event.record()
-        return host, event
+        return hosts, event
 
     @torch.inference_mode()
     def serve(self, requests: Sequence[dict],
@@ -450,6 +555,7 @@ class ContinuousBatcher:
         temperatures serve together; greedy rows still match the plain
         generator exactly."""
         sampling = any(float(r.get("temperature") or 0.0) > 0 for r in requests)
+        spec = self.draft_model is not None
         budgets = [min(int(r.get("max_new_tokens") or max_new_tokens or self.max_new_tokens),
                        self.max_new_tokens) for r in requests]
         emitted: List[List[int]] = [[] for _ in requests]
@@ -482,7 +588,7 @@ class ContinuousBatcher:
                              else r for r in sub]
                     if Bp not in self._insert_fns:
                         self._insert_fns[Bp] = self._build_insert(Bp)
-                    self._insert_fns[Bp](
+                    first = self._insert_fns[Bp](
                         cacheB, logits,
                         self._to_device([r[4] for r in rows], torch.int64),
                         self._to_device([min(r[3], self.prompt_bucket) for r in rows],
@@ -492,8 +598,16 @@ class ContinuousBatcher:
                         self._to_device([float(requests[r].get("temperature") or 0.0)
                                          for r in sub], torch.float32),
                         self._to_device([float(requests[r].get("top_p") or 1.0)
-                                         for r in sub], torch.float32))
+                                         for r in sub], torch.float32),
+                        self._prefill_batch(rows, Bp, draft=True) if spec else None)
+                    # the speculative cycle emits only verified tokens after
+                    # the pending one, so each request's first token is
+                    # emitted here: one read a refill sub-batch
+                    firsts = first.cpu().numpy() if spec else None
                     for i, r in enumerate(sub):
+                        if spec and emit_row(r, firsts[i:i + 1]):
+                            free.append(slots[i])    # done at once: the slot stays free
+                            continue
                         slot_req[slots[i]] = r
                         active[slots[i]] = True
 
@@ -508,6 +622,8 @@ class ContinuousBatcher:
         def dispatch():
             self._state["act"].copy_(self._to_device(active, torch.bool))
             runner.run(self.chunk)
+            if spec:
+                return self._fetch(self._state["toks"], self._state["accs"])
             return self._fetch(self._state["toks"])
 
         def lookahead_ok() -> bool:
@@ -519,8 +635,8 @@ class ContinuousBatcher:
             if not rem:
                 return False
             if queue:
-                return min(rem) > self.chunk
-            return max(rem) > 2 * self.chunk
+                return min(rem) > self.chunk * self.per_iter
+            return max(rem) > 2 * self.chunk * self.per_iter
 
         if self._state is None:
             self._state = self._init_state()
@@ -533,15 +649,24 @@ class ContinuousBatcher:
             if self._refill_batch_arg is not None:
                 rb = int(self._refill_batch_arg)
             elif self.prompt_bucket - self._wave_lp <= _BATCH_REFILL_MAX_SUFFIX:
-                rb = max(1, _REFILL_KV_BUDGET // self._kv_bytes_per_row())
+                per_row = self._kv_bytes_per_row()
+                if spec:
+                    per_row += self._kv_bytes_per_row(self.draft_model.config.text)
+                rb = max(1, _REFILL_KV_BUDGET // per_row)
             else:
                 rb = 1
             self.refill_batch = max(1, min(rb, self.n_slots))
-            runner = self._runners.get(sampling)
+            key = ("spec", sampling) if spec else sampling
+            runner = self._runners.get(key)
             if runner is None:
-                runner = self._runners[sampling] = StepGraph(
-                    functools.partial(self._chunk_step, sampling), self._state,
-                    self.device, forwards=(self.model.language_model,))
+                step, forwards = self._chunk_step, (self.model.language_model,)
+                if spec:
+                    step = self._spec_cycle
+                    forwards = tuple(dict.fromkeys(
+                        forwards + (self.draft_model.language_model,)))
+                runner = self._runners[key] = StepGraph(
+                    functools.partial(step, sampling), self._state, self.device,
+                    forwards=forwards)
             refill()
             pending = None   # (chunk tokens in flight, slot map at dispatch)
             while any(r is not None for r in slot_req):
@@ -554,15 +679,21 @@ class ContinuousBatcher:
                 # dispatched, one chunk deeper: max_len's 2 * chunk slack
                 if lookahead_ok():
                     pending = (dispatch(), list(slot_req))
-                host, event = fetch
+                hosts, event = fetch
                 if event is not None:
                     event.synchronize()
-                toks = host.numpy()
+                if spec:        # (slots, chunk, k + 1) emissions, (slots, chunk) accepted
+                    toks, accs = (h.numpy() for h in hosts)
+                else:
+                    toks = hosts[0].numpy()[:, :, None]
+                    accs = np.zeros(toks.shape[:2], np.int64)
                 for s in range(self.n_slots):
                     r = snap[s]
                     if r is None or done[r]:
                         continue
-                    emit_row(r, toks[s])
+                    for c in range(toks.shape[1]):
+                        if emit_row(r, toks[s, c, :int(accs[s, c]) + 1]):
+                            break
                     if done[r] and slot_req[s] == r:
                         slot_req[s] = None
                         active[s] = False
@@ -572,7 +703,7 @@ class ContinuousBatcher:
             self.release()
             raise
         finally:
-            self._wave_prefix = None
+            self._wave_prefix = self._wave_draft_prefix = None
             self._wave_lp = 0
 
         out = []

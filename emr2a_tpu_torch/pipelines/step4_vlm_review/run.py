@@ -12,8 +12,10 @@ confidence, abstain -> 0.5) and writes ``vlm_audit_summary.json`` and
         --exp_dir outputs/experiments/exp_x --manifest_path manifest.jsonl \
         --model_path /path/to/Qwen3-VL-8B --precision int4
 
-``--device`` defaults to ``cuda``; ``--precision`` is bf16, int8 or int4
-(int4_awq raises until it is ported); ``--kv_cache int8`` keeps the judge's
+``--device`` defaults to ``cuda``; ``--precision`` is bf16, int8, int4 or
+int4_awq (int4 after ``models/awq.py``'s activation-aware fold, calibrated
+on the judge's prompts on the card: the same K7 kernels and speed as int4,
+less of RTN's error); ``--kv_cache int8`` keeps the judge's
 KV cache in s8 with per-(position, head) scales and ``--prefill_chunk C``
 runs the prompt through the decoder C tokens at a time (without it the
 generator chunks only where the one-shot prefill's attention temps exceed
@@ -21,11 +23,18 @@ its budget). ``--vlm_batch_size N`` audits N cases per prefill and decode
 (a static batch); ``--serving continuous`` streams every case through
 continuous batching with ``--vlm_batch_size`` slots, refilling a slot as
 soon as its case finishes. On the card each decode step replays a CUDA
-graph. ``--compile_cache`` (JAX's cache) is gone; ``--draft_model`` and
-``--tp > 1`` raise ``NotImplementedError`` (ROADMAP.md, Queue 1, item 3).
+graph. ``--draft_model D`` (a same-vocabulary Qwen3-VL checkpoint, quantized
+at ``--precision``) turns on speculative decoding: one-case audits run
+draft-k / verify-1 cycles (``models/speculative.py``), each replayed from a
+CUDA graph on the card, and with ``--serving continuous`` every slot
+advances speculatively; static ``--vlm_batch_size`` batches ignore the
+draft, as JAX's do. ``--compile_cache`` (JAX's cache) is gone; ``--tp > 1``
+raises ``NotImplementedError`` (ROADMAP.md, Queue 1, item 7).
 
     python -m emr2a_tpu_torch.pipelines.step4_vlm_review.run ... \
         --serving continuous --vlm_batch_size 8
+    python -m emr2a_tpu_torch.pipelines.step4_vlm_review.run ... \
+        --precision int4_awq --draft_model /path/to/Qwen3-VL-2B
 """
 
 from __future__ import annotations
@@ -299,7 +308,10 @@ def build_parser() -> argparse.ArgumentParser:
                              "decoder projections); int4 (group-128 W4A8, "
                              "EXPERIMENTAL: 4-bit RTN carries a real "
                              "accuracy cost, validate on your cohort); "
-                             "int4_awq is not ported yet")
+                             "int4_awq (int4 plus activation-aware scale "
+                             "folding calibrated on the judge's prompts, "
+                             "models/awq.py: int4's kernels and speed, most "
+                             "of RTN's error recovered)")
     parser.add_argument("--kv_cache", default="bf16", choices=["bf16", "int8"],
                         help="judge KV-cache precision; int8 keeps s8 "
                              "values with per-(position, head) scales folded "
@@ -309,8 +321,11 @@ def build_parser() -> argparse.ArgumentParser:
                              "pass, the one-shot prefill's output); C must "
                              "divide the prompt bucket")
     parser.add_argument("--draft_model", default=None,
-                        help="draft checkpoint for speculative decoding (not "
-                             "ported yet)")
+                        help="a small same-vocabulary draft checkpoint for "
+                             "speculative decoding: one-case audits run "
+                             "draft-k/verify-1 cycles (greedy: the judge's own "
+                             "tokens) and with --serving continuous every slot "
+                             "does; static --vlm_batch_size batches ignore it")
     parser.add_argument("--serving", default="static",
                         choices=["static", "continuous"],
                         help="batched audit scheduling: 'static' = fixed "

@@ -16,11 +16,21 @@ the card, at a small Qwen3-VL whose decoder projections the kernels take
 - graphs kept for reuse: a run the warm-up finishes captures nothing; the
   generator's second generation of a shape only replays and equals the
   first, and its kept states stay within ``_KEPT_GRAPH_BYTES``;
+- the speculative generator's cycle (``models/speculative.py``): one
+  replayed cycle against the eager cycle on a copy of the state, bit for
+  bit (both caches, the verify logits, the output, the counters), for bf16
+  and int4 (K7) weights, the bf16 and int8 KV caches, greedy and sampled,
+  with a self-draft and another draft; ``generate``'s tokens (chunks of
+  replayed cycles, cycles past the end included) against eager cycles from
+  the same start; a kept graph's second generation only replays; the
+  batcher's speculative chunk cycle of a later wave against its eager
+  cycle;
 - ``cache_write``'s three branches (an int, a 0-d tensor, a (B,) vector of
   equal offsets) against each other, and the per-row branch with dropped
   positions against its result on the CPU;
 - a step that reads a value back to the host fails its capture, and the
-  failure raises.
+  failure raises; a capture survives garbage that holds an old graph (the
+  collector runs before it and not during it).
 
 Each test skips without a CUDA card. On the card:
 
@@ -130,6 +140,72 @@ def test_batcher_replayed_step_equals_eager_step(cuda, precision, ring):
         np.testing.assert_array_equal(a, b)
 
 
+@pytest.mark.parametrize("temperature", [0.0, 0.8])
+@pytest.mark.parametrize("kv_dtype", ["bf16", "int8"])
+@pytest.mark.parametrize("precision", ["bf16", "int4"])
+def test_replayed_spec_cycle_equals_eager_cycle(cuda, precision, kv_dtype, temperature):
+    from emr2a_tpu_torch.models.speculative import SpeculativeGenerator
+    from emr2a_tpu_torch.ops import linear_int4
+    model = small_model(precision)
+    other = pq.Qwen3VLModel.from_params(small_config(), {
+        k: (v.flip(0) if k.endswith("kernel") else v) for k, v in model.state_dict().items()})
+    for draft in (model, other):
+        spec = SpeculativeGenerator(model, draft, spec_k=3, eos_token_id=-1, kv_dtype=kv_dtype)
+        kw = dict(temperature=temperature, top_p=0.9, seed=3, prompt_bucket=16)
+        with torch.inference_mode():
+            state = spec.start(IDS, max_new_tokens=16, **kw)
+            eager = cuda_graph.clone_state(state)
+            runner = cuda_graph.StepGraph(spec.cycle, state, cuda,
+                                          forwards=(model.language_model,))
+            calls = linear_int4.LAUNCHES
+            runner.run(3)                        # the warm-up, then 2 replays
+            per_cycle = 7 * 2 * (3 + 1 + 1) if precision == "int4" and draft is model else None
+            if per_cycle:
+                assert linear_int4.LAUNCHES - calls == 3 * per_cycle
+            for _ in range(3):
+                spec.cycle(eager)
+            torch.cuda.synchronize()
+            for (path, a), (_, b) in zip(cuda_graph.state_tensors(state),
+                                         cuda_graph.state_tensors(eager)):
+                assert torch.equal(a, b), path
+            assert cuda_graph.replay_matches_eager(runner) == []
+            tokens = spec.generate(IDS, max_new_tokens=12, chunk=4, **kw)
+            ref = spec.start(IDS, max_new_tokens=12, **kw)
+            for _ in range(11):
+                spec.cycle(ref)
+            want = ref.out.cpu().numpy()[:12]
+            n = int(ref.n_emitted)
+            np.testing.assert_array_equal(tokens[0, :min(n, 12)], want[:min(n, 12)])
+            captures = cuda_graph.CAPTURES
+            np.testing.assert_array_equal(spec.generate(IDS, max_new_tokens=12, chunk=4, **kw),
+                                          tokens)
+            assert cuda_graph.CAPTURES == captures and len(spec._graphs) == 1
+        if temperature == 0 and draft is model:
+            plain = pq.Qwen3VLGenerator(model, eos_token_id=-1, kv_dtype=kv_dtype)
+            assert int(ref.accepted) > 0
+            assert plain.generate(IDS, max_new_tokens=12, prompt_bucket=16).shape == tokens.shape
+
+
+@pytest.mark.parametrize("precision", ["bf16", "int4"])
+def test_spec_batcher_replayed_cycle_equals_eager_cycle(cuda, precision):
+    from emr2a_tpu_torch.models import serving
+    model = small_model(precision)
+    srv = serving.ContinuousBatcher(model, n_slots=3, prompt_bucket=16, max_new_tokens=10,
+                                    eos_token_id=-1, chunk=2, kv_dtype="int8",
+                                    draft_model=model, spec_k=3)
+    reqs = [{"input_ids": IDS[:, :n]} for n in (5, 11, 8, 3)]
+    reqs[1].update(temperature=0.8, seed=2)
+    rows = srv.serve(reqs, max_new_tokens=10)
+    assert [r.shape for r in rows] == [(10,)] * 4
+    runner, captures = srv._runners["spec", True], cuda_graph.CAPTURES
+    runner.verify = True
+    again = srv.serve(reqs, max_new_tokens=10)
+    assert runner.mismatches == [] and srv._runners["spec", True] is runner
+    assert cuda_graph.CAPTURES == captures
+    for a, b in zip(again, rows):
+        np.testing.assert_array_equal(a, b)
+
+
 def test_capture_waits_for_the_first_replay(cuda):
     x = torch.zeros(4, device=cuda)
     runner = cuda_graph.StepGraph(lambda t: t.add_(1.0), x, cuda)
@@ -187,3 +263,30 @@ def test_failed_capture_raises(cuda):
     with pytest.raises(RuntimeError):
         runner.run(2)
     torch.cuda.synchronize()
+
+
+def test_capture_survives_a_collectable_graph(cuda):
+    """An old graph kept in a reference cycle (as a generator keeps its
+    graphs) becomes garbage; a capture that follows is not invalidated by
+    the collector freeing it."""
+    import gc
+
+    class Owner:
+        def step(self, t):
+            t.mul_(2.0)
+
+    for _ in range(3):
+        owner = Owner()
+        owner.runner = cuda_graph.StepGraph(owner.step, torch.ones(256, device=cuda), cuda)
+        owner.runner.run(3)
+        del owner                                   # a cycle: only the collector frees it
+    threshold = gc.get_threshold()
+    gc.set_threshold(1)                             # collect at nearly every allocation
+    try:
+        x = torch.ones(256, device=cuda)
+        runner = cuda_graph.StepGraph(lambda t: t.add_(torch.ones_like(t)), x, cuda)
+        runner.run(4)
+    finally:
+        gc.set_threshold(*threshold)
+    assert runner.graph is not None and torch.equal(x, torch.full((256,), 5.0, device=cuda))
+

@@ -236,11 +236,19 @@ def test_qwen_backend_generates_on_the_cpu(precision):
 
 
 def test_divergences_raise_instead_of_abstaining(tmp_path):
+    from emr2a_tpu_torch.judge.qwen_backend import QwenVLBackend
     with pytest.raises(FileNotFoundError):
         load_backend(str(tmp_path / "no_such_checkpoint"), device="cpu")
     assert isinstance(load_backend("fake:x"), FakeVLMBackend)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        _tiny_backend("int4_awq")
+    with pytest.raises(NotImplementedError, match="ROADMAP.md, Queue 1, item 7"):
+        QwenVLBackend(config=_tiny_backend("bf16").config, params={}, tp=2)
+    # int4_awq is ported: K7's layers on folded weights (held against JAX's
+    # audit in tests/test_torch_awq_backend.py)
+    from emr2a_tpu_torch.models.layers import Int4Dense
+    awq = _tiny_backend("int4_awq")
+    assert isinstance(awq.model.language_model.layers[1].down_proj, Int4Dense)
+    assert isinstance(awq.generate([np.zeros((16, 16, 3), np.uint8)], "x", max_new_tokens=3),
+                      str)
     img = tmp_path / "q.png"
     Image.fromarray(np.zeros((8, 8, 3), np.uint8)).save(img)
     evidence = {"query_images": [str(img)], "query_text": "q", "neighbors": []}

@@ -8,8 +8,10 @@ encoders, ``--vlm_review`` with the fake judge), the step4 CLI on its fold files
 ``--device cpu``), the layer-breakdown tool (``--device cpu``, ``tune
 --merge_batch``) and every encoder of the zoo at a small width (ViT, DINOv3
 and CLIP in f32 and W8A8, Qwen3-VL's taps and text mean), the continuous
-batcher on a tiny Qwen3-VL (greedy and sampled rows) and the JSONL judge
-service with the fake backend, then check that no module of jax, jaxlib, flax, optax,
+batcher on a tiny Qwen3-VL (greedy and sampled rows, and with a draft),
+the speculative generator (greedy and sampled), AWQ's pipeline and the
+int4_awq quantizer, the reasoning evaluator and the LLM factory, and the
+JSONL judge service with the fake backend, then check that no module of jax, jaxlib, flax, optax,
 sklearn, pandas, transformers, safetensors or ``emr2a_tpu`` was
 imported."""
 
@@ -31,6 +33,9 @@ names = [m.name for m in pkgutil.walk_packages(emr2a_tpu_torch.__path__,
 assert "emr2a_tpu_torch.judge.review" in names
 assert {"emr2a_tpu_torch.models.serving", "emr2a_tpu_torch.models.cuda_graph",
         "emr2a_tpu_torch.judge.serve"} <= set(names)
+assert {"emr2a_tpu_torch.models.speculative", "emr2a_tpu_torch.models.awq",
+        "emr2a_tpu_torch.llms.qwen3_llm", "emr2a_tpu_torch.llms.openai_llm",
+        "emr2a_tpu_torch.reasoning.evaluator"} <= set(names)
 assert {"emr2a_tpu_torch.encoders.vit_encoder", "emr2a_tpu_torch.encoders.clip_encoder",
         "emr2a_tpu_torch.encoders.dino_encoder", "emr2a_tpu_torch.models.dinov3"} <= set(names)
 for name in names:
@@ -115,6 +120,31 @@ srv = ContinuousBatcher(pq.Qwen3VLModel.from_params(qcfg, pq.random_state(qcfg, 
 rows = srv.serve([{"input_ids": np.arange(2, 2 + n)[None]} for n in (3, 7, 5)]
                  + [{"input_ids": np.arange(3, 9)[None], "temperature": 0.8, "seed": 1}])
 assert [r.shape for r in rows] == [(4,)] * 4, rows
+model = srv.model
+from emr2a_tpu_torch.models.speculative import SpeculativeGenerator
+spec = SpeculativeGenerator(model, model, spec_k=2, eos_token_id=-1)
+greedy = spec.generate(np.arange(2, 7)[None], max_new_tokens=5, prompt_bucket=8)
+sampled = spec.generate(np.arange(2, 7)[None], max_new_tokens=5, prompt_bucket=8,
+                        temperature=0.8, seed=3)
+spec_rows = ContinuousBatcher(model, n_slots=2, prompt_bucket=8, max_new_tokens=4,
+                              eos_token_id=-1, chunk=2, draft_model=model, spec_k=2).serve(
+    [{"input_ids": np.arange(2, 2 + n)[None]} for n in (3, 7, 5)])
+from emr2a_tpu_torch.judge.qwen_backend import quantize_decoder
+from emr2a_tpu_torch.models.awq import awq_quantize_qwen_text_params
+from emr2a_tpu_torch.models.convert import params_to_jax
+awq_tree, report = awq_quantize_qwen_text_params(
+    model, params_to_jax(model.state_dict()), np.arange(2, 34).reshape(2, 16),
+    return_report=True)
+awq_state = quantize_decoder(dict(model.state_dict()), "int4_awq", model=model, tokenizer=None)
+print("SPECULATIVE", greedy.shape, sampled.shape, [r.shape for r in spec_rows],
+      sorted(report), sum(k.endswith("kernel_p4") for k in awq_state))
+from emr2a_tpu_torch.llms import FakeLLM, create_llm
+from emr2a_tpu_torch.reasoning import ReasoningEvaluator
+from emr2a_tpu_torch.judge.backends import FakeVLMBackend
+diag = ReasoningEvaluator(FakeLLM()).diagnose({"sex": "F"})
+stream = create_llm("qwen3", backend=FakeVLMBackend(script=["a", "b"])).generate_stream(
+    ["p", "q"], n_slots=2)
+print("REASONING", diag["diagnosis"], stream)
 import json as _json
 from emr2a_tpu_torch.judge.serve import main as serve_main
 with open(out + "/requests.jsonl", "w") as f:
@@ -181,3 +211,6 @@ def test_port_imports_no_jax(tmp_path):
     assert "merge=True" in proc.stdout
     assert ("ENCODERS [(64,), (64,), (32,), (32,), (64,), (64,), (32,), (32,), (32,), (48,)]"
             in proc.stdout), proc.stdout[-2000:]
+    assert ("SPECULATIVE (1, 5) (1, 5) [(4,), (4,), (4,)] ['layer_0'] 7"
+            in proc.stdout), proc.stdout[-2000:]
+    assert "REASONING 正常 ['a', 'b']" in proc.stdout, proc.stdout[-2000:]

@@ -10,7 +10,8 @@ one state dict (f32 on the CPU, so every kernel takes its plain version):
   prompt bucket, ``chunk=`` equal to the one-shot loop, and identical
   tokens with the int8 (K5) and int4 (K7) decoders of
   ``quantize_qwen_text_params``; the continuous batcher's rows equal
-  JAX's; the options still unported raise;
+  JAX's, with and without a draft; speculative acceptance and int4_awq
+  against JAX; tensor parallelism, still unported, raises;
 - ``params_from_jax`` / ``params_to_jax`` round trip, the JAX package's host
   helpers (M-RoPE positions, vision groups, gather indices) equal;
 - checkpoints: the port's own safetensors reader equals the ``safetensors``
@@ -251,34 +252,79 @@ def test_vision_groups_are_exact(tiny, rng, monkeypatch):
 
 
 def test_not_ported_options_raise(tiny):
-    """What stays unported raises with its ROADMAP item: tensor parallelism,
-    speculative decoding (the generator's, the backend's and the batcher's)
-    and AWQ. Batched and continuous serving are ported: the batcher's rows
-    equal JAX's ``ContinuousBatcher``'s here (and in
-    ``tests/test_torch_serving.py``). (The int8 KV cache, chunked prefill,
-    per-row offsets and sampling are held against JAX in
-    ``tests/test_torch_qwen3_vl_options.py``.)"""
+    """Tensor parallelism stays unported and raises with its ROADMAP item
+    (the generator's, the backend's and the batcher's). Speculative decoding
+    and AWQ are ported and held against JAX here on the HF-converted
+    weights: ``spec_accept`` on point-mass rows, ``quantize_decoder(...,
+    "int4_awq")``'s codes, a self-drafting backend's text and the batcher
+    with a draft (further in ``tests/test_torch_speculative.py``,
+    ``tests/test_torch_spec_serving.py`` and ``tests/test_torch_awq.py``).
+    Batched and continuous serving are ported: the batcher's rows equal JAX's
+    ``ContinuousBatcher``'s here (and in ``tests/test_torch_serving.py``).
+    (The int8 KV cache, chunked prefill, per-row offsets and sampling are held
+    against JAX in ``tests/test_torch_qwen3_vl_options.py``.)"""
+    from emr2a_tpu.judge.qwen_backend import _quantize_decoder as jax_quantize_decoder
     from emr2a_tpu.models.serving import ContinuousBatcher as JaxBatcher
     from emr2a_tpu_torch.judge.qwen_backend import QwenVLBackend, quantize_decoder
     from emr2a_tpu_torch.models.serving import ContinuousBatcher
     _, _, jcfg, jparams, pcfg, state = tiny
     model = pq.Qwen3VLModel.from_params(pcfg, state)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md, Queue 1, item 7"):
         pq.Qwen3VLGenerator(model, mesh=object())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pq.spec_accept(None)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md, Queue 1, item 7"):
+        QwenVLBackend(config=pcfg, params=state, tp=2)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md, Queue 1, item 7"):
+        ContinuousBatcher(model, mesh=object())
+    # spec_accept: point masses reduce to the prefix match, as JAX's does
+    rng = np.random.RandomState(0)
+    t_logits, d_logits = rng.randn(4, 200).astype(np.float32), rng.randn(3, 200).astype(np.float32)
+    d_logits[:2] = t_logits[:2]
+    lp = lambda x: jq.filtered_log_probs(jnp.asarray(x), jnp.zeros(len(x)), jnp.ones(len(x)))
+    drafts = d_logits.argmax(-1)[None]
+    want = jq.spec_accept(jnp.asarray(drafts), lp(d_logits)[None], lp(t_logits)[None],
+                          jnp.zeros((1, 2), jnp.uint32))
+    plp = lambda x: pq.filtered_log_probs(torch.from_numpy(x), torch.zeros(len(x)),
+                                          torch.ones(len(x)))
+    got = pq.spec_accept(torch.from_numpy(drafts), plp(d_logits)[None], plp(t_logits)[None],
+                         pq.stream_keys(torch.tensor([0]), 0))
+    assert int(got[1][0]) == int(want[1][0]) == 2
+    np.testing.assert_array_equal(got[0][0, :3].numpy(), np.asarray(want[0][0, :3]))
+    # int4_awq needs its model, then quantizes as JAX does
+    with pytest.raises(ValueError, match="calibration"):
         quantize_decoder(state, "int4_awq")
-    for kw in (dict(tp=2), dict(draft_model_path="draft")):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            QwenVLBackend(config=pcfg, params=state, **kw)
-    for kw in (dict(draft_model=model), dict(mesh=object())):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            ContinuousBatcher(model, **kw)
+    class CharTokenizer:            # ids inside the tiny vocabulary
+        eos_token_id = 199
+
+        def __call__(self, text, add_special_tokens=False, **kw):
+            return {"input_ids": [2 + ord(c) % 180 for c in text]}
+
+        def decode(self, ids, skip_special_tokens=True):
+            return " ".join(map(str, ids))
+
+    tok = CharTokenizer()
+    got = params_to_jax(quantize_decoder(state, "int4_awq", model=model, tokenizer=tok))
+    want = jax_quantize_decoder(jparams, "int4_awq", model=jq.Qwen3VLModel(jcfg),
+                                tokenizer=tok)
+    for proj in ("q_proj", "o_proj", "down_proj"):
+        g = got["language_model"]["layer_1"][proj]["kernel_p4"].numpy()
+        assert (g == np.asarray(want["language_model"]["layer_1"][proj]["kernel_p4"])).mean() > 0.99
+    # a self-drafting backend says what the plain one says
+    plain = QwenVLBackend(config=pcfg, params=state, tokenizer=tok, prompt_bucket=16)
+    spec = QwenVLBackend(config=pcfg, params=state, tokenizer=tok, prompt_bucket=16,
+                         draft_config=pcfg, draft_params=state, spec_k=2)
+    assert spec.spec_generator is not None and plain.spec_generator is None
+    assert spec.generate([], "describe", max_new_tokens=6) == \
+        plain.generate([], "describe", max_new_tokens=6)
     reqs = [{"input_ids": np.array([[5, 6, 7, 8, 9, 10][:n]], np.int64)} for n in (3, 6, 4)]
     kw = dict(n_slots=2, prompt_bucket=8, max_new_tokens=5, eos_token_id=-1, chunk=2)
-    want = JaxBatcher(jq.Qwen3VLModel(jcfg), jparams, **kw).serve(reqs)
+    jmodel = jq.Qwen3VLModel(jcfg)
+    want = JaxBatcher(jmodel, jparams, **kw).serve(reqs)
     for got, w in zip(ContinuousBatcher(model, **kw).serve(reqs), want):
+        np.testing.assert_array_equal(got, np.asarray(w))
+    want = JaxBatcher(jmodel, jparams, draft_model=jmodel, draft_params=jparams, spec_k=2,
+                      **kw).serve(reqs)
+    for got, w in zip(ContinuousBatcher(model, draft_model=model, spec_k=2, **kw).serve(reqs),
+                      want):
         np.testing.assert_array_equal(got, np.asarray(w))
 
 

@@ -275,9 +275,20 @@ def test_continuous_rejects_overlong_prompt_and_unported_options(tiny):
     with pytest.raises(ValueError, match="bucket"):
         srv.serve([{"input_ids": np.zeros((1, 9), np.int64)}], max_new_tokens=4)
     assert srv._state is None                         # released on failure too
-    for kw in (dict(draft_model=tiny[2]), dict(mesh=object())):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            batcher(tiny[2], **kw)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md, Queue 1, item 7"):
+        batcher(tiny[2], mesh=object())
+    # a draft is ported (tests/test_torch_spec_serving.py): its wave equals
+    # JAX's speculative batcher's, and its options are checked as JAX's are
+    jmodel, jparams, model = tiny
+    reqs = text_requests(3, seed=2)
+    kw = dict(n_slots=2, prompt_bucket=16, max_new_tokens=6, eos_token_id=-1, chunk=2,
+              spec_k=2)
+    want = JaxBatcher(jmodel, jparams, draft_model=jmodel, draft_params=jparams, **kw).serve(
+        reqs, max_new_tokens=6)
+    assert_rows(ps.ContinuousBatcher(model, draft_model=model, **kw).serve(
+        reqs, max_new_tokens=6), [np.asarray(w) for w in want])
+    with pytest.raises(ValueError, match="spec_k"):
+        batcher(model, draft_model=model, spec_k=0)
 
 
 # -- sampling -----------------------------------------------------------------
