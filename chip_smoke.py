@@ -187,6 +187,38 @@ Phases, each of which fails the run (non-zero exit) if it fails:
     and 0 for every other kernel; its rows against the same weights' plain
     tower on the CPU (f32, or int8 for the int8 runs; cosine >= 0.999);
     each tower's slices/s at its batch.
+12c. The paper's baselines, the trainer and the bring-up CLI. Inside the
+    judge phase, before the judges are released: the VLM direct-judging
+    baseline's CLI (``run_vlm_direct_judging.main``) on the int4 judge
+    passed in (new tokens capped at 32 of its 2,048 by ``CappedBackend``,
+    which caps ``generate``, ``generate_batch`` and ``generate_stream``):
+    4 cohort patients at temperatures 0.0 and 0.7 sequentially, then with
+    ``--serving continuous --n_slots 4`` (each greedy stream equal to the
+    sequential one or first differing at a near-tie, B = 1 top-two gap
+    within 0.75), then the fold protocol on the cohort's card CV
+    experiment; every request generated text, both artifacts have JAX's
+    keys, K8 = 27 x the vision forwards (at (4, 1024, 16, 72), also timed
+    in phase 11), K7 = 7 x 36 x the decoder forwards, no other kernel;
+    wall, cases/s and tokens/s. After the judge phase: the CNN baseline at
+    full size (224², K = 4, batch 8, f32, TF32 off): a seeded
+    torchvision-layout ResNet18 with random BN statistics converted, its
+    eval backbone card against CPU (atol 2e-4, rtol 1e-3); one train step
+    of each model card against CPU (loss, gradients, updated params,
+    running statistics, each under its stated tolerance); the train step's
+    ms (CUDA events, median of 10), images/s (``ThroughputMeter``), peak
+    GiB and one ``trace_to`` capture naming its ``annotate`` stage; the
+    CLI on the cohort (3 folds, 2 epochs, both models,
+    ``--pretrained_path``) and ``compute_cnn_metrics`` on its results.json.
+    The contrastive trainer at BioMedCLIP's width (ViT-B/16 and
+    PubMedBERT-256 unfused in f32, batch 32): 3 steps on a fixed batch
+    (finite, the third loss below the first, no port kernel launched), ``remat=True`` within
+    1e-5 of plain, resume after save and restore equal to 4 straight steps
+    (rtol 1e-5), card against CPU at 2 layers a tower (3 losses within
+    rtol 1e-4), the refusal of a fused tower; step ms, peak GiB.
+    ``bringup_qwen3_vl`` on the phase-12 checkpoint directory (the 8B's
+    widths at depth 2, stub tokenizer): JAX's summary keys, finite
+    embeddings, text generated, no kernel launched. ``StageTimer`` times
+    the four stages and prints its summary.
 13. Layer breakdown (``tools/layer_breakdown.main``, in-process, ViT-B/16
     block at B = 96): ``--what tune --merge_batch`` (K3m + K1), ``--what
     tune`` (K3 + K1), ``--what tune --act_bf16`` (K3 + K1's bf16 gelu) and
@@ -1441,7 +1473,8 @@ DECODER_KERNEL = {"int8": "linear_w8a8", "int4": "linear_w4a8", "int4_awq": "lin
 STEP4_CASES, STEP4_NEW_TOKENS = 4, 64
 OPTION_CHUNK = 512           # the chunked prefill's chunk: 4 chunks of the 2,048 bucket
 SAMPLED_TOKENS, SAMPLED_SEED = 16, 1234
-REVIEW_SAMPLES, REVIEW_NEW_TOKENS = 2, 32   # the review's 512 new tokens, capped
+REVIEW_SAMPLES = 2
+CAPPED_NEW_TOKENS = 32   # CappedBackend's cap: of the review's 512, the VLM baseline's 2,048
 
 
 # K7 at the speculative phase's token counts: a B = 1 verify of k + 1 = 5
@@ -1488,11 +1521,8 @@ def judge_kernel_phase(card: str) -> list:
               f"one decoder layer's four projection shapes ({parts}) ({card})", flush=True)
 
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    for name, module, shape, replaces in (
-            ("frame_flash_attention", vision_flash, (7, 1024, 16, 72),
-             "emr2a_tpu/ops/vision_flash.py:76"),
-            ("fused_attention", attention, (32, 197, 12, 64),
-             "emr2a_tpu/ops/attention.py:61")):
+
+    def attention_record(name, module, shape, replaces) -> dict:
         F_, S, H, hd = shape
         q, k, v = (rn(*shape) for _ in range(3))
         scale = hd ** -0.5
@@ -1517,7 +1547,19 @@ def judge_kernel_phase(card: str) -> list:
               f"{rec['plain_ms']:.4f} ms, scaled_dot_product_attention "
               f"{timing_text(lib)}, bound {rec['bound_ms']:.4f} ms "
               f"({rec['bound_by']}) (medians of 100; {card})", flush=True)
-        records.append(rec)
+        return rec
+
+    k8 = attention_record("frame_flash_attention", vision_flash, (7, 1024, 16, 72),
+                          "emr2a_tpu/ops/vision_flash.py:76")
+    # the VLM direct baseline's requests carry 4 slices, not the audit's 7
+    k8["vlm_direct_shape"] = {
+        key: value for key, value in attention_record(
+            "frame_flash_attention", vision_flash, (4, 1024, 16, 72),
+            "emr2a_tpu/ops/vision_flash.py:76").items()
+        if key not in ("name", "route", "source", "replaces")}
+    records.append(k8)
+    records.append(attention_record("fused_attention", attention, (32, 197, 12, 64),
+                                    "emr2a_tpu/ops/attention.py:61"))
     torch.cuda.empty_cache()
     return records
 
@@ -2083,8 +2125,11 @@ def sampled_phase(backend, request: dict, card: str) -> dict:
 
 
 class CappedBackend:
-    """The judge with every generation capped at REVIEW_NEW_TOKENS new
-    tokens (the review asks for 512), recording each output."""
+    """The judge with every generation capped at CAPPED_NEW_TOKENS new tokens
+    (the review asks for 512, the VLM baseline for 2,048), recording each
+    output: ``generate``, and ``generate_batch`` / ``generate_stream`` with
+    the call's and every request's budget capped, so that no phase can
+    launch an uncapped decode."""
 
     def __init__(self, backend):
         self.backend = backend
@@ -2092,10 +2137,26 @@ class CappedBackend:
 
     def generate(self, images, prompt, system=None, max_new_tokens=1024, temperature=0.0):
         text = self.backend.generate(images, prompt, system=system,
-                                     max_new_tokens=min(max_new_tokens, REVIEW_NEW_TOKENS),
+                                     max_new_tokens=min(max_new_tokens, CAPPED_NEW_TOKENS),
                                      temperature=temperature)
         self.texts.append(text)
         return text
+
+    def _capped(self, requests):
+        return [{**r, "max_new_tokens": min(int(r["max_new_tokens"]), CAPPED_NEW_TOKENS)}
+                if r.get("max_new_tokens") else r for r in requests]
+
+    def generate_batch(self, requests, max_new_tokens=1024, **kw):
+        texts = self.backend.generate_batch(
+            self._capped(requests), max_new_tokens=min(max_new_tokens, CAPPED_NEW_TOKENS), **kw)
+        self.texts.extend(texts)
+        return texts
+
+    def generate_stream(self, requests, max_new_tokens=1024, **kw):
+        texts = self.backend.generate_stream(
+            self._capped(requests), max_new_tokens=min(max_new_tokens, CAPPED_NEW_TOKENS), **kw)
+        self.texts.extend(texts)
+        return texts
 
 
 def review_phase(work: Path, manifest_path: Path, backend, card: str) -> dict:
@@ -2139,7 +2200,7 @@ def review_phase(work: Path, manifest_path: Path, backend, card: str) -> dict:
         fail(f"review: {len(capped.texts)} outputs {[len(t) for t in capped.texts]} chars, "
              f"{n_vis.n} vision forwards, evidence {evidence}")
     print(f"review (_run_vlm_review, int4 judge, max_new_tokens capped at "
-          f"{REVIEW_NEW_TOKENS} of 512): {REVIEW_SAMPLES} reviews in {wall:.2f} s (host "
+          f"{CAPPED_NEW_TOKENS} of 512): {REVIEW_SAMPLES} reviews in {wall:.2f} s (host "
           f"clock), every one generated text ({[len(t.split()) for t in capped.texts]} "
           f"words); predictions {review['vlm_predictions']}, agreement_rate "
           f"{review['agreement_rate']}; {n_text.n} decoder forwards; launches {launches} "
@@ -2240,6 +2301,16 @@ def static_batch_logits(backend, requests: list, row_steps: dict) -> dict:
     return out
 
 
+def useful_tokens(rows: list, budgets: list, eos: int) -> int:
+    """The tokens each row generated within its budget, through its first
+    eos."""
+    useful = 0
+    for row, budget in zip(rows, budgets):
+        stop = np.nonzero(row[:budget] == eos)[0]
+        useful += int(stop[0]) + 1 if len(stop) else len(row[:budget])
+    return useful
+
+
 def serving_run(tag: str, backend, fn, requests: list, prec: str, draft=None) -> dict:
     """One serving call with the counts reset just before: its token rows
     (recorded from the backend's text decoding), host wall, launches, and
@@ -2289,12 +2360,8 @@ def serving_run(tag: str, backend, fn, requests: list, prec: str, draft=None) ->
     check_launches(f"serving {prec} {tag}", launches, want)
     if len(rows) != len(requests) or not all(isinstance(t, str) for t in texts):
         fail(f"serving {prec} {tag}: {len(rows)} rows for {len(requests)} requests")
-    eos = backend.generator.eos_token_id
-    useful = 0
-    for row, req in zip(rows, requests):
-        row = row[:req["max_new_tokens"]]
-        stop = np.nonzero(row == eos)[0]
-        useful += int(stop[0]) + 1 if len(stop) else len(row)
+    useful = useful_tokens(rows, [r["max_new_tokens"] for r in requests],
+                           backend.generator.eos_token_id)
     return {"rows": rows, "wall_s": wall, "prepare_s": host[0], "launches": launches,
             "captures": cuda_graph.CAPTURES - captures,
             "capture_ms": cuda_graph.CAPTURE_MS - capture_ms, "forwards": n_text.n,
@@ -2948,9 +3015,500 @@ def spec_awq_phase(work: Path, manifest_path: Path, cfg, state: dict, backends: 
         "cosine": cos, "outlier_cosine": loud_cos, "gate": gate}, "peak_gib": peak}
 
 
-def judge_phase(work: Path, manifest_path: Path, card: str) -> dict:
-    """The 8B judge in three precisions, the reduced-depth check and step4.
-    Returns the launch counts of each judge path."""
+# -- the paper's baselines, the trainer and the bring-up CLI -----------------
+
+VLM_DIRECT_PATIENTS = 4
+VLM_DIRECT_TEMPS = ("0.0", "0.7")
+VLM_RESULTS_KEYS = {"config", "folds"}
+VLM_CONFIG_KEYS = {"n_samples_per_fold", "random_seed", "temperatures", "protocol", "serving",
+                   "prompt_template", "system_message"}
+VLM_FOLD_KEYS = {"sampled_patient_ids", "predictions", "metrics", "agreement"}
+VLM_SUMMARY_KEYS = {"total_samples", "temperatures", "average_metrics"}
+
+
+def vlm_direct_run(tag: str, be, argv: list, out_dir: Path, fold_key: str,
+                   n_patients: int, card: str) -> dict:
+    """One ``run_vlm_direct_judging.main`` with the int4 judge passed in,
+    capped at CAPPED_NEW_TOKENS, the counts reset just before and read
+    just after: every request generated text, K8 on every vision block and
+    K7 on every decoder projection of its forwards (prefills and replayed
+    steps), no other kernel; both artifacts with JAX's keys. Returns its
+    token rows (in request order), wall time, launches and rates."""
+    from emr2a_tpu_torch.baselines.vlm_direct import run_vlm_direct_judging as vlm
+
+    capped = CappedBackend(be)
+    rows, decode_row = [], be._decode_row
+    be._decode_row = lambda row: rows.append(np.asarray(row)) or decode_row(row)
+    n_text = ForwardCount(be.model.language_model)
+    n_vis = ForwardCount(be.model.visual)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    try:
+        vlm.main(argv + ["--output_dir", str(out_dir), "--device", "cuda"], backend=capped)
+    finally:
+        be._decode_row = decode_row
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    n_text.remove()
+    n_vis.remove()
+    check_launches(f"vlm_direct {tag}", launches, {
+        "frame_flash_attention": len(be.model.visual.blocks) * n_vis.n,
+        "linear_w4a8": 7 * len(be.model.language_model.layers) * n_text.n})
+    n_req = n_patients * len(VLM_DIRECT_TEMPS)
+    if (len(capped.texts) != n_req or n_vis.n != n_req or len(rows) != n_req
+            or not all(isinstance(t, str) and t.strip() for t in capped.texts)):
+        fail(f"vlm_direct {tag}: {len(capped.texts)} outputs for {n_req} requests, "
+             f"{n_vis.n} vision forwards, {[len(t) for t in capped.texts]} chars")
+    res = json.loads((out_dir / "vlm_direct_judging_results.json").read_text(encoding="utf-8"))
+    summ = json.loads((out_dir / "summary.json").read_text(encoding="utf-8"))
+    fold = res.get("folds", {}).get(fold_key, {})
+    temps = {f"temp_{t}" for t in VLM_DIRECT_TEMPS}
+    if (set(res) != VLM_RESULTS_KEYS or set(res["config"]) != VLM_CONFIG_KEYS
+            or list(res["folds"]) != [fold_key] or set(fold) != VLM_FOLD_KEYS
+            or len(fold["sampled_patient_ids"]) != n_patients
+            or set(fold["predictions"]) != temps or set(summ) != VLM_SUMMARY_KEYS
+            or not temps <= set(summ["average_metrics"])
+            or summ["total_samples"] != n_patients):
+        fail(f"vlm_direct {tag}: artifacts {sorted(res)} {sorted(fold)} {sorted(summ)}")
+    tokens = useful_tokens(rows, [CAPPED_NEW_TOKENS] * len(rows), be.generator.eos_token_id)
+    parsed = sum(len(p) for p in fold["predictions"].values())
+    print(f"vlm_direct {tag} (int4 judge, {n_patients} patients x temperatures "
+          f"{list(VLM_DIRECT_TEMPS)}, max_new_tokens capped at {CAPPED_NEW_TOKENS} of "
+          f"2,048): {n_req} requests in {wall:.3f} s (host clock), "
+          f"{n_req / wall:.3f} cases/s, {tokens / wall:.1f} tokens/s ({tokens} tokens); "
+          f"{n_vis.n} vision and {n_text.n} decoder forwards; {parsed} answers parsed "
+          f"(random weights); launches {launches} ({card})", flush=True)
+    return {"rows": rows, "wall_s": wall, "launches": launches, "tokens": tokens,
+            "cases_per_s": n_req / wall, "tokens_per_s": tokens / wall}
+
+
+def vlm_direct_phase(work: Path, manifest_path: Path, be, card: str) -> dict:
+    """The VLM direct-judging baseline's CLI on the int4 judge: 4 cohort
+    patients at temperatures 0.0 and 0.7, sequentially, then streamed
+    (``--serving continuous --n_slots 4``: each greedy stream equal to the
+    sequential one or first differing at a near-tie), then the fold
+    protocol on the cohort's card CV experiment. Returns the launch counts
+    by run and the rates."""
+    from emr2a_tpu_torch.baselines.vlm_direct.run_vlm_direct_judging import (
+        VLMDirectJudgingBaseline,
+    )
+    from emr2a_tpu_torch.data.manifest import load_manifest
+
+    base = ["--manifest", str(manifest_path), "--temperatures", *VLM_DIRECT_TEMPS,
+            "--n_samples_per_fold", str(VLM_DIRECT_PATIENTS), "--random_seed", "42"]
+    runs = {
+        "sequential": vlm_direct_run("sequential", be, base, work / "vlm_seq", "all_patients",
+                                     VLM_DIRECT_PATIENTS, card),
+        "continuous": vlm_direct_run("continuous", be, base + [
+            "--serving", "continuous", "--n_slots", "4"], work / "vlm_cont", "all_patients",
+            VLM_DIRECT_PATIENTS, card)}
+    exp = work / "cv" / "cuda" / "exp_cohort"
+    fold_ids = json.loads((exp / "fold_1" / "metrics.json").read_text(encoding="utf-8"))[
+        "test_patient_ids"]
+    runs["fold"] = vlm_direct_run("fold 0", be, [
+        "--manifest", str(manifest_path), "--temperatures", *VLM_DIRECT_TEMPS, "--fold", "0",
+        "--experiment_dir", str(exp)], work / "vlm_fold", "fold_0", len(fold_ids), card)
+
+    # the greedy requests (the first VLM_DIRECT_PATIENTS of each run's grid)
+    sampled = json.loads((work / "vlm_seq" / "vlm_direct_judging_results.json").read_text(
+        encoding="utf-8"))["folds"]["all_patients"]["sampled_patient_ids"]
+    by_id = {r["patient_id"]: r for r in load_manifest(manifest_path)}
+    baseline = VLMDirectJudgingBaseline(backend=be)
+    requests = [{**baseline.build_request(by_id[p], 0.0),
+                 "max_new_tokens": CAPPED_NEW_TOKENS} for p in sampled]
+    greedy = range(VLM_DIRECT_PATIENTS)
+    ties = near_ties("vlm_direct continuous", be, requests, runs["continuous"]["rows"],
+                     runs["sequential"]["rows"], greedy, 0.75)
+    equal = len(greedy) - len(ties)
+    print(f"vlm_direct continuous 4 slots: {equal} of {len(greedy)} greedy streams equal the "
+          f"sequential ones; near-ties at the first difference (request, token, B = 1 "
+          f"top-two gap) {ties} (limit 0.75) ({card})", flush=True)
+    return {"counts": {f"vlm_direct {tag}": r["launches"] for tag, r in runs.items()},
+            "rates": {tag: {k: r[k] for k in ("wall_s", "cases_per_s", "tokens_per_s",
+                                               "tokens")} for tag, r in runs.items()}}
+
+
+CNN_BATCH, CNN_K, CNN_SIZE, CNN_LR, CNN_WD = 8, 4, 224, 1e-4, 1e-5
+CNN_EPS = 1e-8      # torch.optim.Adam's and optax.adam's eps
+CNN_RESULTS_KEYS = {"model_type", "k_slices", "cv_folds", "seed", "fold_results",
+                    "mean_accuracy", "std_accuracy", "min_accuracy", "max_accuracy",
+                    "mean_precision", "std_precision", "mean_recall", "std_recall",
+                    "mean_f1", "std_f1"}
+CNN_FOLD_KEYS = {"loss", "accuracy", "precision", "recall", "f1", "confusion_matrix", "fold"}
+
+
+def cnn_step_check(model_type: str, backbone: dict, batch: tuple, card: str) -> None:
+    """One train step of ``model_type`` from the same weights and batch on
+    the card (f32) and on the CPU (f32, and f64 as the reference): the
+    loss within rtol 1e-4 of the CPU's; each parameter's gradient as close
+    to the f64 one as the CPU's f32 gradient is (norm-relative, within 4 x
+    its error plus 1e-6: BatchNorm's parameter gradients are sums over up
+    to 100,000 terms that cancel, so both f32 devices carry errors near 1 %
+    there); the running statistics within atol = rtol = 1e-4; and the
+    updated parameters. Adam's first step moves each element by lr times
+    g / (|g| + eps), g with the weight decay added: where the two devices'
+    g have one sign and exceed 100 eps, both steps are lr within 1 %, so
+    there every element must agree within lr/10, and such elements must be
+    at least 90 % of all (99.92 % and 99.56 % on the H100); elsewhere a
+    gradient below the rounding may step either way, 2 lr apart, and at
+    most 1 % of all elements may differ by more than lr/10 (0.04 % and
+    0.10 % on the H100)."""
+    from emr2a_tpu_torch.baselines.cnn import train_cnn_baseline as cnn
+
+    out, w0 = {}, None
+    for tag, dev, dtype in (("cuda", "cuda", torch.float32), ("cpu", "cpu", torch.float32),
+                            ("cpu64", "cpu", torch.float64)):
+        model = cnn.build_model(model_type, 4, dev, seed=0, pretrained_backbone=backbone)
+        model.to(dtype)
+        if w0 is None:
+            w0 = {k: p.detach().cpu().double() for k, p in model.named_parameters()}
+        opt = torch.optim.Adam(model.parameters(), lr=CNN_LR, weight_decay=CNN_WD)
+        step, _ = cnn.make_steps(model, opt, model_type == "multimodal")
+        loss, _ = step(*batch)
+        out[tag] = (float(loss), {k: v.detach().cpu() for k, v in model.state_dict().items()},
+                    {k: p.grad.cpu().double() for k, p in model.named_parameters()})
+    (loss_c, card_sd, card_g), (loss_h, cpu_sd, cpu_g) = out["cuda"], out["cpu"]
+    ref = out["cpu64"][2]
+
+    def rel(g, k):
+        return float((g[k] - ref[k]).norm() / ref[k].norm())
+
+    errs = sorted(((rel(card_g, k) - 4 * rel(cpu_g, k), rel(card_g, k), rel(cpu_g, k), k)
+                   for k in ref), reverse=True)
+    print(f"cnn {model_type} gradients against f64, worst tensors (card f32, CPU f32 "
+          f"norm-relative): {[(f'{c:.2e}', f'{h:.2e}', k) for _, c, h, k in errs[:5]]}",
+          flush=True)
+    bad = [(k, c, h) for _, c, h, k in errs if not c <= 4 * h + 1e-6]
+    param_err, stats_err, sure_err, n_sure, n_far, n = 0.0, 0.0, 0.0, 0, 0, 0
+    for name, want in cpu_sd.items():
+        d = (card_sd[name] - want).abs()
+        if "running" in name:
+            stats_err = max(stats_err, float(d.max()))
+            if not torch.allclose(card_sd[name], want, atol=1e-4, rtol=1e-4):
+                fail(f"cnn {model_type} step: {name} differs from the CPU's by {float(d.max())}")
+            continue
+        gc, gh = card_g[name] + CNN_WD * w0[name], cpu_g[name] + CNN_WD * w0[name]
+        sure = (gc * gh > 0) & (gc.abs() > 100 * CNN_EPS) & (gh.abs() > 100 * CNN_EPS)
+        param_err = max(param_err, float(d.max()))
+        if sure.any():
+            sure_err = max(sure_err, float(d[sure].max()))
+        n_sure += int(sure.sum())
+        n_far += int((~(d <= CNN_LR / 10)).sum())
+        n += d.numel()
+    if (not abs(loss_c - loss_h) <= 1e-4 * abs(loss_h) or bad or not sure_err <= CNN_LR / 10
+            or not n_sure >= 0.9 * n or not n_far <= 1e-2 * n):
+        fail(f"cnn {model_type} step: loss {loss_c} vs CPU {loss_h}, gradients farther from "
+             f"f64 than 4 x the CPU's {bad[:3]}, params where both gradients agree max err "
+             f"{sure_err} (limit {CNN_LR / 10}) on {n_sure} of {n} elements (at least "
+             f"90 %), {n_far} beyond lr/10 (limit 1 %)")
+    print(f"cnn {model_type} train step at full size ({CNN_BATCH} x {CNN_K} slices of "
+          f"{CNN_SIZE}², f32, TF32 off), card vs CPU from the same weights and batch: loss "
+          f"{loss_c:.6f} vs {loss_h:.6f} (f64 {out['cpu64'][0]:.6f}), gradients against f64 "
+          f"at most {max(e[1] for e in errs):.2e} on the card, {max(e[2] for e in errs):.2e} "
+          f"on the CPU (norm-relative); updated params: on the {n_sure} of {n} elements "
+          f"({n_sure / n:.4f}, at least 0.9) whose gradients agree in sign beyond 100 eps, "
+          f"max abs err {sure_err:.3e} (limit "
+          f"lr/10 = {CNN_LR / 10:.1e}); {n_far} elements ({n_far / n:.2e}) beyond lr/10 "
+          f"(limit 1e-2), max abs err {param_err:.3e}; running stats max abs err "
+          f"{stats_err:.3e} (limit 1e-4) ({card})", flush=True)
+
+
+def cnn_phase(work: Path, manifest_path: Path, card: str) -> dict:
+    """The CNN baseline at full size: a seeded torchvision-layout ResNet18
+    (random BN statistics) converted, its eval backbone on the card against
+    the CPU (atol 2e-4, rtol 1e-3); one train step of both models card
+    against CPU; the train step's ms (CUDA events, median of 10 after
+    warm-up), images/s (``ThroughputMeter``), peak GiB (above what was live
+    at the phase's start) and one ``trace_to`` capture of it (the kernels'
+    device time by name); then the CLI on the cohort (3 folds, 2 epochs,
+    both models, ``--pretrained_path``), its results.json and
+    ``compute_cnn_metrics`` on it; no port kernel launched."""
+    import io
+
+    from emr2a_tpu_torch.baselines.cnn import compute_cnn_metrics
+    from emr2a_tpu_torch.baselines.cnn import train_cnn_baseline as cnn
+    from emr2a_tpu_torch.models.convert import convert_torch_resnet18, load_state_dict
+    from emr2a_tpu_torch.models.resnet import ResNet18
+    from emr2a_tpu_torch.tools.torchvision_resnet import torchvision_resnet18
+    from emr2a_tpu_torch.utils import ThroughputMeter, annotate, trace_to
+
+    ckpt = work / "resnet18.pth"
+    torch.save(torchvision_resnet18(seed=0).state_dict(), ckpt)
+    backbone = convert_torch_resnet18(load_state_dict(ckpt))
+    g = torch.Generator().manual_seed(14)
+    x = torch.randn(CNN_BATCH, CNN_SIZE, CNN_SIZE, 3, generator=g)
+    feats = {}
+    for dev in ("cuda", "cpu"):
+        m = ResNet18()
+        m.load_state_dict(backbone)
+        with torch.no_grad():
+            feats[dev] = m.to(dev).eval()(x.to(dev)).cpu()
+    err = float((feats["cuda"] - feats["cpu"]).abs().max())
+    if not torch.allclose(feats["cuda"], feats["cpu"], atol=2e-4, rtol=1e-3):
+        fail(f"converted ResNet18 backbone: card vs CPU max abs err {err}")
+    print(f"convert_torch_resnet18 (seeded torchvision-layout ResNet18, random BN stats): "
+          f"eval backbone on {CNN_BATCH} x {CNN_SIZE}² card vs CPU max abs err {err:.3e} "
+          f"(atol 2e-4, rtol 1e-3) ({card})", flush=True)
+
+    images = torch.randn(CNN_BATCH, CNN_K, CNN_SIZE, CNN_SIZE, 3, generator=g).numpy()
+    clinical = torch.randn(CNN_BATCH, 3, generator=g).numpy()
+    labels = np.arange(CNN_BATCH) % 4
+    for model_type in ("image_only", "multimodal"):
+        cnn_step_check(model_type, backbone, (images, clinical, labels), card)
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    live = torch.cuda.memory_allocated()
+    model = cnn.build_model("image_only", 4, "cuda", pretrained_backbone=backbone)
+    opt = torch.optim.Adam(model.parameters(), lr=CNN_LR, weight_decay=CNN_WD)
+    step, _ = cnn.make_steps(model, opt, False)
+    batch = tuple(torch.as_tensor(a).cuda() for a in (images, clinical, labels))
+    reset_counts()
+    ms = median_ms(lambda: step(*batch), iters=10, warmup=3)
+    meter = ThroughputMeter("images")
+    for _ in range(10):
+        loss, _ = step(*batch)
+        meter.add(CNN_BATCH * CNN_K, loss)
+    peak = (torch.cuda.max_memory_allocated() - live) / 2 ** 30
+    with trace_to(str(work / "cnn_trace")) as prof:
+        with annotate("cnn_train_step"):
+            step(*batch)
+        torch.cuda.synchronize()
+    # the kernels' own device time (aten ops attribute theirs; the annotated
+    # ranges, ours and the optimizer's, span them)
+    ops = sorted(((e.self_device_time_total / 1e3, e.key[:48]) for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA
+                  and not getattr(e, "is_user_annotation", False)
+                  and e.self_device_time_total > 0), reverse=True)
+    device_ms = sum(t for t, _ in ops)
+    launches = read_counts()
+    check_launches("cnn train steps", launches, {})
+    traces = list((work / "cnn_trace").glob("*.pt.trace.json"))
+    if len(traces) != 1 or '"cnn_train_step"' not in traces[0].read_text():
+        fail(f"trace_to: {traces} does not name the annotated stage")
+    print(f"cnn image_only train step ({CNN_BATCH} x {CNN_K} x {CNN_SIZE}², Adam): "
+          f"{ms:.3f} ms (CUDA events, median of 10 after 3 warm-up), "
+          f"{meter.rate:.1f} images/s over 10 steps (ThroughputMeter), peak "
+          f"{peak:.2f} GiB above the {live / 2 ** 30:.2f} GiB live before; trace_to wrote {traces[0].name} "
+          f"({traces[0].stat().st_size / 2 ** 20:.1f} MiB, names cnn_train_step): kernels' "
+          f"device time {device_ms:.3f} ms a step (busy {device_ms / ms:.2f} of the median), "
+          f"top {[(k, round(t, 3)) for t, k in ops[:6]]}; launches "
+          f"{launches} ({card})", flush=True)
+    del model, opt, step, batch
+
+    results = {}
+    for model_type in ("image_only", "multimodal"):
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        cnn.main(["--manifest_path", str(manifest_path), "--output_dir", str(work / "cnn_cli"),
+                  "--model_type", model_type, "--cv_folds", "3", "--epochs", "2",
+                  "--pretrained", "--pretrained_path", str(ckpt), "--device", "cuda"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        check_launches(f"cnn CLI {model_type}", read_counts(), {})
+        path = work / "cnn_cli" / f"exp_{model_type}" / "results.json"
+        res = json.loads(path.read_text())
+        if (set(res) != CNN_RESULTS_KEYS or len(res["fold_results"]) != 3
+                or any(set(f) != CNN_FOLD_KEYS or np.shape(f["confusion_matrix"]) != (4, 4)
+                       for f in res["fold_results"])):
+            fail(f"cnn CLI {model_type}: results.json {sorted(res)}")
+        report = io.StringIO()
+        with contextlib.redirect_stdout(report):
+            compute_cnn_metrics.main(["--results_path", str(path)])
+        if not all(f"| {c:9s} |" in report.getvalue() for c in compute_cnn_metrics.CLASSES):
+            fail(f"compute_cnn_metrics on {model_type}: {report.getvalue()[:200]}")
+        results[model_type] = wall
+        print(f"cnn CLI {model_type} (cohort, 3 folds, 2 epochs, --pretrained_path): "
+              f"{wall:.2f} s (host clock, decode included); mean accuracy "
+              f"{res['mean_accuracy']:.2f} % (random weights); results.json with JAX's keys; "
+              f"compute_cnn_metrics reported 4 classes ({card})", flush=True)
+    return {"step_ms": ms, "images_per_s": meter.rate, "peak_gib": peak, "cli_s": results}
+
+
+TRAIN_BATCH, TRAIN_LR = 32, 1e-4
+
+
+def trainer_towers(cfg, device: str):
+    """BioMedCLIP's towers, random weights from seed 0 (drawn on the CPU)."""
+    from emr2a_tpu_torch.models.clip import (
+        BioMedCLIPImageTower,
+        BioMedCLIPTextTower,
+        init_tower,
+    )
+    gen = torch.Generator().manual_seed(0)
+    image = init_tower(BioMedCLIPImageTower(cfg), gen).to(device)
+    text = init_tower(BioMedCLIPTextTower(cfg), gen).to(device)
+    return image, text
+
+
+def trainer_run(trainer, params: dict, batch: tuple, steps: int, state=None):
+    """``steps`` train steps (from ``init_state(params)`` unless a state is
+    given): (state, losses, step ms by CUDA events)."""
+    state = state or trainer.init_state(params)
+    step = trainer.make_train_step()
+    losses, times = [], []
+    for _ in range(steps):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        state, loss = step(state, *batch)
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+        losses.append(float(loss))
+    return state, losses, times
+
+
+def trainer_phase(work: Path, card: str) -> dict:
+    """The contrastive trainer at BioMedCLIP's full width (ViT-B/16 and
+    PubMedBERT-256, unfused, f32, batch 32, the stub tokenizer): 3 steps on
+    a fixed batch (loss finite and lower after 3 steps than before, JAX's
+    test's criterion; no port kernel launched),
+    ``remat=True`` equal to plain within 1e-5, resume on the card exact
+    (2 + save + restore + 2 against 4 straight, rtol 1e-5), card against
+    CPU at 2 layers a tower (each of 3 losses within rtol 1e-4), and the
+    refusal of fused towers."""
+    from emr2a_tpu_torch.encoders.biomedclip_encoder import default_biomedclip_config
+    from emr2a_tpu_torch.models.clip import BioMedCLIPImageTower
+    from emr2a_tpu_torch.training import ContrastiveTrainer
+
+    cfg = default_biomedclip_config()
+    v, t = cfg.vision, cfg.text
+    if not (v.hidden_size == 768 and v.num_layers == 12 and v.mlp_dim == 3072
+            and t.hidden_size == 768 and t.num_layers == 12 and not v.fused_attn
+            and not v.fused_mlp and v.dtype == torch.float32):
+        fail("the trainer's towers are not BioMedCLIP's, unfused, in f32")
+    g = torch.Generator().manual_seed(7)
+    tok = CharTokenizer()(clinical_texts(TRAIN_BATCH), max_length=256)
+    host = (torch.randn(TRAIN_BATCH, 224, 224, 3, generator=g),
+            torch.as_tensor(tok["input_ids"]), torch.as_tensor(tok["attention_mask"]))
+    batch = tuple(a.cuda() for a in host)
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    live = torch.cuda.memory_allocated()
+    image, text = trainer_towers(cfg, "cuda")
+    params = {"image": dict(image.state_dict()), "text": dict(text.state_dict())}
+    torch.cuda.synchronize()
+    reset_counts()
+    plain = ContrastiveTrainer(image, text, learning_rate=TRAIN_LR)
+    _, losses, times = trainer_run(plain, params, batch, 4)
+    torch.cuda.synchronize()
+    launches = read_counts()
+    check_launches("trainer", launches, {})
+    if not (np.isfinite(losses).all() and losses[2] < losses[0]):
+        fail(f"trainer: losses {losses[:3]} not finite or not lower after 3 steps")
+    _, remat, _ = trainer_run(ContrastiveTrainer(image, text, learning_rate=TRAIN_LR,
+                                                 remat=True), params, batch, 3)
+    if not np.allclose(remat, losses[:3], rtol=1e-5, atol=0):
+        fail(f"trainer remat=True: losses {remat} vs plain {losses[:3]}")
+    s2, _, _ = trainer_run(plain, params, batch, 2)
+    plain.save_state(s2, work / "train_state")
+    s3 = plain.restore_state(plain.init_state(params), work / "train_state")
+    _, resumed, _ = trainer_run(plain, params, batch, 2, state=s3)
+    if s3.step != 2 or not np.allclose(resumed, losses[2:], rtol=1e-5, atol=0):
+        fail(f"trainer resume: {resumed} vs straight {losses[2:]}")
+    peak = (torch.cuda.max_memory_allocated() - live) / 2 ** 30
+    ms = float(np.median(times[1:]))
+    print(f"trainer at BioMedCLIP width (ViT-B/16 + PubMedBERT-256 unfused, f32, batch "
+          f"{TRAIN_BATCH}, AdamW lr {TRAIN_LR}): losses {[round(x, 6) for x in losses]}; "
+          f"step {ms:.2f} ms (CUDA events, median of steps 2 to 4), peak {peak:.2f} GiB above "
+          f"the {live / 2 ** 30:.2f} GiB live before; "
+          f"remat=True losses {[round(x, 6) for x in remat]} (within 1e-5); 2 steps + "
+          f"save + restore + 2 = {[round(x, 6) for x in resumed]} (4 straight "
+          f"{[round(x, 6) for x in losses[2:]]}, rtol 1e-5); launches {launches} ({card})",
+          flush=True)
+    del image, text, params, plain, s2, s3
+    torch.cuda.empty_cache()
+
+    cut = dataclasses.replace(cfg, vision=dataclasses.replace(v, num_layers=2),
+                              text=dataclasses.replace(t, num_layers=2))
+    cut_losses = {}
+    for dev, data in (("cuda", batch), ("cpu", host)):
+        image, text = trainer_towers(cut, dev)
+        trainer = ContrastiveTrainer(image, text, learning_rate=TRAIN_LR)
+        state = trainer.init_state({"image": dict(image.state_dict()),
+                                    "text": dict(text.state_dict())})
+        step = trainer.make_train_step()
+        cut_losses[dev] = []
+        for _ in range(3):
+            state, loss = step(state, *data)
+            cut_losses[dev].append(float(loss))
+    if not np.allclose(cut_losses["cuda"], cut_losses["cpu"], rtol=1e-4, atol=0):
+        fail(f"trainer at 2 layers: card {cut_losses['cuda']} vs CPU {cut_losses['cpu']}")
+    fused = BioMedCLIPImageTower(dataclasses.replace(
+        cut, vision=dataclasses.replace(cut.vision, fused_attn=True, fused_mlp=True)))
+    try:
+        ContrastiveTrainer(fused, text).init_state({"image": {}, "text": {}})
+        fail("trainer: a tower with fused blocks was not refused")
+    except ValueError as e:
+        refused = str(e)
+    print(f"trainer card vs CPU at 2 layers a tower (full width, batch {TRAIN_BATCH}): "
+          f"losses {cut_losses['cuda']} vs {cut_losses['cpu']} (rtol 1e-4); a fused tower "
+          f"refused: {refused[:80]!r} ({card})", flush=True)
+    return {"step_ms": ms, "peak_gib": peak, "losses": losses}
+
+
+BRINGUP_KEYS = {"model_path", "load_convert_s", "image_tap_dim", "image_tap_s", "text_dim",
+                "text_s", "generate_s", "generated", "tokenizer_roundtrip_ok"}
+
+
+def bringup_phase(work: Path, card: str) -> dict:
+    """``bringup_qwen3_vl`` on the checkpoint directory that
+    ``qwen_encoder_phase`` wrote (the judge's weights cut to 2 vision
+    blocks and 2 text layers at the 8B's widths), with the stub tokenizer:
+    JAX's summary keys, the 8B's tap and text widths, text generated, no
+    kernel launched (bf16, one image a forward)."""
+    from emr2a_tpu_torch.models.convert import bringup_qwen3_vl
+    from emr2a_tpu_torch.tools.stub_tokenizer import WordTokenizer
+
+    ckpt = work / "qwen_ckpt"
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    summary = bringup_qwen3_vl(ckpt, max_new_tokens=16, tokenizer=WordTokenizer(),
+                               device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    check_launches("bringup_qwen3_vl", launches, {})
+    if (set(summary) != BRINGUP_KEYS or summary["image_tap_dim"] != 1152
+            or summary["text_dim"] != 4096 or not summary["generated"].strip()):
+        fail(f"bringup_qwen3_vl: {summary}")
+    print(f"bringup_qwen3_vl on {ckpt.name} (depth 2 at the 8B's widths, stub tokenizer): "
+          f"{wall:.2f} s; summary {json.dumps({k: v for k, v in summary.items() if k != 'model_path'}, ensure_ascii=False)} "
+          f"(tokenizer_roundtrip_ok is the stub's honest answer); launches {launches} "
+          f"({card})", flush=True)
+    return summary
+
+
+def baselines_phase(work: Path, manifest_path: Path, card: str, stages) -> dict:
+    """The CNN baseline, the trainer and the bring-up CLI (the VLM
+    baseline ran inside the judge phase), each a stage of ``stages`` (a
+    ``StageTimer``), whose summary it prints."""
+    t0 = time.time()
+    with stages.stage("cnn_baseline"):
+        cnn = cnn_phase(work, manifest_path, card)
+    torch.cuda.empty_cache()
+    with stages.stage("trainer"):
+        trainer = trainer_phase(work, card)
+    torch.cuda.empty_cache()
+    with stages.stage("bringup_qwen3_vl"):
+        bringup = bringup_phase(work, card)
+    torch.cuda.empty_cache()
+    for name, s in sorted(stages.summary().items()):
+        print(f"StageTimer {name}: {s['total_s']:.2f} s ({s['calls']} call)", flush=True)
+    print(f"baselines phase (CNN, trainer, bring-up) in {time.time() - t0:.1f} s", flush=True)
+    return {"cnn": cnn, "trainer": trainer, "bringup": bringup}
+
+
+def judge_phase(work: Path, manifest_path: Path, card: str, stages) -> dict:
+    """The 8B judge in three precisions, the reduced-depth check and step4,
+    serving, the VLM direct baseline (a stage of ``stages``), speculative
+    decoding and AWQ, and the review. Returns the launch counts of each
+    judge path."""
     from PIL import Image
 
     from emr2a_tpu_torch.data.manifest import load_manifest
@@ -3045,6 +3603,10 @@ def judge_phase(work: Path, manifest_path: Path, card: str) -> dict:
     t0 = time.time()
     serving = serving_phase(work, manifest_path, backends, card)
     print(f"serving phase in {time.time() - t0:.1f} s", flush=True)
+    t0 = time.time()
+    with stages.stage("vlm_direct"):
+        vlm_direct = vlm_direct_phase(work, manifest_path, be, card)
+    print(f"vlm_direct phase in {time.time() - t0:.1f} s", flush=True)
     # the judges' kept graphs and slot states go, and the int8 judge, which
     # the later phases do not use
     for judge in backends.values():
@@ -3059,7 +3621,7 @@ def judge_phase(work: Path, manifest_path: Path, card: str) -> dict:
     del backends, state, be, base, m
     torch.cuda.empty_cache()
     return {"runs": runs, "step4": step4, "sampled": sampled, "review": review, "qwen": qwen,
-            "serving": serving, "spec": spec}
+            "serving": serving, "spec": spec, "vlm_direct": vlm_direct}
 
 
 def step1_phase(work: Path) -> Path:
@@ -3121,6 +3683,7 @@ def step3_phase(work: Path, emb_path: Path, manifest_path: Path) -> None:
 def main_path_phase(work: Path, records: list, card: str) -> None:
     from emr2a_tpu_torch.encoders.biomedclip_encoder import BioMedCLIPEncoder
     from emr2a_tpu_torch.pipelines.step2_embeddings import build_embeddings as step2
+    from emr2a_tpu_torch.utils.profiling import StageTimer
 
     manifest_path = step1_phase(work)
     image_paths = step2.load_images(step2.load_manifest(manifest_path), work)
@@ -3172,13 +3735,14 @@ def main_path_phase(work: Path, records: list, card: str) -> None:
            **dino_zoo_phase(work, manifest_path, card)}
     torch.cuda.empty_cache()
     print(f"encoder zoo phases in {time.time() - t0:.1f} s", flush=True)
-    judge = judge_phase(work, manifest_path, card)
+    stages = StageTimer()
+    judge = judge_phase(work, manifest_path, card, stages)
     runs = judge["runs"]
     paths = {"text": text["launches"],
              **{"judge " + tag: r["launches"] for tag, r in runs.items()},
              "judge int4 sampled": judge["sampled"], "step4_int4": judge["step4"],
              "review_int4": judge["review"], **judge["serving"]["counts"],
-             **judge["spec"]["counts"]}
+             **judge["spec"]["counts"], **judge["vlm_direct"]["counts"]}
     for rec in records:
         name = rec["name"]
         if name in ("linear_w8a8", "linear_w4a8", "frame_flash_attention", "fused_attention"):
@@ -3196,6 +3760,16 @@ def main_path_phase(work: Path, records: list, card: str) -> None:
     for tag, r in judge["serving"]["rates"].items():
         print(f"serving summary {tag}: {r['cases_per_s']:.3f} cases/s, {r['tokens_per_s']:.1f} "
               f"tokens/s ({r['tokens']} tokens in {r['wall_s']:.3f} s) ({card})", flush=True)
+    for tag, r in judge["vlm_direct"]["rates"].items():
+        print(f"vlm_direct summary {tag}: {r['cases_per_s']:.3f} cases/s, "
+              f"{r['tokens_per_s']:.1f} tokens/s ({r['tokens']} tokens in {r['wall_s']:.3f} s) "
+              f"({card})", flush=True)
+    base = baselines_phase(work, manifest_path, card, stages)
+    cnn, trainer = base["cnn"], base["trainer"]
+    print(f"baselines summary: CNN train step {cnn['step_ms']:.3f} ms, "
+          f"{cnn['images_per_s']:.1f} images/s, peak {cnn['peak_gib']:.2f} GiB; trainer step "
+          f"{trainer['step_ms']:.2f} ms, peak {trainer['peak_gib']:.2f} GiB ({card})",
+          flush=True)
 
 
 # the zoo paths each record takes its launches from (its counter's count

@@ -29,7 +29,11 @@ and are built with ``nvcc`` for sm_90a at first use.
                     csrc/        CUDA C++ kernels
         data/, config.py         manifest and image helpers, paths and seed
         tools/                   profilers, the synthetic cohort, a stub
-                                 tokenizer
+                                 tokenizer, a torchvision-layout ResNet-18
+    baselines/cnn                CLI: the ResNet-18 classifier under k-fold
+    baselines/vlm_direct         CLI: the judge's diagnosis without retrieval
+    training/                    contrastive fine-tuning of the towers
+    utils/                       stage timer, throughput meter, traces
 """
 
 __version__ = "0.1.0"

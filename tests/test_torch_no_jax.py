@@ -10,8 +10,14 @@ encoders, ``--vlm_review`` with the fake judge), the step4 CLI on its fold files
 and CLIP in f32 and W8A8, Qwen3-VL's taps and text mean), the continuous
 batcher on a tiny Qwen3-VL (greedy and sampled rows, and with a draft),
 the speculative generator (greedy and sampled), AWQ's pipeline and the
-int4_awq quantizer, the reasoning evaluator and the LLM factory, and the
-JSONL judge service with the fake backend, then check that no module of jax, jaxlib, flax, optax,
+int4_awq quantizer, the reasoning evaluator and the LLM factory, the
+JSONL judge service with the fake backend, the CNN baseline's CLI
+(``--device cpu``, both models, ``--pretrained_path`` on a
+torchvision-layout checkpoint) and ``compute_cnn_metrics``, the VLM
+direct-judging CLI (``--model_path fake --device cpu``, sequential and
+continuous), the contrastive trainer (one step, save and restore), a
+``trace_to`` capture and the Qwen3-VL bring-up on a tiny checkpoint
+directory, then check that no module of jax, jaxlib, flax, optax,
 sklearn, pandas, transformers, safetensors or ``emr2a_tpu`` was
 imported."""
 
@@ -38,6 +44,11 @@ assert {"emr2a_tpu_torch.models.speculative", "emr2a_tpu_torch.models.awq",
         "emr2a_tpu_torch.reasoning.evaluator"} <= set(names)
 assert {"emr2a_tpu_torch.encoders.vit_encoder", "emr2a_tpu_torch.encoders.clip_encoder",
         "emr2a_tpu_torch.encoders.dino_encoder", "emr2a_tpu_torch.models.dinov3"} <= set(names)
+assert {"emr2a_tpu_torch.utils.profiling", "emr2a_tpu_torch.models.resnet",
+        "emr2a_tpu_torch.baselines.cnn.train_cnn_baseline",
+        "emr2a_tpu_torch.baselines.cnn.compute_cnn_metrics",
+        "emr2a_tpu_torch.baselines.vlm_direct.run_vlm_direct_judging",
+        "emr2a_tpu_torch.training.clip_trainer"} <= set(names)
 for name in names:
     importlib.import_module(name)
 manifest, out, data_root = sys.argv[1], sys.argv[2], sys.argv[3]
@@ -153,6 +164,49 @@ serve_main(["--model_path", "fake", "--device", "cpu", "--input", out + "/reques
             "--output", out + "/responses.jsonl"])
 with open(out + "/responses.jsonl") as f:
     print("SERVED", [_json.loads(line)["ok"] for line in f])
+import torch
+from emr2a_tpu_torch.baselines.cnn.train_cnn_baseline import main as cnn_main
+from emr2a_tpu_torch.baselines.cnn.compute_cnn_metrics import main as cnn_metrics_main
+from emr2a_tpu_torch.tools.torchvision_resnet import torchvision_resnet18
+torch.save(torchvision_resnet18().state_dict(), out + "/resnet18.pth")
+for model_type in ("image_only", "multimodal"):
+    cnn_main(["--manifest_path", manifest, "--output_dir", out + "/cnn", "--model_type",
+              model_type, "--cv_folds", "2", "--epochs", "1", "--k_slices", "2",
+              "--image_size", "16", "--batch_size", "2", "--device", "cpu",
+              "--pretrained", "--pretrained_path", out + "/resnet18.pth"])
+with open(out + "/cnn_results.json", "w") as f:     # compute_cnn_metrics' 4 classes
+    _json.dump({"fold_results": [{"confusion_matrix": np.eye(4, dtype=int).tolist()}]}, f)
+cnn_metrics_main(["--results_path", out + "/cnn_results.json"])
+from emr2a_tpu_torch.baselines.vlm_direct.run_vlm_direct_judging import main as vlm_main
+for mode in ("sequential", "continuous"):
+    vlm_main(["--manifest", manifest, "--output_dir", out + "/vlm_" + mode, "--model_path",
+              "fake", "--device", "cpu", "--temperatures", "0.0", "0.5", "--serving", mode])
+from emr2a_tpu_torch.models.clip import CLIPConfig, CLIPImageTower, CLIPTextTower, init_tower
+from emr2a_tpu_torch.training import ContrastiveTrainer
+ccfg = CLIPConfig(vision=dataclasses.replace(CLIP_VIT_B16_VISION, image_size=32, **small),
+                  text=text, projection_dim=16)
+tgen = torch.Generator().manual_seed(0)
+towers = init_tower(CLIPImageTower(ccfg), tgen), init_tower(CLIPTextTower(ccfg), tgen)
+trainer = ContrastiveTrainer(*towers, learning_rate=1e-3)
+tstate = trainer.init_state({"image": dict(towers[0].state_dict()),
+                             "text": dict(towers[1].state_dict())})
+tstate, tloss = trainer.make_train_step()(tstate, np.zeros((2, 32, 32, 3), np.float32),
+                                          np.full((2, 16), 99), None)
+trainer.save_state(tstate, out + "/train_state")
+restored = trainer.restore_state(trainer.init_state(tstate.params), out + "/train_state")
+from emr2a_tpu_torch.utils import StageTimer, trace_to
+timer = StageTimer()
+with trace_to(out + "/trace"), timer.stage("nj_stage"):
+    torch.ones(4).sum()
+from emr2a_tpu_torch.models.convert import bringup_qwen3_vl
+from emr2a_tpu_torch.tools.qwen_checkpoint import write_checkpoint
+from emr2a_tpu_torch.tools.stub_tokenizer import WordTokenizer
+bcfg = dataclasses.replace(qcfg, text=dataclasses.replace(qcfg.text, vocab_size=151936))
+ckpt = write_checkpoint(out + "/qwen_ckpt", bcfg, pq.random_state(bcfg, device="cpu"))
+bring = bringup_qwen3_vl(ckpt, max_new_tokens=2, tokenizer=WordTokenizer(), image_size=16,
+                         device="cpu")
+print("BASELINES", restored.step, bool(np.isfinite(float(tloss))), sorted(timer.summary()),
+      bring["image_tap_dim"], bring["text_dim"])
 loaded = sorted(
     m for m in sys.modules
     if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "sklearn",
@@ -214,3 +268,13 @@ def test_port_imports_no_jax(tmp_path):
     assert ("SPECULATIVE (1, 5) (1, 5) [(4,), (4,), (4,)] ['layer_0'] 7"
             in proc.stdout), proc.stdout[-2000:]
     assert "REASONING 正常 ['a', 'b']" in proc.stdout, proc.stdout[-2000:]
+    assert "BASELINES 1 True ['nj_stage'] 32 48" in proc.stdout, proc.stdout[-2000:]
+    assert "| Bacterial" in proc.stdout
+    for model_type in ("image_only", "multimodal"):
+        results = json.loads((tmp_path / "out" / "cnn" / f"exp_{model_type}" /
+                              "results.json").read_text())
+        assert len(results["fold_results"]) == 2
+    for mode in ("sequential", "continuous"):
+        vlm = json.loads((tmp_path / "out" / f"vlm_{mode}" / "summary.json").read_text())
+        assert vlm["total_samples"] == 4 and vlm["temperatures"] == [0.0, 0.5]
+    assert list((tmp_path / "out" / "trace").glob("*.pt.trace.json"))
