@@ -49,6 +49,24 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    f32 plain tower on the CPU.
 5. Main path, int8: the same cohort with ``random_init(fast="int8")``;
    every block of every device batch through K2 and K4, the same checks.
+5b. The C++ decode pool (``emr2a_tpu_torch/native``, built with the host's
+   g++ from the repo's sources, no libpng or libjpeg): the cohort's 480 grey
+   PNGs, an rgb=True cohort of 2 patients and four JPEGs of its slices
+   (baseline 4:2:0 and 4:4:4, progressive, grey) byte for byte against
+   PIL's decode through ``resize_rgb_reference``, at 512 and 224; its
+   slices/s at 224 on 1 thread and on every core beside the per-image host
+   path and beside PIL's decode on a thread pool, with ``os.cpu_count()``
+   and the affinity's cores. Then ``tools/step2_e2e``'s measurement with
+   both encoders on the cohort regrouped into patients of 192 slices, at
+   ``scripts/exp_step2_e2e.py``'s batch_size = max_batch = 96: with the
+   pool (``assume_square_sources``) and without it (per-image host
+   decode), and with the pool at batch_size 192 (two chunks a call,
+   double-buffered): end-to-end and embed slices/s, each run's launches
+   (every block on the precision's two kernels) and pool batches checked;
+   the pool run's first chunk against the plain f32 and int8 towers on the
+   CPU fed the same pool-decoded bytes (cosine 0.999), the double-buffered
+   rows against the pool run's, pool against host-decode rows within
+   cosine 0.99.
 6. Text: ``encode_batch_texts`` of the int8 encoder's PubMedBERT tower
    (full width, context 256, a stub character tokenizer) on synthetic
    clinical texts; every quantized projection through K5; the embeddings
@@ -183,7 +201,8 @@ Phases, each of which fails the run (non-zero exit) if it fails:
     12-block vision tower with ``fast=True`` (K1 with quick_gelu, K3) on
     32 slices; step2 ``--encoder_type dino`` (DINOv3 ViT-L/16)
     with ``--fast`` and ``--fast int8`` (every projection on K5) at batch
-    16. Each run's launch counts, read just after it, equal its blocks'
+    16 (decoded on the pool, as JAX's: the pool's counter must show every
+    device batch). Each run's launch counts, read just after it, equal its blocks'
     and 0 for every other kernel; its rows against the same weights' plain
     tower on the CPU (f32, or int8 for the int8 runs; cosine >= 0.999);
     each tower's slices/s at its batch.
@@ -668,6 +687,230 @@ def step2_phase(tag: str, encoder, image_paths: dict, out_dir: Path,
     if cos.min() < 0.999:
         fail(f"{tag} embeddings disagree with the f32 plain tower: cosine {cos}")
     return {"npz": npz, "launches": launches}
+
+
+POOL_JPEGS = (("baseline 4:2:0", "RGB", dict(quality=90, subsampling=2)),
+              ("baseline 4:4:4", "RGB", dict(quality=90, subsampling=0)),
+              ("progressive", "RGB", dict(quality=90, progressive=True)),
+              ("grey", "L", dict(quality=90)))
+POOL_RGB_PATIENTS = 2         # of the rgb=True cohort (40 slices each)
+POOL_HOST_SLICES = 96         # slices timed on the per-image host path
+POOL_PIL_SLICES = 192         # slices timed on PIL's thread pool
+E2E_BATCH = 96                # scripts/exp_step2_e2e.py's batch_size = max_batch
+E2E_PATIENT_SLICES = 192      # its slices a patient (tools/step2_e2e's default too)
+# (run, pool, step2 batch_size); max_batch is E2E_BATCH in every run. The JAX
+# script's setting puts one pool chunk in each step2 call; the last run puts
+# two, so the second is decoded while the first is on the card.
+E2E_RUNS = (("pool", True, E2E_BATCH), ("no_pool", False, E2E_BATCH),
+            ("pool double-buffered", True, 2 * E2E_BATCH))
+
+
+def slice_paths(manifest_path: Path) -> list:
+    return [p for line in manifest_path.read_text(encoding="utf-8").splitlines()
+            for p in json.loads(line)["slices"]]
+
+
+def pool_phase(work: Path, manifest_path: Path, card: str) -> dict:
+    """The C++ decode pool (``data/native_loader.py``): built from the repo's
+    sources; every slice of the grey cohort, of an rgb=True cohort and a few
+    JPEGs of its slices (baseline 4:2:0 and 4:4:4, progressive, grey) byte
+    for byte against PIL's decode passed through ``resize_rgb_reference``,
+    at the slices' own 512 x 512 and at 224 x 224; then slices/s at 224 on
+    1 thread and on every core, beside the per-image host path
+    (``load_image_rgb`` + ``resize_to``), PIL's decode on a thread pool of
+    every core (alone, and with ``resize_rgb_reference`` after it) and the
+    host's core count."""
+    import os
+    from concurrent.futures import ThreadPoolExecutor
+
+    from PIL import Image
+
+    from emr2a_tpu_torch.data import native_loader
+    from emr2a_tpu_torch.data.images import load_image_rgb, resize_to
+    from emr2a_tpu_torch.tools.cohort import write_cohort
+
+    t0 = time.time()
+    lib = native_loader.build()
+    if not native_loader.native_available():
+        fail("decode pool: native_available() is False after the build")
+    sources = sorted(p.name for p in native_loader.SOURCE_DIR.iterdir())
+    print(f"decode pool built from emr2a_tpu_torch/native ({', '.join(sources)}) with "
+          f"{native_loader.compiler()} {' '.join(native_loader.CXX_FLAGS)} in "
+          f"{time.time() - t0:.1f} s: {lib.name}", flush=True)
+
+    grey = slice_paths(manifest_path)
+    t0 = time.time()
+    rgb = slice_paths(write_cohort(work / "cohort_rgb", n_patients=POOL_RGB_PATIENTS,
+                                   rgb=True))
+    jpegs = []
+    (work / "jpegs").mkdir()
+    for i, (tag, mode, kw) in enumerate(POOL_JPEGS):
+        path = work / "jpegs" / f"{tag.replace(' ', '_').replace(':', '')}.jpg"
+        with Image.open(grey[i * 41]) as im:
+            im.convert(mode).save(path, **kw)
+        jpegs.append(path)
+    print(f"decode pool inputs: {len(grey)} grey PNGs, {len(rgb)} RGB PNGs (written in "
+          f"{time.time() - t0:.1f} s), {len(jpegs)} JPEGs "
+          f"({', '.join(t for t, _, _ in POOL_JPEGS)})", flush=True)
+
+    t0 = time.time()
+    held = 0
+    for tag, paths in (("grey cohort", grey), ("rgb cohort", rgb), ("jpeg", jpegs)):
+        for start in range(0, len(paths), 96):
+            chunk = paths[start:start + 96]
+            rows = {size: native_loader.decode_batch(chunk, size, size) for size in (512, 224)}
+            for size, (_, ok) in rows.items():
+                if not ok.all():
+                    fail(f"decode pool {tag}: {int((~ok).sum())} of {len(chunk)} failed at "
+                         f"{size}")
+            for j, path in enumerate(chunk):
+                with Image.open(path) as im:
+                    pil = np.asarray(im.convert("RGB"))
+                for size, (batch, _) in rows.items():
+                    want = native_loader.resize_rgb_reference(pil, size, size)
+                    if not np.array_equal(batch[j], want):
+                        fail(f"decode pool {tag}: {path} differs from PIL + "
+                             f"resize_rgb_reference at {size} ({int((batch[j] != want).sum())} "
+                             f"bytes)")
+                held += 1
+    print(f"decode pool: {held} images ({len(grey)} grey PNG, {len(rgb)} RGB PNG, "
+          f"{len(jpegs)} JPEG) byte-identical to PIL's decode + resize_rgb_reference at "
+          f"512x512 and 224x224 ({time.time() - t0:.1f} s)", flush=True)
+
+    def rate(fn, n, repeats=3) -> float:
+        best = float("inf")
+        for _ in range(repeats):
+            t = time.perf_counter()
+            fn()
+            best = min(best, time.perf_counter() - t)
+        return n / best
+
+    cores, usable = os.cpu_count(), len(os.sched_getaffinity(0))
+    one = rate(lambda: native_loader.decode_batch(grey, 224, 224, n_threads=1), len(grey))
+    every = rate(lambda: native_loader.decode_batch(grey, 224, 224, n_threads=0), len(grey))
+    host_paths = grey[:POOL_HOST_SLICES]
+    host = rate(lambda: [resize_to(load_image_rgb(p), 224, shortest_edge=False)
+                         for p in host_paths], len(host_paths))
+
+    def pil_decode(path):
+        with Image.open(path) as im:
+            return np.asarray(im.convert("RGB"))
+
+    pil_paths = grey[:POOL_PIL_SLICES]
+    with ThreadPoolExecutor(max_workers=usable) as ex:
+        pil = rate(lambda: list(ex.map(pil_decode, pil_paths)), len(pil_paths))
+        pil_resized = rate(lambda: list(ex.map(
+            lambda p: native_loader.resize_rgb_reference(pil_decode(p), 224, 224),
+            pil_paths)), len(pil_paths))
+    print(f"decode pool throughput, 512x512 grey PNG -> 224x224 RGB, best of 3: "
+          f"{one:.1f} slices/s on 1 thread, {every:.1f} slices/s on all cores "
+          f"(os.cpu_count() {cores}, sched_getaffinity {usable}); per-image host path "
+          f"(load_image_rgb + resize_to, cv2) {host:.1f} slices/s; PIL on a pool of "
+          f"{usable} threads: decode alone {pil:.1f} slices/s, decode + resize_rgb_reference "
+          f"{pil_resized:.1f} slices/s ({card})", flush=True)
+    return {"pool_1_thread": one, "pool_all_cores": every, "host_per_image": host,
+            "pil_threads_decode": pil, "pil_threads_resized": pil_resized,
+            "cpu_count": cores, "affinity": usable}
+
+
+def e2e_patients(image_paths: dict) -> dict:
+    """The cohort's slices regrouped into patients of E2E_PATIENT_SLICES
+    (192, 192 and 96 of the 480), the JAX script's patient size."""
+    flat = [p for paths in image_paths.values() for p in paths]
+    n = E2E_PATIENT_SLICES
+    return {f"e2e{i // n:02d}": flat[i:i + n] for i in range(0, len(flat), n)}
+
+
+def e2e_phase(work: Path, image_paths: dict, encoders: dict, plain_cpu, int8_cpu,
+              card: str) -> dict:
+    """``tools/step2_e2e``'s measurement with the main path's BioMedCLIP
+    encoders at max_batch E2E_BATCH, for each of E2E_RUNS: step2 on the
+    decode pool (``assume_square_sources``) at the JAX script's batch_size,
+    on the per-image host decode (cv2) at the same setting, and on the pool
+    with two chunks a call. Each run's counts, reset just before and read
+    just after, must show every block of every device batch (warm-up
+    included) on the precision's two kernels, and the pool counter its
+    chunks. The pool run's first chunk is held against the plain towers on
+    the CPU fed the same pool-decoded bytes: bf16 against the f32 tower,
+    int8 against the int8 tower's plain version (both printed for int8);
+    the double-buffered run's rows against the pool run's; the host-decode
+    run's rows against the pool run's only as a check of the decoder."""
+    from emr2a_tpu_torch.data import native_loader
+    from emr2a_tpu_torch.tools import step2_e2e
+
+    kernels = {"bf16": ("fused_ln_mlp", "fused_ln_attention"),
+               "int8": ("fused_ln_mlp_int8", "fused_ln_attention_int8")}
+    patients = e2e_patients(image_paths)
+    first = next(iter(patients.values()))
+    size = plain_cpu.preprocess.resize_size
+    chunk, ok = native_loader.decode_batch(first[:E2E_BATCH], size, size)
+    if not ok.all():
+        fail(f"step2 e2e: {int((~ok).sum())} slices of the first chunk failed to decode")
+    t0 = time.time()
+    want = {"f32": plain_cpu._image_forward(chunk), "int8": int8_cpu._image_forward(chunk)}
+    print(f"step2 e2e: plain f32 and int8 towers on the CPU over the first pool chunk "
+          f"({E2E_BATCH} slices) in {time.time() - t0:.1f} s", flush=True)
+    out = {"rates": {}, "launches": {}}
+    for prec, enc in encoders.items():
+        old = enc.max_batch
+        enc.max_batch = E2E_BATCH
+        try:
+            embs = {}
+            for run, pool, batch in E2E_RUNS:
+                tag = f"{prec} {run}"
+                calls = [len(p[s:s + batch]) for p in patients.values()
+                         for s in range(0, len(p), batch)]
+                pool_batches = sum(-(-n // E2E_BATCH) for n in calls) if pool else 0
+                device_batches = sum(-(-n // E2E_BATCH)
+                                     for n in calls + [min(batch, len(first))])
+                run_dir = work / "e2e" / tag.replace(" ", "_")
+                torch.cuda.synchronize()
+                reset_counts()
+                res = step2_e2e.measure(enc, patients, run_dir, batch, pool=pool)
+                torch.cuda.synchronize()
+                launches = read_counts()
+                check_launches(f"step2 e2e {tag}", launches,
+                               {k: 12 * device_batches for k in kernels[prec]})
+                if res["pool_batches"] != pool_batches:
+                    fail(f"step2 e2e {tag}: {res['pool_batches']} pool batches, expected "
+                         f"{pool_batches}")
+                if res["encoded"] != res["slices"]:
+                    fail(f"step2 e2e {tag}: encoded {res['encoded']} of {res['slices']}")
+                npz = np.load(run_dir / "embeddings.npz")
+                embs[run] = np.concatenate([npz[k] for k in patients])
+                out["rates"][tag] = res
+                if pool:
+                    out["launches"][f"step2 e2e {tag}"] = launches
+                print(f"step2 e2e {tag}: {res['encoded']} slices in {len(patients)} patients "
+                      f"of up to {E2E_PATIENT_SLICES}, batch_size {batch}, max_batch "
+                      f"{E2E_BATCH}, {res['pool_batches']} pool batches, end to end "
+                      f"{res['end_to_end_slices_per_s']:.1f} slices/s, embed "
+                      f"{res['embed_slices_per_s']:.1f} slices/s (embed {res['embed_s']:.3f} s, "
+                      f"save {res['save_s']:.3f} s); launches {nonzero(launches)} ({card})",
+                      flush=True)
+        finally:
+            enc.max_batch = old
+        got = embs["pool"][:E2E_BATCH]
+        cos = {ref: cosines(got, w) for ref, w in want.items()}
+        print(f"step2 e2e {prec} pool, first chunk ({E2E_BATCH} slices at T = {E2E_BATCH} x "
+              f"197) vs the plain towers on the CPU on the pool's bytes: min cosine "
+              + ", ".join(f"{c.min():.6f} vs {ref}" for ref, c in cos.items()), flush=True)
+        ref = "f32" if prec == "bf16" else "int8"
+        if cos[ref].min() < 0.999:
+            fail(f"step2 e2e {prec}: the kernels disagree with the {ref} plain tower on the "
+                 f"pool's first chunk: cosine {cos[ref]}")
+        dbl = cosines(embs["pool double-buffered"], embs["pool"])
+        diff = np.abs(embs["pool double-buffered"] - embs["pool"]).max()
+        print(f"step2 e2e {prec}: double-buffered vs one chunk a call, {len(dbl)} rows: min "
+              f"cosine {dbl.min():.8f}, max |diff| {diff:.3g}", flush=True)
+        if dbl.min() < 0.99999:
+            fail(f"step2 e2e {prec}: the double-buffered run's rows differ from the pool run's")
+        host = cosines(embs["pool"], embs["no_pool"])
+        print(f"step2 e2e {prec}: pool vs per-image host decode (INTER_AREA vs the pool's box "
+              f"filter), min row cosine {host.min():.6f}", flush=True)
+        if host.min() < 0.99:
+            fail(f"step2 e2e {prec}: the pool's and the host decode's embeddings disagree")
+    return out
 
 
 def cosines(a, b) -> np.ndarray:
@@ -1357,6 +1600,8 @@ def dino_zoo_phase(work: Path, manifest_path: Path, card: str) -> dict:
                              params=plain.image_model.state_dict())
     print(f"DINOv3 ViT-L/16 CPU f32 and int8 plain towers in {time.time() - t0:.1f} s",
           flush=True)
+    from emr2a_tpu_torch.data import native_loader
+
     batches = 12 * -(-40 // DINO_BATCH)
     runs = {}
     for tag, args, want, ref in (
@@ -1364,10 +1609,18 @@ def dino_zoo_phase(work: Path, manifest_path: Path, card: str) -> dict:
             ("dino --fast int8", ["--fast", "int8"],
              {"linear_w8a8": 6 * cfg.num_layers * batches},
              (int8_plain, "the int8 plain tower on the CPU"))):
+        pool_before = native_loader.POOL_BATCHES
         enc, runs["step2 " + tag] = zoo_step2_run(
             tag, ["--encoder_type", "dino", "--batch_size", str(DINO_BATCH), *args],
             manifest_path, work / "zoo" / tag.replace(" ", "_"), want, 1024, *ref, card,
             n_compare=4)
+        pooled = native_loader.POOL_BATCHES - pool_before
+        # DINOv3's exact 224 x 224 resize decodes on the pool, as in JAX: every
+        # device batch of step2 and of the CPU reference
+        if pooled < batches:
+            fail(f"step2 {tag}: {pooled} decode pool batches, expected at least {batches}")
+        print(f"step2 {tag}: {pooled} decode pool batches (step2's {batches} and the CPU "
+              f"reference's)", flush=True)
         tower_throughput(f"step2 {tag} (DINOv3 ViT-L/16)", enc, DINO_BATCH, card)
         del enc
     return runs
@@ -3707,6 +3960,10 @@ def main_path_phase(work: Path, records: list, card: str) -> None:
                        ("fused_ln_mlp", "fused_ln_attention"), plain_cpu)
     int8 = step2_phase("int8", encoders["int8"], image_paths, work / "int8",
                        ("fused_ln_mlp_int8", "fused_ln_attention_int8"), plain_cpu)
+    t0 = time.time()
+    pool = pool_phase(work, manifest_path, card)
+    e2e = e2e_phase(work, image_paths, encoders, plain_cpu, int8_cpu, card)
+    print(f"decode pool phases in {time.time() - t0:.1f} s", flush=True)
     step3_phase(work, work / "bf16" / "embeddings.npz", manifest_path)
     text = text_phase(encoders["int8"], plain_cpu, int8_cpu, card)
     retrieval_phase(bf16["npz"])
@@ -3749,7 +4006,8 @@ def main_path_phase(work: Path, records: list, card: str) -> None:
             rec["launches_by_path"] = {p: c[name] for p, c in paths.items() if c[name]}
             rec["launches"] = sum(rec["launches_by_path"].values())
     zoo_launches(records, zoo, {"step2 biomedclip bf16": bf16["launches"],
-                                "step2 biomedclip int8": int8["launches"]})
+                                "step2 biomedclip int8": int8["launches"],
+                                **e2e["launches"]})
     for prec, r in runs.items():
         print(f"judge summary {prec}: prefill {r['prefill_ms']:.3f} ms (bound "
               f"{r['prefill_bound']['bound_ms']:.3f}), decode {r['decode_ms_per_token']:.3f} "
@@ -3764,6 +4022,16 @@ def main_path_phase(work: Path, records: list, card: str) -> None:
         print(f"vlm_direct summary {tag}: {r['cases_per_s']:.3f} cases/s, "
               f"{r['tokens_per_s']:.1f} tokens/s ({r['tokens']} tokens in {r['wall_s']:.3f} s) "
               f"({card})", flush=True)
+    r = {tag: v["end_to_end_slices_per_s"] for tag, v in e2e["rates"].items()}
+    print(f"step2 e2e summary (batch_size = max_batch = {E2E_BATCH}): end to end slices/s "
+          f"with the pool / without: bf16 {r['bf16 pool']:.1f} / {r['bf16 no_pool']:.1f}, "
+          f"int8 {r['int8 pool']:.1f} / {r['int8 no_pool']:.1f}; double-buffered (batch_size "
+          f"{2 * E2E_BATCH}) bf16 {r['bf16 pool double-buffered']:.1f}, int8 "
+          f"{r['int8 pool double-buffered']:.1f}; the pool alone {pool['pool_1_thread']:.1f} "
+          f"slices/s on 1 thread, {pool['pool_all_cores']:.1f} on {pool['affinity']} cores "
+          f"(cpu_count {pool['cpu_count']}), per-image host path {pool['host_per_image']:.1f}, "
+          f"PIL on {pool['affinity']} threads {pool['pil_threads_decode']:.1f} (decode alone) / "
+          f"{pool['pil_threads_resized']:.1f} (with resize_rgb_reference) ({card})", flush=True)
     base = baselines_phase(work, manifest_path, card, stages)
     cnn, trainer = base["cnn"], base["trainer"]
     print(f"baselines summary: CNN train step {cnn['step_ms']:.3f} ms, "

@@ -9,23 +9,29 @@ is ``BatchedImageTextEncoder``). What it keeps:
   static-shape device batch;
 - uint8 batches go to the device; preprocessing, the tower and the final
   L2 normalisation run there;
-- the path-based ``encode_images`` (``encoders/base.py``): host decode,
-  then the batched path;
+- the path-based ``encode_images``: for an exact-resize spec (or any spec
+  with ``assume_square_sources``), the C++ decode pool
+  (``data/native_loader.py``) decodes and resizes chunks of ``max_batch``
+  paths on a worker thread, double-buffered against the device: chunk i+1
+  is submitted before chunk i's embeddings are read back, each chunk into a
+  fresh array, failed rows dropped. Otherwise (BioMedCLIP's shortest-edge
+  spec on sources not known to be square, or no C++ compiler) the per-image
+  host decode of ``encoders/base.py``, then the batched path;
 - the text path: tokenize to one fixed length on the host, chunk to
   ``max_batch``, then the text tower and the L2 normalisation on the
   device.
 
 What it drops: the power-of-two bucket padding of image and text batches,
 which bounds JAX recompiles and is only wasted rows in eager PyTorch;
-``mesh`` (data-parallel ``shard_map`` over chips), which has no one-GPU
-counterpart and is rejected; and the C++ decode-pool branch of
-``encode_images``, which BioMedCLIP's shortest-edge spec never takes (it
-returns with the first exact-resize encoder).
+and ``mesh`` (data-parallel ``shard_map`` over chips), which has no one-GPU
+counterpart and is rejected. As in the JAX package, subclasses do not take
+``assume_square_sources``: a caller sets the attribute.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from concurrent.futures import ThreadPoolExecutor
 from typing import Callable, List, Mapping, Optional
 
 import numpy as np
@@ -33,6 +39,7 @@ import torch
 from torch import nn
 
 from emr2a_tpu_torch.data.images import group_by_shape, resize_to
+from emr2a_tpu_torch.data.native_loader import decode_batch, native_available
 from emr2a_tpu_torch.encoders.base import BaseEncoder
 from emr2a_tpu_torch.ops.preprocess import PreprocessSpec, preprocess_images
 from emr2a_tpu_torch.ops.similarity import l2_normalize_rows
@@ -90,7 +97,8 @@ class BatchedImageTextEncoder(BaseEncoder):
                  tokenize: Optional[Callable] = None,
                  preprocess: PreprocessSpec = PreprocessSpec(),
                  normalize: bool = True, max_batch: int = 256,
-                 device: str = "cuda", mesh=None):
+                 device: str = "cuda", assume_square_sources: bool = False,
+                 mesh=None):
         if mesh is not None:
             raise ValueError(
                 "mesh (data-parallel encoding over chips) has no counterpart "
@@ -103,6 +111,9 @@ class BatchedImageTextEncoder(BaseEncoder):
         self.preprocess = preprocess
         self.normalize = normalize
         self.max_batch = max_batch
+        # CT slices are square; setting this lets shortest-edge specs use the
+        # decode pool (a square shortest-edge resize is an exact square one).
+        self.assume_square_sources = assume_square_sources
 
     def _finish(self, feats: torch.Tensor) -> np.ndarray:
         feats = feats.float()
@@ -140,6 +151,32 @@ class BatchedImageTextEncoder(BaseEncoder):
                 for j, i in enumerate(chunk):
                     out[i] = feats[j]
         return out
+
+    def encode_images(self, image_paths) -> np.ndarray:
+        """Path-based encode on the C++ decode pool where the spec allows
+        it (see the module docstring), else the per-image host decode."""
+        spec = self.preprocess
+        if (self.image_model is None
+                or (spec.shortest_edge and not self.assume_square_sources)
+                or not native_available()):
+            return super().encode_images(image_paths)
+        size = spec.resize_size
+        chunks = [image_paths[s:s + self.max_batch]
+                  for s in range(0, len(image_paths), self.max_batch)]
+        out_embs: List[np.ndarray] = []
+        with ThreadPoolExecutor(max_workers=1) as ex:
+            fut = ex.submit(decode_batch, chunks[0], size, size) if chunks else None
+            for i in range(len(chunks)):
+                batch, ok = fut.result()
+                if i + 1 < len(chunks):
+                    fut = ex.submit(decode_batch, chunks[i + 1], size, size)
+                if not ok.any():
+                    continue
+                # the device runs this chunk while the worker decodes the next
+                out_embs.append(self._image_forward(batch[ok]))
+        if out_embs:
+            return np.concatenate(out_embs, axis=0)
+        return np.array([])
 
     def encode_batch_texts(self, texts: List[str]) -> List[Optional[np.ndarray]]:
         if self.text_model is None or self._tokenize is None:

@@ -6,7 +6,9 @@ together, then one link into a shared library with a plain C interface,
 which is loaded with ``ctypes``. The TMA descriptors' encoder is taken from
 the loaded driver with ``dlsym``, so nothing links against ``libcuda``. The
 library's name carries a hash of the sources and flags, so an edit rebuilds
-it. Nothing here runs at import time: the package imports, and its CPU
+it. ``digest`` and ``install`` (the hashed name, the build into a
+temporary directory and the atomic rename) also build the C++ decode pool
+(``data/native_loader.py``). Nothing here runs at import time: the package imports, and its CPU
 tests run, where there is no ``nvcc`` and no card.
 
     python -m emr2a_tpu_torch.ops._build      # build now, print the path
@@ -34,12 +36,32 @@ def _sources() -> list:
     return sorted(CSRC_DIR.glob("*.cu")) + sorted(CSRC_DIR.glob("*.cuh"))
 
 
-def source_digest() -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for path in _sources():
+def digest(sources, flags) -> str:
+    """A hash of the flags and of each source's name and bytes, for a
+    library's name: an edited source or a new flag builds a new library."""
+    h = hashlib.sha256(" ".join(flags).encode())
+    for path in sources:
         h.update(path.name.encode())
         h.update(path.read_bytes())
     return h.hexdigest()[:16]
+
+
+def install(out: Path, make) -> Path:
+    """Return ``out``, built first if it is missing: ``make(tmp)`` builds
+    the library in ``tmp``, a fresh directory beside ``out``, and returns
+    its path, which is then renamed onto ``out``. Processes that build at
+    the same moment (pytest-xdist workers) each rename a whole file, so
+    none loads a half-written one."""
+    if out.exists():
+        return out
+    out.parent.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=out.parent) as tmp:
+        os.replace(make(Path(tmp)), out)
+    return out
+
+
+def source_digest() -> str:
+    return digest(_sources(), NVCC_FLAGS)
 
 
 def _nvcc() -> str:
@@ -65,11 +87,9 @@ def build() -> Path:
     nvcc's ``-Xptxas -v`` report (registers, shared memory, spills) is kept
     beside the library as ``<name>.log``."""
     out = library_path()
-    if out.exists():
-        return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    nvcc = _nvcc()
-    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+
+    def make(tmp: Path) -> Path:
+        nvcc = _nvcc()
         jobs = []
         for cu in sorted(CSRC_DIR.glob("*.cu")):
             obj = Path(tmp) / f"{cu.stem}.o"
@@ -93,8 +113,9 @@ def build() -> Path:
             raise RuntimeError(f"nvcc link failed ({proc.returncode}): "
                                f"{' '.join(cmd)}\n{proc.stdout}\n{proc.stderr}")
         out.with_suffix(".log").write_text("".join(log))
-        os.replace(lib, out)
-    return out
+        return lib
+
+    return install(out, make)
 
 
 def library():

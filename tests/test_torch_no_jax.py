@@ -16,8 +16,9 @@ JSONL judge service with the fake backend, the CNN baseline's CLI
 torchvision-layout checkpoint) and ``compute_cnn_metrics``, the VLM
 direct-judging CLI (``--model_path fake --device cpu``, sequential and
 continuous), the contrastive trainer (one step, save and restore), a
-``trace_to`` capture and the Qwen3-VL bring-up on a tiny checkpoint
-directory, then check that no module of jax, jaxlib, flax, optax,
+``trace_to`` capture, the Qwen3-VL bring-up on a tiny checkpoint
+directory, and the C++ decode pool (built from its sources, then a batch
+and a DINOv3 ``encode_images`` on paths, an exact-resize spec), then check that no module of jax, jaxlib, flax, optax,
 sklearn, pandas, transformers, safetensors or ``emr2a_tpu`` was
 imported."""
 
@@ -207,6 +208,14 @@ bring = bringup_qwen3_vl(ckpt, max_new_tokens=2, tokenizer=WordTokenizer(), imag
                          device="cpu")
 print("BASELINES", restored.step, bool(np.isfinite(float(tloss))), sorted(timer.summary()),
       bring["image_tap_dim"], bring["text_dim"])
+import glob
+from emr2a_tpu_torch.data import native_loader
+assert native_loader.native_available()
+pool_paths = sorted(glob.glob(data_root + "/CT_2D_image_core/*/*/*.png"))[:3]
+_, pool_ok = native_loader.decode_batch(pool_paths + [out + "/none.png"], 8, 8)
+dino_rows = DINOEncoder(config=DINOv3Config(hidden_size=64, num_layers=1, num_heads=2,
+                                            mlp_dim=128), device="cpu").encode_images(pool_paths)
+print("POOL", pool_ok.tolist(), native_loader.POOL_BATCHES, dino_rows.shape)
 loaded = sorted(
     m for m in sys.modules
     if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "sklearn",
@@ -269,6 +278,7 @@ def test_port_imports_no_jax(tmp_path):
             in proc.stdout), proc.stdout[-2000:]
     assert "REASONING 正常 ['a', 'b']" in proc.stdout, proc.stdout[-2000:]
     assert "BASELINES 1 True ['nj_stage'] 32 48" in proc.stdout, proc.stdout[-2000:]
+    assert "POOL [True, True, True, False] 2 (3, 64)" in proc.stdout, proc.stdout[-2000:]
     assert "| Bacterial" in proc.stdout
     for model_type in ("image_only", "multimodal"):
         results = json.loads((tmp_path / "out" / "cnn" / f"exp_{model_type}" /
