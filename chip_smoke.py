@@ -81,6 +81,18 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    ``topk`` of 64 queries at k = 5 and k = 100 on it (use_pallas for
    f32/bf16), against the plain scan, whose launch counts must show K6's
    tile scan.
+8b. The mesh on this card (``parallel.default_mesh()``: every visible card,
+   one here): the database CLI (int8 build + query) on the default mesh,
+   hits equal the database phase's; the sharded scan's own functions
+   (``shard_topk`` per slab with its ``base`` and valid rows, then
+   ``merge_topk``) over four slabs of a seeded 525k x 512 database on
+   cuda:0, two full, one short and one empty, in f32, bf16 (K6) and int8
+   (K6's int8 variant) at q = 1 and 64, k = 5 and 100, indices equal the
+   one-device database's scan, values compared bit for bit, K6's launches
+   read just after; step2's CLI ``--encoder_type vit --fast`` on 2
+   patients with ``--data_parallel`` and without: every block on K1 and K3
+   in both, rows equal. (Several cards: ``python -m
+   emr2a_tpu_torch.tools.multichip_smoke``.)
 9. CV: ``run_cv_experiments`` from a combined_embeddings.npz, on the card
    and with ``--device cpu``: the cohort (bf16 step2 slice means, int8
    text tower rows, concat, 3 folds) and a seeded 4-class set of 1,000
@@ -1200,11 +1212,11 @@ def database_phase(work: Path, emb_path: Path, manifest_path: Path) -> dict:
     ids, mat = database_cli._load_cases(emb_path)
     for dtype, tdt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
         db = ShardedEmbeddingDatabase(mat, ids=ids, dtype=tdt, use_pallas=True,
-                                      capacity=len(ids) + 4, device="cuda")
+                                      capacity=len(ids) + 4, device="cuda:0")
         got = db.topk(mat, 5)
         db.use_pallas = False
         want = db.topk(mat, 5)
-        scores = db._queries(mat, True).float() @ db.db[:db.n].float().T
+        scores = db._queries(mat, True).float() @ db.shards[0][:db.n].float().T
         topk_agrees(f"database use_pallas {dtype} (padded buffer)", got, want, scores)
     torch.cuda.synchronize()
     launches = read_counts()
@@ -1241,7 +1253,7 @@ def p50_phase(card: str) -> dict:
     for name, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16),
                         ("int8", torch.int8)):
         t0 = time.time()
-        db = ShardedEmbeddingDatabase(emb, dtype=dtype, device="cuda")
+        db = ShardedEmbeddingDatabase(emb, dtype=dtype, device="cuda:0")
         built = time.time() - t0
         for use_pallas in ((None,) if name == "int8" else (False, True)):
             db.use_pallas = bool(use_pallas)
@@ -1266,7 +1278,8 @@ def p50_phase(card: str) -> dict:
         for k, res in got.items():
             tag = f"database batched topk {name}, 64 queries, k={k} (tile scan)"
             if name == "int8":
-                want = topk.cosine_topk_fused_int8_reference(q, db.db, db.db_scales, k, db.n)
+                want = topk.cosine_topk_fused_int8_reference(q, db.shards[0], db.scale_shards[0],
+                                                             k, db.n)
                 if not (torch.equal(res[0], want[0]) and torch.equal(res[1], want[1])):
                     fail(f"{tag}: not bit-identical to the plain version")
                 print(f"{tag}: bit-identical to the plain version", flush=True)
@@ -1274,7 +1287,7 @@ def p50_phase(card: str) -> dict:
                 db.use_pallas = False
                 want = db.topk(batch, k)
                 db.use_pallas = True
-                topk_agrees(tag, res, want, q.float() @ db.db[:db.n].float().T)
+                topk_agrees(tag, res, want, q.float() @ db.shards[0][:db.n].float().T)
             if (res[1][:, 0].cpu() != torch.arange(64, dtype=torch.int32)).any():
                 fail(f"{tag}: a query's source row is not its top hit")
         batched[name] = launches
@@ -1282,6 +1295,124 @@ def p50_phase(card: str) -> dict:
         del db
         torch.cuda.empty_cache()
     return batched
+
+
+MESH_SLAB_ROWS = 1 << 18      # rows a slab of the sharded scan's check on one card
+
+
+def mesh_phase(work: Path, manifest_path: Path, emb_path: Path, card: str) -> dict:
+    """The mesh on this card: the database CLI (int8 build + query) under
+    ``default_mesh()`` (every visible card; here one, so one shard), and the
+    sharded scan's own functions (``shard_topk`` with each slab's ``base``
+    and ``n_valid_local``, then ``merge_topk``) over four slabs of a seeded
+    (2 x MESH_SLAB_ROWS + 1,000) x 512 database placed on cuda:0 (two full,
+    one short, one empty) in f32, bf16 (K6) and int8 (K6's int8 variant) at
+    q = 1 and 64, k = 5 and 100; the launch counts read just after; then
+    each merged answer against the one-device database's scan of the same
+    buffer (indices exact, values compared bit for bit) and the CLI's hits
+    against the database phase's. Then step2's CLI ``--encoder_type vit
+    --fast`` on 2 patients with ``--data_parallel`` (the default mesh) and
+    without, launches and rows equal. Returns the launch counts by path."""
+    from emr2a_tpu_torch.encoders.vit_encoder import ViTEncoder
+    from emr2a_tpu_torch.ops import topk
+    from emr2a_tpu_torch.parallel import default_mesh
+    from emr2a_tpu_torch.retrieval import database_cli
+    from emr2a_tpu_torch.retrieval.database import (ShardedEmbeddingDatabase, merge_topk,
+                                                    shard_topk)
+
+    t_phase = time.time()
+    mesh = default_mesh()
+    if mesh.shape != {"data": torch.cuda.device_count(), "model": 1}:
+        fail(f"mesh: the default mesh is {mesh}")
+    S = MESH_SLAB_ROWS
+    n = 2 * S + 1000
+    rng = np.random.default_rng(16)
+    emb = rng.standard_normal((n, K6_DIM), dtype=np.float32)
+    emb /= np.linalg.norm(emb, axis=1, keepdims=True) + 1e-12
+    batch = emb[rng.choice(n, 64, replace=False)] + 0.1 * rng.standard_normal(
+        (64, K6_DIM), dtype=np.float32)
+    dbs = {name: ShardedEmbeddingDatabase(emb, dtype=dtype, use_pallas=True,
+                                          normalize=False, device="cuda:0")
+           for name, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16),
+                               ("int8", torch.int8))}
+    slabs = {}
+    for name, db in dbs.items():
+        whole = db.shards[0]
+        scales = None if db.scale_shards is None else db.scale_shards[0]
+        pads = []
+        for i in range(4):
+            slab = torch.zeros((S, K6_DIM), dtype=whole.dtype, device="cuda:0")
+            sc = None if scales is None else torch.ones(S, device="cuda:0")
+            rows = whole[i * S:min((i + 1) * S, n)]
+            slab[:rows.shape[0]] = rows
+            if sc is not None:
+                sc[:rows.shape[0]] = scales[i * S:min((i + 1) * S, n)]
+            pads.append((slab, sc))
+        slabs[name] = pads
+    valid = [min(max(n - i * S, 0), S) for i in range(4)]
+    d = work / "mesh_db"
+    torch.cuda.synchronize()
+    reset_counts()
+    database_cli.main(["build", "--embeddings_path", str(emb_path), "--manifest_path",
+                       str(manifest_path), "--db", str(d / "db.npz"), "--dtype", "int8"])
+    database_cli.main(["query", "--db", str(d / "db.npz"), "--queries_path", str(emb_path),
+                       "--k", "5", "--dtype", "int8", "--output", str(d / "hits.jsonl")])
+    merged = {}
+    for name, db in dbs.items():
+        q = db._queries(batch, True)
+        for nq, k in ((1, 5), (64, 5), (64, 100)):
+            parts = [shard_topk(q[:nq], slab, sc, valid[i], i * S, min(k, S), True)
+                     for i, (slab, sc) in enumerate(slabs[name])]
+            merged[name, nq, k] = merge_topk(parts, k, q.device)
+    torch.cuda.synchronize()
+    launches = read_counts()
+    cli_queries = len(database_cli._load_cases(emb_path)[0])
+    tile = int(cli_queries >= topk.TILE_MIN_Q[2]) + 3 * 2 * 3
+    check_launches("mesh database", launches, {
+        "cosine_topk_fused": 2 * 3 * 3, "cosine_topk_fused_int8": 1 + 3 * 3,
+        "cosine_topk tile scan": tile})
+    bits = []
+    for (name, nq, k), (vals, idx) in merged.items():
+        want = dbs[name].topk(batch[:nq], k)
+        if not torch.equal(idx, want[1]):
+            fail(f"mesh: the merged scan of 4 slabs (valid rows {valid}) {name} q={nq} "
+                 f"k={k}: indices differ from one scan's")
+        bits.append(torch.equal(vals, want[0]))
+    cli_hits = (d / "hits.jsonl").read_text()
+    if cli_hits != (work / "db" / "int8_cuda" / "hits.jsonl").read_text():
+        fail("mesh: the database CLI on the default mesh wrote other hits than the "
+             "database phase's")
+    print(f"mesh: 4 slabs of {S} rows on cuda:0 (valid rows {valid}), shard_topk + merge_topk "
+          f"in f32, bf16, int8 at q = 1 and 64, k = 5 and 100: indices equal one scan's, "
+          f"values bit-identical in {sum(bits)} of {len(bits)}; database CLI on the default "
+          f"mesh ({mesh.shape['data']} shard): hits equal the database phase's; launches "
+          f"{nonzero(launches)} ({card})", flush=True)
+    del dbs, slabs, merged
+    torch.cuda.empty_cache()
+
+    two = work / "mesh_manifest.jsonl"
+    two.write_text("".join(manifest_path.read_text(encoding="utf-8").splitlines(True)[:2]),
+                   encoding="utf-8")
+    plain = ViTEncoder(device="cpu")
+    blocks = 12 * 4                      # 12 blocks x 4 device batches (2 patients x 40 at 32)
+    want = {"fused_ln_mlp": blocks, "fused_ln_attention": blocks}
+    runs = {}
+    for tag, extra in (("vit --fast", []), ("vit --fast --data_parallel", ["--data_parallel"])):
+        enc, runs[tag] = zoo_step2_run(
+            f"mesh {tag}", ["--encoder_type", "vit", "--fast", *extra], two,
+            work / "mesh" / tag.replace(" ", "_"), want, 768, plain,
+            "the f32 plain tower on the CPU", card)
+        if extra and enc.mesh is not mesh:
+            fail("mesh: step2 --data_parallel did not encode over the default mesh")
+        del enc
+    a, b = (np.load(work / "mesh" / t.replace(" ", "_") / "embeddings.npz") for t in runs)
+    if a.files != b.files or not all(np.array_equal(a[p], b[p]) for p in a.files):
+        fail("mesh: step2 --data_parallel wrote other rows than step2 without it")
+    print(f"mesh: step2 --data_parallel on the default mesh ({mesh.shape['data']} card) wrote "
+          f"the rows step2 without it writes; mesh phase in {time.time() - t_phase:.1f} s "
+          f"({card})", flush=True)
+    return {"mesh database": launches,
+            "step2 vit --fast --data_parallel": runs["vit --fast --data_parallel"]}
 
 
 def compare_cv(tag: str, exp_card: Path, exp_cpu: Path) -> None:
@@ -3977,12 +4108,14 @@ def main_path_phase(work: Path, records: list, card: str) -> None:
         rec["launches"] = run_of.get(rec["name"], {"launches": {rec["name"]: 0}})[
             "launches"][rec["name"]]
     batched = p50_phase(card)
+    mesh = mesh_phase(work, manifest_path, work / "bf16" / "embeddings.npz", card)
     for rec in records:
         if rec["name"] in ("cosine_topk_fused", "cosine_topk_fused_int8"):
             rec["launches_by_path"] = {
                 "database_cli": rec["launches"],
                 **{f"database batched {d}": c[rec["name"]] for d, c in batched.items()
-                   if c[rec["name"]]}}
+                   if c[rec["name"]]},
+                "mesh database": mesh["mesh database"][rec["name"]]}
             rec["launches"] = sum(rec["launches_by_path"].values())
     cv_phase(work, bf16["npz"], manifest_path, encoders["int8"], card)
     throughput_phase(encoders, card)
@@ -4007,7 +4140,8 @@ def main_path_phase(work: Path, records: list, card: str) -> None:
             rec["launches"] = sum(rec["launches_by_path"].values())
     zoo_launches(records, zoo, {"step2 biomedclip bf16": bf16["launches"],
                                 "step2 biomedclip int8": int8["launches"],
-                                **e2e["launches"]})
+                                **e2e["launches"], "step2 vit --fast --data_parallel":
+                                mesh["step2 vit --fast --data_parallel"]})
     for prec, r in runs.items():
         print(f"judge summary {prec}: prefill {r['prefill_ms']:.3f} ms (bound "
               f"{r['prefill_bound']['bound_ms']:.3f}), decode {r['decode_ms_per_token']:.3f} "

@@ -7,12 +7,14 @@ BioMedCLIP's two towers (the ViT-B/16 image tower, whose fused
 LN+attention and LN+MLP blocks run on kernels written by hand for Hopper
 in bf16 (``fast=True``) and W8A8 (``fast="int8"``), and the PubMedBERT text
 tower, whose int8 projections run the streaming W8A8 kernel) and the step2
-embedding CLI; the one-GPU case database, whose scan runs the fused cosine
+embedding CLI, data-parallel over the cards with ``--data_parallel``; the
+case database, sharded over the cards, whose scan runs the fused cosine
 top-k kernel, with its CLI; the cross-validated retrieval runner; and
 step4, the Qwen3-VL judge that audits the retrieval's predictions, whose
 vision attention runs the per-frame attention kernel and whose decoder
 projections run the W8A8 or the W4A8 kernel. The kernels live in ``csrc/``
-and are built with ``nvcc`` for sm_90a at first use.
+and are built with ``nvcc`` for sm_90a at first use; they launch on any
+card of the process.
 
     pipelines/step2_embeddings   CLI: manifest -> embeddings.npz
     analysis/run_cv_experiments  CLI: embeddings -> fold metrics.json
@@ -28,6 +30,7 @@ and are built with ``nvcc`` for sm_90a at first use.
                                  top-k, similarity, whitening, fusion
                     csrc/        CUDA C++ kernels
         data/, config.py         manifest and image helpers, paths and seed
+        parallel/                the device mesh and its data axis
         tools/                   profilers, the synthetic cohort, a stub
                                  tokenizer, a torchvision-layout ResNet-18
     baselines/cnn                CLI: the ResNet-18 classifier under k-fold

@@ -1,17 +1,20 @@
 """Project-wide configuration.
 
-The port's own copy of ``emr2a_tpu/config.py:BaseConfig``: paths, the seed
-and the bilingual disease-label maps, with the same fields and defaults.
-``device`` names a PyTorch device here (``cuda`` by default). The JAX
-package's ``MeshConfig`` (a TPU mesh) has no one-GPU counterpart; its
-encoder and LLM configs come with the slices that read them.
+The port's own copy of ``emr2a_tpu/config.py:BaseConfig`` and
+``MeshConfig``: paths, the seed and the bilingual disease-label maps, and
+the device mesh's layout, with the same fields and defaults. ``device``
+names a PyTorch device here (``cuda`` by default); ``MeshConfig`` is read
+by ``parallel.create_mesh(cfg.mesh_shape, cfg.axis_names)``, and its dtype
+policy is recorded as in JAX (the towers take their dtypes from their own
+configs). The JAX package's encoder and LLM configs, which carry a
+``MeshConfig``, have no reader in either package and are not ported.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Tuple
 
 
 @dataclass
@@ -43,3 +46,18 @@ class BaseConfig:
         "PJP肺炎": "PJP",
         "细菌性肺炎": "细菌性",
     })
+
+
+@dataclass
+class MeshConfig:
+    """Device-mesh layout: ``data`` shards batches (slices at embed time,
+    the case database at retrieval time); ``model`` is for the judge's
+    tensor parallelism (not ported yet (ROADMAP.md, Queue 1, item 7))."""
+
+    axis_names: Tuple[str, ...] = ("data", "model")
+    # -1 means "all remaining devices on this axis".
+    mesh_shape: Tuple[int, ...] = (-1, 1)
+    # Dtype policy: params and computation bf16, accumulation f32.
+    param_dtype: str = "bfloat16"
+    compute_dtype: str = "bfloat16"
+    accum_dtype: str = "float32"

@@ -269,13 +269,9 @@ inline cudaError_t launch_attention_core(const bf16* q, const bf16* k, const bf1
                                          cudaStream_t stream) {
   if (valid_len > S) valid_len = S;
   if (d != num_heads * ATT_HD || valid_len < 1 || B < 1) return cudaErrorInvalidValue;
-  static bool sized = false;   // the attribute is set once
-  if (!sized) {
-    cudaError_t err = cudaFuncSetAttribute(attention_core_kernel<OutT>,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize, ATT_SMEM);
-    if (err != cudaSuccess) return err;
-    sized = true;
-  }
+  static std::atomic<uint64_t> sized{0};   // the devices whose attribute is set
+  const cudaError_t err = smem_attr_once(attention_core_kernel<OutT>, ATT_SMEM, sized);
+  if (err != cudaSuccess) return err;
   dim3 grid((S + ATT_BQ - 1) / ATT_BQ, num_heads, B);
   attention_core_kernel<OutT><<<grid, ATT_THREADS, ATT_SMEM, stream>>>(
       q, k, v, out, S, d, valid_len, 1.4426950408889634f / sqrtf(static_cast<float>(ATT_HD)));

@@ -1,15 +1,34 @@
 // Helpers shared by the port's kernels: the bf16 type, 16-byte vectors,
-// warp reductions, the tanh gelu, CLIP's quick_gelu and the s8/int4 byte
-// transposes.
+// warp reductions, the tanh gelu, CLIP's quick_gelu, the s8/int4 byte
+// transposes and the per-device dynamic shared-memory attribute.
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <atomic>
+
 namespace emr2a {
 
 using bf16 = __nv_bfloat16;
+
+// Sets ``kernel``'s dynamic shared-memory limit to ``bytes`` on the current
+// device, once per device: the attribute belongs to the device's context, so
+// a process that launches on several cards sets it on each. ``sized`` holds
+// one bit per device index below 64 (one record per kernel instance); a
+// device at 64 or above sets the attribute on every launch.
+template <typename Kernel>
+inline cudaError_t smem_attr_once(Kernel* kernel, int bytes, std::atomic<uint64_t>& sized) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const uint64_t bit = dev < 64 ? uint64_t{1} << dev : 0;
+  if (sized.load(std::memory_order_relaxed) & bit) return cudaSuccess;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err == cudaSuccess) sized.fetch_or(bit, std::memory_order_relaxed);
+  return err;
+}
 
 union Vec8 {
   uint4 u;

@@ -306,14 +306,9 @@ cudaError_t launch_frame_attention_shape(const bf16* q, const bf16* k, const bf1
                                          cudaStream_t st) {
   using Shape = FaShape<HDP, WARPS>;
   constexpr size_t smem = (size_t)FA_NST * 2 * FA_BK * (HDP + 8) * sizeof(bf16);
-  static bool attr = false;
-  if (!attr) {
-    const cudaError_t e = cudaFuncSetAttribute(frame_attention_kernel<HDP, WARPS>,
-                                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                               (int)smem);
-    if (e != cudaSuccess) return e;
-    attr = true;
-  }
+  static std::atomic<uint64_t> sized{0};   // the devices whose attribute is set
+  const cudaError_t e = smem_attr_once(frame_attention_kernel<HDP, WARPS>, (int)smem, sized);
+  if (e != cudaSuccess) return e;
   dim3 grid((S + Shape::BQ - 1) / Shape::BQ, H, F);
   frame_attention_kernel<HDP, WARPS><<<grid, Shape::THREADS, smem, st>>>(
       q, k, v, out, S, H, hd, scale * 1.4426950408889634f);

@@ -376,16 +376,12 @@ gemm_bf16_kernel(const __grid_constant__ CUtensorMap amap,
 template <int BN, int EPI>
 inline cudaError_t launch_gemm_tile(const CUtensorMap& amap, const CUtensorMap* bmap,
                                     const GemmParams& p, cudaStream_t st) {
-  static bool sized = false;   // the attribute is set once
-  if (!sized) {
-    cudaError_t err = cudaFuncSetAttribute(gemm_bf16_kernel<BN, EPI>,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           static_cast<int>(GemmTile<BN>::SMEM));
-    if (err != cudaSuccess) return err;
-    sized = true;
-  }
+  static std::atomic<uint64_t> sized{0};   // the devices whose attribute is set
+  cudaError_t err = smem_attr_once(gemm_bf16_kernel<BN, EPI>,
+                                   static_cast<int>(GemmTile<BN>::SMEM), sized);
+  if (err != cudaSuccess) return err;
   int sms = 0;
-  cudaError_t err = current_sms(&sms);
+  err = current_sms(&sms);
   if (err != cudaSuccess) return err;
   const int tiles = p.nz * ((p.M + GEMM_BM - 1) / GEMM_BM) * ((p.N + BN - 1) / BN);
   gemm_bf16_kernel<BN, EPI><<<tiles < sms ? tiles : sms, GEMM_THREADS, GemmTile<BN>::SMEM, st>>>(

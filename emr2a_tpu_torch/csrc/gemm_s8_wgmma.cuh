@@ -598,14 +598,10 @@ template <bool W4, int MT, int NT, int EPI, int NZ>
 inline cudaError_t launch_wgmma(const CUtensorMap& xmap, const CUtensorMap* wmap,
                                 const WgmmaParams& p, int sms, cudaStream_t st) {
   using Tile = WgTile<W4, MT, NT>;
-  static bool sized = false;   // the attribute is set once
-  if (!sized) {
-    cudaError_t err = cudaFuncSetAttribute(gemm_s8_wgmma_kernel<W4, MT, NT, EPI, NZ>,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           static_cast<int>(Tile::SMEM));
-    if (err != cudaSuccess) return err;
-    sized = true;
-  }
+  static std::atomic<uint64_t> sized{0};   // the devices whose attribute is set
+  const cudaError_t err = smem_attr_once(gemm_s8_wgmma_kernel<W4, MT, NT, EPI, NZ>,
+                                         static_cast<int>(Tile::SMEM), sized);
+  if (err != cudaSuccess) return err;
   constexpr int BT = wg_block_rows<MT, NT>();
   const int tiles = ((p.T + BT - 1) / BT) * NZ * (p.N / WG_BM);
   const int grid = W4 || tiles < sms ? tiles : sms;   // K7: one tile a block

@@ -957,14 +957,9 @@ __global__ void __launch_bounds__(TC_THREADS, NQ8 == 8 ? 1 : 2) topk_tc_kernel(T
 
 template <typename T, int NQ8>
 cudaError_t launch_tc_nq(const TcParams& p, const TcPlan& pl, cudaStream_t st) {
-  static bool attr = false;
-  if (!attr) {
-    cudaError_t e = cudaFuncSetAttribute(topk_tc_kernel<T, NQ8>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         SMEM_BLOCK_MAX);
-    if (e != cudaSuccess) return e;
-    attr = true;
-  }
+  static std::atomic<uint64_t> sized{0};   // the devices whose attribute is set
+  const cudaError_t e = smem_attr_once(topk_tc_kernel<T, NQ8>, SMEM_BLOCK_MAX, sized);
+  if (e != cudaSuccess) return e;
   const dim3 grid((p.nq + pl.qb - 1) / pl.qb, pl.chunks);
   topk_tc_kernel<T, NQ8><<<grid, TC_THREADS, pl.smem, st>>>(p);
   return cudaGetLastError();

@@ -21,11 +21,23 @@ is ``BatchedImageTextEncoder``). What it keeps:
   ``max_batch``, then the text tower and the L2 normalisation on the
   device.
 
+With a ``mesh`` (``parallel.Mesh``), data parallelism over its ``data``
+axis, JAX's ``shard_map`` of the forward: the towers are replicated on each
+of its devices (``parallel.replicated``); a batch is padded with zero rows
+to a multiple of the shard count (``_bucket_for``, JAX's rounding), split
+into equal chunks, one a device, every device's forward (preprocess,
+tower, L2 normalisation) queued before anything is read back, and the rows
+gathered to the first device in order, the padding dropped. The decode
+pool's path decodes on the host once and sends each chunk's rows to the
+devices the same way. A row's features do not depend on the rows beside it,
+up to the order in which a matrix product sums, which a library may choose
+by the row count (the CPU's f32 products do; tests/test_torch_dp_encoders.py).
+
 What it drops: the power-of-two bucket padding of image and text batches,
-which bounds JAX recompiles and is only wasted rows in eager PyTorch;
-and ``mesh`` (data-parallel ``shard_map`` over chips), which has no one-GPU
-counterpart and is rejected. As in the JAX package, subclasses do not take
-``assume_square_sources``: a caller sets the attribute.
+which bounds JAX recompiles and is only wasted rows in eager PyTorch (under
+a mesh, a batch is padded only to a multiple of the shard count). As in
+the JAX package, subclasses do not take ``assume_square_sources``: a
+caller sets the attribute.
 """
 
 from __future__ import annotations
@@ -43,6 +55,8 @@ from emr2a_tpu_torch.data.native_loader import decode_batch, native_available
 from emr2a_tpu_torch.encoders.base import BaseEncoder
 from emr2a_tpu_torch.ops.preprocess import PreprocessSpec, preprocess_images
 from emr2a_tpu_torch.ops.similarity import l2_normalize_rows
+from emr2a_tpu_torch.parallel.mesh import Mesh
+from emr2a_tpu_torch.parallel.sharding import data_devices, gather_batch, replicated
 
 
 def fast_state(state: Mapping, fast) -> dict:
@@ -90,7 +104,8 @@ class BatchedImageTextEncoder(BaseEncoder):
     attention_mask | None) -> (B, D)``) with its ``tokenize(texts) -> (ids,
     mask | None)`` (numpy, padded to one length) into the encoder API.
     Features come back as f32 numpy rows, L2-normalised when
-    ``normalize``."""
+    ``normalize``. With a ``mesh``, the towers run data-parallel on its
+    ``data`` devices (module docstring) and ``device`` is ignored."""
 
     def __init__(self, image_model: nn.Module,
                  text_model: Optional[nn.Module] = None,
@@ -98,15 +113,15 @@ class BatchedImageTextEncoder(BaseEncoder):
                  preprocess: PreprocessSpec = PreprocessSpec(),
                  normalize: bool = True, max_batch: int = 256,
                  device: str = "cuda", assume_square_sources: bool = False,
-                 mesh=None):
-        if mesh is not None:
-            raise ValueError(
-                "mesh (data-parallel encoding over chips) has no counterpart "
-                "in the one-GPU port; drop --data_parallel")
-        super().__init__(device)
-        self.image_model = image_model.to(device).eval()
-        self.text_model = (None if text_model is None
-                           else text_model.to(device).eval())
+                 mesh: Optional[Mesh] = None):
+        if mesh is not None and not isinstance(mesh, Mesh):
+            raise TypeError(f"mesh must be an emr2a_tpu_torch.parallel.Mesh, "
+                            f"got {type(mesh).__name__}")
+        self.mesh = mesh
+        self._devices = [torch.device(device)] if mesh is None else data_devices(mesh)
+        super().__init__(str(self._devices[0]))
+        self._image_models = self._place(image_model)
+        self._text_models = None if text_model is None else self._place(text_model)
         self._tokenize = tokenize
         self.preprocess = preprocess
         self.normalize = normalize
@@ -115,25 +130,66 @@ class BatchedImageTextEncoder(BaseEncoder):
         # decode pool (a square shortest-edge resize is an exact square one).
         self.assume_square_sources = assume_square_sources
 
-    def _finish(self, feats: torch.Tensor) -> np.ndarray:
+    def _place(self, model: nn.Module) -> list:
+        """``model`` in eval mode on each data device (one module a device;
+        the first is ``model`` itself)."""
+        model.eval()
+        if self.mesh is None:
+            return [model.to(self._devices[0])]
+        return replicated(model, self.mesh)
+
+    @property
+    def image_model(self) -> nn.Module:
+        """The image tower on the first (or only) device."""
+        return self._image_models[0]
+
+    @property
+    def text_model(self) -> Optional[nn.Module]:
+        return None if self._text_models is None else self._text_models[0]
+
+    def _bucket_for(self, n: int) -> int:
+        """Rows a batch of ``n`` is padded to: ``n`` itself, or under a mesh
+        the least multiple of the shard count that holds it (at least one
+        row a shard)."""
+        shards = len(self._devices)
+        return max(-(-n // shards), 1) * shards
+
+    def _finish(self, feats: torch.Tensor) -> torch.Tensor:
         feats = feats.float()
         if self.normalize:
             feats = l2_normalize_rows(feats)
-        return feats.cpu().numpy()
+        return feats
 
     @torch.inference_mode()
+    def _sharded(self, forward: Callable, models: list, *arrays) -> np.ndarray:
+        """``forward(model, *tensors)`` of the rows of ``arrays`` (numpy, or
+        None), padded to ``_bucket_for`` rows and split across the data
+        devices: every device's forward is queued before the gather to the
+        first device and the one read-back."""
+        n = len(arrays[0])
+        rows = self._bucket_for(n)
+        chunk = rows // len(self._devices)
+        padded = [None if a is None else np.concatenate(
+            [a, np.zeros((rows - n,) + a.shape[1:], a.dtype)]) if rows > n else a
+            for a in arrays]
+        outs = []
+        for i, (dev, model) in enumerate(zip(self._devices, models)):
+            part = [None if a is None else torch.from_numpy(
+                np.ascontiguousarray(a[i * chunk:(i + 1) * chunk])).to(dev)
+                for a in padded]
+            outs.append(self._finish(forward(model, *part)))
+        return gather_batch(outs, self._devices[0])[:n].cpu().numpy()
+
     def _image_forward(self, batch_u8: np.ndarray) -> np.ndarray:
-        images = torch.from_numpy(np.ascontiguousarray(batch_u8)).to(self.device)
-        return self._finish(self.image_model(
-            preprocess_images(images, self.preprocess)))
+        return self._sharded(
+            lambda model, images: model(preprocess_images(images, self.preprocess)),
+            self._image_models, batch_u8)
 
-    @torch.inference_mode()
     def _text_forward(self, ids: np.ndarray,
                       mask: Optional[np.ndarray]) -> np.ndarray:
-        ids_t = torch.from_numpy(ids.astype(np.int64)).to(self.device)
-        mask_t = (None if mask is None
-                  else torch.from_numpy(mask.astype(np.int64)).to(self.device))
-        return self._finish(self.text_model(ids_t, mask_t))
+        return self._sharded(
+            lambda model, ids_t, mask_t: model(ids_t, mask_t), self._text_models,
+            ids.astype(np.int64), None if mask is None else mask.astype(np.int64))
 
     def encode_batch_images(self, images: List[Optional[np.ndarray]]
                             ) -> List[Optional[np.ndarray]]:
@@ -156,8 +212,7 @@ class BatchedImageTextEncoder(BaseEncoder):
         """Path-based encode on the C++ decode pool where the spec allows
         it (see the module docstring), else the per-image host decode."""
         spec = self.preprocess
-        if (self.image_model is None
-                or (spec.shortest_edge and not self.assume_square_sources)
+        if ((spec.shortest_edge and not self.assume_square_sources)
                 or not native_available()):
             return super().encode_images(image_paths)
         size = spec.resize_size
@@ -193,7 +248,11 @@ class BatchedImageTextEncoder(BaseEncoder):
         return out
 
     def to(self, device: str):
-        self.image_model.to(device)
-        if self.text_model is not None:
-            self.text_model.to(device)
+        """Move the towers to one ``device``; an encoder on a mesh leaves
+        it for that device alone."""
+        self.mesh = None
+        self._devices = [torch.device(device)]
+        self._image_models = [self.image_model.to(device)]
+        if self._text_models is not None:
+            self._text_models = [self.text_model.to(device)]
         return super().to(device)

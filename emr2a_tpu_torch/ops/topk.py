@@ -93,13 +93,24 @@ def _masked_topk(scores: torch.Tensor, k: int, n_valid: int):
     return values, indices.to(torch.int32)
 
 
+def score_matmul(a: torch.Tensor, b_t: torch.Tensor) -> torch.Tensor:
+    """f32 scores ``a @ b_t`` of f32 operands. On the card the sums are f32;
+    on the CPU they are taken in f64 and rounded once to f32, since the
+    order of an f32 sum there follows the BLAS kernel that the matrix's
+    width selects: a database shard's scores then equal the whole
+    matrix's bit for bit."""
+    if a.is_cuda:
+        return a @ b_t
+    return (a.double() @ b_t.double()).float()
+
+
 def cosine_topk_fused_reference(queries: torch.Tensor, database: torch.Tensor,
                                 k: int, n_valid: Optional[int] = None):
     """Plain PyTorch version of K6: queries cast to the storage type, f32
-    products and sums, rows >= n_valid masked, stable top-k."""
+    products, sums as ``score_matmul`` takes them, rows >= n_valid masked,
+    stable top-k."""
     n_valid = database.shape[0] if n_valid is None else n_valid
-    scores = torch.matmul(queries.to(database.dtype).float(),
-                          database.float().T)
+    scores = score_matmul(queries.to(database.dtype).float(), database.float().T)
     return _masked_topk(scores, k, n_valid)
 
 

@@ -12,8 +12,12 @@ Qwen types need one. Differences: ``--device`` defaults to ``cuda``;
 (K1, K3) where the reference's rule admits them (ViT, BioMedCLIP, CLIP
 ViT-B; DINOv3 is the dtype cut), and ``--fast int8`` the W8A8 tower (K2, K4;
 DINOv3's projections on K5); the Qwen types refuse ``--fast``, as in JAX;
-``--data_parallel`` raises (one GPU, no mesh); the JAX compile-cache flag is
-gone (eager PyTorch has no compile step to cache).
+``--data_parallel`` encodes over ``parallel.default_mesh()`` (every visible
+card on the ``data`` axis: each batch split across the cards, the tower
+replicated on each) and logs its size, or, with ``--device cpu``, over a
+one-device CPU mesh; the Qwen types refuse it, as in JAX, and the fake
+encoder ignores it. The JAX compile-cache flag is gone (eager PyTorch has
+no compile step to cache).
 
     python -m emr2a_tpu_torch.pipelines.step2_embeddings.run \\
         --encoder_type vit --fast int8 --device cuda
@@ -49,7 +53,8 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--device", default="cuda")
     parser.add_argument("--output_dir", default="outputs/features")
     parser.add_argument("--data_parallel", action="store_true",
-                        help="not available in the one-GPU port (raises)")
+                        help="shard image batches over all devices "
+                             "(mesh data axis)")
     parser.add_argument("--fast", nargs="?", const="bf16", default=None,
                         choices=["bf16", "int8"],
                         help="'--fast' = bf16 tower on the fused CUDA "
@@ -105,15 +110,18 @@ def main(argv=None) -> None:
     logging.basicConfig(level=logging.INFO,
                         format="%(asctime)s - %(levelname)s - %(message)s")
     args = build_parser().parse_args(argv)
-    if args.data_parallel:
-        raise SystemExit("--data_parallel has no counterpart in the one-GPU "
-                         "port")
 
     logger.info("Loading manifest from %s", args.manifest_path)
     manifest = load_manifest(args.manifest_path)
     logger.info("Loaded %d records from manifest", len(manifest))
 
     encoder_kwargs = {}
+    if args.data_parallel:
+        from emr2a_tpu_torch.parallel.mesh import create_mesh, default_mesh
+        encoder_kwargs["mesh"] = (create_mesh((1, 1), devices=["cpu"])
+                                  if args.device == "cpu" else default_mesh())
+        logger.info("Data-parallel encoding over %d devices",
+                    encoder_kwargs["mesh"].size)
     if args.fast:
         encoder_kwargs["fast"] = "int8" if args.fast == "int8" else True
     encoder = create_encoder(

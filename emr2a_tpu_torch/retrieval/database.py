@@ -1,24 +1,46 @@
-"""The case-retrieval embedding database on one GPU.
+"""The case-retrieval embedding database, sharded over the mesh's ``data``
+axis.
 
 Port of ``emr2a_tpu/retrieval/database.py`` (``ShardedEmbeddingDatabase``),
 with its class name, constructor and methods (``topk``, ``topk_chained``,
 ``add_cases``, ``save``, ``load``, ``search``) and its npz format, so a
-database saved by either package loads in the other. The (n, dim) matrix
-lives on one device (``device``, default ``cuda``) in its storage dtype:
+database saved by either package loads in the other.
 
-- ``torch.float32`` or ``torch.bfloat16``: the scan is ``q . dbᵀ`` in f32
-  and a stable top-k (the XLA path's counterpart), or, with
+Layout (JAX's ``_upload``): the normalised (n, dim) matrix is padded with
+zero rows to ``max(n, capacity)`` rounded up to a multiple of the shard
+count, and shard i, on the i-th device of ``data``, holds rows ``[i *
+shard_size, (i + 1) * shard_size)`` in the storage dtype (int8 codes with
+their f32 scales, sharded alike):
+
+- ``torch.float32`` or ``torch.bfloat16``: a shard's scan is ``q . dbᵀ`` in
+  f32 and a stable top-k (the XLA path's counterpart), or, with
   ``use_pallas=True``, the fused kernel K6 (``ops/topk.cosine_topk_fused``);
-- ``torch.int8``: per-row codes and f32 scales (``quantize_rows_int8``), and
-  the scan is always K6's int8 variant (``cosine_topk_fused_int8``), on the
+- ``torch.int8``: K6's int8 variant (``cosine_topk_fused_int8``), on the
   card the kernel and on the CPU its plain version, for any k.
 
-Reserving ``capacity`` keeps the buffer's shape: ``add_cases`` writes the
-new rows in place (an in-place update, where JAX donates the buffer); past
-capacity the buffer grows geometrically. K6 takes the true row count as
-``n_valid``, so it runs on a padded buffer too: the JAX package's gate that
-turns ``use_pallas`` off under padding has no counterpart. ``mesh`` is
-rejected unless None (one device, no shards).
+Search (JAX's ``_sharded_topk_fn``): the normalised queries go to every
+shard's device; shard i scans its ``n_valid_local = clip(n - base, 0,
+shard_size)`` valid rows for ``min(k, shard_size, n_valid_local)``
+candidates (``shard_topk``; an empty shard gives none) and offsets them by
+``base = i * shard_size``; every shard's query copy, then every shard's
+scan, is queued before anything is read back, so the cards run together;
+the candidates are gathered to the
+first device and a stable top-k over them in shard-major order gives the
+answer (``merge_topk``). Ties go to the lowest global index, as in one
+scan, so the answer equals the one-shard answer. JAX's shards scan a short
+shard for ``min(k, shard_size)`` candidates with ``NEG_INF`` filler; the
+filler never surfaces (the shards hold at least k valid candidates
+together), so leaving it out changes no answer. One shard is one scan,
+with no merge.
+
+``mesh=None`` means ``default_mesh()``, every visible card, as in JAX,
+except where ``device`` names one device: ``"cpu"`` (a one-device CPU mesh)
+or ``"cuda:N"`` (that card alone). Reserving ``capacity`` keeps the shards'
+shapes: ``add_cases`` writes the new rows into their shards in place (JAX
+donates the buffer); past capacity the shards grow geometrically and are
+placed anew. K6 takes each shard's valid rows as ``n_valid``, so it runs on
+padded shards too: the JAX package's gate that turns ``use_pallas`` off
+under padding has no counterpart.
 
     python -m emr2a_tpu_torch.retrieval.database build|add|query ...
 """
@@ -35,8 +57,11 @@ from emr2a_tpu_torch.ops.similarity import l2_normalize_rows
 from emr2a_tpu_torch.ops.topk import (
     cosine_topk_fused,
     cosine_topk_fused_int8,
+    score_matmul,
     topk_scores,
 )
+from emr2a_tpu_torch.parallel.mesh import Mesh, create_mesh, default_mesh
+from emr2a_tpu_torch.parallel.sharding import data_devices
 
 logger = logging.getLogger(__name__)
 
@@ -55,22 +80,62 @@ def quantize_rows_int8(x: np.ndarray):
 
 
 def _scores(q: torch.Tensor, db: torch.Tensor) -> torch.Tensor:
-    """f32 scores of q against db, both in the storage dtype."""
+    """f32 scores of q against db, both in the storage dtype (on the CPU
+    summed as ``score_matmul`` sums them)."""
+    if not q.is_cuda:
+        return score_matmul(q.float(), db.float().T)
     if q.dtype == torch.float32:
         return q @ db.T
-    if q.is_cuda:
-        return torch.mm(q, db.T, out_dtype=torch.float32)
-    return q.float() @ db.float().T
+    return torch.mm(q, db.T, out_dtype=torch.float32)
+
+
+def shard_topk(q: torch.Tensor, shard: torch.Tensor,
+               scales: Optional[torch.Tensor], n_valid_local: int, base: int,
+               k_local: int, use_pallas: bool
+               ) -> Optional[Tuple[torch.Tensor, torch.Tensor]]:
+    """One shard's candidates: the top ``min(k_local, n_valid_local)`` of
+    its first ``n_valid_local`` rows against ``q`` (on the shard's device,
+    in the scan's dtype), as (values (q, k') f32, global indices (q, k')
+    int32, offset by ``base``); None for an empty shard."""
+    k = min(k_local, n_valid_local)
+    if k < 1:
+        return None
+    if scales is not None:
+        vals, idx = cosine_topk_fused_int8(q, shard, scales, k, n_valid=n_valid_local)
+    elif use_pallas:
+        vals, idx = cosine_topk_fused(q, shard, k, n_valid=n_valid_local)
+    else:
+        vals, idx = topk_scores(_scores(q, shard[:n_valid_local]), k)
+        idx = idx.to(torch.int32)
+    return vals, (idx + base if base else idx)
+
+
+def merge_topk(candidates, k: int, device: torch.device
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The top k of the shards' candidates (``shard_topk``'s results, in
+    shard order, None for an empty shard), gathered to ``device``: a stable
+    top-k in shard-major order, so ties go to the lowest global index."""
+    present = [c for c in candidates if c is not None]
+    if len(present) == 1:
+        vals, idx = present[0]
+        return vals.to(device)[:, :k], idx.to(device)[:, :k]
+    on = lambda t: t.to(device, non_blocking=device.type == "cuda")
+    vals = torch.cat([on(v) for v, _ in present], dim=1)
+    idx = torch.cat([on(i) for _, i in present], dim=1)
+    mvals, cols = topk_scores(vals, k)
+    return mvals, torch.take_along_dim(idx, cols, dim=1)
 
 
 class ShardedEmbeddingDatabase:
-    """Case-retrieval database on one device.
+    """Case-retrieval database sharded over the mesh's ``data`` axis.
 
     Parameters
     ----------
     embeddings : (n, dim) array of case embeddings (``normalize=True``
         L2-normalises them once, so every query is a plain dot product).
     labels / ids : optional per-case metadata for ``search``.
+    mesh : the mesh whose ``data`` axis holds the shards (see the module
+        docstring for None).
     dtype : storage dtype, ``torch.float32``, ``torch.bfloat16`` or
         ``torch.int8``.
     """
@@ -78,18 +143,24 @@ class ShardedEmbeddingDatabase:
     def __init__(self, embeddings: np.ndarray,
                  labels: Optional[Sequence[str]] = None,
                  ids: Optional[Sequence[str]] = None,
-                 mesh=None,
+                 mesh: Optional[Mesh] = None,
                  normalize: bool = True,
                  dtype: torch.dtype = torch.float32,
                  use_pallas: bool = False,
                  capacity: Optional[int] = None,
                  device: str = "cuda"):
-        if mesh is not None:
-            raise ValueError("mesh (a database sharded over chips) has no "
-                             "counterpart in the one-GPU port")
+        if mesh is not None and not isinstance(mesh, Mesh):
+            raise TypeError(f"mesh must be an emr2a_tpu_torch.parallel.Mesh, "
+                            f"got {type(mesh).__name__}")
         if dtype not in DTYPES:
             raise TypeError(f"dtype must be one of {DTYPES}, got {dtype}")
-        self.device = torch.device(device)
+        if mesh is None:
+            one = torch.device(device)
+            mesh = (default_mesh() if one.type == "cuda" and one.index is None
+                    else create_mesh((1, 1), devices=[one]))
+        self.mesh = mesh
+        self.devices = data_devices(mesh)
+        self.device = self.devices[0]   # the queries' and the answers' device
         self.n, self.dim = embeddings.shape
         self.capacity = capacity
         self.labels = list(labels) if labels is not None else None
@@ -103,23 +174,29 @@ class ShardedEmbeddingDatabase:
         self._upload()
 
     def _upload(self) -> None:
-        """Place the host matrix on the device in the storage dtype, padded
-        with zero rows up to the capacity."""
+        """Place the host matrix on the shards in the storage dtype, padded
+        with zero rows (JAX's layout, module docstring)."""
+        n_shards = len(self.devices)
         emb = self._host_emb
         self.n = emb.shape[0]
-        pad = max(self.n, self.capacity or 0) - self.n
-        if pad:
-            emb = np.pad(emb, ((0, pad), (0, 0)))
-        if self.dtype == torch.int8:
-            q8, scales = quantize_rows_int8(emb)
-            self.db = torch.from_numpy(q8).to(self.device)
-            self.db_scales = torch.from_numpy(scales).to(self.device)
-        else:
-            self.db = torch.from_numpy(emb).to(self.device, self.dtype)
-            self.db_scales = None
+        target = max(self.n, self.capacity or 0)
+        self.shard_size = -(-target // n_shards)
+        self.shards, self.scale_shards = [], []
+        for i, dev in enumerate(self.devices):
+            rows = emb[i * self.shard_size:(i + 1) * self.shard_size]
+            if rows.shape[0] < self.shard_size:
+                rows = np.pad(rows, ((0, self.shard_size - rows.shape[0]), (0, 0)))
+            if self.dtype == torch.int8:
+                q8, scales = quantize_rows_int8(rows)
+                self.shards.append(torch.from_numpy(q8).to(dev))
+                self.scale_shards.append(torch.from_numpy(scales).to(dev))
+            else:
+                self.shards.append(torch.from_numpy(rows).to(dev, self.dtype))
+        if self.dtype != torch.int8:
+            self.scale_shards = None
 
     def _queries(self, queries, normalize: bool) -> torch.Tensor:
-        qdtype = torch.float32 if self.db_scales is not None else self.dtype
+        qdtype = torch.float32 if self.scale_shards is not None else self.dtype
         q = torch.as_tensor(np.asarray(queries, np.float32)).to(self.device, qdtype)
         if q.dim() == 1:
             q = q[None, :]
@@ -128,26 +205,35 @@ class ShardedEmbeddingDatabase:
         return q
 
     def _scan(self, q: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
-        if self.db_scales is not None:
-            return cosine_topk_fused_int8(q, self.db, self.db_scales, k,
-                                          n_valid=self.n)
-        if self.use_pallas:
-            return cosine_topk_fused(q, self.db, k, n_valid=self.n)
-        vals, idx = topk_scores(_scores(q, self.db[:self.n]), k)
-        return vals, idx.to(torch.int32)
+        """The query sent to every shard's device, then every shard's scan
+        queued (module docstring), then the merge. The copies go first: a
+        copy from the first device runs on that device's stream, so one
+        queued after the first shard's scan would hold the other cards'
+        scans until that scan ends."""
+        k_local = min(k, self.shard_size)
+        queries = [q.to(dev, non_blocking=True) for dev in self.devices]
+        candidates = []
+        for i, (qd, shard) in enumerate(zip(queries, self.shards)):
+            base = i * self.shard_size
+            candidates.append(shard_topk(
+                qd, shard, None if self.scale_shards is None else self.scale_shards[i],
+                min(max(self.n - base, 0), self.shard_size), base, k_local,
+                self.use_pallas))
+        return merge_topk(candidates, k, self.device)
 
     def topk(self, queries: np.ndarray, k: int,
              normalize: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
-        """(q, dim) queries -> (values (q, k) f32, indices (q, k) int32), on
-        the database's device. k is clamped to the number of cases."""
+        """(q, dim) queries -> (values (q, k) f32, global indices (q, k)
+        int32), on the mesh's first device. k is clamped to the number of
+        cases."""
         k = min(k, self.n)
         return self._scan(self._queries(queries, normalize), k)
 
     def topk_chained(self, query: np.ndarray, k: int, repeats: int = 256,
                      normalize: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
         """Single-query latency probe: ``repeats`` back-to-back (1, dim)
-        scans queued on the device, of which the last result is returned
-        (read back once by the caller). Scan i adds ``i * 1e-9`` to the
+        searches queued on the devices, of which the last result is returned
+        (read back once by the caller). Search i adds ``i * 1e-9`` to the
         query, as the JAX package's chain does so that XLA cannot hoist the
         scan; it is about 1e-7 of a unit query at the last scan, far below
         ranking resolution, so the result equals the unchained one."""
@@ -167,7 +253,7 @@ class ShardedEmbeddingDatabase:
                   ids: Optional[Sequence[str]] = None,
                   normalize: bool = True) -> None:
         """Append cases. Within the reserved capacity the rows are written
-        into the device buffer in place; past it the buffer is rebuilt.
+        into their shards in place; past it the shards are rebuilt.
         Labels and ids stay row-aligned: give them exactly when the
         database was built with them."""
         new = np.asarray(embeddings, dtype=np.float32)
@@ -199,13 +285,8 @@ class ShardedEmbeddingDatabase:
         if ids is not None:
             self.ids.extend(ids)
         end = start + new.shape[0]
-        if end <= self.db.shape[0]:
-            if self.db_scales is not None:
-                q8, scales = quantize_rows_int8(new)
-                self.db[start:end] = torch.from_numpy(q8).to(self.device)
-                self.db_scales[start:end] = torch.from_numpy(scales).to(self.device)
-            else:
-                self.db[start:end] = torch.from_numpy(new).to(self.device, self.dtype)
+        if end <= self.shard_size * len(self.shards):
+            self._write_rows(new, start)
             self.n = end
         else:
             if self.capacity is not None:
@@ -213,6 +294,25 @@ class ShardedEmbeddingDatabase:
                 # rebuilds instead of one per batch
                 self.capacity = max(end, 2 * self.capacity)
             self._upload()
+
+    def _write_rows(self, rows: np.ndarray, start: int) -> None:
+        """Write normalised f32 ``rows`` as global rows ``start..`` into the
+        shards that hold them, in the storage dtype."""
+        if self.scale_shards is not None:
+            codes, scales = quantize_rows_int8(rows)
+        end = start + rows.shape[0]
+        for i, (dev, shard) in enumerate(zip(self.devices, self.shards)):
+            lo = max(start, i * self.shard_size)
+            hi = min(end, (i + 1) * self.shard_size)
+            if lo >= hi:
+                continue
+            at = slice(lo - i * self.shard_size, hi - i * self.shard_size)
+            part = slice(lo - start, hi - start)
+            if self.scale_shards is not None:
+                shard[at] = torch.from_numpy(codes[part]).to(dev)
+                self.scale_shards[i][at] = torch.from_numpy(scales[part]).to(dev)
+            else:
+                shard[at] = torch.from_numpy(rows[part]).to(dev, self.dtype)
 
     def save(self, path) -> None:
         """Persist to npz (embeddings pre-normalised as stored)."""
@@ -224,7 +324,7 @@ class ShardedEmbeddingDatabase:
         np.savez_compressed(path, **payload)
 
     @classmethod
-    def load(cls, path, mesh=None, dtype: torch.dtype = torch.float32,
+    def load(cls, path, mesh: Optional[Mesh] = None, dtype: torch.dtype = torch.float32,
              use_pallas: bool = False, capacity: Optional[int] = None,
              device: str = "cuda") -> "ShardedEmbeddingDatabase":
         data = np.load(path, allow_pickle=True)

@@ -1,4 +1,4 @@
-"""CLI for the one-GPU embedding database.
+"""CLI for the embedding database sharded over the cards.
 
 Port of ``emr2a_tpu/retrieval/database_cli.py``, the user-facing entry to
 the 1M-case retrieval path:
@@ -17,16 +17,18 @@ the 1M-case retrieval path:
 patient_id, (n_slices, dim) per patient; a patient is its slice mean) or
 the matrix form (``patient_ids`` + ``image_matrix`` or ``embeddings``),
 with labels from the step1 manifest. ``query`` loads the database in
-``--dtype`` and writes one JSON line per query: {"query_id", "hits":
-[{index, score, label, patient_id}]}. ``--dtype int8`` scans a 4x smaller
-database with K6's int8 variant.
+``--dtype`` sharded over the default mesh's ``data`` axis (every visible
+card, ``parallel.default_mesh``), as JAX's does, and writes one JSON line
+per query: {"query_id", "hits": [{index, score, label, patient_id}]}.
+``--dtype int8`` scans a 4x smaller database with K6's int8 variant. Each
+command logs the shard count.
 
-Differences from the JAX CLI: the commands run on the card, and fail if
-there is none, unless ``--cpu`` asks for the CPU; ``query --chained``
-times the chained single-query scans with CUDA events and prints the
-card's name beside the p50 (on the CPU it refuses: it measures the
-device); ``--compile_cache`` is gone (eager PyTorch has no compile step to
-cache).
+Differences from the JAX CLI: the commands run on the cards, and fail if
+there is none, unless ``--cpu`` asks for the CPU (a one-device CPU mesh);
+``query --chained`` times the chained single-query searches with CUDA
+events on the first card and prints the card's name beside the p50 (on the
+CPU it refuses: it measures the device); ``--compile_cache`` is gone (eager
+PyTorch has no compile step to cache).
 """
 
 from __future__ import annotations
@@ -51,14 +53,22 @@ def _resolve_dtype(name: str):
     return {"f32": torch.float32, "bf16": torch.bfloat16, "int8": torch.int8}[name]
 
 
-def _device(args) -> str:
-    import torch
+def _mesh(args):
+    """A one-device CPU mesh with ``--cpu``, else the default mesh (every
+    visible card, or the CPU mesh ``parallel.force_cpu_devices`` set)."""
+    from emr2a_tpu_torch.parallel.mesh import create_mesh, default_mesh
     if args.cpu:
-        return "cpu"
-    if not torch.cuda.is_available():
-        raise SystemExit("no CUDA device: the database runs on the card; "
-                         "pass --cpu to run it on the CPU")
-    return "cuda"
+        return create_mesh((1, 1), devices=["cpu"])
+    try:
+        return default_mesh()
+    except RuntimeError as e:
+        raise SystemExit(f"{e}; pass --cpu to run the database on the CPU")
+
+
+def _log_shards(db) -> None:
+    logger.info("Database sharded over %d device(s) on the mesh's data axis "
+                "(%d rows a shard): %s", len(db.shards), db.shard_size,
+                ", ".join(str(d) for d in db.devices))
 
 
 def _load_cases(embeddings_path: Path):
@@ -106,8 +116,9 @@ def cmd_build(args) -> None:
     db = ShardedEmbeddingDatabase(
         emb, labels=labels, ids=ids, dtype=_resolve_dtype(args.dtype),
         capacity=args.capacity, normalize=not args.no_normalize,
-        device=_device(args))
+        mesh=_mesh(args))
     t_ingest = time.time() - t0
+    _log_shards(db)
     t0 = time.time()
     Path(args.db).parent.mkdir(parents=True, exist_ok=True)
     db.save(args.db)
@@ -121,7 +132,8 @@ def cmd_add(args) -> None:
     from emr2a_tpu_torch.retrieval.database import ShardedEmbeddingDatabase
 
     db = ShardedEmbeddingDatabase.load(
-        args.db, dtype=_resolve_dtype(args.dtype), device=_device(args))
+        args.db, dtype=_resolve_dtype(args.dtype), mesh=_mesh(args))
+    _log_shards(db)
     ids, mat = _load_cases(Path(args.embeddings_path))
     pid_to_label = _labels_from_manifest(args.manifest_path)
     present = set(db.ids or [])
@@ -142,21 +154,24 @@ def cmd_add(args) -> None:
 
 def chained_p50_ms(db, query: np.ndarray, k: int, repeats: int) -> float:
     """Median over 3 runs of the device time per query of ``repeats``
-    chained single-query scans, timed with CUDA events (after one
-    warm-up run, which builds the kernels)."""
+    chained single-query searches, timed with CUDA events on the database's
+    first card, whose stream each search's merge ends on (after one warm-up
+    run, which builds the kernels)."""
     import torch
     if db.device.type != "cuda":
         raise SystemExit("--chained times the card with CUDA events; it "
                          "needs the card (drop --cpu)")
     db.topk_chained(query, k, repeats=repeats)
-    torch.cuda.synchronize()
+    for dev in db.devices:
+        torch.cuda.synchronize(dev)
+    stream = torch.cuda.current_stream(db.device)
     times = []
     for _ in range(3):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
-        start.record()
+        start.record(stream)
         db.topk_chained(query, k, repeats=repeats)
-        end.record()
+        end.record(stream)
         end.synchronize()
         times.append(start.elapsed_time(end))
     return float(np.median(times)) / repeats
@@ -168,10 +183,11 @@ def cmd_query(args) -> None:
     t0 = time.time()
     db = ShardedEmbeddingDatabase.load(
         args.db, dtype=_resolve_dtype(args.dtype), capacity=args.capacity,
-        device=_device(args))
+        mesh=_mesh(args))
     logger.info("Loaded database: %d cases x %d dims (%s) in %.1f s "
                 "(disk + device placement)", db.n, db.dim, args.dtype,
                 time.time() - t0)
+    _log_shards(db)
     qids, queries = _load_cases(Path(args.queries_path))
 
     t0 = time.time()
@@ -184,9 +200,9 @@ def cmd_query(args) -> None:
         logger.info(
             "Chained single-query scan: %.4f ms/query device p50 (median of "
             "3 runs of %d chained scans, CUDA events, one readback; n=%d, "
-            "dim=%d, k=%d, %s, use_pallas=%s) on %s",
+            "dim=%d, k=%d, %s, use_pallas=%s, %d shard(s)) on %s",
             per_q, reps, db.n, db.dim, args.k, args.dtype, db.use_pallas,
-            torch.cuda.get_device_name(db.device))
+            len(db.shards), torch.cuda.get_device_name(db.device))
     if args.repeat > 1 and not args.chained:
         walls = []
         for _ in range(args.repeat - 1):
@@ -216,7 +232,7 @@ def cmd_query(args) -> None:
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(
         prog="python -m emr2a_tpu_torch.retrieval.database",
-        description="Case-retrieval database on one GPU")
+        description="Case-retrieval database sharded over the GPUs")
     sub = parser.add_subparsers(dest="command", required=True)
 
     common = argparse.ArgumentParser(add_help=False)
@@ -224,8 +240,8 @@ def build_parser() -> argparse.ArgumentParser:
                         help="device storage dtype (int8: 4x fewer bytes per "
                              "scan, |cos err| <~ 1/64)")
     common.add_argument("--cpu", action="store_true",
-                        help="run on the CPU (default: the card, which must "
-                             "be there)")
+                        help="run on the CPU (default: every visible card, "
+                             "of which there must be one)")
 
     b = sub.add_parser("build", parents=[common],
                        help="build a database from a step2 embeddings.npz")

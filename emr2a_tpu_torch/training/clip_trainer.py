@@ -23,7 +23,7 @@ state and step, and ``ContrastiveTrainer`` with ``init_state``,
   is exact.
 - One device only: a ``mesh`` raises ``NotImplementedError``; the data and
   tensor parallelism of JAX's trainer and ``training/sharding_rules.py``
-  are ROADMAP.md, Queue 1, item 7, N/A on one H100.
+  are not ported yet (ROADMAP.md, Queue 1, item 7).
 - Guard: on a CUDA tensor the port's fused kernels (K1 to K5) return
   outputs without an autograd graph, so a tower whose blocks route to them
   would train without those weights' gradients and nothing would say so.
@@ -43,7 +43,7 @@ from torch import nn
 
 from emr2a_tpu_torch.models.layers import Int4Dense, Int8Dense, TransformerBlock
 
-_NOT_PORTED = "not ported (ROADMAP.md, Queue 1, item 7: N/A on one H100)"
+_NOT_PORTED = "not ported yet (ROADMAP.md, Queue 1, item 7)"
 _TOWERS = ("image", "text")
 
 

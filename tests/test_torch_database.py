@@ -1,6 +1,7 @@
-"""The port's one-device embedding database and its CLI against
+"""The port's embedding database on one device and its CLI against
 ``emr2a_tpu.retrieval.database`` on the same inputs, on the CPU (the
-plain versions of K6).
+plain versions of K6). JAX's database here is sharded over its default
+mesh, the 8 CPU devices of tests/conftest.py.
 
 Tolerances: f32 and int8 give the same indices as JAX and values within
 1e-6 (f32 sums in another order; int8 sums are exact). bf16 normalises the
@@ -128,20 +129,21 @@ def test_capacity_streams_in_place_then_grows(rng, dtype):
     to JAX's."""
     db0 = rng.randn(16, 8).astype(np.float32)
     jdb, tdb = _pair(db0, dtype, capacity=64, ids=[f"p{i}" for i in range(16)])
-    buf = tdb.db.data_ptr()
+    buf = tdb.shards[0].data_ptr()
     for batch in range(3):
         extra = rng.randn(5, 8).astype(np.float32)
         new_ids = [f"b{batch}_{i}" for i in range(5)]
         jdb.add_cases(extra, ids=new_ids)
         tdb.add_cases(extra, ids=new_ids)
         assert tdb.search(extra[2][None, :], k=1)[0][0]["patient_id"] == f"b{batch}_2"
-    assert tdb.db.data_ptr() == buf and tdb.db.shape == (64, 8) and tdb.n == 31
+    assert len(tdb.shards) == 1 and tdb.n == 31
+    assert tdb.shards[0].data_ptr() == buf and tdb.shards[0].shape == (64, 8)
     queries = rng.randn(4, 8).astype(np.float32)
     _assert_same(jdb.topk(queries, 5), tdb.topk(queries, 5), dtype)
     overflow = rng.randn(50, 8).astype(np.float32)
     jdb.add_cases(overflow, ids=[f"z{i}" for i in range(50)])
     tdb.add_cases(overflow, ids=[f"z{i}" for i in range(50)])
-    assert tdb.n == 81 and tdb.capacity == 128 and tdb.db.shape[0] == 128
+    assert tdb.n == 81 and tdb.capacity == 128 and tdb.shards[0].shape[0] == 128
     _assert_same(jdb.topk(queries, 5), tdb.topk(queries, 5), dtype)
 
 
@@ -162,6 +164,9 @@ def test_capacity_geometric_growth(rng):
 
 
 def test_metadata_alignment_and_mesh_rejected(rng):
+    """Labels and ids stay row-aligned; a mesh that is not the port's
+    ``Mesh`` is refused with a clear error (a ``Mesh`` shards the database:
+    tests/test_torch_sharded_database.py)."""
     db = port_db.ShardedEmbeddingDatabase(rng.randn(8, 4).astype(np.float32),
                                           device="cpu")
     with pytest.raises(ValueError, match="labels"):
@@ -172,9 +177,13 @@ def test_metadata_alignment_and_mesh_rejected(rng):
         db2.add_cases(rng.randn(2, 4).astype(np.float32))
     with pytest.raises(ValueError, match="len"):
         db2.add_cases(rng.randn(2, 4).astype(np.float32), labels=["only-one"])
-    with pytest.raises(ValueError, match="mesh"):
+    with pytest.raises(TypeError, match="mesh must be an emr2a_tpu_torch.parallel.Mesh"):
         port_db.ShardedEmbeddingDatabase(rng.randn(8, 4).astype(np.float32),
                                          mesh=object(), device="cpu")
+    from emr2a_tpu_torch.parallel import create_mesh
+    one = port_db.ShardedEmbeddingDatabase(
+        rng.randn(8, 4).astype(np.float32), mesh=create_mesh((1, 1), devices=["cpu"]))
+    assert one.mesh.shape == {"data": 1, "model": 1} and len(one.shards) == 1
 
 
 @pytest.mark.parametrize("dtype,use_pallas", [("f32", False), ("f32", True),
@@ -203,7 +212,7 @@ def test_use_pallas_on_a_padded_buffer_equals_jax(rng, dtype):
                                            device="cpu")
     before = port_topk.LAUNCHES
     _assert_same(jdb.topk(q, k=5), tdb.topk(q, k=5), dtype)
-    assert tdb.db.shape[0] == 64 and port_topk.LAUNCHES == before   # CPU: plain version
+    assert tdb.shards[0].shape[0] == 64 and port_topk.LAUNCHES == before   # CPU: plain version
 
 
 def test_quantize_rows_int8_byte_identical_to_jax(rng):

@@ -593,7 +593,7 @@ def _outcome(create, et, **kw):
         return f"{type(e).__name__}: {e}"
 
 
-def test_factory_builds_and_raises_as_jax(small_presets):
+def test_factory_builds_and_raises_as_jax(small_presets, mesh8):
     from emr2a_tpu.encoders.factory import SUPPORTED_TYPES as JAX_TYPES
     from emr2a_tpu.encoders.factory import create_encoder as jax_create
     from emr2a_tpu_torch.encoders import factory
@@ -602,12 +602,21 @@ def test_factory_builds_and_raises_as_jax(small_presets):
     outcomes = {}
     for et in JAX_TYPES + ["nope"]:
         for kw in ({}, {"fast": True}, {"mesh": "m"}):
-            if kw.get("mesh") and not (et.startswith("qwen") or et == "fake"):
-                continue    # the port has no mesh: it raises its own error
             got, want = _outcome(factory.create_encoder, et, **kw), _outcome(jax_create, et, **kw)
-            assert got == want, (et, kw)
+            if kw.get("mesh") and not (et.startswith("qwen") or et == "fake") and got != want:
+                # a mesh that is not the port's Mesh: the port's own clear error
+                assert got == "TypeError: mesh must be an emr2a_tpu_torch.parallel.Mesh, got str", (
+                    et, got, want)
+                assert want.split(":")[0].endswith("Error"), (et, want)
+            else:
+                assert got == want, (et, kw)
             outcomes[et, tuple(kw)] = got
     assert outcomes["vit", ()] == "ViTEncoder" and outcomes["dino", ("fast",)] == "DINOEncoder"
+    from emr2a_tpu_torch.parallel import create_mesh
+    port_mesh = create_mesh((8, 1), devices=["cpu"] * 8)
+    for et in ("vit", "dino", "fake"):     # a real mesh builds in both packages
+        assert (_outcome(factory.create_encoder, et, mesh=port_mesh)
+                == _outcome(jax_create, et, mesh=mesh8)), et
     assert outcomes["clip", ()].startswith("ValueError: CLIPEncoder needs model_path")
     assert outcomes["qwen3_vl_2b", ("fast",)].startswith("ValueError: encoder type 'qwen3_vl_2b'")
     assert "NotImplementedError" not in " ".join(outcomes.values())

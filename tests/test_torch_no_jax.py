@@ -17,8 +17,11 @@ torchvision-layout checkpoint) and ``compute_cnn_metrics``, the VLM
 direct-judging CLI (``--model_path fake --device cpu``, sequential and
 continuous), the contrastive trainer (one step, save and restore), a
 ``trace_to`` capture, the Qwen3-VL bring-up on a tiny checkpoint
-directory, and the C++ decode pool (built from its sources, then a batch
-and a DINOv3 ``encode_images`` on paths, an exact-resize spec), then check that no module of jax, jaxlib, flax, optax,
+directory, the C++ decode pool (built from its sources, then a batch
+and a DINOv3 ``encode_images`` on paths, an exact-resize spec) and the
+mesh (``parallel/``: a 4-device CPU mesh, an int8 database sharded over it
+and the same DINOv3 ``encode_images`` data-parallel over it, equal to the
+unsharded rows), then check that no module of jax, jaxlib, flax, optax,
 sklearn, pandas, transformers, safetensors or ``emr2a_tpu`` was
 imported."""
 
@@ -50,6 +53,7 @@ assert {"emr2a_tpu_torch.utils.profiling", "emr2a_tpu_torch.models.resnet",
         "emr2a_tpu_torch.baselines.cnn.compute_cnn_metrics",
         "emr2a_tpu_torch.baselines.vlm_direct.run_vlm_direct_judging",
         "emr2a_tpu_torch.training.clip_trainer"} <= set(names)
+assert {"emr2a_tpu_torch.parallel.mesh", "emr2a_tpu_torch.parallel.sharding"} <= set(names)
 for name in names:
     importlib.import_module(name)
 manifest, out, data_root = sys.argv[1], sys.argv[2], sys.argv[3]
@@ -216,6 +220,16 @@ _, pool_ok = native_loader.decode_batch(pool_paths + [out + "/none.png"], 8, 8)
 dino_rows = DINOEncoder(config=DINOv3Config(hidden_size=64, num_layers=1, num_heads=2,
                                             mlp_dim=128), device="cpu").encode_images(pool_paths)
 print("POOL", pool_ok.tolist(), native_loader.POOL_BATCHES, dino_rows.shape)
+import torch
+from emr2a_tpu_torch.parallel import force_cpu_devices
+from emr2a_tpu_torch.retrieval.database import ShardedEmbeddingDatabase
+mesh = force_cpu_devices(4)
+sharded_db = ShardedEmbeddingDatabase(np.random.RandomState(0).randn(10, 8).astype(np.float32),
+                                      mesh=mesh, dtype=torch.int8)
+dp_rows = DINOEncoder(config=DINOv3Config(hidden_size=64, num_layers=1, num_heads=2,
+                                          mlp_dim=128), mesh=mesh).encode_images(pool_paths)
+print("MESH", mesh.shape, len(sharded_db.shards), tuple(sharded_db.topk(np.ones(8), 3)[1].shape),
+      dp_rows.shape, bool(np.array_equal(dp_rows, dino_rows)))
 loaded = sorted(
     m for m in sys.modules
     if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "sklearn",
@@ -279,6 +293,8 @@ def test_port_imports_no_jax(tmp_path):
     assert "REASONING 正常 ['a', 'b']" in proc.stdout, proc.stdout[-2000:]
     assert "BASELINES 1 True ['nj_stage'] 32 48" in proc.stdout, proc.stdout[-2000:]
     assert "POOL [True, True, True, False] 2 (3, 64)" in proc.stdout, proc.stdout[-2000:]
+    assert "MESH {'data': 4, 'model': 1} 4 (1, 3) (3, 64) True" in proc.stdout, \
+        proc.stdout[-2000:]
     assert "| Bacterial" in proc.stdout
     for model_type in ("image_only", "multimodal"):
         results = json.loads((tmp_path / "out" / "cnn" / f"exp_{model_type}" /

@@ -135,7 +135,8 @@ def test_step2_fast_routes_through_fused_ops(jax_image_params):
 def test_fast_int8_and_text_raise(jax_image_params):
     """An image-only encoder (no text tree) builds with fast="int8" but
     has no text side; a text tower without a tokenizer raises as JAX's
-    does; a mesh is refused."""
+    does; a mesh that is not the port's ``Mesh`` is refused with a clear
+    error, and a one-device CPU mesh encodes as no mesh does."""
     image_only = params_from_jax({"image": jax_image_params})
     cfg = BioMedCLIPConfig(vision=ViTConfig(**TINY), projection_dim=PROJ)
     int8 = BioMedCLIPEncoder(config=cfg, params=image_only, device="cpu",
@@ -151,9 +152,14 @@ def test_fast_int8_and_text_raise(jax_image_params):
                          projection_dim=PROJ), device="cpu", fast="int8")
     with pytest.raises(NotImplementedError, match="no tokenizer"):
         no_tok.encode_batch_texts(["fever, cough"])
-    with pytest.raises(ValueError, match="mesh"):
+    with pytest.raises(TypeError, match="mesh must be an emr2a_tpu_torch.parallel.Mesh"):
         BioMedCLIPEncoder(config=cfg, params=image_only, device="cpu",
                           mesh=object())
+    from emr2a_tpu_torch.parallel import create_mesh
+    on_mesh = BioMedCLIPEncoder(config=cfg, params=image_only, fast="int8",
+                                mesh=create_mesh((1, 1), devices=["cpu"]))
+    img = np.random.RandomState(0).randint(0, 256, (224, 224, 3), dtype=np.uint8)
+    np.testing.assert_array_equal(on_mesh.encode_image(img), int8.encode_image(img))
 
 
 def test_step2_cli_fake_encoder_matches_jax(tmp_path):
@@ -191,7 +197,9 @@ def test_step2_cli_rejects_unported_choices(cohort, tmp_path, monkeypatch):
     JAX's exception and message (``clip`` without a checkpoint, a Qwen type
     with ``--fast``), and the default ``vit`` (a random tower, here at a
     small width in both packages) writes the cohort's artifacts.
-    ``--data_parallel`` has no one-GPU counterpart and exits."""
+    ``--data_parallel`` runs: the fake encoder ignores it, as JAX's does, and
+    the vit run over the one-device CPU mesh writes the rows it writes
+    without the flag."""
     import dataclasses
 
     import emr2a_tpu.encoders.vit_encoder as jax_vit
@@ -206,9 +214,11 @@ def test_step2_cli_rejects_unported_choices(cohort, tmp_path, monkeypatch):
                 module.main(args + ["--output_dir", str(tmp_path / "x")] + extra)
             errors.append(str(e.value))
         assert errors[0] == errors[1], extra
-    with pytest.raises(SystemExit):
-        step2.main(args + ["--output_dir", str(tmp_path), "--encoder_type", "fake",
-                           "--data_parallel"])
+    for name, module in (("jax_fake", jax_step2), ("port_fake", step2)):
+        module.main(args + ["--output_dir", str(tmp_path / name), "--encoder_type",
+                            "fake", "--data_parallel"])
+    want, got = (np.load(tmp_path / n / "embeddings.npz") for n in ("jax_fake", "port_fake"))
+    assert got.files == want.files and all(np.array_equal(got[p], want[p]) for p in want.files)
     for mod in (jax_vit, port_vit):
         monkeypatch.setattr(mod, "TIMM_VIT_B16", dataclasses.replace(
             mod.TIMM_VIT_B16, patch_size=32, hidden_size=64, num_layers=1,
@@ -217,3 +227,6 @@ def test_step2_cli_rejects_unported_choices(cohort, tmp_path, monkeypatch):
     npz = np.load(tmp_path / "vit" / "embeddings.npz")
     assert npz.files == ["P000", "P001", "P002"]
     assert all(npz[p].shape == (5, 64) and np.isfinite(npz[p]).all() for p in npz.files)
+    step2.main(args + ["--output_dir", str(tmp_path / "vit_dp"), "--data_parallel"])
+    dp = np.load(tmp_path / "vit_dp" / "embeddings.npz")
+    assert dp.files == npz.files and all(np.array_equal(dp[p], npz[p]) for p in npz.files)
