@@ -129,7 +129,10 @@ Phases, each of which fails the run (non-zero exit) if it fails:
     another precision (a control); each precision also with the int8 KV
     cache and with a prefill in two chunks, under the same limits and
     controls (the greedy token there within the logits' limit of the
-    CPU's). The
+    CPU's). The model axis on one card (``model_axis_check``): the cut
+    judge with ``mesh=create_mesh((1, 1))`` gives ``mesh=None``'s greedy
+    tokens, and ``tp=2`` raises its ``ValueError`` (four cards:
+    ``tools/multichip_smoke.py --phases e``). The
     int4 judge's generator options on the same request: the int8 KV cache
     and ``prefill_chunk=512`` (4 chunks), prefill and decode times beside
     the plain run's; a sampled generation (temperature 0.7, top_p 0.9, a
@@ -2303,6 +2306,41 @@ def reduced_depth_check(cfg, state: dict, images: list, card: str) -> None:
                      f"{CONTROL_OF[prec]} control")
 
 
+def model_axis_check(cfg, state: dict, card: str) -> None:
+    """The model axis on one card: the judge cut to 2 + 2 layers at full
+    width, greedy on a text prompt, with ``mesh=create_mesh((1, 1))`` (a
+    one-card model axis: the plain path, its decode replayed from a CUDA
+    graph) against ``mesh=None``, tokens equal; ``tp=2`` on one card raises
+    the ``ValueError`` of a tp that does not divide the cards (four-card
+    runs: ``tools/multichip_smoke.py --phases e``)."""
+    from emr2a_tpu_torch.judge.qwen_backend import QwenVLBackend
+    from emr2a_tpu_torch.models.qwen3_vl import Qwen3VLGenerator, Qwen3VLModel
+    from emr2a_tpu_torch.parallel import create_mesh
+    from emr2a_tpu_torch.tools.stub_tokenizer import WordTokenizer
+
+    t0 = time.time()
+    small, small_state = reduced_state(cfg, state)
+    model = Qwen3VLModel.from_params(small, small_state)
+    ids = np.arange(1000, 1000 + 40)[None]
+    rows = {}
+    for tag, mesh in (("mesh=None", None), ("mesh=(1, 1)", create_mesh((1, 1)))):
+        gen = Qwen3VLGenerator(model, eos_token_id=-1, mesh=mesh)
+        rows[tag] = gen.generate(ids, max_new_tokens=16, prompt_bucket=64)
+        if not gen.replays:
+            fail(f"model axis {tag}: decode does not replay a CUDA graph")
+    if not np.array_equal(rows["mesh=None"], rows["mesh=(1, 1)"]):
+        fail(f"model axis: mesh=(1, 1) tokens {rows['mesh=(1, 1)']} differ from mesh=None's "
+             f"{rows['mesh=None']}")
+    try:
+        QwenVLBackend(config=small, params=small_state, tokenizer=WordTokenizer(), tp=2)
+        fail("model axis: tp=2 on one card did not raise")
+    except ValueError as e:
+        refused = str(e)
+    print(f"model axis on one card: 2 + 2 layers at full width, 16 greedy tokens with "
+          f"mesh=create_mesh((1, 1)) equal mesh=None's (decode replayed from a CUDA graph); "
+          f"tp=2 refused: {refused!r}; {time.time() - t0:.1f} s ({card})", flush=True)
+
+
 def reduced_state(cfg, state: dict):
     """The 8B's weights cut to 2 vision blocks (deepstack at 0) and 2 text
     layers at full width, and their config."""
@@ -2821,7 +2859,7 @@ def serving_phase(work: Path, manifest_path: Path, backends: dict, card: str) ->
 
         def batcher8():
             return next(b for k, b in be._batchers.items()
-                        if k[1:] == (8, SERVING_MAX_NEW, False))
+                        if k[1:4] == (8, SERVING_MAX_NEW, False))
 
         modes = {
             "one at a time": lambda: [be.generate(
@@ -3956,6 +3994,7 @@ def judge_phase(work: Path, manifest_path: Path, card: str, stages) -> dict:
     images = [Image.open(p).convert("RGB").resize((256, 256))
               for p in evidence["query_images"][:2]]
     reduced_depth_check(cfg, state, images, card)
+    model_axis_check(cfg, state, card)
     qwen = qwen_encoder_phase(work, manifest_path, cfg, state, m, images, card)
 
     be = backends["int4"]

@@ -51,8 +51,8 @@ class BaseConfig:
 @dataclass
 class MeshConfig:
     """Device-mesh layout: ``data`` shards batches (slices at embed time,
-    the case database at retrieval time); ``model`` is for the judge's
-    tensor parallelism (not ported yet (ROADMAP.md, Queue 1, item 7))."""
+    the case database at retrieval time); ``model`` carries the judge's and
+    the trainer's tensor parallelism (``parallel/tensor.py``)."""
 
     axis_names: Tuple[str, ...] = ("data", "model")
     # -1 means "all remaining devices on this axis".

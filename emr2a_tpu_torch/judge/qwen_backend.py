@@ -26,7 +26,19 @@ quantized at the judge's precision, turns on speculative decoding: a
 single ``generate`` goes through ``models/speculative.SpeculativeGenerator``
 (``spec_k`` proposals a cycle, greedy or sampled), ``generate_stream``
 through the batcher's speculative chunk, and ``generate_batch`` ignores the
-draft, as JAX's does. ``tp > 1`` raises (ROADMAP.md, Queue 1, item 7).
+draft, as JAX's does.
+
+``tp=N`` serves tensor-parallel over N cards: the mesh is ``create_mesh((n
+// N, N))`` over every visible card (``parallel.default_mesh``'s devices;
+on the CPU, ``force_cpu_devices``'), N must divide n (JAX's
+``ValueError``), and the target and the draft are sharded over its
+``model`` axis (``models/qwen3_vl.tensor_parallel``), for the generator,
+the speculative generator and every continuous batcher, with the KV
+caches sharded on their kv heads. The token streams equal ``tp=1``'s in
+f32 and on the CPU's tiny models; in bf16 the row-parallel sums round
+differently from one card's product, so a greedy stream is equal or first
+differs at a near-tie of the logits. Above one card decode runs eagerly
+(no CUDA graph).
 
 ``params`` is a state dict of this package (``models/qwen3_vl.random_state``,
 ``params_from_jax``), with its ``config``, and the model runs where its
@@ -48,11 +60,24 @@ from emr2a_tpu_torch.models.qwen3_vl import (
     Qwen3VLGenerator,
     Qwen3VLModel,
     compute_mrope_position_ids,
+    tensor_parallel,
 )
 
 logger = logging.getLogger(__name__)
 
-_NOT_PORTED = "not ported yet (ROADMAP.md, Queue 1, item 7)"
+
+def tp_mesh(tp: int):
+    """The ``(n // tp, tp)`` mesh over every visible card (the default
+    mesh's devices), or None for ``tp <= 1``; ``ValueError`` where ``tp``
+    does not divide n (JAX's)."""
+    if not tp or int(tp) <= 1:
+        return None
+    from emr2a_tpu_torch.parallel import create_mesh, default_mesh
+    devices = list(default_mesh().devices.flat)
+    n = len(devices)
+    if n % int(tp):
+        raise ValueError(f"tp={tp} does not divide the {n}-device slice")
+    return create_mesh((n // int(tp), int(tp)), devices=devices)
 
 
 def _calib_ids_from_tokenizer(tokenizer, vocab_size: int, batch: int = 4, seq: int = 256):
@@ -129,8 +154,7 @@ class QwenVLBackend:
                  draft_params=None, spec_k: int = 4,
                  decode_chunk: Optional[int] = 64,
                  prefill_chunk: Optional[int] = None, tp: int = 1):
-        if tp and int(tp) > 1:
-            raise NotImplementedError(f"tensor parallelism is {_NOT_PORTED}")
+        self.mesh = tp_mesh(tp)
         self.model_path = model_path
         self.prompt_bucket = prompt_bucket
         self.standardize_images = standardize_images
@@ -152,6 +176,8 @@ class QwenVLBackend:
         self.tokenizer = tokenizer
         self.image_processor = image_processor
         self.model = _quantized_model(config, params, precision, tokenizer)
+        if self.mesh is not None:
+            self.model = tensor_parallel(self.model, self.mesh)
         eos = getattr(tokenizer, "eos_token_id", None) or 151645
         self.generator = Qwen3VLGenerator(self.model, eos_token_id=int(eos),
                                           kv_dtype=kv_dtype,
@@ -167,6 +193,8 @@ class QwenVLBackend:
             if draft_config is None:
                 raise ValueError("draft_params need their config")
             draft = _quantized_model(draft_config, draft_params, precision, tokenizer)
+            if self.mesh is not None:
+                draft = tensor_parallel(draft, self.mesh)
             self.spec_generator = SpeculativeGenerator(self.model, draft, spec_k=spec_k,
                                                        eos_token_id=int(eos),
                                                        kv_dtype=kv_dtype)
@@ -313,7 +341,7 @@ class QwenVLBackend:
         index) over the call's, and ``max_new_tokens`` (capped by the call's,
         which sizes the KV cache). With a draft loaded every slot serves
         speculatively (the batcher's speculative chunk). One batcher is kept
-        per (bucket, n_slots, max_new_tokens, speculative); only the one
+        per (bucket, n_slots, max_new_tokens, speculative, mesh); only the one
         serving holds its slot state and graphs (the others are released
         first)."""
         if not requests:
@@ -324,7 +352,8 @@ class QwenVLBackend:
         longest = max(len(ids) for ids, _, _ in rows)
         bucket = -(-longest // self.prompt_bucket) * self.prompt_bucket
         spec = self.spec_generator
-        key = (bucket, int(n_slots), int(max_new_tokens), spec is not None)
+        key = (bucket, int(n_slots), int(max_new_tokens), spec is not None,
+               None if self.mesh is None else tuple(self.mesh.devices.shape))
         if key not in self._batchers:
             gen = self.generator
             self._batchers[key] = ContinuousBatcher(

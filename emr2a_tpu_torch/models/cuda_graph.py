@@ -9,11 +9,13 @@ captured once and replayed, so the host issues one graph launch a step
 instead of a few thousand kernel launches.
 
 ``StepGraph(step, state, device).run(n)`` advances ``state`` by ``n``
-calls of ``step(state)``. On a CPU device each call runs eagerly. On a
-CUDA device the first call runs eagerly on the graph's own capture stream
-(the warm-up: the K5/K7 wrappers' per-stream workspaces and cuBLAS's are
-allocated there, outside the graph's memory pool, and stay valid across
-replays); ``step(state)`` is captured when the first replay is due (a run
+calls of ``step(state)``. On a CPU device, or with ``eager=True``, each
+call runs eagerly (a tensor-parallel step spans several cards' streams,
+which one capture does not hold, so its owners pass ``eager=True`` for a
+model axis above one card). On a CUDA device the first call runs eagerly
+on the graph's own capture stream (the warm-up: the K5/K7 wrappers'
+per-stream workspaces and cuBLAS's are allocated there, outside the
+graph's memory pool, and stay valid across replays); ``step(state)`` is captured when the first replay is due (a run
 that the warm-up finishes captures nothing) and every later call replays
 it. A capture that fails raises; nothing falls back to eager steps. The
 graph stays valid while ``state``'s tensors do: an owner that refills them
@@ -93,15 +95,17 @@ def state_tensors(x, prefix: str = ""):
 
 class StepGraph:
     """``step(state)`` captured once on a CUDA device and replayed (see the
-    module docstring); eager on a CPU device. Setting ``verify`` holds the
-    next replayed step against the eager step (``replay_matches_eager``)
-    and leaves the differing paths in ``mismatches``."""
+    module docstring); eager on a CPU device or with ``eager``. Setting
+    ``verify`` holds the next replayed step against the eager step
+    (``replay_matches_eager``) and leaves the differing paths in
+    ``mismatches``."""
 
     def __init__(self, step: Callable, state, device,
-                 forwards: Sequence[torch.nn.Module] = ()):
+                 forwards: Sequence[torch.nn.Module] = (), eager: bool = False):
         self.step = step
         self.state = state
         self.device = torch.device(device)
+        self.eager = eager or self.device.type != "cuda"
         self.forwards = tuple(forwards)
         self.graph = None
         self.stream = None
@@ -118,7 +122,7 @@ class StepGraph:
         """Advance the state by ``n`` steps."""
         if n <= 0:
             return
-        if self.device.type != "cuda":
+        if self.eager:
             for _ in range(n):
                 self.step(self.state)
             self.steps += n

@@ -49,6 +49,7 @@ from emr2a_tpu_torch.ops.attention_block import (
 from emr2a_tpu_torch.ops.linear_int4 import int4_group, linear_w4a8
 from emr2a_tpu_torch.ops.linear_int8 import linear_w8a8
 from emr2a_tpu_torch.ops.mlp import fused_ln_mlp, fused_ln_mlp_int8
+from emr2a_tpu_torch.parallel.tensor import reduce_to, replicate
 
 
 def quick_gelu(x: torch.Tensor) -> torch.Tensor:
@@ -81,8 +82,24 @@ class Dense(nn.Module):
         else:
             self.register_parameter("bias", None)
 
+    def product(self, x: torch.Tensor) -> torch.Tensor:
+        """x @ kernel, without the bias (a row-parallel shard's partial)."""
+        return torch.matmul(x.to(self.kernel.dtype), self.kernel)
+
+    def partial(self, x: torch.Tensor) -> torch.Tensor:
+        """x @ kernel accumulated and returned in f32, without the bias: a
+        row-parallel shard's partial sum, so that the sum over the cards
+        is rounded to the working dtype once, as one card's product is (a
+        bf16 kernel on a card: cuBLAS's f32 output, ``torch.mm``'s
+        ``out_dtype``)."""
+        x = x.to(self.kernel.dtype)
+        if x.device.type == "cuda" and self.kernel.dtype in (torch.bfloat16, torch.float16):
+            flat = torch.mm(x.reshape(-1, x.shape[-1]), self.kernel, out_dtype=torch.float32)
+            return flat.reshape(*x.shape[:-1], flat.shape[-1])
+        return torch.matmul(x.float(), self.kernel.float())
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = torch.matmul(x.to(self.kernel.dtype), self.kernel)
+        y = self.product(x)
         if self.bias is not None:
             y = y + self.bias
         return y
@@ -108,6 +125,11 @@ class Int8Dense(nn.Module):
                                                  device=device))
         else:
             self.register_parameter("bias", None)
+
+    def product(self, x: torch.Tensor) -> torch.Tensor:
+        """The W8A8 product without the bias."""
+        return linear_w8a8(x.contiguous(), self.kernel_q, self.kernel_scale,
+                           None, out_dtype=self.dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return linear_w8a8(x.contiguous(), self.kernel_q, self.kernel_scale,
@@ -137,6 +159,11 @@ class Int4Dense(nn.Module):
         else:
             self.register_parameter("bias", None)
 
+    def product(self, x: torch.Tensor) -> torch.Tensor:
+        """The W4A8 product without the bias."""
+        return linear_w4a8(x.contiguous(), self.kernel_p4, self.kernel_scale4,
+                           None, out_dtype=self.dtype)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return linear_w4a8(x.contiguous(), self.kernel_p4, self.kernel_scale4,
                            self.bias, out_dtype=self.dtype)
@@ -161,50 +188,148 @@ def load_params(module: nn.Module, state: Mapping[str, torch.Tensor]
 
 class MultiHeadAttention(nn.Module):
     """MHA with separate q/k/v/out projections and an optional additive
-    mask; logits and softmax in f32, probabilities in the working dtype."""
+    mask; logits and softmax in f32, probabilities in the working dtype.
+    ``shard=(c, n)`` builds card c's shard of an n-card model axis
+    (``ShardedAttention``): hidden_size / n columns of q/k/v and rows of
+    out_proj (num_heads / n whole heads where n divides num_heads, else
+    ``num_heads`` is 0 and ``ShardedAttention`` attends with the gathered
+    heads), and out_proj's bias on card 0 only (it is added once, after the
+    sum)."""
 
     def __init__(self, hidden_size: int, num_heads: int,
                  qkv_bias: bool = True, out_bias: bool = True,
-                 dtype: torch.dtype = torch.float32, device=None):
+                 dtype: torch.dtype = torch.float32, device=None, shard=(0, 1)):
         super().__init__()
         if hidden_size % num_heads:
             raise ValueError(f"hidden {hidden_size} not divisible by "
                              f"num_heads {num_heads}")
-        self.num_heads = num_heads
+        rank, n = shard
+        if hidden_size % n:
+            raise ValueError(f"a model axis of {n} cards does not divide "
+                             f"hidden_size = {hidden_size}")
+        self.total_heads = num_heads
+        self.num_heads = 0 if num_heads % n else num_heads // n
+        self.head_dim = hidden_size // num_heads
+        w = hidden_size // n
         kw = dict(dtype=dtype, device=device)
-        self.q_proj = Dense(hidden_size, hidden_size, qkv_bias, **kw)
-        self.k_proj = Dense(hidden_size, hidden_size, qkv_bias, **kw)
-        self.v_proj = Dense(hidden_size, hidden_size, qkv_bias, **kw)
-        self.out_proj = Dense(hidden_size, hidden_size, out_bias, **kw)
+        self.q_proj = Dense(hidden_size, w, qkv_bias, **kw)
+        self.k_proj = Dense(hidden_size, w, qkv_bias, **kw)
+        self.v_proj = Dense(hidden_size, w, qkv_bias, **kw)
+        self.out_proj = Dense(w, hidden_size, out_bias and rank == 0, **kw)
+
+    def context(self, x: torch.Tensor,
+                mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """The attention of this module's heads, before ``out_proj``."""
+        return attend(self.q_proj(x), self.k_proj(x), self.v_proj(x), self.num_heads,
+                      mask)
 
     def forward(self, x: torch.Tensor,
                 mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-        B, S, d = x.shape
-        hd = d // self.num_heads
-        shape = (B, S, self.num_heads, hd)
-        q = self.q_proj(x).reshape(shape)
-        k = self.k_proj(x).reshape(shape)
-        v = self.v_proj(x).reshape(shape)
-        logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * hd ** -0.5
-        if mask is not None:
-            logits = logits + mask
-        probs = torch.softmax(logits, dim=-1).to(v.dtype)
-        out = torch.einsum("bhqk,bkhd->bqhd", probs, v).reshape(B, S, d)
-        return self.out_proj(out)
+        return self.out_proj(self.context(x, mask))
+
+
+def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, num_heads: int,
+           mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Softmax attention of (B, S, num_heads * hd) projections, logits and
+    softmax in f32, probabilities in the working dtype: (B, S, num_heads *
+    hd)."""
+    B, S, w = q.shape
+    hd = w // num_heads
+    shape = (B, S, num_heads, hd)
+    q, k, v = q.reshape(shape), k.reshape(shape), v.reshape(shape)
+    logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * hd ** -0.5
+    if mask is not None:
+        logits = logits + mask
+    probs = torch.softmax(logits, dim=-1).to(v.dtype)
+    return torch.einsum("bhqk,bkhd->bqhd", probs, v).reshape(B, S, w)
 
 
 class Mlp(nn.Module):
+    """fc2(act(fc1(x))). ``shard=(c, n)``: card c's mlp_dim / n columns of
+    fc1 and rows of fc2, and fc2's bias on card 0 only
+    (``ShardedMlp``)."""
 
     def __init__(self, hidden_size: int, mlp_dim: int,
                  activation: str = "gelu", dtype: torch.dtype = torch.float32,
-                 device=None):
+                 device=None, shard=(0, 1)):
         super().__init__()
+        rank, n = shard
+        if mlp_dim % n:
+            raise ValueError(f"a model axis of {n} cards does not divide "
+                             f"mlp_dim = {mlp_dim}")
         self.activation = activation
-        self.fc1 = Dense(hidden_size, mlp_dim, dtype=dtype, device=device)
-        self.fc2 = Dense(mlp_dim, hidden_size, dtype=dtype, device=device)
+        self.fc1 = Dense(hidden_size, mlp_dim // n, dtype=dtype, device=device)
+        self.fc2 = Dense(mlp_dim // n, hidden_size, rank == 0, dtype=dtype, device=device)
+
+    def hidden(self, x: torch.Tensor) -> torch.Tensor:
+        """act(fc1(x)), before ``fc2``."""
+        return ACTIVATIONS[self.activation](self.fc1(x))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.fc2(ACTIVATIONS[self.activation](self.fc1(x)))
+        return self.fc2(self.hidden(x))
+
+
+class _RowParallel(nn.Module):
+    """Shards of a module over a model axis, card c's ``shards[c]`` on its
+    card: the input (on the first card) is copied to every card, each card
+    runs its shard up to the row-parallel projection ``last``, the partial
+    products are summed on the first card in card order (``parallel.
+    reduce_to``) and shard 0's bias is added after the sum. Autograd
+    carries the copies (the backward of the copy sums the cards' input
+    gradients; that of the sum copies the output gradient to every card)."""
+
+    last = ""
+
+    def __init__(self, shards):
+        super().__init__()
+        self.shards = nn.ModuleList(shards)
+
+    def _sum(self, x, parts) -> torch.Tensor:
+        y = reduce_to(parts, x.device)
+        bias = getattr(self.shards[0], self.last).bias
+        return y if bias is None else y + bias
+
+    def _devices(self) -> list:
+        return [getattr(s, self.last).kernel.device for s in self.shards]
+
+
+class ShardedAttention(_RowParallel):
+    """``MultiHeadAttention`` over a model axis: ``shards`` are its
+    ``shard=(c, n)`` modules (see ``_RowParallel``). Where n divides the
+    heads each card attends with its own; else (a card's columns split a
+    head, as JAX's SPMD allows) the cards' q/k/v columns are gathered on the
+    first card, which attends with the whole heads, and each card takes its
+    columns of the result for its out_proj rows."""
+
+    last = "out_proj"
+    q_proj = property(lambda self: self.shards[0].q_proj)
+
+    def forward(self, x: torch.Tensor,
+                mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        devices = self._devices()
+        xs, masks = replicate(x, devices), replicate(mask, devices)
+        if self.shards[0].num_heads:
+            ctx = [s.context(xc, mc) for s, xc, mc in zip(self.shards, xs, masks)]
+        else:
+            qkv = [torch.cat([getattr(s, p)(xc).to(x.device) for s, xc in zip(self.shards, xs)],
+                             dim=-1) for p in ("q_proj", "k_proj", "v_proj")]
+            whole = attend(*qkv, self.shards[0].total_heads, mask)
+            ctx = [c.to(d) for c, d in zip(whole.chunk(len(devices), dim=-1), devices)]
+        return self._sum(x, [s.out_proj.product(c) for s, c in zip(self.shards, ctx)])
+
+
+class ShardedMlp(_RowParallel):
+    """``Mlp`` over a model axis: ``shards`` are its ``shard=(c, n)``
+    modules (see ``_RowParallel``)."""
+
+    last = "fc2"
+    fc1 = property(lambda self: self.shards[0].fc1)
+    fc2 = property(lambda self: self.shards[0].fc2)
+    activation = property(lambda self: self.shards[0].activation)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self._sum(x, [s.fc2.product(s.hidden(xc)) for s, xc in
+                             zip(self.shards, replicate(x, self._devices()))])
 
 
 def fused_mlp_fits(d: int, mlp_dim: int, weight_itemsize: int) -> bool:

@@ -53,9 +53,19 @@ not. Speculative acceptance (``spec_accept``, used by
 uniforms and its correction from the same hash, with the keys of
 ``spec_keys`` (per request stream, cycle and position). ``awq_taps``
 reads the AWQ calibration's per-channel statistics (``models/awq.py``)
-through forward pre-hooks registered only while it is open. Out of this
-port, raising ``NotImplementedError`` that names ROADMAP.md: tensor
-parallelism (``mesh``).
+through forward pre-hooks registered only while it is open.
+
+Tensor parallelism (JAX: params sharded by ``training/sharding_rules`` and
+the KV cache anchored by ``constrain_kv_cache``, XLA inserting the
+collectives): each module takes ``shard=(c, n)`` and is then card c's shard
+of an n-card model axis, built at its local widths; ``tensor_parallel``
+places a model's tensors by ``parallel.shard_params`` and builds a
+``ShardedQwen3VLModel``, whose forward runs every card's shard in turn, one
+layer at a time (``vision_forward``, ``text_forward``): each attention and
+MLP part ends in ``row_parallel`` (an all-reduce by peer copies after
+``o_proj`` / ``down_proj``, in the vision tower after ``o_proj``, ``fc2``
+and the mergers' ``fc2``), and the residual is added after it. With one card
+the reduce is the identity, so the plain model runs the same code.
 """
 
 from __future__ import annotations
@@ -63,7 +73,7 @@ from __future__ import annotations
 import logging
 from collections import OrderedDict
 from contextlib import contextmanager
-from dataclasses import dataclass, field
+from dataclasses import dataclass, field, replace
 from typing import Dict, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
@@ -77,8 +87,17 @@ from emr2a_tpu_torch.ops.vision_flash import (
     frame_flash_attention,
     frame_flash_attention_reference,
 )
-
-_NOT_PORTED = "not ported yet (ROADMAP.md, Queue 1, item 7)"
+from emr2a_tpu_torch.parallel.mesh import MODEL_AXIS
+from emr2a_tpu_torch.parallel.tensor import (
+    all_gather,
+    all_reduce,
+    check_mesh,
+    model_axis_size,
+    model_devices,
+    replicate,
+    shard_params,
+    shard_tensor,
+)
 
 # ---------------------------------------------------------------------------
 # Configs
@@ -327,29 +346,75 @@ def resolve_vision_attn_impl(cfg, x: Optional[torch.Tensor] = None) -> str:
     return "einsum" if impl == "scan" else impl
 
 
-class QwenVisionBlock(nn.Module):
+def row_parallel(projs: Sequence[nn.Module], inputs: Sequence[torch.Tensor]) -> list:
+    """A row-parallel product over the model axis: card c's projection
+    ``projs[c]`` applied to its slice ``inputs[c]`` of the contracted
+    dimension, the result on every card. A ``Dense`` shard's partial
+    products, in f32 (``Dense.partial``), are summed by ``all_reduce`` and
+    rounded to the working dtype once, and its bias (replicated) is added
+    after the sum; a quantized projection stays whole on every card
+    (``training/sharding_rules``), so its input is made whole by
+    ``all_gather`` and each card runs it as it is. With one card: the
+    projection's own forward."""
+    if len(projs) == 1:
+        return [projs[0](inputs[0])]
+    if not isinstance(projs[0], Dense):
+        return [p(x) for p, x in zip(projs, all_gather(inputs))]
+    dtype = projs[0].kernel.dtype
+    out = [y.to(dtype) for y in all_reduce([p.partial(x) for p, x in zip(projs, inputs)])]
+    if projs[0].bias is None:
+        return out
+    return [y + p.bias for y, p in zip(out, projs)]
 
-    def __init__(self, cfg: QwenVisionConfig, device=None):
+
+def check_shardable(config, n: int) -> None:
+    """``ValueError`` unless a model axis of ``n`` cards divides every
+    sharded width: the text and vision heads, the text kv heads and the
+    MLP and merger widths."""
+    v, t = config.vision, config.text
+    widths = {"text num_heads": t.num_heads, "text num_kv_heads": t.num_kv_heads,
+              "text intermediate_size": t.intermediate_size,
+              "vision num_heads": v.num_heads,
+              "vision intermediate_size": v.intermediate_size,
+              "vision merged width": v.hidden_size * v.spatial_merge_size ** 2}
+    bad = {k: w for k, w in widths.items() if w % n}
+    if bad:
+        raise ValueError(f"a model axis of {n} cards does not divide "
+                         + ", ".join(f"{k} = {w}" for k, w in bad.items()))
+
+
+class QwenVisionBlock(nn.Module):
+    """One vision block. ``shard=(c, n)`` builds card c's shard of an
+    n-card model axis: num_heads / n heads (its q/k/v columns and o_proj
+    rows) and intermediate_size / n MLP columns; ``(0, 1)`` is the whole
+    block."""
+
+    def __init__(self, cfg: QwenVisionConfig, device=None, shard=(0, 1)):
         super().__init__()
         self.config = cfg
+        self.shard = tuple(shard)
+        n = self.shard[1]
+        self.num_heads = cfg.num_heads // n
         d, kw = cfg.hidden_size, dict(dtype=cfg.dtype, device=device)
+        w, inter = self.num_heads * cfg.head_dim, cfg.intermediate_size // n
         self.norm1 = LayerNorm(d, 1e-6, **kw)
         self.norm2 = LayerNorm(d, 1e-6, **kw)
-        self.q_proj = Dense(d, d, **kw)
-        self.k_proj = Dense(d, d, **kw)
-        self.v_proj = Dense(d, d, **kw)
-        self.o_proj = Dense(d, d, **kw)
-        self.fc1 = Dense(d, cfg.intermediate_size, **kw)
-        self.fc2 = Dense(cfg.intermediate_size, d, **kw)
+        self.q_proj = Dense(d, w, **kw)
+        self.k_proj = Dense(d, w, **kw)
+        self.v_proj = Dense(d, w, **kw)
+        self.o_proj = Dense(w, d, **kw)
+        self.fc1 = Dense(d, inter, **kw)
+        self.fc2 = Dense(inter, d, **kw)
 
-    def forward(self, x, cos, sin, attn_mask=None):
-        """``x`` (seq, d) flat, or (frames, seq_per_frame, d) for uniform
-        frames, whose per-frame attention goes to ``attn_impl``."""
+    def attention_context(self, x, cos, sin, attn_mask=None):
+        """The attention of this shard's heads, before ``o_proj``: ``x``
+        (seq, d) flat, or (frames, seq_per_frame, d) for uniform frames,
+        whose per-frame attention goes to ``attn_impl``."""
         cfg = self.config
-        d, S, lead = x.shape[-1], x.shape[-2], tuple(x.shape[:-2])
+        S, lead = x.shape[-2], tuple(x.shape[:-2])
         h = self.norm1(x)
         hd = cfg.head_dim
-        shape = lead + (S, cfg.num_heads, hd)
+        shape = lead + (S, self.num_heads, hd)
         q = self.q_proj(h).reshape(shape)
         k = self.k_proj(h).reshape(shape)
         v = self.v_proj(h).reshape(shape)
@@ -360,97 +425,140 @@ class QwenVisionBlock(nn.Module):
             attn = frame_flash_attention(q, k, v, hd ** -0.5)
         else:
             attn = frame_flash_attention_reference(q, k, v, hd ** -0.5, attn_mask)
-        x = x + self.o_proj(attn.reshape(lead + (S, d)))
-        h = self.norm2(x)
-        m = self.fc2(ACTIVATIONS[cfg.hidden_act](self.fc1(h)))
-        return x + m
+        return attn.reshape(lead + (S, self.num_heads * hd))
+
+    def mlp_hidden(self, x):
+        """This shard's MLP columns, before ``fc2``."""
+        return ACTIVATIONS[self.config.hidden_act](self.fc1(self.norm2(x)))
+
+    def forward(self, x, cos, sin, attn_mask=None):
+        return vision_block_step([self], [x], [(cos, sin, attn_mask)])[0]
+
+
+def vision_block_step(blocks, xs, args) -> list:
+    """One vision block over the model axis: card c runs ``blocks[c]`` on
+    ``xs[c]`` (the hidden state, the same on every card) with its
+    ``args[c]`` = (cos, sin, mask); each residual is added after its
+    row-parallel sum."""
+    ctx = [b.attention_context(x, *a) for b, x, a in zip(blocks, xs, args)]
+    xs = [x + o for x, o in zip(xs, row_parallel([b.o_proj for b in blocks], ctx))]
+    hidden = [b.mlp_hidden(x) for b, x in zip(blocks, xs)]
+    return [x + m for x, m in zip(xs, row_parallel([b.fc2 for b in blocks], hidden))]
 
 
 class QwenPatchMerger(nn.Module):
+    """The patch merger; ``shard=(c, n)``: fc1's columns and fc2's rows of
+    card c."""
 
     def __init__(self, cfg: QwenVisionConfig, use_postshuffle_norm: bool = False,
-                 device=None):
+                 device=None, shard=(0, 1)):
         super().__init__()
         self.config = cfg
         self.use_postshuffle_norm = use_postshuffle_norm
         merged = cfg.hidden_size * cfg.spatial_merge_size ** 2
         kw = dict(dtype=cfg.dtype, device=device)
         self.norm = LayerNorm(merged if use_postshuffle_norm else cfg.hidden_size, 1e-6, **kw)
-        self.fc1 = Dense(merged, merged, **kw)
-        self.fc2 = Dense(merged, cfg.out_hidden_size, **kw)
+        self.fc1 = Dense(merged, merged // shard[1], **kw)
+        self.fc2 = Dense(merged // shard[1], cfg.out_hidden_size, **kw)
 
-    def forward(self, x):
+    def hidden(self, x):
+        """This shard's columns of gelu(fc1(norm(x))), before ``fc2``."""
         merged = self.config.hidden_size * self.config.spatial_merge_size ** 2
         if self.use_postshuffle_norm:
             x = self.norm(x.reshape(-1, merged))
         else:
             x = self.norm(x).reshape(-1, merged)
-        return self.fc2(F.gelu(self.fc1(x), approximate="none"))
+        return F.gelu(self.fc1(x), approximate="none")
+
+    def forward(self, x):
+        return merger_step([self], [x])[0]
+
+
+def merger_step(mergers, xs) -> list:
+    """A patch merger over the model axis, its output on every card."""
+    return row_parallel([m.fc2 for m in mergers],
+                        [m.hidden(x) for m, x in zip(mergers, xs)])
 
 
 class QwenVisionTower(nn.Module):
     """pixel patches (seq, patch_dim) + grid_thw -> (merged tokens
-    (seq/merge^2, out_hidden), deepstack list, taps)."""
+    (seq/merge^2, out_hidden), deepstack list, taps). ``shard=(c, n)``
+    builds card c's shard (its blocks' and mergers' shards; the patch
+    embedding and the position table whole)."""
 
-    def __init__(self, cfg: QwenVisionConfig, device=None):
+    def __init__(self, cfg: QwenVisionConfig, device=None, shard=(0, 1)):
         super().__init__()
         self.config = cfg
         kw = dict(dtype=cfg.dtype, device=device)
         self.patch_embed = Dense(cfg.patch_dim, cfg.hidden_size, **kw)
         self.pos_embed = nn.Parameter(torch.empty(
             cfg.num_position_embeddings, cfg.hidden_size, **kw))
-        self.blocks = nn.ModuleList([QwenVisionBlock(cfg, device)
+        self.blocks = nn.ModuleList([QwenVisionBlock(cfg, device, shard)
                                      for _ in range(cfg.depth)])
         self.deepstack_mergers = nn.ModuleList([
-            QwenPatchMerger(cfg, True, device)
+            QwenPatchMerger(cfg, True, device, shard)
             for _ in cfg.deepstack_visual_indexes])
-        self.merger = QwenPatchMerger(cfg, False, device)
+        self.merger = QwenPatchMerger(cfg, False, device, shard)
 
     def forward(self, patches: torch.Tensor,
                 grid_thw: Tuple[Tuple[int, int, int], ...],
                 tap_layers: Tuple[int, ...] = ()):
-        cfg = self.config
-        dev = patches.device
-        x = self.patch_embed(patches)
+        return vision_forward([self], patches, grid_thw, tap_layers)
 
-        side = int(cfg.num_position_embeddings ** 0.5)
-        idx, wts = interpolated_pos_embed_indices(grid_thw, side,
-                                                  cfg.spatial_merge_size)
-        idx = torch.from_numpy(idx).to(dev)
-        wts = torch.from_numpy(wts).to(dev)
-        table = self.pos_embed
-        pos = (table[idx[0]] * wts[0][:, None] + table[idx[1]] * wts[1][:, None]
-               + table[idx[2]] * wts[2][:, None] + table[idx[3]] * wts[3][:, None])
-        pos = permute_to_merge_order(pos, grid_thw, cfg.spatial_merge_size)
-        x = x + pos.to(x.dtype)
 
-        cos_np, sin_np = vision_rope_cos_sin(grid_thw, cfg.head_dim,
-                                             cfg.spatial_merge_size)
-        cos, sin = torch.from_numpy(cos_np).to(dev), torch.from_numpy(sin_np).to(dev)
-        # Uniform (h, w) grids attend per frame on an (F, seq_f, d) layout;
-        # mixed layouts keep the flat block-diagonal mask.
-        S_total = x.shape[0]
-        frame_hws = [(h, w) for t, h, w in grid_thw for _ in range(t)]
-        uniform = len(frame_hws) > 1 and len(set(frame_hws)) == 1
-        attn_mask = None
-        if uniform:
-            seq_f = frame_hws[0][0] * frame_hws[0][1]
-            x = x.reshape(len(frame_hws), seq_f, cfg.hidden_size)
-            cos, sin = cos[:seq_f], sin[:seq_f]
-        else:
-            mask_np = vision_segment_mask(grid_thw)
-            if mask_np is not None:
-                attn_mask = torch.from_numpy(mask_np).to(dev)
+def vision_forward(towers, patches: torch.Tensor,
+                   grid_thw: Tuple[Tuple[int, int, int], ...],
+                   tap_layers: Tuple[int, ...] = ()):
+    """The vision tower over the model axis: ``towers[c]`` is card c's
+    shard. The patch embedding runs on the first card, the blocks on every
+    card; the outputs are the first card's."""
+    t0 = towers[0]
+    cfg = t0.config
+    dev = patches.device
+    x = t0.patch_embed(patches)
 
-        deepstack, taps = [], []
-        for i, block in enumerate(self.blocks):
-            x = block(x, cos, sin, attn_mask)
-            if i in cfg.deepstack_visual_indexes:
-                j = cfg.deepstack_visual_indexes.index(i)
-                deepstack.append(self.deepstack_mergers[j](x))
-            if i in tap_layers:
-                taps.append(x.reshape(S_total, cfg.hidden_size))
-        return self.merger(x), deepstack, taps
+    side = int(cfg.num_position_embeddings ** 0.5)
+    idx, wts = interpolated_pos_embed_indices(grid_thw, side,
+                                              cfg.spatial_merge_size)
+    idx = torch.from_numpy(idx).to(dev)
+    wts = torch.from_numpy(wts).to(dev)
+    table = t0.pos_embed
+    pos = (table[idx[0]] * wts[0][:, None] + table[idx[1]] * wts[1][:, None]
+           + table[idx[2]] * wts[2][:, None] + table[idx[3]] * wts[3][:, None])
+    pos = permute_to_merge_order(pos, grid_thw, cfg.spatial_merge_size)
+    x = x + pos.to(x.dtype)
+
+    cos_np, sin_np = vision_rope_cos_sin(grid_thw, cfg.head_dim,
+                                         cfg.spatial_merge_size)
+    cos, sin = torch.from_numpy(cos_np).to(dev), torch.from_numpy(sin_np).to(dev)
+    # Uniform (h, w) grids attend per frame on an (F, seq_f, d) layout;
+    # mixed layouts keep the flat block-diagonal mask.
+    S_total = x.shape[0]
+    frame_hws = [(h, w) for t, h, w in grid_thw for _ in range(t)]
+    uniform = len(frame_hws) > 1 and len(set(frame_hws)) == 1
+    attn_mask = None
+    if uniform:
+        seq_f = frame_hws[0][0] * frame_hws[0][1]
+        x = x.reshape(len(frame_hws), seq_f, cfg.hidden_size)
+        cos, sin = cos[:seq_f], sin[:seq_f]
+    else:
+        mask_np = vision_segment_mask(grid_thw)
+        if mask_np is not None:
+            attn_mask = torch.from_numpy(mask_np).to(dev)
+
+    devices = [t.pos_embed.device for t in towers]
+    xs = replicate(x, devices)
+    args = list(zip(replicate(cos, devices), replicate(sin, devices),
+                    replicate(attn_mask, devices)))
+    deepstack, taps = [], []
+    for i in range(len(t0.blocks)):
+        xs = vision_block_step([t.blocks[i] for t in towers], xs, args)
+        if i in cfg.deepstack_visual_indexes:
+            j = cfg.deepstack_visual_indexes.index(i)
+            deepstack.append(merger_step([t.deepstack_mergers[j] for t in towers], xs)[0])
+        if i in tap_layers:
+            taps.append(xs[0].reshape(S_total, cfg.hidden_size))
+    return merger_step([t.merger for t in towers], xs)[0], deepstack, taps
 
 
 # ---------------------------------------------------------------------------
@@ -544,25 +652,51 @@ def cache_write(buf: torch.Tensor, fresh: torch.Tensor, cache_pos
 class QwenTextDecoderLayer(nn.Module):
     """Qwen3 decoder layer. ``kinds`` maps a projection name to "dense",
     "int8" or "int4" (what its params hold); with ``qkv_proj`` /
-    ``gate_up_proj`` in ``kinds`` the fused serving layout is built."""
+    ``gate_up_proj`` in ``kinds`` the fused serving layout is built.
+
+    ``shard=(c, n)`` builds card c's shard of an n-card model axis, by
+    ``training/sharding_rules``: a dense projection holds its num_heads / n
+    (q, o), num_kv_heads / n (k, v) or intermediate_size / n (gate, up,
+    down) heads or columns; a quantized projection and the fused layout
+    stay whole on every card, so the shard runs them whole and keeps its
+    own heads' columns (a quantized column-parallel projection's bias is
+    the shard's slice, added after). The forward splits into an attention
+    part (``attention_context``, up to ``o_proj``) and an MLP part
+    (``mlp_hidden``, up to ``down_proj``), each ended by ``row_parallel``
+    over the cards (``decoder_layer_step``)."""
 
     def __init__(self, cfg: QwenTextConfig, kinds: Optional[Mapping[str, str]] = None,
-                 device=None):
+                 device=None, shard=(0, 1)):
         super().__init__()
         self.config = cfg
+        self.shard = tuple(shard)
+        n = self.shard[1]
         kinds = dict(kinds or {})
         d, hd, I = cfg.hidden_size, cfg.head_dim, cfg.intermediate_size
         nq, nkv = cfg.num_heads * hd, cfg.num_kv_heads * hd
+        self.num_heads, self.num_kv_heads = cfg.num_heads // n, cfg.num_kv_heads // n
         kw = dict(dtype=cfg.dtype, device=device)
         self.input_ln = RMSNorm(d, cfg.rms_norm_eps, **kw)
         self.post_ln = RMSNorm(d, cfg.rms_norm_eps, **kw)
         self.q_norm_scale = nn.Parameter(torch.ones(hd, **kw))
         self.k_norm_scale = nn.Parameter(torch.ones(hd, **kw))
+        # the projections each card runs whole
+        self._whole = set()
 
-        def make(name, n_in, n_out, bias):
-            cls = {"dense": Dense, "int8": Int8Dense, "int4": Int4Dense}[
-                kinds.get(name, "dense")]
-            return cls(n_in, n_out, use_bias=bias, **kw)
+        def make(name, n_in, n_out, bias, role=None):
+            kind = kinds.get(name, "dense")
+            cls = {"dense": Dense, "int8": Int8Dense, "int4": Int4Dense}[kind]
+            if n == 1 or role is None:
+                return cls(n_in, n_out, use_bias=bias, **kw)
+            if kind == "dense":
+                return cls(n_in // n if role == "row" else n_in,
+                           n_out // n if role == "column" else n_out, use_bias=bias, **kw)
+            self._whole.add(name)
+            if role == "row" or not bias:
+                return cls(n_in, n_out, use_bias=bias, **kw)
+            proj = cls(n_in, n_out, use_bias=False, **kw)
+            proj.bias = nn.Parameter(torch.zeros(n_out // n, **kw))
+            return proj
 
         bias = cfg.attention_bias
         self.fused_qkv = "qkv_proj" in kinds
@@ -570,33 +704,53 @@ class QwenTextDecoderLayer(nn.Module):
         if self.fused_qkv:
             self.qkv_proj = make("qkv_proj", d, nq + 2 * nkv, bias)
         else:
-            self.q_proj = make("q_proj", d, nq, bias)
-            self.k_proj = make("k_proj", d, nkv, bias)
-            self.v_proj = make("v_proj", d, nkv, bias)
-        self.o_proj = make("o_proj", nq, d, bias)
+            self.q_proj = make("q_proj", d, nq, bias, "column")
+            self.k_proj = make("k_proj", d, nkv, bias, "column")
+            self.v_proj = make("v_proj", d, nkv, bias, "column")
+        self.o_proj = make("o_proj", nq, d, bias, "row")
         if self.fused_gate_up:
             self.gate_up_proj = make("gate_up_proj", d, 2 * I, False)
         else:
-            self.gate_proj = make("gate_proj", d, I, False)
-            self.up_proj = make("up_proj", d, I, False)
-        self.down_proj = make("down_proj", I, d, False)
+            self.gate_proj = make("gate_proj", d, I, False, "column")
+            self.up_proj = make("up_proj", d, I, False, "column")
+        self.down_proj = make("down_proj", I, d, False, "row")
 
-    def forward(self, x, cos, sin, cache_kv, cache_pos, attn_mask):
-        """x (B, S, D); cache_kv None or (k, v) of shape (B, L, KV, HD);
-        attn_mask (B, S, L_total) additive f32. Returns (x, new_cache)."""
+    def _own(self, y):
+        """This shard's columns of a whole projection's output."""
+        rank, n = self.shard
+        if n == 1:
+            return y
+        w = y.shape[-1] // n
+        return y[..., rank * w:(rank + 1) * w]
+
+    def _column(self, name, h):
+        """This shard's columns of a column-parallel projection of ``h``."""
+        proj = getattr(self, name)
+        if name not in self._whole:
+            return proj(h)
+        y = self._own(proj.product(h))
+        return y if proj.bias is None else y + proj.bias
+
+    def attention_context(self, x, cos, sin, cache_kv, cache_pos, attn_mask):
+        """x (B, S, D); cache_kv None or (k, v) of shape (B, L, KV, HD), this
+        shard's kv heads; attn_mask (B, S, L_total) additive f32. Returns
+        (this shard's heads' attention (B, S, heads * HD), before ``o_proj``,
+        new_cache)."""
         cfg = self.config
         B, S, d = x.shape
         hd = cfg.head_dim
+        H, KV = self.num_heads, self.num_kv_heads
         h = self.input_ln(x)
-        nq, nkv = cfg.num_heads * hd, cfg.num_kv_heads * hd
         if self.fused_qkv:
+            nq, nkv = cfg.num_heads * hd, cfg.num_kv_heads * hd
             qkv = self.qkv_proj(h)
-            q, k, v = qkv[..., :nq], qkv[..., nq:nq + nkv], qkv[..., nq + nkv:]
+            q, k, v = (self._own(t) for t in (qkv[..., :nq], qkv[..., nq:nq + nkv],
+                                             qkv[..., nq + nkv:]))
         else:
-            q, k, v = self.q_proj(h), self.k_proj(h), self.v_proj(h)
-        q = q.reshape(B, S, cfg.num_heads, hd)
-        k = k.reshape(B, S, cfg.num_kv_heads, hd)
-        v = v.reshape(B, S, cfg.num_kv_heads, hd)
+            q, k, v = (self._column(name, h) for name in ("q_proj", "k_proj", "v_proj"))
+        q = q.reshape(B, S, H, hd)
+        k = k.reshape(B, S, KV, hd)
+        v = v.reshape(B, S, KV, hd)
         q = rms_norm(q, self.q_norm_scale, cfg.rms_norm_eps)
         k = rms_norm(k, self.k_norm_scale, cfg.rms_norm_eps)
         q, k = apply_rope(q, k, cos[:, :, None, :], sin[:, :, None, :])
@@ -623,10 +777,10 @@ class QwenTextDecoderLayer(nn.Module):
 
         # GQA: decode (small S) against the un-repeated cache; prefill with
         # the repeated heads, as the JAX package lowers the two.
-        groups = cfg.num_heads // cfg.num_kv_heads
+        groups = H // KV
         scale = hd ** -0.5
         if S <= 16:
-            q_g = q.reshape(B, S, cfg.num_kv_heads, groups, hd)
+            q_g = q.reshape(B, S, KV, groups, hd)
             logits = torch.einsum("bqkgd,blkd->bkgql", q_g.float(),
                                   k_all.float()) * scale
             if kq_scale is not None:
@@ -654,17 +808,38 @@ class QwenTextDecoderLayer(nn.Module):
             probs = probs.to(cfg.dtype)
             attn = torch.einsum("bhqk,bkhd->bqhd", probs.float(),
                                 v_rep.float()).to(cfg.dtype)
-        x = x + self.o_proj(attn.reshape(B, S, nq))
+        return attn.reshape(B, S, H * hd), new_cache
 
+    def mlp_hidden(self, x):
+        """silu(gate) * up over this shard's intermediate columns, before
+        ``down_proj``."""
         h = self.post_ln(x)
-        I = cfg.intermediate_size
+        I = self.config.intermediate_size
         if self.fused_gate_up:
             gu = self.gate_up_proj(h)
-            gate, up = gu[..., :I], gu[..., I:]
+            gate, up = self._own(gu[..., :I]), self._own(gu[..., I:])
         else:
-            gate, up = self.gate_proj(h), self.up_proj(h)
-        hu = ACTIVATIONS[cfg.hidden_act](gate) * up
-        return x + self.down_proj(hu), new_cache
+            gate, up = self._column("gate_proj", h), self._column("up_proj", h)
+        return ACTIVATIONS[self.config.hidden_act](gate) * up
+
+    def forward(self, x, cos, sin, cache_kv, cache_pos, attn_mask):
+        """x (B, S, D); cache_kv None or (k, v) of shape (B, L, KV, HD);
+        attn_mask (B, S, L_total) additive f32. Returns (x, new_cache)."""
+        (x,), (cache,) = decoder_layer_step([self], [x], [(cos, sin, cache_kv, cache_pos,
+                                                            attn_mask)])
+        return x, cache
+
+
+def decoder_layer_step(layers, xs, args):
+    """One decoder layer over the model axis: card c runs ``layers[c]`` on
+    ``xs[c]`` (the hidden state, the same on every card) with ``args[c]`` =
+    (cos, sin, its cache, cache_pos, mask). Each residual is added after its
+    row-parallel sum. Returns (xs, the cards' new caches)."""
+    ctx, caches = zip(*(l.attention_context(x, *a) for l, x, a in zip(layers, xs, args)))
+    xs = [x + o for x, o in zip(xs, row_parallel([l.o_proj for l in layers], ctx))]
+    hidden = [l.mlp_hidden(x) for l, x in zip(layers, xs)]
+    xs = [x + m for x, m in zip(xs, row_parallel([l.down_proj for l in layers], hidden))]
+    return xs, list(caches)
 
 
 class Embed(nn.Module):
@@ -681,9 +856,10 @@ class Embed(nn.Module):
 class QwenTextModel(nn.Module):
 
     def __init__(self, cfg: QwenTextConfig, kinds: Optional[Mapping[str, str]] = None,
-                 device=None):
+                 device=None, shard=(0, 1)):
         """``kinds``: ``"layers.i.<proj>"`` / ``"lm_head"`` -> "dense",
-        "int8" or "int4"."""
+        "int8" or "int4"; ``shard=(c, n)``: card c's shard of the layers
+        (the embedding, the final norm and ``lm_head`` whole)."""
         super().__init__()
         self.config = cfg
         kinds = dict(kinds or {})
@@ -691,7 +867,7 @@ class QwenTextModel(nn.Module):
         self.embed_tokens = Embed(cfg.vocab_size, cfg.hidden_size, **kw)
         self.layers = nn.ModuleList([
             QwenTextDecoderLayer(cfg, {k.split(".", 2)[2]: v for k, v in kinds.items()
-                                       if k.startswith(f"layers.{i}.")}, device)
+                                       if k.startswith(f"layers.{i}.")}, device, shard)
             for i in range(cfg.num_layers)])
         self.final_ln = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps, **kw)
         if not cfg.tie_word_embeddings:
@@ -710,31 +886,8 @@ class QwenTextModel(nn.Module):
         """inputs_embeds (B, S, D); position_ids (3, B, S); cache: list of
         per-layer (k, v) or None; attn_mask (B, S, L) additive. Returns
         (logits or hidden, new_cache)."""
-        cfg = self.config
-        x = inputs_embeds
-        cos, sin = mrope_cos_sin(position_ids, self.inv_freq, cfg.mrope_section)
-        if attn_mask is None:
-            B, S, _ = x.shape
-            q_idx = torch.arange(S, device=x.device)[:, None]
-            k_idx = torch.arange(S, device=x.device)[None, :]
-            attn_mask = torch.where(k_idx <= q_idx, 0.0, float("-inf"))[None]
-            attn_mask = attn_mask.float().expand(B, S, S)
-
-        new_cache = []
-        n_deep = len(deepstack) if deepstack else 0
-        for i, layer in enumerate(self.layers):
-            x, layer_cache = layer(x, cos, sin,
-                                   cache[i] if cache is not None else None,
-                                   cache_pos, attn_mask)
-            new_cache.append(layer_cache)
-            if i < n_deep and visual_mask is not None:
-                ds = deepstack[i]
-                gather_idx = (visual_gather_idx if visual_gather_idx is not None
-                              else visual_gather_indices(visual_mask, ds.shape[0]))
-                add = ds[gather_idx]
-                x = x + torch.where(visual_mask[..., None], add.to(x.dtype),
-                                    torch.zeros((), dtype=x.dtype, device=x.device))
-        x = self.final_ln(x)
+        x, new_cache = text_forward([self], inputs_embeds, position_ids, cache, cache_pos,
+                                    attn_mask, visual_mask, deepstack, visual_gather_idx)
         if return_hidden:
             return x, new_cache
         return self.project(x), new_cache
@@ -745,6 +898,71 @@ class QwenTextModel(nn.Module):
         if self.config.tie_word_embeddings:
             return hidden @ self.embed_tokens.embedding.T.to(hidden.dtype)
         return self.lm_head(hidden)          # an Int8Dense runs K5
+
+
+class ShardedCache(list):
+    """A KV cache split over the model axis: entry c is card c's per-layer
+    cache, its kv heads (``kv_cache_sharding_specs``)."""
+
+
+def cache_tensors(cache) -> list:
+    """Every buffer of a KV cache, plain or sharded."""
+    shards = cache if isinstance(cache, ShardedCache) else [cache]
+    return [t for part in shards for layer in part for t in layer]
+
+
+def map_cache(fn, *caches):
+    """``fn`` over the buffers of KV caches of one layout (plain or
+    sharded), buffer by buffer: a cache of the results."""
+    if isinstance(caches[0], ShardedCache):
+        return ShardedCache(map_cache(fn, *parts) for parts in zip(*caches))
+    return [tuple(fn(*bufs) for bufs in zip(*layers)) for layers in zip(*caches)]
+
+
+def text_forward(models, inputs_embeds, position_ids, cache=None, cache_pos=0,
+                 attn_mask=None, visual_mask=None, deepstack=None,
+                 visual_gather_idx=None):
+    """The decoder over the model axis: ``models[c]`` is card c's shard.
+    The inputs lie on the first card and are copied to every card; the
+    hidden state is kept on every card; ``cache`` is a plain cache for one
+    card and a ``ShardedCache`` for several. Returns (the final-norm hidden
+    state on the first card, the new cache)."""
+    cfg = models[0].config
+    n = len(models)
+    x = inputs_embeds
+    if attn_mask is None:
+        B, S, _ = x.shape
+        q_idx = torch.arange(S, device=x.device)[:, None]
+        k_idx = torch.arange(S, device=x.device)[None, :]
+        attn_mask = torch.where(k_idx <= q_idx, 0.0, float("-inf"))[None]
+        attn_mask = attn_mask.float().expand(B, S, S)
+    devices = [m.final_ln.weight.device for m in models]
+    xs = replicate(x, devices)
+    rope = [mrope_cos_sin(p, models[0].inv_freq, cfg.mrope_section)
+            for p in replicate(position_ids, devices)]
+    masks = replicate(attn_mask, devices)
+    offsets = replicate(cache_pos, devices)
+    caches = [None] * n if cache is None else (cache if n > 1 else [cache])
+    n_deep = len(deepstack) if deepstack else 0
+    if n_deep and visual_mask is not None:
+        if visual_gather_idx is None:
+            visual_gather_idx = visual_gather_indices(visual_mask, deepstack[0].shape[0])
+        vis = list(zip(replicate(visual_mask[..., None], devices),
+                       replicate(visual_gather_idx, devices)))
+        deep = [replicate(ds, devices) for ds in deepstack]
+    new_caches = [[] for _ in models]
+    for i in range(len(models[0].layers)):
+        args = [(cos, sin, None if c is None else c[i], cp, m)
+                for (cos, sin), c, cp, m in zip(rope, caches, offsets, masks)]
+        xs, layer_caches = decoder_layer_step([m.layers[i] for m in models], xs, args)
+        for new, layer_cache in zip(new_caches, layer_caches):
+            new.append(layer_cache)
+        if i < n_deep and visual_mask is not None:
+            xs = [x + torch.where(vm, ds[gi].to(x.dtype),
+                                  torch.zeros((), dtype=x.dtype, device=x.device))
+                  for x, (vm, gi), ds in zip(xs, vis, deep[i])]
+    x = models[0].final_ln(xs[0])
+    return x, (ShardedCache(new_caches) if n > 1 else new_caches[0])
 
 
 # ---------------------------------------------------------------------------
@@ -812,26 +1030,33 @@ class Qwen3VLModel(nn.Module):
     """Multimodal forward: ids + optional image patches -> logits."""
 
     def __init__(self, config: Qwen3VLConfig,
-                 kinds: Optional[Mapping[str, str]] = None, device=None):
+                 kinds: Optional[Mapping[str, str]] = None, device=None, shard=(0, 1)):
         super().__init__()
         self.config = config
         lm = "language_model."
-        self.visual = QwenVisionTower(config.vision, device)
+        self.visual = QwenVisionTower(config.vision, device, shard)
         self.language_model = QwenTextModel(
             config.text, {k[len(lm):]: v for k, v in (kinds or {}).items()
-                          if k.startswith(lm)}, device)
+                          if k.startswith(lm)}, device, shard)
 
     @classmethod
     def from_params(cls, config: Qwen3VLConfig,
-                    state: Mapping[str, torch.Tensor]) -> "Qwen3VLModel":
+                    state: Mapping[str, torch.Tensor], shard=(0, 1)) -> "Qwen3VLModel":
         """The model over ``state`` (this package's names, e.g. from
         ``params_from_jax``), taking its tensors as they are: no copy, so
         models built from states that share tensors share memory. Each
         projection's kind (dense, int8, int4, fused) follows its params.
-        Inference only: no parameter requires a gradient."""
-        model = cls(config, linear_kinds(state), device="meta")
+        ``shard=(c, n)``: ``state`` is card c's part of ``parallel.
+        shard_params``' split over n cards. Inference only: no parameter
+        requires a gradient."""
+        model = cls(config, linear_kinds(state), device="meta", shard=shard)
         model.load_state_dict(dict(state), strict=True, assign=True)
         return model.requires_grad_(False)
+
+    def empty_cache(self, batch: int, max_len: int, kv_dtype: str):
+        """A zeroed KV cache for this model, on its device."""
+        return empty_kv_cache(self.config.text, batch, max_len, kv_dtype,
+                              self.language_model.final_ln.weight.device)
 
     @classmethod
     def random_init(cls, config: Qwen3VLConfig, seed: int = 0, device="cuda",
@@ -901,6 +1126,93 @@ def random_state(config: Qwen3VLConfig, seed: int = 0, device="cuda",
         else:                                   # norm scales
             state[name] = torch.ones(ref.shape, dtype=dt, device=device)
     return state
+
+
+class _ShardedVisionTower(nn.Module):
+    """The vision shards of a ``ShardedQwen3VLModel``, one per card, run
+    together by ``vision_forward``."""
+
+    def __init__(self, shards):
+        super().__init__()
+        self.shards = nn.ModuleList(shards)
+        self.config = shards[0].config
+
+    def forward(self, patches, grid_thw, tap_layers=()):
+        return vision_forward(list(self.shards), patches, grid_thw, tap_layers)
+
+
+class _ShardedTextModel(nn.Module):
+    """The decoder shards of a ``ShardedQwen3VLModel``, one per card, run
+    together by ``text_forward``; the embedding, the final norm and the
+    vocabulary projection are the first card's."""
+
+    def __init__(self, shards):
+        super().__init__()
+        self.shards = nn.ModuleList(shards)
+        self.config = shards[0].config
+
+    embed_tokens = property(lambda self: self.shards[0].embed_tokens)
+    final_ln = property(lambda self: self.shards[0].final_ln)
+
+    def forward(self, inputs_embeds, position_ids, cache=None, cache_pos=0,
+                attn_mask=None, visual_mask=None, deepstack=None,
+                visual_gather_idx=None, return_hidden: bool = False):
+        x, new_cache = text_forward(list(self.shards), inputs_embeds, position_ids, cache,
+                                    cache_pos, attn_mask, visual_mask, deepstack,
+                                    visual_gather_idx)
+        return (x if return_hidden else self.project(x)), new_cache
+
+    def project(self, hidden):
+        return self.shards[0].project(hidden)
+
+
+class ShardedQwen3VLModel(Qwen3VLModel):
+    """Qwen3-VL served tensor-parallel over the ``model`` axis of ``mesh``
+    (Megatron, by ``training/sharding_rules``): card c holds shard c of the
+    model (``Qwen3VLModel(shard=(c, n))`` over ``parallel.shard_params``'
+    part c), and one thread runs the cards in turn, layer by layer. The
+    hidden state is kept on every card; each attention and MLP part ends in
+    ``row_parallel``'s all-reduce; the KV cache is a ``ShardedCache`` of
+    each card's kv heads. Inputs and outputs lie on the first card, where
+    the embedding and the vocabulary projection run. Same interface as
+    ``Qwen3VLModel``; build it with ``tensor_parallel``."""
+
+    def __init__(self, config: Qwen3VLConfig, shards: Sequence[Qwen3VLModel], mesh):
+        nn.Module.__init__(self)
+        self.config = config
+        self.mesh = mesh
+        self.visual = _ShardedVisionTower([m.visual for m in shards])
+        self.language_model = _ShardedTextModel([m.language_model for m in shards])
+
+    @property
+    def devices(self) -> list:
+        return [m.final_ln.weight.device for m in self.language_model.shards]
+
+    def empty_cache(self, batch: int, max_len: int, kv_dtype: str):
+        return empty_kv_cache(self.config.text, batch, max_len, kv_dtype, mesh=self.mesh)
+
+
+def tensor_parallel(model: Qwen3VLModel, mesh) -> Qwen3VLModel:
+    """``model`` served over the ``model`` axis of ``mesh`` (a
+    ``parallel.Mesh``; anything else raises ``TypeError``): with one card,
+    a ``Qwen3VLModel`` over the same tensors moved to it (the same code as
+    ``mesh=None``); with n cards, a ``ShardedQwen3VLModel`` over
+    ``shard_params`` of the model's tensors (a model already sharded over
+    ``mesh`` is returned as it is). Raises ``ValueError`` where n does not
+    divide the text or vision heads (``check_shardable``)."""
+    check_mesh(mesh)
+    if isinstance(model, ShardedQwen3VLModel):
+        if model.mesh is not mesh:
+            raise ValueError("the model is sharded over another mesh")
+        return model
+    n = model_axis_size(mesh)
+    check_shardable(model.config, n)
+    parts = shard_params(model.state_dict(), mesh)
+    if n == 1:
+        return Qwen3VLModel.from_params(model.config, parts[0])
+    return ShardedQwen3VLModel(
+        model.config, [Qwen3VLModel.from_params(model.config, part, shard=(c, n))
+                       for c, part in enumerate(parts)], mesh)
 
 
 def compute_mrope_position_ids(input_ids: np.ndarray,
@@ -1147,10 +1459,22 @@ def awq_taps(text_model: "QwenTextModel"):
 
 
 def empty_kv_cache(text_cfg, batch: int, max_len: int, kv_dtype: str,
-                   device=None):
+                   device=None, mesh=None):
     """Per-layer zeros (B, max_len, KV, HD): (k, v) in the text dtype, or
     for ``kv_dtype="int8"`` (k s8, k scales f32 (B, max_len, KV), v s8, v
-    scales), the layout ``quantize_kv`` and ``cache_write`` fill."""
+    scales), the layout ``quantize_kv`` and ``cache_write`` fill. With a
+    ``mesh`` whose model axis has n > 1 cards: a ``ShardedCache``, each
+    card's zeros of its KV / n heads allocated there
+    (``constrain_kv_cache``'s placement of the whole cache)."""
+    n = model_axis_size(mesh)
+    if n > 1:
+        val, _ = kv_cache_sharding_specs(text_cfg, mesh)
+        if not val:
+            raise ValueError(f"a model axis of {n} cards does not divide "
+                             f"num_kv_heads = {text_cfg.num_kv_heads}")
+        local = replace(text_cfg, num_kv_heads=text_cfg.num_kv_heads // n)
+        return ShardedCache(empty_kv_cache(local, batch, max_len, kv_dtype, d)
+                            for d in model_devices(mesh))
     shape = (batch, max_len, text_cfg.num_kv_heads, text_cfg.head_dim)
     zeros = lambda shp, dt: torch.zeros(shp, dtype=dt, device=device)
     if kv_dtype == "int8":
@@ -1159,6 +1483,37 @@ def empty_kv_cache(text_cfg, batch: int, max_len: int, kv_dtype: str,
                 for _ in range(text_cfg.num_layers)]
     return [(zeros(shape, text_cfg.dtype), zeros(shape, text_cfg.dtype))
             for _ in range(text_cfg.num_layers)]
+
+
+def kv_cache_sharding_specs(text_cfg, mesh, axis: str = MODEL_AXIS):
+    """(values_spec, scales_spec) of the KV cache under tensor parallelism:
+    the K/V value buffers (B, L, KV, HD) shard their kv-head axis over the
+    mesh ``axis``, the axis the q/k/v projection columns shard on, so the
+    cache lies beside the heads that read it and decode attention needs no
+    collective; the int8 cache's scale buffers (B, L, KV) shard likewise.
+    Where ``axis`` does not divide num_kv_heads, or without a mesh, both
+    are replicated: ``((), ())`` (JAX's specs)."""
+    n = 1 if mesh is None else int(mesh.shape.get(axis, 1))
+    if n <= 1 or text_cfg.num_kv_heads % n:
+        return (), ()
+    return (None, None, axis, None), (None, None, axis)
+
+
+def constrain_kv_cache(cache, mesh, text_cfg, axis: str = MODEL_AXIS):
+    """A whole KV cache placed on the mesh by ``kv_cache_sharding_specs``:
+    a ``ShardedCache`` of each card's kv heads (a replicated spec: the whole
+    cache on each card); the cache itself without a mesh or with one card
+    (JAX's ``with_sharding_constraint`` over every buffer)."""
+    if mesh is None or model_axis_size(mesh) == 1:
+        return cache
+    val, scale = kv_cache_sharding_specs(text_cfg, mesh, axis)
+    devices = model_devices(mesh)
+    parts = [[] for _ in devices]
+    for layer in cache:
+        placed = [shard_tensor(b, val if b.dim() == 4 else scale, devices) for b in layer]
+        for c, part in enumerate(parts):
+            part.append(tuple(p[c] for p in placed))
+    return ShardedCache(parts)
 
 
 def chunked_prefill(model: "Qwen3VLModel", input_ids, position_ids, true_len,
@@ -1241,8 +1596,8 @@ _KEPT_GRAPH_BYTES = 4 * 2**30
 
 
 def cache_bytes(cache) -> int:
-    """The bytes of a KV cache's buffers."""
-    return sum(t.numel() * t.element_size() for layer in cache for t in layer)
+    """The bytes of a KV cache's buffers (every card's)."""
+    return sum(t.numel() * t.element_size() for t in cache_tensors(cache))
 
 
 @dataclass
@@ -1283,7 +1638,17 @@ class Qwen3VLGenerator:
     the warm-up, the rest replay, and a failed capture raises. On a CPU
     tensor every step runs eagerly. A graph is kept with its state for the
     next generation of the same shape (``_KEPT_GRAPH_BYTES``; ``release``
-    drops them)."""
+    drops them).
+
+    ``mesh`` (a ``parallel.Mesh``) serves tensor-parallel over its ``model``
+    axis: ``model`` is sharded by ``tensor_parallel`` (a model already
+    sharded over ``mesh`` is taken as it is, and a ``ShardedQwen3VLModel``
+    brings its own mesh), and the KV cache is a ``ShardedCache`` of each
+    card's kv heads (``kv_cache_sharding_specs``). Token streams are those
+    of ``mesh=None``. Above one card of the model axis decode runs eagerly,
+    by design: a CUDA graph captures one card's stream, and the choice is
+    made from the mesh, never from a failed capture. A model axis of one
+    card is the plain path, graphs included."""
 
     def __init__(self, model: Qwen3VLModel, max_new_tokens: int = 1024,
                  eos_token_id: int = 151645, kv_dtype: str = "bf16",
@@ -1291,7 +1656,8 @@ class Qwen3VLGenerator:
         if kv_dtype not in ("bf16", "int8"):
             raise ValueError(f"kv_dtype must be bf16 or int8: {kv_dtype}")
         if mesh is not None:
-            raise NotImplementedError(f"tensor parallelism is {_NOT_PORTED}")
+            model = tensor_parallel(model, mesh)
+        self.mesh = getattr(model, "mesh", None) if mesh is None else mesh
         self.model = model
         self.config = model.config
         self.max_new_tokens = max_new_tokens
@@ -1303,6 +1669,12 @@ class Qwen3VLGenerator:
     @property
     def device(self) -> torch.device:
         return self.model.language_model.final_ln.weight.device
+
+    @property
+    def replays(self) -> bool:
+        """Whether decode replays a CUDA graph: on a card, with a model axis
+        of one card."""
+        return self.device.type == "cuda" and model_axis_size(self.mesh) == 1
 
     def release(self) -> None:
         """Drop the kept decode graphs and their states."""
@@ -1347,11 +1719,10 @@ class Qwen3VLGenerator:
         B = input_ids.shape[0]
         dev = input_ids.device
         if cache is None:
-            cache = empty_kv_cache(self.config.text, B, max_len, self.kv_dtype, dev)
+            cache = self.model.empty_cache(B, max_len, self.kv_dtype)
         else:
-            for layer in cache:
-                for buf in layer:
-                    buf.zero_()
+            for buf in cache_tensors(cache):
+                buf.zero_()
         C = self.prefill_chunk
         if C is None:
             C = auto_prefill_chunk(B, self.config.text.num_heads, padded_len, max_len)
@@ -1459,7 +1830,7 @@ class Qwen3VLGenerator:
         max_new = max_new_tokens or self.max_new_tokens
         steps = -(-max_new // chunk) * chunk if chunk else max_new
         key = runner = None
-        if self.device.type == "cuda":
+        if self.replays:
             B, S = np.shape(input_ids)
             key = (B, -(-S // prompt_bucket) * prompt_bucket, steps, temperature > 0)
             runner = self._graphs.pop(key, None)
@@ -1468,7 +1839,8 @@ class Qwen3VLGenerator:
                        into=None if runner is None else runner.state)
         if runner is None:
             runner = StepGraph(self.decode_step, s, s.token.device,
-                               forwards=(self.model.language_model,))
+                               forwards=(self.model.language_model,),
+                               eager=not self.replays)
         eos = self.eos_token_id
         taken = 0
         while taken < steps:

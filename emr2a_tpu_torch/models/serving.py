@@ -67,9 +67,18 @@ How JAX's mechanisms carry over:
 Greedy parity: each request's stream is exactly what
 ``Qwen3VLGenerator.generate`` (B = 1, temperature 0) emits, with or
 without a draft (``tests/test_torch_serving.py``,
-``tests/test_torch_spec_serving.py``). Out of this port, raising
-``NotImplementedError`` that names ROADMAP.md: tensor parallelism
-(``mesh``).
+``tests/test_torch_spec_serving.py``).
+
+Tensor parallelism (``mesh``, JAX's): the target and the draft are served
+over the mesh's ``model`` axis (``qwen3_vl.tensor_parallel``), and the slot
+cache, the wave's shared-prefix cache, its broadcast to the refill rows and
+the refill caches are ``ShardedCache``s of each card's kv heads, placed so
+when allocated (JAX: ``_shard_cache``); an insert copies each card's rows
+into its own part, and ``cache_write``'s per-row branch, which drops a
+frozen slot's writes, runs unchanged on each card. Token streams are those
+of ``mesh=None``. Above one card of the model axis the chunk step runs
+eagerly, by design (``cuda_graph.StepGraph``'s ``eager``); a model axis of
+one card is the plain path, graphs included.
 """
 
 from __future__ import annotations
@@ -82,18 +91,20 @@ import torch
 
 from emr2a_tpu_torch.models.cuda_graph import StepGraph
 from emr2a_tpu_torch.models.qwen3_vl import (
-    _NOT_PORTED,
     Qwen3VLModel,
     auto_prefill_chunk,
+    cache_tensors,
     chunked_prefill,
     compute_mrope_position_ids,
     draw_keys,
-    empty_kv_cache,
+    map_cache,
     sample_rows,
     spec_keys,
     stream_keys,
+    tensor_parallel,
 )
 from emr2a_tpu_torch.models.speculative import draft_and_verify
+from emr2a_tpu_torch.parallel.tensor import model_axis_size
 
 # A wave-level common prefix shorter than this is not worth its own
 # prefill (chat headers alone are a handful of tokens; the audit template
@@ -127,7 +138,11 @@ class ContinuousBatcher:
     chunk of C cycles emits C to C * (k + 1) tokens a slot. Greedy slots
     emit exactly their plain greedy streams; sampled slots go through
     rejection sampling (``qwen3_vl.spec_accept``), so mixed waves serve
-    together."""
+    together.
+
+    ``mesh`` (a ``parallel.Mesh``) serves the model, and the draft, over
+    its ``model`` axis (see the module docstring); a ``ShardedQwen3VLModel``
+    brings its own mesh."""
 
     def __init__(self, model: Qwen3VLModel, n_slots: int = 8,
                  prompt_bucket: int = 1024, max_new_tokens: int = 1024,
@@ -136,10 +151,13 @@ class ContinuousBatcher:
                  spec_k: int = 4, prefill_chunk: Optional[int] = None,
                  shared_prefix: bool = True, refill_batch: Optional[int] = None,
                  mesh=None, ring_decode: bool = True):
-        if mesh is not None:
-            raise NotImplementedError(f"tensor parallelism is {_NOT_PORTED}")
         if kv_dtype not in ("bf16", "int8"):
             raise ValueError(f"kv_dtype must be bf16 or int8: {kv_dtype}")
+        self.mesh = getattr(model, "mesh", None) if mesh is None else mesh
+        if self.mesh is not None:
+            model = tensor_parallel(model, self.mesh)
+            if draft_model is not None:
+                draft_model = tensor_parallel(draft_model, self.mesh)
         self.model = model
         self.config = model.config
         self.n_slots = int(n_slots)
@@ -218,20 +236,19 @@ class ContinuousBatcher:
 
     def _init_state(self) -> dict:
         dev = self.device
-        state = {"cache": empty_kv_cache(self.config.text, self.n_slots, self.max_len,
-                                         self.kv_dtype, dev),
+        state = {"cache": self.model.empty_cache(self.n_slots, self.max_len, self.kv_dtype),
                  **{name: torch.full(shape, v, dtype=dt, device=dev)
                     for name, (shape, dt, v) in self._fills().items()}}
         if self.draft_model is not None:
-            state["d_cache"] = empty_kv_cache(self.draft_model.config.text, self.n_slots,
-                                              self.max_len, self.kv_dtype, dev)
+            state["d_cache"] = self.draft_model.empty_cache(self.n_slots, self.max_len,
+                                                            self.kv_dtype)
         return state
 
     def _reset_state(self) -> None:
         """The kept state back to ``_init_state``'s values, in place."""
         st = self._state
-        for layer in st["cache"] + st.get("d_cache", []):
-            for buf in layer:
+        for cache in (st["cache"], st.get("d_cache", [])):
+            for buf in cache_tensors(cache):
                 buf.zero_()
         for name, (_, _, v) in self._fills().items():
             st[name].fill_(v)
@@ -305,7 +322,7 @@ class ContinuousBatcher:
 
         def run(input_ids, position_ids):
             dev = input_ids.device
-            cache = empty_kv_cache(model.config.text, 1, L, self.kv_dtype, dev)
+            cache = model.empty_cache(1, L, self.kv_dtype)
             tl = torch.full((1,), Lp, dtype=torch.int64, device=dev)
             if C and Lp > C:
                 _, cache = chunked_prefill(model, input_ids, position_ids, tl, None, (),
@@ -335,10 +352,10 @@ class ContinuousBatcher:
         def run(prefix_cache, input_ids, position_ids, true_len, pixel_patches):
             dev = input_ids.device
             if Lp:
-                cache = [tuple(b.repeat(Bp, *([1] * (b.dim() - 1))) for b in layer)
-                         for layer in prefix_cache]
+                cache = map_cache(lambda b: b.repeat(Bp, *([1] * (b.dim() - 1))),
+                                  prefix_cache)
             else:
-                cache = empty_kv_cache(model.config.text, Bp, L, self.kv_dtype, dev)
+                cache = model.empty_cache(Bp, L, self.kv_dtype)
             if C and S2 > C:
                 hidden, cache = chunked_prefill(model, input_ids, position_ids, true_len,
                                                 pixel_patches, grid_thw, S2, L, cache, C,
@@ -369,10 +386,16 @@ class ContinuousBatcher:
             pairs = [(st["cache"], cacheB)]
             if d_cacheB is not None:
                 pairs.append((st["d_cache"], d_cacheB))
+            # each card's part of a sharded cache takes the slots there
+            on = {slots.device: slots}
+
+            def put(buf, rows):
+                if buf.device not in on:
+                    on[buf.device] = slots.to(buf.device)
+                return buf.index_copy_(0, on[buf.device], rows)
+
             for cache, rowsB in pairs:
-                for layer, layerB in zip(cache, rowsB):
-                    for buf, rows in zip(layer, layerB):
-                        buf.index_copy_(0, slots, rows)
+                map_cache(put, cache, rowsB)
             first = sample_rows(logits, draw_keys(streams, 0), temp, top_p)
             for name, value in (("cur", first), ("pos_base", pos_base), ("tl", true_len),
                                 ("streams", streams), ("temp", temp), ("top_p", top_p)):
@@ -666,7 +689,7 @@ class ContinuousBatcher:
                         forwards + (self.draft_model.language_model,)))
                 runner = self._runners[key] = StepGraph(
                     functools.partial(step, sampling), self._state, self.device,
-                    forwards=forwards)
+                    forwards=forwards, eager=model_axis_size(self.mesh) > 1)
             refill()
             pending = None   # (chunk tokens in flight, slot map at dispatch)
             while any(r is not None for r in slot_req):

@@ -51,6 +51,12 @@ Divergences (ROADMAP.md Queue 3):
   stream, cycle, position). JAX splits a ``jax.random`` key each step: the
   distribution is the same, the tokens are not.
 
+Tensor parallelism: a target and a draft sharded over the same mesh's
+``model`` axis (``qwen3_vl.tensor_parallel``, as JAX's backend shards both)
+serve with both caches sharded on their kv heads; above one card of the
+model axis the cycles run eagerly, by design (``cuda_graph.StepGraph``'s
+``eager``).
+
 B = 1 only: speculative decoding is the latency path; batches go through
 ``Qwen3VLGenerator`` or the continuous batcher, whose speculative chunk is
 ``models/serving.py``'s.
@@ -181,6 +187,8 @@ class SpeculativeGenerator:
                  spec_k: int = 4, eos_token_id: int = 151645, kv_dtype: str = "bf16"):
         if target_model.config.text.vocab_size != draft_model.config.text.vocab_size:
             raise ValueError("draft and target must share a vocabulary")
+        if getattr(target_model, "mesh", None) is not getattr(draft_model, "mesh", None):
+            raise ValueError("the target and the draft must be sharded over the same mesh")
         self.tm, self.dm = target_model, draft_model
         self.spec_k = int(spec_k)
         if self.spec_k < 1:
@@ -300,7 +308,7 @@ class SpeculativeGenerator:
         temperature = float(temperature)
         top_p = float(top_p) if temperature > 0 else 1.0
         key = runner = None
-        if self.device.type == "cuda":
+        if self._target.replays:
             key = (-(-ids.shape[1] // prompt_bucket) * prompt_bucket, max_new, self.spec_k,
                    temperature > 0, self.kv_dtype)
             runner = self._graphs.pop(key, None)
@@ -308,7 +316,8 @@ class SpeculativeGenerator:
                        top_p, seed, into=None if runner is None else runner.state)
         if runner is None:
             forwards = tuple(dict.fromkeys((self.tm.language_model, self.dm.language_model)))
-            runner = StepGraph(self.cycle, s, s.out.device, forwards=forwards)
+            runner = StepGraph(self.cycle, s, s.out.device, forwards=forwards,
+                               eager=not self._target.replays)
         # each live cycle emits at least one token, so max_new - 1 cycles end
         # every generation
         left = max_new - 1

@@ -1,5 +1,7 @@
-"""The mesh and its data axis (port of ``emr2a_tpu/parallel``): one process
-drives every device of a ``Mesh``; see ``mesh.py`` and ``sharding.py``."""
+"""The mesh, its data axis and its model axis (port of
+``emr2a_tpu/parallel``): one process drives every device of a ``Mesh``;
+see ``mesh.py``, ``sharding.py`` (the data axis) and ``tensor.py`` (the
+model axis)."""
 
 from emr2a_tpu_torch.parallel.mesh import (
     DATA_AXIS,
@@ -19,6 +21,17 @@ from emr2a_tpu_torch.parallel.sharding import (
     replicated,
     shard_batch,
 )
+from emr2a_tpu_torch.parallel.tensor import (
+    all_gather,
+    all_reduce,
+    check_mesh,
+    model_axis_size,
+    model_devices,
+    reduce_to,
+    replicate,
+    shard_params,
+    unshard_param,
+)
 
 __all__ = [
     "DATA_AXIS",
@@ -35,4 +48,13 @@ __all__ = [
     "gather_batch",
     "replicated",
     "shard_batch",
+    "all_gather",
+    "all_reduce",
+    "check_mesh",
+    "model_axis_size",
+    "model_devices",
+    "reduce_to",
+    "replicate",
+    "shard_params",
+    "unshard_param",
 ]

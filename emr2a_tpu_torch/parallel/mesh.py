@@ -3,9 +3,11 @@
 Port of ``emr2a_tpu/parallel/mesh.py``. JAX's single-controller model is
 kept: one Python process holds a ``Mesh`` of ``torch.device``s and issues
 each device's work itself, as JAX's ``shard_map`` does. The ``data`` axis
-splits batches (slices at embed time, the case database at retrieval time);
-the ``model`` axis is named but no module of the port shards over it yet
-(not ported yet (ROADMAP.md, Queue 1, item 7b)).
+splits batches (slices at embed time, the case database at retrieval time,
+the trainer's batch); the ``model`` axis carries Megatron tensor
+parallelism (``tensor.py``: the judge's Qwen3-VL, served with ``tp=``, and
+the trainer's towers), each card holding its shard of the projections and
+the row-parallel sums exchanged by peer copies.
 
 Differences from JAX:
 

@@ -28,8 +28,13 @@ at ``--precision``) turns on speculative decoding: one-case audits run
 draft-k / verify-1 cycles (``models/speculative.py``), each replayed from a
 CUDA graph on the card, and with ``--serving continuous`` every slot
 advances speculatively; static ``--vlm_batch_size`` batches ignore the
-draft, as JAX's do. ``--compile_cache`` (JAX's cache) is gone; ``--tp > 1``
-raises ``NotImplementedError`` (ROADMAP.md, Queue 1, item 7).
+draft, as JAX's do. ``--compile_cache`` (JAX's cache) is gone. ``--tp N``
+serves the judge tensor-parallel over N of the visible cards' model axis
+(a ``(cards // N, N)`` mesh; Megatron sharding of the target and the
+draft, KV caches sharded on their kv heads; each case's greedy stream
+equals ``--tp 1``'s or first differs at a near-tie of its logits, where the
+bf16 row-parallel sums round differently; decode eager above one card),
+and N must divide the card count.
 
     python -m emr2a_tpu_torch.pipelines.step4_vlm_review.run ... \
         --serving continuous --vlm_batch_size 8
@@ -341,7 +346,12 @@ def build_parser() -> argparse.ArgumentParser:
                              "slot count with --serving continuous); decode "
                              "streams the weights once a step for every row")
     parser.add_argument("--tp", type=int, default=1,
-                        help="tensor-parallel degree (only 1 is ported)")
+                        help="serve the judge tensor-parallel over N "
+                             "cards (Megatron param sharding + kv-head-"
+                             "sharded caches; each token stream equals "
+                             "tp=1's, or first differs at a near-tie of "
+                             "its logits in bf16); N must divide the "
+                             "visible cards")
     parser.add_argument("--device", type=str, default="cuda")
     parser.add_argument("--seed", type=int, default=42)
     parser.add_argument("--accept_threshold", type=float, default=0.7)

@@ -1,11 +1,12 @@
-"""Contrastive fine-tuning of the dual-tower encoders, on one device.
-JAX's ``training/sharding_rules.py`` (tensor-parallel shardings over a
-mesh) has no counterpart here: ROADMAP.md, Queue 1, item 7."""
+"""Contrastive fine-tuning of the dual-tower encoders, on one device or
+over a mesh's data and model axes, and the Megatron sharding rules."""
 
 from emr2a_tpu_torch.training.clip_trainer import (
     ContrastiveTrainer,
     TrainState,
     clip_contrastive_loss,
 )
+from emr2a_tpu_torch.training.sharding_rules import param_shardings, spec_for_param
 
-__all__ = ["ContrastiveTrainer", "TrainState", "clip_contrastive_loss"]
+__all__ = ["ContrastiveTrainer", "TrainState", "clip_contrastive_loss",
+           "param_shardings", "spec_for_param"]

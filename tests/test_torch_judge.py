@@ -37,6 +37,8 @@ from emr2a_tpu_torch.eval import audit_metrics
 from emr2a_tpu_torch.judge import parsers, prompts
 from emr2a_tpu_torch.judge.audit import VLMAuditModule
 from emr2a_tpu_torch.judge.backends import FakeVLMBackend, load_backend
+from emr2a_tpu_torch.parallel import force_cpu_devices
+from emr2a_tpu_torch.parallel import mesh as port_mesh
 from emr2a_tpu_torch.pipelines.step4_vlm_review import run as step4
 from emr2a_tpu_torch.tools.stub_tokenizer import WordTokenizer
 
@@ -240,8 +242,15 @@ def test_divergences_raise_instead_of_abstaining(tmp_path):
     with pytest.raises(FileNotFoundError):
         load_backend(str(tmp_path / "no_such_checkpoint"), device="cpu")
     assert isinstance(load_backend("fake:x"), FakeVLMBackend)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md, Queue 1, item 7"):
-        QwenVLBackend(config=_tiny_backend("bf16").config, params={}, tp=2)
+    # tp is ported (tests/test_torch_serving_tp.py); a tp that does not
+    # divide the visible devices raises JAX's ValueError
+    saved = port_mesh._default_mesh
+    try:
+        force_cpu_devices(8)
+        with pytest.raises(ValueError, match="tp=3 does not divide the 8-device slice"):
+            QwenVLBackend(config=_tiny_backend("bf16").config, params={}, tp=3)
+    finally:
+        port_mesh.set_default_mesh(saved)
     # int4_awq is ported: K7's layers on folded weights (held against JAX's
     # audit in tests/test_torch_awq_backend.py)
     from emr2a_tpu_torch.models.layers import Int4Dense

@@ -21,7 +21,8 @@ directory, the C++ decode pool (built from its sources, then a batch
 and a DINOv3 ``encode_images`` on paths, an exact-resize spec) and the
 mesh (``parallel/``: a 4-device CPU mesh, an int8 database sharded over it
 and the same DINOv3 ``encode_images`` data-parallel over it, equal to the
-unsharded rows), then check that no module of jax, jaxlib, flax, optax,
+unsharded rows) and its model axis (a tiny Qwen3-VL generator and the
+trainer's step over a (2, 2) CPU mesh), then check that no module of jax, jaxlib, flax, optax,
 sklearn, pandas, transformers, safetensors or ``emr2a_tpu`` was
 imported."""
 
@@ -53,7 +54,8 @@ assert {"emr2a_tpu_torch.utils.profiling", "emr2a_tpu_torch.models.resnet",
         "emr2a_tpu_torch.baselines.cnn.compute_cnn_metrics",
         "emr2a_tpu_torch.baselines.vlm_direct.run_vlm_direct_judging",
         "emr2a_tpu_torch.training.clip_trainer"} <= set(names)
-assert {"emr2a_tpu_torch.parallel.mesh", "emr2a_tpu_torch.parallel.sharding"} <= set(names)
+assert {"emr2a_tpu_torch.parallel.mesh", "emr2a_tpu_torch.parallel.sharding",
+        "emr2a_tpu_torch.parallel.tensor", "emr2a_tpu_torch.training.sharding_rules"} <= set(names)
 for name in names:
     importlib.import_module(name)
 manifest, out, data_root = sys.argv[1], sys.argv[2], sys.argv[3]
@@ -230,6 +232,19 @@ dp_rows = DINOEncoder(config=DINOv3Config(hidden_size=64, num_layers=1, num_head
                                           mlp_dim=128), mesh=mesh).encode_images(pool_paths)
 print("MESH", mesh.shape, len(sharded_db.shards), tuple(sharded_db.topk(np.ones(8), 3)[1].shape),
       dp_rows.shape, bool(np.array_equal(dp_rows, dino_rows)))
+from emr2a_tpu_torch.parallel import create_mesh
+tp_mesh = create_mesh((2, 2), devices=[torch.device("cpu")] * 4)
+tp_rows = pq.Qwen3VLGenerator(model, eos_token_id=-1, mesh=tp_mesh).generate(
+    np.arange(2, 7)[None], max_new_tokens=4, prompt_bucket=8)
+one_rows = pq.Qwen3VLGenerator(model, eos_token_id=-1).generate(
+    np.arange(2, 7)[None], max_new_tokens=4, prompt_bucket=8)
+tp_trainer = ContrastiveTrainer(*towers, mesh=tp_mesh, learning_rate=1e-3)
+tp_state = tp_trainer.init_state({"image": dict(towers[0].state_dict()),
+                                  "text": dict(towers[1].state_dict())})
+tp_state, tp_loss = tp_trainer.make_train_step()(
+    tp_state, np.zeros((2, 32, 32, 3), np.float32), np.full((2, 16), 99), None)
+print("MODEL_AXIS", bool(np.array_equal(tp_rows, one_rows)), len(tp_state.params),
+      bool(np.isfinite(float(tp_loss))))
 loaded = sorted(
     m for m in sys.modules
     if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "sklearn",
@@ -295,6 +310,7 @@ def test_port_imports_no_jax(tmp_path):
     assert "POOL [True, True, True, False] 2 (3, 64)" in proc.stdout, proc.stdout[-2000:]
     assert "MESH {'data': 4, 'model': 1} 4 (1, 3) (3, 64) True" in proc.stdout, \
         proc.stdout[-2000:]
+    assert "MODEL_AXIS True 2 True" in proc.stdout, proc.stdout[-2000:]
     assert "| Bacterial" in proc.stdout
     for model_type in ("image_only", "multimodal"):
         results = json.loads((tmp_path / "out" / "cnn" / f"exp_{model_type}" /

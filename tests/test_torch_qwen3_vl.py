@@ -29,6 +29,8 @@ from emr2a_tpu.models.quantize import (
     quantize_qwen_text_params as jax_quantize_qwen_text_params,
 )
 from emr2a_tpu_torch.models import qwen3_vl as pq
+from emr2a_tpu_torch.parallel import force_cpu_devices
+from emr2a_tpu_torch.parallel import mesh as port_mesh
 from emr2a_tpu_torch.models.convert import (
     load_state_dict,
     params_from_jax,
@@ -252,8 +254,11 @@ def test_vision_groups_are_exact(tiny, rng, monkeypatch):
 
 
 def test_not_ported_options_raise(tiny):
-    """Tensor parallelism stays unported and raises with its ROADMAP item
-    (the generator's, the backend's and the batcher's). Speculative decoding
+    """Tensor parallelism is ported (``tests/test_torch_tp.py``,
+    ``tests/test_torch_serving_tp.py``): a ``mesh`` that is not a
+    ``parallel.Mesh`` raises ``TypeError`` in the generator and the batcher,
+    and ``QwenVLBackend(tp=2)`` over the 8 CPU devices builds JAX's (4, 2)
+    mesh and a sharded model. Speculative decoding
     and AWQ are ported and held against JAX here on the HF-converted
     weights: ``spec_accept`` on point-mass rows, ``quantize_decoder(...,
     "int4_awq")``'s codes, a self-drafting backend's text and the batcher
@@ -269,11 +274,18 @@ def test_not_ported_options_raise(tiny):
     from emr2a_tpu_torch.models.serving import ContinuousBatcher
     _, _, jcfg, jparams, pcfg, state = tiny
     model = pq.Qwen3VLModel.from_params(pcfg, state)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md, Queue 1, item 7"):
+    with pytest.raises(TypeError, match="parallel.Mesh"):
         pq.Qwen3VLGenerator(model, mesh=object())
-    with pytest.raises(NotImplementedError, match="ROADMAP.md, Queue 1, item 7"):
-        QwenVLBackend(config=pcfg, params=state, tp=2)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md, Queue 1, item 7"):
+    saved = port_mesh._default_mesh
+    try:
+        force_cpu_devices(8)
+        tp_backend = QwenVLBackend(config=pcfg, params=state, tp=2)
+    finally:
+        port_mesh.set_default_mesh(saved)
+    assert tp_backend.mesh.shape == {"data": 4, "model": 2}
+    assert isinstance(tp_backend.model, pq.ShardedQwen3VLModel)
+    assert tp_backend.generator.mesh is tp_backend.mesh
+    with pytest.raises(TypeError, match="parallel.Mesh"):
         ContinuousBatcher(model, mesh=object())
     # spec_accept: point masses reduce to the prefix match, as JAX's does
     rng = np.random.RandomState(0)

@@ -275,7 +275,9 @@ def test_continuous_rejects_overlong_prompt_and_unported_options(tiny):
     with pytest.raises(ValueError, match="bucket"):
         srv.serve([{"input_ids": np.zeros((1, 9), np.int64)}], max_new_tokens=4)
     assert srv._state is None                         # released on failure too
-    with pytest.raises(NotImplementedError, match="ROADMAP.md, Queue 1, item 7"):
+    # tensor parallelism is ported (tests/test_torch_serving_tp.py); a mesh
+    # that is not the port's parallel.Mesh raises
+    with pytest.raises(TypeError, match="parallel.Mesh"):
         batcher(tiny[2], mesh=object())
     # a draft is ported (tests/test_torch_spec_serving.py): its wave equals
     # JAX's speculative batcher's, and its options are checked as JAX's are

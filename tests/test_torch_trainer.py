@@ -14,9 +14,9 @@ the JAX package's (``emr2a_tpu/training/clip_trainer.py``), on the CPU:
 - ``remat=True`` gives the plain run's losses and params;
 - save / restore resumes exactly (JAX's ``test_checkpoint_resume_exact``:
   2 steps, save, restore, 2 more equal 4 straight within rtol 1e-5);
-- a ``mesh`` raises ``NotImplementedError`` (ROADMAP item 7), and a tower
-  with fused blocks or quantized projections is refused by
-  ``init_state``.
+- a ``mesh`` that is not a ``parallel.Mesh`` raises ``TypeError`` (the
+  mesh itself: ``tests/test_torch_trainer_mesh.py``), and a tower with
+  fused blocks or quantized projections is refused by ``init_state``.
 """
 
 import jax
@@ -159,7 +159,7 @@ def test_checkpoint_resume_exact(jax_setup, tmp_path):
 
 
 def test_mesh_raises():
-    with pytest.raises(NotImplementedError, match="item 7"):
+    with pytest.raises(TypeError, match="parallel.Mesh"):
         ContrastiveTrainer(*_port_towers(), mesh=object())
 
 
