@@ -93,6 +93,17 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    patients with ``--data_parallel`` and without: every block on K1 and K3
    in both, rows equal. (Several cards: ``python -m
    emr2a_tpu_torch.tools.multichip_smoke``.)
+8c. Processes (``parallel.initialize_distributed``, ``parallel.launch``):
+   the database over two processes on this card, started by ``torchrun``
+   (``tools/db_processes.py --case measure --one_card``: 1M x 512 seeded
+   rows written once to a file each rank maps, one shard of them each, the
+   candidates all-gathered over gloo, since NCCL takes one process a card)
+   in f32, bf16 (K6) and int8; each rank's K6 launches (set to 0 before its
+   searches, read after) and answers at q = 1 and 64, k = 5 and 100 against
+   one process's database on this card, built here while the ranks run
+   (indices equal, values bit for bit). (JAX's two-process worker case:
+   the CPU tests; times over NCCL, one process a card: ``multichip_smoke
+   --phases f``.)
 9. CV: ``run_cv_experiments`` from a combined_embeddings.npz, on the card
    and with ``--device cpu``: the cohort (bf16 step2 slice means, int8
    text tower rows, concat, 3 folds) and a seeded 4-class set of 1,000
@@ -250,8 +261,11 @@ Phases, each of which fails the run (non-zero exit) if it fails:
     (rtol 1e-5), card against CPU at 2 layers a tower (3 losses within
     rtol 1e-4), the refusal of a fused tower; step ms, peak GiB.
     ``bringup_qwen3_vl`` on the phase-12 checkpoint directory (the 8B's
-    widths at depth 2, stub tokenizer): JAX's summary keys, finite
-    embeddings, text generated, no kernel launched. ``StageTimer`` times
+    widths at depth 2, stub tokenizer) twice, its converted-params cache
+    removed first: cold (the checkpoint read and converted once, the cache
+    written) and cached (no read of the checkpoint); JAX's summary keys,
+    finite embeddings, the same text generated by both, no kernel
+    launched, both ``load_convert_s`` printed. ``StageTimer`` times
     the four stages and prints its summary.
 13. Layer breakdown (``tools/layer_breakdown.main``, in-process, ViT-B/16
     block at B = 96): ``--what tune --merge_batch`` (K3m + K1), ``--what
@@ -1298,6 +1312,82 @@ def p50_phase(card: str) -> dict:
         del db
         torch.cuda.empty_cache()
     return batched
+
+
+PROCESS_ROWS = 1 << 20        # the processes phase's rows: one shard a process
+
+
+def processes_phase(work: Path, card: str) -> dict:
+    """Phase 8c (module docstring). Returns each dtype's K6 launches summed
+    over the ranks."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from emr2a_tpu_torch.parallel.launch import WorkerFailed, launch
+    from emr2a_tpu_torch.retrieval.database import ShardedEmbeddingDatabase
+    from emr2a_tpu_torch.tools.db_processes import CHECKS, DTYPES, seeded_rows, write_rows
+
+    t_phase = time.time()
+    out = work / "processes"
+    emb, batch = seeded_rows(PROCESS_ROWS)
+    write_rows(out, emb, batch)
+    t_rows = time.time() - t_phase
+    ranks_s = []
+
+    def ranks():
+        t0 = time.time()
+        text = launch(["-m", "emr2a_tpu_torch.tools.db_processes", "--case", "measure",
+                       "--one_card", "--no_timings", "--dir", str(out)], 2, timeout=300,
+                      cwd=str(Path(__file__).resolve().parent))
+        ranks_s.append(time.time() - t0)
+        return text
+
+    # the one-process answers on this card while the ranks run
+    t0 = time.time()
+    with ThreadPoolExecutor(1) as pool:
+        running = pool.submit(ranks)
+        want = {}
+        for name, dtype in DTYPES.items():
+            one = ShardedEmbeddingDatabase(emb, dtype=dtype, use_pallas=True, normalize=False,
+                                           device="cuda:0")
+            want[name] = {f"q{nq}_k{k}": [t.cpu().numpy() for t in one.topk(batch[:nq], k)]
+                          for nq, k in CHECKS}
+            del one
+            torch.cuda.empty_cache()
+        t_refs = time.time() - t0
+        try:
+            text = running.result()
+        except WorkerFailed as e:
+            fail(f"processes: {e}")
+    del emb
+    print("\n".join(line for line in text.splitlines() if line.startswith("[default0]:")),
+          flush=True)
+    records = [json.loads((out / f"rank{r}.json").read_text()) for r in range(2)]
+    launches = {}
+    for name, dtype in DTYPES.items():
+        kernel = "cosine_topk_fused_int8" if name == "int8" else "cosine_topk_fused"
+        for r, rec in enumerate(records):
+            counts = rec["dtypes"][name]["launches"]
+            if counts[kernel] != len(CHECKS):
+                fail(f"processes {name}: rank {r} launched {counts} for {len(CHECKS)} searches")
+            for key, c in counts.items():
+                launches.setdefault(name, {}).setdefault(key, 0)
+                launches[name][key] += c
+            got = np.load(out / f"rank{r}_{name}.npz")
+            for key, (vals, idx) in want[name].items():
+                if not np.array_equal(got[f"{key}_idx"], idx):
+                    fail(f"processes {name} {key}: rank {r}'s indices differ from one "
+                         f"process's")
+                if not np.array_equal(got[f"{key}_vals"].view(np.int32), vals.view(np.int32)):
+                    fail(f"processes {name} {key}: rank {r}'s values are not bit-identical "
+                         f"to one process's")
+        print(f"processes {name}: 2 processes on {records[0]['device']} ({PROCESS_ROWS} x "
+              f"{K6_DIM}, one shard each, gloo): indices equal one process's at q=1 k=5, q=64 "
+              f"k=5 and 100, values bit-identical; K6 launches by rank "
+              f"{[rec['dtypes'][name]['launches'] for rec in records]} ({card})", flush=True)
+    print(f"processes phase in {time.time() - t_phase:.1f} s (rows made and written "
+          f"{t_rows:.1f} s; the ranks {ranks_s[0]:.1f} s under torchrun, beside the "
+          f"one-process answers' {t_refs:.1f} s)", flush=True)
+    return launches
 
 
 MESH_SLAB_ROWS = 1 << 18      # rows a slab of the sharded scan's check on one card
@@ -3880,30 +3970,66 @@ BRINGUP_KEYS = {"model_path", "load_convert_s", "image_tap_dim", "image_tap_s", 
 def bringup_phase(work: Path, card: str) -> dict:
     """``bringup_qwen3_vl`` on the checkpoint directory that
     ``qwen_encoder_phase`` wrote (the judge's weights cut to 2 vision
-    blocks and 2 text layers at the 8B's widths), with the stub tokenizer:
-    JAX's summary keys, the 8B's tap and text widths, text generated, no
-    kernel launched (bf16, one image a forward)."""
+    blocks and 2 text layers at the 8B's widths), with the stub tokenizer,
+    twice: cold (its converted-params cache, left by the judge phase's
+    loads, removed first: one read of the checkpoint, the cache written),
+    then cached (no read of the checkpoint). Each: JAX's summary keys, the
+    8B's tap and text widths, text generated, no kernel launched (bf16, one
+    image a forward); the two generate the same text."""
+    import shutil
+
+    from emr2a_tpu_torch.models import checkpoint
     from emr2a_tpu_torch.models.convert import bringup_qwen3_vl
     from emr2a_tpu_torch.tools.stub_tokenizer import WordTokenizer
 
     ckpt = work / "qwen_ckpt"
-    torch.cuda.synchronize()
-    reset_counts()
-    t0 = time.perf_counter()
-    summary = bringup_qwen3_vl(ckpt, max_new_tokens=16, tokenizer=WordTokenizer(),
-                               device="cuda")
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = read_counts()
-    check_launches("bringup_qwen3_vl", launches, {})
-    if (set(summary) != BRINGUP_KEYS or summary["image_tap_dim"] != 1152
-            or summary["text_dim"] != 4096 or not summary["generated"].strip()):
-        fail(f"bringup_qwen3_vl: {summary}")
-    print(f"bringup_qwen3_vl on {ckpt.name} (depth 2 at the 8B's widths, stub tokenizer): "
-          f"{wall:.2f} s; summary {json.dumps({k: v for k, v in summary.items() if k != 'model_path'}, ensure_ascii=False)} "
-          f"(tokenizer_roundtrip_ok is the stub's honest answer); launches {launches} "
+    for cache in ckpt.glob("emr2a_torch.*"):
+        shutil.rmtree(cache)
+    reads, read = [0], checkpoint.load_state_dict
+
+    def counting(path):
+        reads[0] += 1
+        return read(path)
+
+    runs = {}
+    checkpoint.load_state_dict = counting
+    try:
+        for tag in ("cold", "cached"):
+            torch.cuda.synchronize()
+            reset_counts()
+            before, t0 = reads[0], time.perf_counter()
+            summary = bringup_qwen3_vl(ckpt, max_new_tokens=16, tokenizer=WordTokenizer(),
+                                       device="cuda")
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = read_counts()
+            check_launches(f"bringup_qwen3_vl {tag}", launches, {})
+            if (set(summary) != BRINGUP_KEYS or summary["image_tap_dim"] != 1152
+                    or summary["text_dim"] != 4096 or not summary["generated"].strip()):
+                fail(f"bringup_qwen3_vl {tag}: {summary}")
+            runs[tag] = {"summary": summary, "wall_s": wall, "checkpoint_reads": reads[0] - before}
+            print(f"bringup_qwen3_vl {tag} on {ckpt.name} (depth 2 at the 8B's widths, stub "
+                  f"tokenizer): {wall:.2f} s, load_convert_s {summary['load_convert_s']}, "
+                  f"checkpoint reads {reads[0] - before}; summary "
+                  f"{json.dumps({k: v for k, v in summary.items() if k != 'model_path'}, ensure_ascii=False)} "
+                  f"(tokenizer_roundtrip_ok is the stub's honest answer); launches {launches} "
+                  f"({card})", flush=True)
+            torch.cuda.empty_cache()
+    finally:
+        checkpoint.load_state_dict = read
+    caches = sorted(p.name for p in ckpt.glob("emr2a_torch.*"))
+    if (runs["cold"]["checkpoint_reads"], runs["cached"]["checkpoint_reads"]) != (1, 0):
+        fail(f"bringup_qwen3_vl: checkpoint reads cold {runs['cold']['checkpoint_reads']}, "
+             f"cached {runs['cached']['checkpoint_reads']} (want 1 and 0)")
+    if runs["cold"]["summary"]["generated"] != runs["cached"]["summary"]["generated"]:
+        fail(f"bringup_qwen3_vl: the cached load generated other text: "
+             f"{runs['cached']['summary']['generated']!r} against "
+             f"{runs['cold']['summary']['generated']!r}")
+    print(f"bringup_qwen3_vl converted-params cache {caches}: load_convert_s cold "
+          f"{runs['cold']['summary']['load_convert_s']} s, cached "
+          f"{runs['cached']['summary']['load_convert_s']} s; the same 16 greedy tokens "
           f"({card})", flush=True)
-    return summary
+    return runs
 
 
 def baselines_phase(work: Path, manifest_path: Path, card: str, stages) -> dict:
@@ -4148,13 +4274,16 @@ def main_path_phase(work: Path, records: list, card: str) -> None:
             "launches"][rec["name"]]
     batched = p50_phase(card)
     mesh = mesh_phase(work, manifest_path, work / "bf16" / "embeddings.npz", card)
+    processes = processes_phase(work, card)
     for rec in records:
         if rec["name"] in ("cosine_topk_fused", "cosine_topk_fused_int8"):
             rec["launches_by_path"] = {
                 "database_cli": rec["launches"],
                 **{f"database batched {d}": c[rec["name"]] for d, c in batched.items()
                    if c[rec["name"]]},
-                "mesh database": mesh["mesh database"][rec["name"]]}
+                "mesh database": mesh["mesh database"][rec["name"]],
+                **{f"processes {d}": c[rec["name"]] for d, c in processes.items()
+                   if c[rec["name"]]}}
             rec["launches"] = sum(rec["launches_by_path"].values())
     cv_phase(work, bf16["npz"], manifest_path, encoders["int8"], card)
     throughput_phase(encoders, card)

@@ -19,8 +19,9 @@ already-built ``Qwen3VLModel`` whose weights it shares (the judge's, so that
 one card holds one copy); without any of them it raises JAX's
 ``ValueError``. Divergences: a failed image or text encode is logged and
 gives ``None`` only where the image processor or the tokenizer fails (JAX
-also catches a failed forward); the Orbax cache (``cache_params``) is JAX's
-and is ignored.
+also catches a failed forward). ``cache_params`` reads and writes the
+converted-params cache beside the checkpoint (``models/checkpoint``: the
+port's own format where JAX keeps Orbax's).
 
 ``make_image_processor`` is ``emr2a_tpu/encoders/qwen3_vl_encoder.py``'s,
 which builds transformers' ``Qwen2VLImageProcessor``. The card's machine has
@@ -139,7 +140,8 @@ class Qwen3VLEncoder(BaseEncoder):
         if model_path is not None and model is None:
             from emr2a_tpu_torch.encoders.jit_encoder import load_hf
             from emr2a_tpu_torch.models.checkpoint import load_qwen3_vl
-            config, params = load_qwen3_vl(Path(model_path), config, params)
+            config, params = load_qwen3_vl(Path(model_path), config, params,
+                                           cache_params=cache_params)
             if tokenizer is None:
                 tokenizer = load_hf(model_path)
             if image_processor is None:

@@ -73,6 +73,8 @@ def tp_mesh(tp: int):
     if not tp or int(tp) <= 1:
         return None
     from emr2a_tpu_torch.parallel import create_mesh, default_mesh
+    from emr2a_tpu_torch.parallel.mesh import require_local
+    require_local(default_mesh(), "tp")
     devices = list(default_mesh().devices.flat)
     n = len(devices)
     if n % int(tp):
@@ -153,7 +155,8 @@ class QwenVLBackend:
                  draft_model_path: Optional[str] = None, draft_config=None,
                  draft_params=None, spec_k: int = 4,
                  decode_chunk: Optional[int] = 64,
-                 prefill_chunk: Optional[int] = None, tp: int = 1):
+                 prefill_chunk: Optional[int] = None, tp: int = 1,
+                 cache_params: bool = True):
         self.mesh = tp_mesh(tp)
         self.model_path = model_path
         self.prompt_bucket = prompt_bucket
@@ -161,7 +164,7 @@ class QwenVLBackend:
         self.decode_chunk = decode_chunk
         if params is None:
             from emr2a_tpu_torch.models.checkpoint import load_qwen3_vl
-            config, params = load_qwen3_vl(model_path)
+            config, params = load_qwen3_vl(model_path, cache_params=cache_params)
             params = {k: v.to(device) for k, v in params.items()}
         if config is None:
             raise ValueError("params need their config")
@@ -188,7 +191,8 @@ class QwenVLBackend:
             from emr2a_tpu_torch.models.speculative import SpeculativeGenerator
             if draft_params is None:
                 from emr2a_tpu_torch.models.checkpoint import load_qwen3_vl
-                draft_config, draft_params = load_qwen3_vl(draft_model_path)
+                draft_config, draft_params = load_qwen3_vl(draft_model_path,
+                                                           cache_params=cache_params)
                 draft_params = {k: v.to(device) for k, v in draft_params.items()}
             if draft_config is None:
                 raise ValueError("draft_params need their config")

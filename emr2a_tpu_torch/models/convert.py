@@ -510,7 +510,8 @@ def _load_torch(path: Path) -> Dict[str, np.ndarray]:
 # ---------------------------------------------------------------------------
 
 def bringup_qwen3_vl(model_path, max_new_tokens: int = 32, tokenizer=None,
-                     image_size: int = 128, device: str = "cuda") -> Dict:
+                     image_size: int = 128, device: str = "cuda",
+                     cache_params: bool = True) -> Dict:
     """Prove a Qwen3-VL HF checkpoint end to end on this stack: load the
     (sharded) safetensors and convert -> one encoder-tap forward and a
     text embedding -> a short greedy generation, checking finiteness, then
@@ -519,9 +520,10 @@ def bringup_qwen3_vl(model_path, max_new_tokens: int = 32, tokenizer=None,
 
     ``tokenizer`` may be injected (the card's machine has no
     ``transformers``); only the checkpoint's own tokenizer must pass the
-    round trip. JAX's Orbax cache of the converted params
-    (``cache_params``, ``--no-cache``) has no counterpart: the port reads
-    the checkpoint each time.
+    round trip. ``cache_params`` (the CLI's ``--no-cache`` turns it off)
+    loads through the converted-params cache beside the checkpoint
+    (``models/checkpoint.load_or_convert``), so ``load_convert_s`` of a
+    second run is the cache's read.
     """
     import time
 
@@ -529,7 +531,8 @@ def bringup_qwen3_vl(model_path, max_new_tokens: int = 32, tokenizer=None,
     from emr2a_tpu_torch.judge.qwen_backend import QwenVLBackend
 
     t0 = time.time()
-    backend = QwenVLBackend(str(model_path), device=device, tokenizer=tokenizer)
+    backend = QwenVLBackend(str(model_path), device=device, tokenizer=tokenizer,
+                            cache_params=cache_params)
     summary: Dict = {"model_path": str(model_path),
                      "load_convert_s": round(time.time() - t0, 1)}
 
@@ -582,11 +585,14 @@ def _main(argv=None) -> None:
     ap.add_argument("--max-new-tokens", type=int, default=32)
     ap.add_argument("--image-size", type=int, default=128)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--no-cache", action="store_true",
+                    help="skip the converted-params cache beside the checkpoint")
     args = ap.parse_args(argv)
     if not args.qwen3_vl:
         ap.error("nothing to do: pass --qwen3-vl <dir>")
     summary = bringup_qwen3_vl(args.qwen3_vl, max_new_tokens=args.max_new_tokens,
-                               image_size=args.image_size, device=args.device)
+                               image_size=args.image_size, device=args.device,
+                               cache_params=not args.no_cache)
     print(json.dumps(summary, ensure_ascii=False))
 
 

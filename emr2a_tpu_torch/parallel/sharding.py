@@ -6,7 +6,12 @@ PyTorch moves it here, so the helpers place and return tensors:
 
 - ``data_devices``: the devices that hold the shards of an axis, in shard
   order (the axis's devices at index 0 of every other axis; JAX runs each
-  shard on every device of the other axes, the port once);
+  shard on every device of the other axes, the port once); it and every
+  helper below raise where a device belongs to another process
+  (``mesh.require_local``);
+- ``shard_owners``: (process, device) of each shard of an axis, for code
+  that runs over several processes (the sharded database), and
+  ``local_shards`` the positions of this process's;
 - ``replicated``: a tensor's or a module's copy on each of them (one copy
   per distinct device: the CPU devices of a CPU mesh share one);
 - ``batch_sharding`` / ``shard_batch``: dim 0 split into equal chunks, one
@@ -30,18 +35,39 @@ from typing import List, Optional, Sequence, Tuple
 
 import torch
 
-from emr2a_tpu_torch.parallel.mesh import DATA_AXIS, Mesh, default_mesh
+from emr2a_tpu_torch.parallel.mesh import (
+    DATA_AXIS,
+    Mesh,
+    default_mesh,
+    process_index,
+    require_local,
+)
 
 
-def data_devices(mesh: Optional[Mesh] = None, axis: str = DATA_AXIS) -> List[torch.device]:
-    """The devices of ``axis``, one per shard, in shard order."""
+def shard_owners(mesh: Optional[Mesh] = None, axis: str = DATA_AXIS
+                 ) -> List[Tuple[int, torch.device]]:
+    """(process, device) of each shard of ``axis``, in shard order."""
     mesh = mesh or default_mesh()
     if axis not in mesh.axis_names:
         raise ValueError(f"axis {axis!r} is not one of {mesh.axis_names}")
-    grid = mesh.devices
     pos = mesh.axis_names.index(axis)
-    index = tuple(slice(None) if i == pos else 0 for i in range(grid.ndim))
-    return list(grid[index])
+    index = tuple(slice(None) if i == pos else 0 for i in range(mesh.devices.ndim))
+    return [(int(p), d) for p, d in zip(mesh.processes[index], mesh.devices[index])]
+
+
+def local_shards(mesh: Optional[Mesh] = None, axis: str = DATA_AXIS) -> List[int]:
+    """The positions along ``axis`` of the shards this process holds."""
+    me = process_index()
+    return [i for i, (p, _) in enumerate(shard_owners(mesh, axis)) if p == me]
+
+
+def data_devices(mesh: Optional[Mesh] = None, axis: str = DATA_AXIS) -> List[torch.device]:
+    """The devices of ``axis``, one per shard, in shard order; raises where
+    one belongs to another process."""
+    mesh = mesh or default_mesh()
+    owners = shard_owners(mesh, axis)
+    require_local(mesh, f"placing data on the {axis!r} axis")
+    return [d for _, d in owners]
 
 
 def _copy_to(obj, device: torch.device):

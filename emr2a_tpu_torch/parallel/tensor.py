@@ -32,16 +32,18 @@ from typing import Dict, List, Optional, Sequence
 
 import torch
 
-from emr2a_tpu_torch.parallel.mesh import MODEL_AXIS, Mesh
+from emr2a_tpu_torch.parallel.mesh import MODEL_AXIS, Mesh, require_local
 from emr2a_tpu_torch.parallel.sharding import data_devices
 
 
 def check_mesh(mesh) -> None:
     """A ``mesh`` argument is the port's ``parallel.Mesh`` (a JAX mesh or any
-    other object raises ``TypeError``)."""
+    other object raises ``TypeError``) of this process's devices
+    (``ValueError`` otherwise: the model axis runs in one process)."""
     if not isinstance(mesh, Mesh):
         raise TypeError(f"mesh must be an emr2a_tpu_torch.parallel.Mesh, got "
                         f"{type(mesh).__name__}")
+    require_local(mesh, "the model axis")
 
 
 def model_axis_size(mesh: Optional[Mesh]) -> int:
@@ -53,6 +55,7 @@ def model_devices(mesh: Mesh) -> List[torch.device]:
     """The devices of ``model`` at index 0 of every other axis, in card
     order: where the model's shards live."""
     if MODEL_AXIS not in mesh.axis_names:
+        require_local(mesh, "the model axis")
         return [mesh.devices.flat[0]]
     return data_devices(mesh, MODEL_AXIS)
 

@@ -33,6 +33,26 @@ filler never surfaces (the shards hold at least k valid candidates
 together), so leaving it out changes no answer. One shard is one scan,
 with no merge.
 
+Over several processes (a mesh from ``create_mesh`` / ``default_mesh``
+after ``parallel.initialize_distributed``; JAX's ``_sharded_topk_fn`` on a
+global mesh): every process passes the same embeddings, as in JAX, and
+places only its own shards (``local_shards``); each scans them with
+``shard_topk`` (K6 on the card, its plain version on the CPU). A
+collective needs equal shapes, so every shard then gives ``min(k,
+shard_size)`` candidates, padded past its valid rows with ``-inf`` and
+index -1 as JAX's shards are (``pack_candidates``); one all-gather of the
+packed values and index bits (``torch.distributed``: on the card with
+NCCL, over host copies with gloo) gives every process every shard's
+candidates, and ``merge_gathered`` puts them in shard order for the
+stable top-k that ``merge_topk`` takes, so every process holds the same
+answer, ties to the lowest global index. The shards' real candidates number at
+least k, and every real score is finite, so the filler never surfaces
+(asserted on the host from the shard sizes, and on the indices ``search``
+reads back). Every process calls ``topk``, ``search`` and ``add_cases``
+together, with the same arguments. ``save`` writes from process 0 alone
+and the others wait at a barrier (a divergence: JAX has every process
+write the same file). A mesh of one process keeps the path above.
+
 ``mesh=None`` means ``default_mesh()``, every visible card, as in JAX,
 except where ``device`` names one device: ``"cpu"`` (a one-device CPU mesh)
 or ``"cuda:N"`` (that card alone). Reserving ``capacity`` keeps the shards'
@@ -60,8 +80,14 @@ from emr2a_tpu_torch.ops.topk import (
     score_matmul,
     topk_scores,
 )
-from emr2a_tpu_torch.parallel.mesh import Mesh, create_mesh, default_mesh
-from emr2a_tpu_torch.parallel.sharding import data_devices
+from emr2a_tpu_torch.parallel.mesh import (
+    Mesh,
+    create_mesh,
+    default_mesh,
+    process_count,
+    process_index,
+)
+from emr2a_tpu_torch.parallel.sharding import local_shards, shard_owners
 
 logger = logging.getLogger(__name__)
 
@@ -126,6 +152,56 @@ def merge_topk(candidates, k: int, device: torch.device
     return mvals, torch.take_along_dim(idx, cols, dim=1)
 
 
+def pack_candidates(candidates, q: int, k_local: int, slots: int,
+                    device: torch.device) -> torch.Tensor:
+    """A process's shards' candidates (``shard_topk``'s, None for an empty
+    shard) as one int32 tensor (q, slots, 2, k_local) on ``device``: per
+    shard the bits of its f32 values, then its indices, each padded to
+    ``k_local`` with ``-inf`` and index -1 (JAX's filler), and ``slots``
+    shards, the missing ones all filler (a collective needs equal
+    shapes)."""
+    out = torch.full((q, slots, 2, k_local), -1, dtype=torch.int32, device=device)
+    out.view(torch.float32)[:, :, 0] = float("-inf")
+    on = lambda t: t.to(device, non_blocking=device.type == "cuda")
+    for j, c in enumerate(candidates):
+        if c is not None:
+            vals, idx = c
+            out[:, j, 0, :vals.shape[1]] = on(vals).view(torch.int32)
+            out[:, j, 1, :idx.shape[1]] = on(idx)
+    return out
+
+
+def all_gather_candidates(packed: torch.Tensor) -> torch.Tensor:
+    """Every process's ``pack_candidates`` tensor, stacked in process order
+    on ``packed``'s device: one all-gather, on that device with NCCL, over
+    host copies with gloo."""
+    world = torch.distributed.get_world_size()
+    if torch.distributed.get_backend() == "nccl":
+        out = torch.empty((world,) + tuple(packed.shape), dtype=packed.dtype,
+                          device=packed.device)
+        torch.distributed.all_gather_into_tensor(out, packed.contiguous())
+        return out
+    host = packed.cpu()
+    parts = [torch.empty_like(host) for _ in range(world)]
+    torch.distributed.all_gather(parts, host)
+    return torch.stack(parts).to(packed.device)
+
+
+def merge_gathered(gathered: torch.Tensor, order: torch.Tensor, k: int
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``all_gather_candidates``' (processes, q, slots, 2, k_local) tensor
+    -> the top k: ``order`` lists each shard's (process * slots + slot) in
+    shard order, so the candidates stand shard-major as in one process and
+    ``merge_topk``'s stable top-k keeps ties to the lowest global index."""
+    p, q, slots, _, k_local = gathered.shape
+    flat = gathered.transpose(0, 1).reshape(q, p * slots, 2, k_local)
+    flat = flat.index_select(1, order)
+    vals = flat[:, :, 0].contiguous().view(torch.float32).reshape(q, -1)
+    idx = flat[:, :, 1].reshape(q, -1)
+    mvals, cols = topk_scores(vals, k)
+    return mvals, torch.take_along_dim(idx, cols, dim=1)
+
+
 class ShardedEmbeddingDatabase:
     """Case-retrieval database sharded over the mesh's ``data`` axis.
 
@@ -159,7 +235,13 @@ class ShardedEmbeddingDatabase:
             mesh = (default_mesh() if one.type == "cuda" and one.index is None
                     else create_mesh((1, 1), devices=[one]))
         self.mesh = mesh
-        self.devices = data_devices(mesh)
+        owners = shard_owners(mesh)
+        self.n_shards = len(owners)
+        self.shard_ids = local_shards(mesh)   # this process's shards
+        self.devices = [owners[i][1] for i in self.shard_ids]
+        self.spans_processes = not mesh.is_local
+        if self.spans_processes:
+            self._check_processes(owners)
         self.device = self.devices[0]   # the queries' and the answers' device
         self.n, self.dim = embeddings.shape
         self.capacity = capacity
@@ -176,13 +258,12 @@ class ShardedEmbeddingDatabase:
     def _upload(self) -> None:
         """Place the host matrix on the shards in the storage dtype, padded
         with zero rows (JAX's layout, module docstring)."""
-        n_shards = len(self.devices)
         emb = self._host_emb
         self.n = emb.shape[0]
         target = max(self.n, self.capacity or 0)
-        self.shard_size = -(-target // n_shards)
+        self.shard_size = -(-target // self.n_shards)
         self.shards, self.scale_shards = [], []
-        for i, dev in enumerate(self.devices):
+        for i, dev in zip(self.shard_ids, self.devices):
             rows = emb[i * self.shard_size:(i + 1) * self.shard_size]
             if rows.shape[0] < self.shard_size:
                 rows = np.pad(rows, ((0, self.shard_size - rows.shape[0]), (0, 0)))
@@ -204,22 +285,51 @@ class ShardedEmbeddingDatabase:
             q = l2_normalize_rows(q).to(qdtype)
         return q
 
-    def _scan(self, q: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
-        """The query sent to every shard's device, then every shard's scan
-        queued (module docstring), then the merge. The copies go first: a
+    def _check_processes(self, owners) -> None:
+        """A mesh over several processes: every process holds a shard, and
+        the same number of them (one all-gather carries every process's)."""
+        counts = [sum(p == r for p, _ in owners) for r in range(process_count())]
+        if min(counts) == 0 or len(set(counts)) != 1:
+            raise ValueError(f"a database over {process_count()} processes needs "
+                             f"the same number of shards in each, at least one; "
+                             f"the mesh's data axis gives {counts}")
+        # each shard's place in the gathered (process * slots + slot) order
+        slot = {r: 0 for r in range(len(counts))}
+        order = []
+        for p, _ in owners:
+            order.append(p * counts[0] + slot[p])
+            slot[p] += 1
+        self._order = torch.tensor(order, device=self.devices[0])
+
+    def _candidates(self, q: torch.Tensor, k_local: int) -> list:
+        """The query sent to this process's shards' devices, then every
+        shard's scan queued (module docstring). The copies go first: a
         copy from the first device runs on that device's stream, so one
         queued after the first shard's scan would hold the other cards'
         scans until that scan ends."""
-        k_local = min(k, self.shard_size)
         queries = [q.to(dev, non_blocking=True) for dev in self.devices]
         candidates = []
-        for i, (qd, shard) in enumerate(zip(queries, self.shards)):
+        for j, (i, qd, shard) in enumerate(zip(self.shard_ids, queries, self.shards)):
             base = i * self.shard_size
             candidates.append(shard_topk(
-                qd, shard, None if self.scale_shards is None else self.scale_shards[i],
+                qd, shard, None if self.scale_shards is None else self.scale_shards[j],
                 min(max(self.n - base, 0), self.shard_size), base, k_local,
                 self.use_pallas))
-        return merge_topk(candidates, k, self.device)
+        return candidates
+
+    def _scan(self, q: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The shards' candidates, then the merge: in one process directly,
+        over several by one all-gather of the padded candidates."""
+        k_local = min(k, self.shard_size)
+        candidates = self._candidates(q, k_local)
+        if not self.spans_processes:
+            return merge_topk(candidates, k, self.device)
+        real = sum(min(k_local, max(min(self.n - i * self.shard_size, self.shard_size), 0))
+                   for i in range(self.n_shards))
+        assert real >= k, f"{real} real candidates for k = {k}: filler would surface"
+        packed = pack_candidates(candidates, q.shape[0], k_local, len(self.shards),
+                                 self.device)
+        return merge_gathered(all_gather_candidates(packed), self._order, k)
 
     def topk(self, queries: np.ndarray, k: int,
              normalize: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -285,7 +395,7 @@ class ShardedEmbeddingDatabase:
         if ids is not None:
             self.ids.extend(ids)
         end = start + new.shape[0]
-        if end <= self.shard_size * len(self.shards):
+        if end <= self.shard_size * self.n_shards:
             self._write_rows(new, start)
             self.n = end
         else:
@@ -301,7 +411,7 @@ class ShardedEmbeddingDatabase:
         if self.scale_shards is not None:
             codes, scales = quantize_rows_int8(rows)
         end = start + rows.shape[0]
-        for i, (dev, shard) in enumerate(zip(self.devices, self.shards)):
+        for j, (i, dev, shard) in enumerate(zip(self.shard_ids, self.devices, self.shards)):
             lo = max(start, i * self.shard_size)
             hi = min(end, (i + 1) * self.shard_size)
             if lo >= hi:
@@ -310,18 +420,22 @@ class ShardedEmbeddingDatabase:
             part = slice(lo - start, hi - start)
             if self.scale_shards is not None:
                 shard[at] = torch.from_numpy(codes[part]).to(dev)
-                self.scale_shards[i][at] = torch.from_numpy(scales[part]).to(dev)
+                self.scale_shards[j][at] = torch.from_numpy(scales[part]).to(dev)
             else:
                 shard[at] = torch.from_numpy(rows[part]).to(dev, self.dtype)
 
     def save(self, path) -> None:
-        """Persist to npz (embeddings pre-normalised as stored)."""
-        payload = {"embeddings": self._host_emb, "n": np.asarray(self.n)}
-        if self.labels is not None:
-            payload["labels"] = np.asarray(self.labels, dtype=object)
-        if self.ids is not None:
-            payload["ids"] = np.asarray(self.ids, dtype=object)
-        np.savez_compressed(path, **payload)
+        """Persist to npz (embeddings pre-normalised as stored); over
+        several processes process 0 writes and the others wait for it."""
+        if process_index() == 0 or not self.spans_processes:
+            payload = {"embeddings": self._host_emb, "n": np.asarray(self.n)}
+            if self.labels is not None:
+                payload["labels"] = np.asarray(self.labels, dtype=object)
+            if self.ids is not None:
+                payload["ids"] = np.asarray(self.ids, dtype=object)
+            np.savez_compressed(path, **payload)
+        if self.spans_processes:
+            torch.distributed.barrier()
 
     @classmethod
     def load(cls, path, mesh: Optional[Mesh] = None, dtype: torch.dtype = torch.float32,
@@ -343,6 +457,7 @@ class ShardedEmbeddingDatabase:
         vals, idx = self.topk(queries, k, normalize=normalize)
         vals = vals.cpu().numpy()
         idx = idx.cpu().numpy()
+        assert (idx >= 0).all(), "a shard's filler candidate surfaced"
         out = []
         for qi in range(vals.shape[0]):
             hits = []

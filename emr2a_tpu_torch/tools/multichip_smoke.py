@@ -1,6 +1,6 @@
 """The port on several cards of one host: the mesh's data and model axes.
 
-    python -m emr2a_tpu_torch.tools.multichip_smoke [--phases a,b,c,d,e] [--out FILE]
+    python -m emr2a_tpu_torch.tools.multichip_smoke [--phases a,b,c,d,e,f] [--out FILE]
 
 Needs at least 2 CUDA devices and raises with fewer. Prints every card's
 name and power limit (``nvidia-smi``) and the host's cores
@@ -73,6 +73,23 @@ exits non-zero.
     meshes (4, 1), (2, 2) and (1, 4) against one card (losses within rtol
     1e-4, ms a step). Every check's failure is collected and the phase
     fails once at its end.
+(f) One process a card (not in the default phases): first JAX's
+    two-process worker case on the CPU (gloo, ``tools/db_processes.py
+    --case jax``); then, in this process, the database of phase b's
+    ``--db_rows`` x 512 seeded rows on cuda:0 alone and over every card (one
+    process), in f32, bf16 (K6) and int8, its answers at q = 1 (k = 5) and q
+    = 64 (k = 5 and 100) and the one-process single-query p50 and q = 64
+    search timed as phase b times them; then one process a card
+    (``parallel.launch``: ``torchrun``; NCCL, ``local_device_ids=[rank]``:
+    ``tools/db_processes.py --case measure``), each building the database
+    from the same rows (written once to a file that every rank maps) and
+    holding its own shard: every rank's indices equal both
+    one-process answers and its values are bit-identical to them, K6
+    launched once a search by each rank; each rank's single-query p50 (3
+    runs of 256 chained searches), the 256 searches timed alone (quartiles)
+    and split into scan, all-gather and merge (CUDA events on each rank's
+    card), the host clock per search and the q = 64 search. A failed rank
+    fails the phase with every rank's output.
 
 ``--out`` writes every record as JSON.
 """
@@ -1185,7 +1202,7 @@ def _step4_cli(root: Path, manifest_path: Path, cfg, state: dict, devices) -> di
     audit_load = audit.load_backend
     saved = (sys.modules.get("transformers"), checkpoint.load_qwen3_vl)
     sys.modules["transformers"] = stub
-    checkpoint.load_qwen3_vl = lambda path: (small, small_state)
+    checkpoint.load_qwen3_vl = lambda path, **kw: (small, small_state)
     audit.load_backend = recording
     out = {}
     try:
@@ -1386,6 +1403,110 @@ def tp_phase(devices) -> dict:
     return out
 
 
+# -- (f) one process a card -------------------------------------------------
+
+def _rank_timing_line(name: str, rec: dict) -> str:
+    q = rec["search_ms_quartiles"]
+    return (f"p50 {rec['p50_ms']:.4f} ms (3 runs of 256 chained); alone p50 {q[1]:.4f} "
+            f"(quartiles {q[0]:.4f}-{q[2]:.4f}): scan {rec['scan_ms']:.4f} + all-gather "
+            f"{rec['all_gather_ms']:.4f} + merge {rec['merge_ms']:.4f}; host "
+            f"{rec['host_ms_per_search']:.4f} ms a search; q=64 {rec['q64_ms']:.4f} ms")
+
+
+def processes_phase(devices, rows: int) -> dict:
+    from emr2a_tpu_torch.parallel import create_mesh
+    from emr2a_tpu_torch.parallel.launch import WorkerFailed, launch
+    from emr2a_tpu_torch.retrieval.database import ShardedEmbeddingDatabase
+    from emr2a_tpu_torch.retrieval.database_cli import chained_p50_ms
+    from emr2a_tpu_torch.tools.db_processes import CHECKS, DTYPES, seeded_rows, write_rows
+
+    n = len(devices)
+    worker = ["-m", "emr2a_tpu_torch.tools.db_processes"]
+    repo = str(Path(__file__).resolve().parents[2])
+    out = {"rows": rows, "processes": n,
+           "nccl": {"is_nccl_available": torch.distributed.is_nccl_available(),
+                    "version": ".".join(map(str, torch.cuda.nccl.version()))}}
+    print(f"processes: torch.distributed.is_nccl_available() {out['nccl']['is_nccl_available']}, "
+          f"NCCL {out['nccl']['version']}", flush=True)
+    t0 = time.time()
+    try:
+        ranks = launch([*worker, "--case", "jax"], 2, timeout=120,
+                       env={**os.environ, "CUDA_VISIBLE_DEVICES": ""}, cwd=repo)
+    except WorkerFailed as e:
+        fail(f"processes, JAX's worker case on the CPU: {e}")
+    if not all(f"p{r}: sharded retrieval over processes OK" in ranks for r in range(2)):
+        fail(f"processes, JAX's worker case: {ranks}")
+    print(f"processes: JAX's worker case (16 x 8, n_total 14, k 5) on 2 CPU processes (gloo): "
+          f"equal to numpy ({time.time() - t0:.1f} s)", flush=True)
+
+    emb, batch = seeded_rows(rows)
+    one = create_mesh((1, 1), devices=devices[:1])
+    every = create_mesh((n, 1), devices=devices)
+    refs, out["one_process"] = {}, {}
+    for name, dtype in DTYPES.items():
+        for tag, mesh in (("1 card", one), (f"{n} cards, 1 process", every)):
+            db = ShardedEmbeddingDatabase(emb, mesh=mesh, dtype=dtype, use_pallas=True,
+                                          normalize=False)
+            refs[name, tag] = {f"q{nq}_k{k}": tuple(t.cpu().numpy() for t in db.topk(batch[:nq], k))
+                               for nq, k in CHECKS}
+            if mesh is every:
+                qd = db._queries(batch, True)
+                out["one_process"][name] = {
+                    "p50_ms": chained_p50_ms(db, batch[0], 5, 256),
+                    "q64_ms": _event_ms(lambda: db._scan(qd, 5), devices[0])}
+                print(f"processes {name}: one process over {n} cards, p50 "
+                      f"{out['one_process'][name]['p50_ms']:.4f} ms, q=64 "
+                      f"{out['one_process'][name]['q64_ms']:.4f} ms (phase b's timing, "
+                      f"this call)", flush=True)
+            del db
+            sync_all(devices)
+            torch.cuda.empty_cache()
+
+    with tempfile.TemporaryDirectory(prefix="multichip_processes_") as tmp:
+        t0 = time.time()
+        write_rows(Path(tmp), emb, batch)
+        out["write_s"] = time.time() - t0
+        del emb
+        t0 = time.time()
+        try:
+            ranks = launch([*worker, "--case", "measure", "--dir", tmp], n, timeout=600,
+                           cwd=repo)
+        except WorkerFailed as e:
+            fail(f"processes, one a card: {e}")
+        out["ranks_s"] = time.time() - t0
+        print("\n".join(line for line in ranks.splitlines() if line.startswith("[default0]:")),
+              flush=True)
+        records = [json.loads((Path(tmp) / f"rank{r}.json").read_text()) for r in range(n)]
+        out["ranks"] = records
+        for name in DTYPES:
+            kernel = "cosine_topk_fused_int8" if name == "int8" else "cosine_topk_fused"
+            for r, rec in enumerate(records):
+                if rec["dtypes"][name]["launches"][kernel] != len(CHECKS):
+                    fail(f"processes {name}: rank {r} launched {kernel} "
+                         f"{rec['dtypes'][name]['launches']} for {len(CHECKS)} searches")
+                got = np.load(Path(tmp) / f"rank{r}_{name}.npz")
+                for key in refs[name, "1 card"]:
+                    vals, idx = got[f"{key}_vals"], got[f"{key}_idx"]
+                    for tag in ("1 card", f"{n} cards, 1 process"):
+                        want_vals, want_idx = refs[name, tag][key]
+                        if not np.array_equal(idx, want_idx):
+                            fail(f"processes {name} {key}: rank {r}'s indices differ from "
+                                 f"{tag}'s")
+                        if not np.array_equal(vals.view(np.int32), want_vals.view(np.int32)):
+                            fail(f"processes {name} {key}: rank {r}'s values are not "
+                                 f"bit-identical to {tag}'s")
+            print(f"processes {name}: {n} processes, one card each: every rank's indices "
+                  f"equal one card's and one process's over {n} cards at q=1 k=5, q=64 k=5 "
+                  f"and k=100, values bit-identical; K6 launches a rank "
+                  f"{[rec['dtypes'][name]['launches'] for rec in records]}", flush=True)
+            for r, rec in enumerate(records):
+                print(f"processes {name} rank {r} ({rec['device']}): "
+                      + _rank_timing_line(name, rec["dtypes"][name]), flush=True)
+        print(f"processes: {n} ranks in {out['ranks_s']:.1f} s (torchrun; the rows written "
+              f"in {out['write_s']:.1f} s, each rank reading its shard's)", flush=True)
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases", default="a,b,c,d")
@@ -1425,6 +1546,8 @@ def main(argv=None) -> int:
             result["d"] = step2_phase(devices, args.patients, args.slices, args.batch)
         if "e" in phases:
             result["e"] = tp_phase(devices)
+        if "f" in phases:
+            result["f"] = processes_phase(devices, args.db_rows)
     except Failure as e:
         print(f"FAIL: {e}", file=sys.stderr, flush=True)
         return 1

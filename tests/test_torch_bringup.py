@@ -66,4 +66,7 @@ def test_bringup_cli(checkpoint, monkeypatch, capsys):
     convert._main(["--qwen3-vl", "d", "--max-new-tokens", "3"])
     out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert out == {"model_path": "d", "max_new_tokens": 3, "image_size": 128,
-                   "device": "cuda"}
+                   "device": "cuda", "cache_params": True}
+    convert._main(["--qwen3-vl", "d", "--no-cache"])
+    out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert out["cache_params"] is False

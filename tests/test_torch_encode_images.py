@@ -10,14 +10,19 @@ Tolerances: the DINO tests' f32 ones (atol 3e-4, rtol 1e-3); the step2
 tests' for BioMedCLIP (atol 1e-4 in f32, row cosine 0.999 with ``fast``).
 """
 
+import sys
+from pathlib import Path
+
 import jax
 import numpy as np
 import pytest
 import torch
 
-from emr2a_tpu.data.native_loader import native_available as jax_pool_available
 from emr2a_tpu_torch.data import native_loader
 from emr2a_tpu_torch.models.convert import params_from_jax
+
+sys.path.insert(0, str(Path(__file__).resolve().parent / "helpers"))
+from jax_pool_gate import jax_pool_available  # noqa: E402
 
 torch.set_num_threads(1)
 

@@ -11,7 +11,9 @@ comparisons skip only where the JAX package's pool cannot build.
 """
 
 import struct
+import sys
 import zlib
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -20,7 +22,10 @@ from PIL import Image
 from emr2a_tpu.data import native_loader as jax_loader
 from emr2a_tpu_torch.data import native_loader as loader
 
-needs_jax_pool = pytest.mark.skipif(not jax_loader.native_available(),
+sys.path.insert(0, str(Path(__file__).resolve().parent / "helpers"))
+from jax_pool_gate import jax_pool_available  # noqa: E402
+
+needs_jax_pool = pytest.mark.skipif(not jax_pool_available(),
                                     reason="the JAX package's decode pool (libpng, "
                                            "libjpeg) cannot build here")
 

@@ -22,7 +22,9 @@ and a DINOv3 ``encode_images`` on paths, an exact-resize spec) and the
 mesh (``parallel/``: a 4-device CPU mesh, an int8 database sharded over it
 and the same DINOv3 ``encode_images`` data-parallel over it, equal to the
 unsharded rows) and its model axis (a tiny Qwen3-VL generator and the
-trainer's step over a (2, 2) CPU mesh), then check that no module of jax, jaxlib, flax, optax,
+trainer's step over a (2, 2) CPU mesh), a cached ``load_qwen3_vl`` of the
+bring-up's checkpoint (equal to the cold load) and a database query over
+two processes (gloo; neither loads JAX), then check that no module of jax, jaxlib, flax, optax,
 sklearn, pandas, transformers, safetensors or ``emr2a_tpu`` was
 imported."""
 
@@ -214,6 +216,21 @@ bring = bringup_qwen3_vl(ckpt, max_new_tokens=2, tokenizer=WordTokenizer(), imag
                          device="cpu")
 print("BASELINES", restored.step, bool(np.isfinite(float(tloss))), sorted(timer.summary()),
       bring["image_tap_dim"], bring["text_dim"])
+from emr2a_tpu_torch.models.checkpoint import load_qwen3_vl
+cached = load_qwen3_vl(ckpt)[1]           # the bring-up wrote the cache
+cold = load_qwen3_vl(ckpt, cache_params=False)[1]
+print("CACHE", sorted(p.name for p in ckpt.iterdir() if p.name.startswith("emr2a_torch.")),
+      all(torch.equal(cached[k], cold[k]) for k in cold) and sorted(cached) == sorted(cold))
+from emr2a_tpu_torch.parallel.launch import launch
+rank_script = os.path.join(out, "rank_no_jax.py")
+with open(rank_script, "w") as f:
+    f.write("import os, sys\nfrom emr2a_tpu_torch.tools.db_processes import main\n"
+            "main(sys.argv[1:])\nassert not [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'flax', 'emr2a_tpu')]\n"
+            "print('RANK_NO_JAX', os.environ['RANK'], flush=True)\n")
+ranks = launch([rank_script, "--case", "jax"], 2, timeout=120)
+print("PROCESSES", [f"p{r}: sharded retrieval over processes OK" in ranks
+                    and f"RANK_NO_JAX {r}" in ranks for r in range(2)])
 import glob
 from emr2a_tpu_torch.data import native_loader
 assert native_loader.native_available()
@@ -289,6 +306,8 @@ def test_port_imports_no_jax(tmp_path):
     assert len(hits) == 4
     assert (tmp_path / "out" / "cv" / "exp_nj" / "fold_2" / "metrics.json").exists()
     assert "SERVED [False, True]" in proc.stdout
+    assert "CACHE ['emr2a_torch.convert_qwen3_vl.bfloat16'] True" in proc.stdout
+    assert "PROCESSES [True, True]" in proc.stdout
     review = json.loads((tmp_path / "out" / "cv" / "exp_nj" / "vlm_review_summary.json")
                         .read_text())
     assert len(review["vlm_predictions"]) == 4

@@ -103,10 +103,28 @@ def test_default_mesh_raises_without_a_card_and_force_cpu_devices():
 
 
 def test_initialize_distributed_one_process_only():
+    """One process is a no-op (no process group); for more, bad arguments
+    raise ``ValueError`` before any connection is tried, and NCCL where
+    this PyTorch has none raises rather than switching to gloo (the
+    processes themselves run in tests/test_torch_processes.py)."""
     initialize_distributed()
     initialize_distributed(num_processes=1, process_id=0)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md, Queue 1, item 7c"):
-        initialize_distributed("localhost:1234", num_processes=2, process_id=0)
+    initialize_distributed("localhost:1234", num_processes=1, process_id=0)
+    assert not torch.distributed.is_initialized()
+    assert (port_mesh.process_index(), port_mesh.process_count()) == (0, 1)
+    for kw, match in ((dict(process_id=2), r"process_id must be in \[0, 2\)"),
+                      (dict(process_id=-1), "process_id must be in"),
+                      (dict(process_id=None), "process_id must be in"),
+                      (dict(process_id=0, coordinator_address=None), "coordinator_address"),
+                      (dict(process_id=0, coordinator_address=""), "coordinator_address"),
+                      (dict(process_id=0, backend="mpi"), "backend must be")):
+        kw = {"coordinator_address": "localhost:1234", **kw}
+        with pytest.raises(ValueError, match=match):
+            initialize_distributed(num_processes=2, **kw)
+    if not torch.distributed.is_nccl_available():
+        with pytest.raises(RuntimeError, match="no NCCL"):
+            initialize_distributed("localhost:1234", num_processes=2, process_id=0)
+    assert not torch.distributed.is_initialized()
 
 
 def test_shard_batch_and_gather():
