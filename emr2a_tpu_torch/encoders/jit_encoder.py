@@ -57,6 +57,7 @@ from emr2a_tpu_torch.ops.preprocess import PreprocessSpec, preprocess_images
 from emr2a_tpu_torch.ops.similarity import l2_normalize_rows
 from emr2a_tpu_torch.parallel.mesh import Mesh
 from emr2a_tpu_torch.parallel.sharding import data_devices, gather_batch, replicated
+from emr2a_tpu_torch.utils.profiling import annotate
 
 
 def fast_state(state: Mapping, fast) -> dict:
@@ -174,11 +175,14 @@ class BatchedImageTextEncoder(BaseEncoder):
             for a in arrays]
         outs = []
         for i, (dev, model) in enumerate(zip(self._devices, models)):
-            part = [None if a is None else torch.from_numpy(
-                np.ascontiguousarray(a[i * chunk:(i + 1) * chunk])).to(dev)
-                for a in padded]
-            outs.append(self._finish(forward(model, *part)))
-        return gather_batch(outs, self._devices[0])[:n].cpu().numpy()
+            with annotate("encode.upload"):
+                part = [None if a is None else torch.from_numpy(
+                    np.ascontiguousarray(a[i * chunk:(i + 1) * chunk])).to(dev)
+                    for a in padded]
+            with annotate("encode.tower", device=dev):
+                outs.append(self._finish(forward(model, *part)))
+        with annotate("encode.readback"):
+            return gather_batch(outs, self._devices[0])[:n].cpu().numpy()
 
     def _image_forward(self, batch_u8: np.ndarray) -> np.ndarray:
         return self._sharded(
@@ -193,19 +197,27 @@ class BatchedImageTextEncoder(BaseEncoder):
 
     def encode_batch_images(self, images: List[Optional[np.ndarray]]
                             ) -> List[Optional[np.ndarray]]:
+        """Traced (``utils/profiling``), a call is the span ``encode.batch``
+        over ``encode.resize`` (the host's canonicalisation), and each
+        device batch's ``encode.stack``, ``encode.upload``, ``encode.tower``
+        (with the device's time) and ``encode.readback``."""
         out: List[Optional[np.ndarray]] = [None] * len(images)
         spec = self.preprocess
-        canon: List[Optional[np.ndarray]] = [
-            None if img is None else resize_to(
-                img, spec.resize_size, shortest_edge=spec.shortest_edge,
-                method=spec.method)
-            for img in images]
-        for idxs in group_by_shape(canon).values():
-            for start in range(0, len(idxs), self.max_batch):
-                chunk = idxs[start:start + self.max_batch]
-                feats = self._image_forward(np.stack([canon[i] for i in chunk]))
-                for j, i in enumerate(chunk):
-                    out[i] = feats[j]
+        with annotate("encode.batch"):
+            with annotate("encode.resize"):
+                canon: List[Optional[np.ndarray]] = [
+                    None if img is None else resize_to(
+                        img, spec.resize_size, shortest_edge=spec.shortest_edge,
+                        method=spec.method)
+                    for img in images]
+            for idxs in group_by_shape(canon).values():
+                for start in range(0, len(idxs), self.max_batch):
+                    chunk = idxs[start:start + self.max_batch]
+                    with annotate("encode.stack"):
+                        batch = np.stack([canon[i] for i in chunk])
+                    feats = self._image_forward(batch)
+                    for j, i in enumerate(chunk):
+                        out[i] = feats[j]
         return out
 
     def encode_images(self, image_paths) -> np.ndarray:

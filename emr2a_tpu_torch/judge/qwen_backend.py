@@ -62,6 +62,7 @@ from emr2a_tpu_torch.models.qwen3_vl import (
     compute_mrope_position_ids,
     tensor_parallel,
 )
+from emr2a_tpu_torch.utils.profiling import annotate
 
 logger = logging.getLogger(__name__)
 
@@ -240,38 +241,50 @@ class QwenVLBackend:
                 out.append(t)
         return out
 
-    def _prepare(self, images: Sequence, prompt: str, system: Optional[str]):
-        """One request -> (ids, patches, grids)."""
-        patches_list = []
-        grids: List[Tuple[int, int, int]] = []
-        tokens_per_image = []
+    def _standardized(self, img) -> np.ndarray:
+        """An image as an array, resized to ``standardize_images`` square
+        when set."""
+        if self.standardize_images:
+            n = self.standardize_images
+            from PIL import Image
+            if not isinstance(img, Image.Image):
+                img = Image.fromarray(np.asarray(img))
+            img = img.resize((n, n))
+        return np.asarray(img)
+
+    def _prepare(self, images: Sequence, prompt: str, system: Optional[str],
+                 request=None):
+        """One request -> (ids, patches, grids), in the span
+        ``judge.prepare`` (with ``request``, the request's id) and its
+        stages ``.resize``, ``.patches`` and ``.tokens``."""
         merge = self.config.vision.spatial_merge_size
-        images = list(images)
-        for img in images:
-            if self.standardize_images:
-                n = self.standardize_images
-                from PIL import Image
-                if not isinstance(img, Image.Image):
-                    img = Image.fromarray(np.asarray(img))
-                img = img.resize((n, n))
-            proc = self.image_processor(images=[np.asarray(img)],
-                                        return_tensors="np")
-            patches_list.append(proc["pixel_values"])
-            g = tuple(int(x) for x in proc["image_grid_thw"][0])
-            grids.append(g)
-            tokens_per_image.append(g[0] * g[1] * g[2] // merge ** 2)
-        text = self._render_chat(len(images), prompt, system)
-        ids = self.tokenizer(text, add_special_tokens=False)["input_ids"]
-        ids = self._expand_image_tokens(list(ids), tokens_per_image)
-        patches = np.concatenate(patches_list, axis=0) if patches_list else None
+        with annotate("judge.prepare", request=request):
+            with annotate("judge.prepare.resize"):
+                arrays = [self._standardized(img) for img in images]
+            grids: List[Tuple[int, int, int]] = []
+            tokens_per_image = []
+            with annotate("judge.prepare.patches"):
+                patches_list = []
+                for arr in arrays:
+                    proc = self.image_processor(images=[arr], return_tensors="np")
+                    patches_list.append(proc["pixel_values"])
+                    g = tuple(int(x) for x in proc["image_grid_thw"][0])
+                    grids.append(g)
+                    tokens_per_image.append(g[0] * g[1] * g[2] // merge ** 2)
+                patches = np.concatenate(patches_list, axis=0) if patches_list else None
+            with annotate("judge.prepare.tokens"):
+                text = self._render_chat(len(arrays), prompt, system)
+                ids = self.tokenizer(text, add_special_tokens=False)["input_ids"]
+                ids = self._expand_image_tokens(list(ids), tokens_per_image)
         return ids, patches, grids
 
     def _decode_row(self, row: np.ndarray) -> str:
-        tokens = row.tolist()
-        eos = self.generator.eos_token_id
-        if eos in tokens:
-            tokens = tokens[:tokens.index(eos)]
-        return self.tokenizer.decode(tokens, skip_special_tokens=True)
+        with annotate("judge.detokenize"):
+            tokens = row.tolist()
+            eos = self.generator.eos_token_id
+            if eos in tokens:
+                tokens = tokens[:tokens.index(eos)]
+            return self.tokenizer.decode(tokens, skip_special_tokens=True)
 
     def generate(self, images: Sequence, prompt: str,
                  system: Optional[str] = None, max_new_tokens: int = 1024,
@@ -316,8 +329,8 @@ class QwenVLBackend:
         """``generate_batch``'s generator inputs for ``requests``: rows
         right-padded to the longest, with their true lengths and position
         ids, and every row's patches and grids in row order."""
-        rows = [self._prepare(r["images"], r["prompt"], r.get("system"))
-                for r in requests]
+        rows = [self._prepare(r["images"], r["prompt"], r.get("system"), i)
+                for i, r in enumerate(requests)]
         merge = self.config.vision.spatial_merge_size
         true_lens = np.asarray([len(ids) for ids, _, _ in rows], dtype=np.int64)
         B, seq = len(rows), int(true_lens.max())
@@ -351,8 +364,8 @@ class QwenVLBackend:
         if not requests:
             return []
         from emr2a_tpu_torch.models.serving import ContinuousBatcher
-        rows = [self._prepare(r["images"], r["prompt"], r.get("system"))
-                for r in requests]
+        rows = [self._prepare(r["images"], r["prompt"], r.get("system"), i)
+                for i, r in enumerate(requests)]
         longest = max(len(ids) for ids, _, _ in rows)
         bucket = -(-longest // self.prompt_bucket) * self.prompt_bucket
         spec = self.spec_generator

@@ -98,6 +98,7 @@ from emr2a_tpu_torch.parallel.tensor import (
     shard_params,
     shard_tensor,
 )
+from emr2a_tpu_torch.utils.profiling import annotate, count
 
 # ---------------------------------------------------------------------------
 # Configs
@@ -1826,7 +1827,14 @@ class Qwen3VLGenerator:
         ``temperature <= 0`` is greedy; otherwise each token is drawn by
         ``sample_rows`` (top-k 50, then ``top_p``) with the keys of row b's
         stream ``stream_keys(seed, b)``. The host reads the rows' state once
-        per chunk and the tokens once."""
+        per chunk and the tokens once.
+
+        Traced (``utils/profiling``): the spans ``generator.prefill``
+        (``start``), ``generator.decode`` (each run of decode steps),
+        ``generator.wait`` (each stop check) and ``generator.read``; the
+        counters ``decode.steps``, ``decode.row_steps`` (B times the steps
+        taken) and ``decode.tokens_kept`` (each row's tokens up to its eos,
+        at most ``max_new``)."""
         max_new = max_new_tokens or self.max_new_tokens
         steps = -(-max_new // chunk) * chunk if chunk else max_new
         key = runner = None
@@ -1834,9 +1842,10 @@ class Qwen3VLGenerator:
             B, S = np.shape(input_ids)
             key = (B, -(-S // prompt_bucket) * prompt_bucket, steps, temperature > 0)
             runner = self._graphs.pop(key, None)
-        s = self.start(input_ids, pixel_patches, grid_thw, steps, temperature,
-                       top_p, seed, prompt_bucket, true_lens, position_ids,
-                       into=None if runner is None else runner.state)
+        with annotate("generator.prefill", device=self.device):
+            s = self.start(input_ids, pixel_patches, grid_thw, steps, temperature,
+                           top_p, seed, prompt_bucket, true_lens, position_ids,
+                           into=None if runner is None else runner.state)
         if runner is None:
             runner = StepGraph(self.decode_step, s, s.token.device,
                                forwards=(self.model.language_model,),
@@ -1844,12 +1853,20 @@ class Qwen3VLGenerator:
         eos = self.eos_token_id
         taken = 0
         while taken < steps:
-            if chunk and taken and bool((s.done | (s.token == eos)).all()):
-                break
+            if chunk and taken:
+                with annotate("generator.wait"):
+                    stopped = bool((s.done | (s.token == eos)).all())
+                if stopped:
+                    break
             n = min(chunk or steps, steps - taken)
-            runner.run(n)
+            with annotate("generator.decode", device=self.device):
+                runner.run(n)
             taken += n
-        tokens = s.out[:, :taken].cpu().numpy()
+        with annotate("generator.read"):
+            tokens = s.out[:, :taken].cpu().numpy()
+        count("decode.steps", taken)
+        count("decode.row_steps", tokens.size)
+        count("decode.tokens_kept", kept_tokens(tokens, eos, max_new))
         if key is not None:
             self._graphs[key] = runner
             while self._graphs and sum(cache_bytes(r.state.cache)
@@ -1860,6 +1877,14 @@ class Qwen3VLGenerator:
                           tokens.dtype)
             tokens = np.concatenate([tokens, pad], axis=1)
         return tokens[:, :max_new]
+
+
+def kept_tokens(tokens: np.ndarray, eos: int, max_new: int) -> int:
+    """Tokens a (B, steps) block of decoded rows keeps: each row's up to and
+    with its first eos, at most ``max_new``."""
+    rows = tokens[:, :max_new] == eos
+    first = np.where(rows.any(axis=1), rows.argmax(axis=1) + 1, rows.shape[1])
+    return int(first.sum())
 
 
 # ---------------------------------------------------------------------------

@@ -105,6 +105,7 @@ from emr2a_tpu_torch.models.qwen3_vl import (
 )
 from emr2a_tpu_torch.models.speculative import draft_and_verify
 from emr2a_tpu_torch.parallel.tensor import model_axis_size
+from emr2a_tpu_torch.utils.profiling import annotate, count
 
 # A wave-level common prefix shorter than this is not worth its own
 # prefill (chat headers alone are a handful of tokens; the audit template
@@ -576,7 +577,25 @@ class ContinuousBatcher:
         ``max_new_tokens``, ``temperature`` (default 0 = greedy), ``top_p``
         and ``seed`` (default: the request's index). Slots with mixed
         temperatures serve together; greedy rows still match the plain
-        generator exactly."""
+        generator exactly.
+
+        Traced (``utils/profiling``), a wave is the span ``batcher.wave``
+        over ``batcher.shared_prefix``, each refill sub-batch's
+        ``batcher.refill`` (its ``batcher.prefill``, with the requests'
+        indices, and ``batcher.insert``), each chunk's ``batcher.dispatch``,
+        the host's ``batcher.wait_tokens`` on its copy and
+        ``batcher.emit``; the counters are ``batcher.refills`` (sub-batches),
+        ``batcher.prefill_rows``, ``batcher.dispatches`` and
+        ``batcher.lookahead_dispatches``, and ``decode.steps`` (each a
+        forward of every slot; k + 1 a speculative cycle),
+        ``decode.row_steps`` (slots times steps), ``decode.active_row_steps``
+        (those of slots holding a request at dispatch) and
+        ``decode.tokens_kept`` (the tokens the requests were served)."""
+        with annotate("batcher.wave"):
+            return self._serve(requests, max_new_tokens)
+
+    def _serve(self, requests: Sequence[dict],
+               max_new_tokens: Optional[int]) -> List[np.ndarray]:
         sampling = any(float(r.get("temperature") or 0.0) > 0 for r in requests)
         spec = self.draft_model is not None
         budgets = [min(int(r.get("max_new_tokens") or max_new_tokens or self.max_new_tokens),
@@ -604,25 +623,11 @@ class ContinuousBatcher:
                 while take:
                     Bp = 1 << (len(take).bit_length() - 1)
                     sub, take = take[:Bp], take[Bp:]
-                    rows = [self._prefill_inputs(requests[r]) for r in sub]
-                    cacheB, logits = self._prefill_batch(rows, Bp)
                     slots, free = free[:Bp], free[Bp:]
-                    seeds = [int(requests[r]["seed"]) if requests[r].get("seed") is not None
-                             else r for r in sub]
-                    if Bp not in self._insert_fns:
-                        self._insert_fns[Bp] = self._build_insert(Bp)
-                    first = self._insert_fns[Bp](
-                        cacheB, logits,
-                        self._to_device([r[4] for r in rows], torch.int64),
-                        self._to_device([min(r[3], self.prompt_bucket) for r in rows],
-                                        torch.int64),
-                        self._to_device(slots, torch.int64),
-                        self._to_device(stream_keys(torch.tensor(seeds), 0), torch.int64),
-                        self._to_device([float(requests[r].get("temperature") or 0.0)
-                                         for r in sub], torch.float32),
-                        self._to_device([float(requests[r].get("top_p") or 1.0)
-                                         for r in sub], torch.float32),
-                        self._prefill_batch(rows, Bp, draft=True) if spec else None)
+                    with annotate("batcher.refill"):
+                        first = refill_batch(sub, slots, Bp)
+                    count("batcher.refills")
+                    count("batcher.prefill_rows", Bp)
                     # the speculative cycle emits only verified tokens after
                     # the pending one, so each request's first token is
                     # emitted here: one read a refill sub-batch
@@ -634,6 +639,31 @@ class ContinuousBatcher:
                         slot_req[slots[i]] = r
                         active[slots[i]] = True
 
+        def refill_batch(sub, slots, Bp):
+            # one batched prefill of the requests ``sub`` and its insert into
+            # ``slots``; returns their first tokens
+            rows = [self._prefill_inputs(requests[r]) for r in sub]
+            with annotate("batcher.prefill", request=tuple(sub), device=self.device):
+                cacheB, logits = self._prefill_batch(rows, Bp)
+                d_cacheB = self._prefill_batch(rows, Bp, draft=True) if spec else None
+            seeds = [int(requests[r]["seed"]) if requests[r].get("seed") is not None
+                     else r for r in sub]
+            if Bp not in self._insert_fns:
+                self._insert_fns[Bp] = self._build_insert(Bp)
+            with annotate("batcher.insert"):
+                return self._insert_fns[Bp](
+                    cacheB, logits,
+                    self._to_device([r[4] for r in rows], torch.int64),
+                    self._to_device([min(r[3], self.prompt_bucket) for r in rows],
+                                    torch.int64),
+                    self._to_device(slots, torch.int64),
+                    self._to_device(stream_keys(torch.tensor(seeds), 0), torch.int64),
+                    self._to_device([float(requests[r].get("temperature") or 0.0)
+                                     for r in sub], torch.float32),
+                    self._to_device([float(requests[r].get("top_p") or 1.0)
+                                     for r in sub], torch.float32),
+                    d_cacheB)
+
         def emit_row(r, tokens) -> bool:
             for t in tokens:
                 emitted[r].append(int(t))
@@ -643,11 +673,17 @@ class ContinuousBatcher:
             return False
 
         def dispatch():
-            self._state["act"].copy_(self._to_device(active, torch.bool))
-            runner.run(self.chunk)
-            if spec:
-                return self._fetch(self._state["toks"], self._state["accs"])
-            return self._fetch(self._state["toks"])
+            steps = self.chunk * self.per_iter
+            count("batcher.dispatches")
+            count("decode.steps", steps)
+            count("decode.row_steps", self.n_slots * steps)
+            count("decode.active_row_steps", int(active.sum()) * steps)
+            with annotate("batcher.dispatch", device=self.device):
+                self._state["act"].copy_(self._to_device(active, torch.bool))
+                runner.run(self.chunk)
+                if spec:
+                    return self._fetch(self._state["toks"], self._state["accs"])
+                return self._fetch(self._state["toks"])
 
         def lookahead_ok() -> bool:
             # Enqueue the next chunk before reading this one, hiding one
@@ -666,7 +702,8 @@ class ContinuousBatcher:
         else:
             self._reset_state()
         try:
-            self._prefill_shared_prefix(requests)
+            with annotate("batcher.shared_prefix", device=self.device):
+                self._prefill_shared_prefix(requests)
             # the refill-batch policy for this wave's suffix length: short
             # suffixes batch under the KV budget, long ones serialize
             if self._refill_batch_arg is not None:
@@ -701,25 +738,28 @@ class ContinuousBatcher:
                 # a finished slot stays active through a chunk already
                 # dispatched, one chunk deeper: max_len's 2 * chunk slack
                 if lookahead_ok():
+                    count("batcher.lookahead_dispatches")
                     pending = (dispatch(), list(slot_req))
                 hosts, event = fetch
                 if event is not None:
-                    event.synchronize()
-                if spec:        # (slots, chunk, k + 1) emissions, (slots, chunk) accepted
-                    toks, accs = (h.numpy() for h in hosts)
-                else:
-                    toks = hosts[0].numpy()[:, :, None]
-                    accs = np.zeros(toks.shape[:2], np.int64)
-                for s in range(self.n_slots):
-                    r = snap[s]
-                    if r is None or done[r]:
-                        continue
-                    for c in range(toks.shape[1]):
-                        if emit_row(r, toks[s, c, :int(accs[s, c]) + 1]):
-                            break
-                    if done[r] and slot_req[s] == r:
-                        slot_req[s] = None
-                        active[s] = False
+                    with annotate("batcher.wait_tokens"):
+                        event.synchronize()
+                with annotate("batcher.emit"):
+                    if spec:    # (slots, chunk, k + 1) emissions, (slots, chunk) accepted
+                        toks, accs = (h.numpy() for h in hosts)
+                    else:
+                        toks = hosts[0].numpy()[:, :, None]
+                        accs = np.zeros(toks.shape[:2], np.int64)
+                    for s in range(self.n_slots):
+                        r = snap[s]
+                        if r is None or done[r]:
+                            continue
+                        for c in range(toks.shape[1]):
+                            if emit_row(r, toks[s, c, :int(accs[s, c]) + 1]):
+                                break
+                        if done[r] and slot_req[s] == r:
+                            slot_req[s] = None
+                            active[s] = False
                 refill()
         except BaseException:
             # a failed wave may leave a graph or the state half written
@@ -729,6 +769,7 @@ class ContinuousBatcher:
             self._wave_prefix = self._wave_draft_prefix = None
             self._wave_lp = 0
 
+        count("decode.tokens_kept", sum(len(e) for e in emitted))
         out = []
         for r, toks_r in enumerate(emitted):
             row = np.full((budgets[r],), eos, np.int64)

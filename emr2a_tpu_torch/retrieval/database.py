@@ -74,6 +74,7 @@ import numpy as np
 import torch
 
 from emr2a_tpu_torch.ops.similarity import l2_normalize_rows
+from emr2a_tpu_torch.utils.profiling import annotate
 from emr2a_tpu_torch.ops.topk import (
     cosine_topk_fused,
     cosine_topk_fused_int8,
@@ -452,24 +453,33 @@ class ShardedEmbeddingDatabase:
     def search(self, queries: np.ndarray, k: int, normalize: bool = True
                ) -> List[List[dict]]:
         """Per-query lists of neighbour dicts {index, score, label,
-        patient_id}."""
+        patient_id}. Traced (``utils/profiling``), a call is the span
+        ``db.search`` over ``db.queries`` (normalise and upload),
+        ``db.scan`` (the shards' scans and the merge, with the device's
+        time), ``db.readback`` and ``db.hits``."""
         k = min(k, self.n)
-        vals, idx = self.topk(queries, k, normalize=normalize)
-        vals = vals.cpu().numpy()
-        idx = idx.cpu().numpy()
-        assert (idx >= 0).all(), "a shard's filler candidate surfaced"
-        out = []
-        for qi in range(vals.shape[0]):
-            hits = []
-            for j in range(k):
-                i = int(idx[qi, j])
-                hit = {"index": i, "score": float(vals[qi, j])}
-                if self.labels is not None:
-                    hit["label"] = self.labels[i]
-                if self.ids is not None:
-                    hit["patient_id"] = self.ids[i]
-                hits.append(hit)
-            out.append(hits)
+        with annotate("db.search"):
+            with annotate("db.queries"):
+                q = self._queries(queries, normalize)
+            with annotate("db.scan", device=self.device):
+                vals, idx = self._scan(q, k)
+            with annotate("db.readback"):
+                vals = vals.cpu().numpy()
+                idx = idx.cpu().numpy()
+            assert (idx >= 0).all(), "a shard's filler candidate surfaced"
+            with annotate("db.hits"):
+                out = []
+                for qi in range(vals.shape[0]):
+                    hits = []
+                    for j in range(k):
+                        i = int(idx[qi, j])
+                        hit = {"index": i, "score": float(vals[qi, j])}
+                        if self.labels is not None:
+                            hit["label"] = self.labels[i]
+                        if self.ids is not None:
+                            hit["patient_id"] = self.ids[i]
+                        hits.append(hit)
+                    out.append(hits)
         return out
 
 
