@@ -119,7 +119,13 @@ Phases, each of which fails the run (non-zero exit) if it fails:
     vision attention) at (7, 1024, 16, 72) and K9 (the same kernel's second
     entry) at ViT-B (32, 197, 12, 64) against their plain versions
     (bf16: atol = rtol = 1e-2, row cosine >= 0.9999) and
-    ``scaled_dot_product_attention``.
+    ``scaled_dot_product_attention``; K10 (the decoder's GQA decode
+    attention over the bf16 KV cache) at the judge cells' shapes (32 / 8
+    heads of 128, L = 2,240; B = 8 and 1 at S = 1, a verify's S = 5)
+    through ``tools/time_decode_attention.py``: against its plain version
+    under the same limits, two calls bit for bit, single, chained and
+    graph times (one cache, and cycling over caches larger than the L2),
+    the plain version and SDPA with ``enable_gqa`` as the yardstick.
 12. Judge: Qwen3-VL-8B at full width (random weights, seed 0, on the card)
     in bf16, int8 and int4 (``QwenVLBackend``): one 7-image audit request
     of the cohort each, with every vision block on K8 and every decoder
@@ -128,8 +134,10 @@ Phases, each of which fails the run (non-zero exit) if it fails:
     include the replays); prefill time, decode ms a step eager and replayed
     from the graph from the same state (CUDA events; equal tokens, and one
     replayed step equal to the eager step bit for bit: KV cache, logits,
-    tokens), the kernel launches a token and the replayed steps' busy share
-    (``torch.profiler``), and peak memory; the K5 / K7 calls of one more
+    tokens; K10 launched 36 times a step, eager and replayed, and 36 times
+    each decoder forward of at most 16 positions of the request, none with
+    the int8 KV cache), the kernel launches a token and the replayed steps'
+    busy share (``torch.profiler``), and peak memory; the K5 / K7 calls of one more
     decode step and
     the device launches their kernel library issued for them: one GEMV
     launch a call, with no separate row quantize. Then the same weights cut to 2 vision blocks
@@ -310,8 +318,10 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from emr2a_tpu_torch.ops import decode_attention
 from emr2a_tpu_torch.tools.profile_judge import SERVING_BUDGETS
 from emr2a_tpu_torch.tools.time_blocks import bound, close, nbytes
+from emr2a_tpu_torch.tools.time_decode_attention import decode_records
 from emr2a_tpu_torch.tools.time_linears import timing_text, timings
 
 K6_N, K6_DIM, K6_K = 1_000_000, 512, 5
@@ -623,6 +633,7 @@ def gelu_epilogue_check() -> None:
 def reset_counts() -> None:
     from emr2a_tpu_torch.ops import (attention, attention_block, linear_int4,
                                      linear_int8, mlp, quant, topk, vision_flash)
+    decode_attention.LAUNCHES = 0
     mlp.LAUNCHES = mlp.INT8_LAUNCHES = 0
     attention_block.LAUNCHES = attention_block.INT8_LAUNCHES = 0
     attention_block.MERGED_LAUNCHES = 0
@@ -645,7 +656,8 @@ def read_counts() -> dict:
             "cosine_topk tile scan": topk.TILE_LAUNCHES,
             "linear_w4a8": linear_int4.LAUNCHES,
             "frame_flash_attention": vision_flash.LAUNCHES,
-            "fused_attention": attention.LAUNCHES}
+            "fused_attention": attention.LAUNCHES,
+            "decode_attention": decode_attention.LAUNCHES}
 
 
 def check_full_width(encoder) -> None:
@@ -2037,6 +2049,8 @@ def judge_kernel_phase(card: str) -> list:
     records.append(k8)
     records.append(attention_record("fused_attention", attention, (32, 197, 12, 64),
                                     "emr2a_tpu/ops/attention.py:61"))
+    # K10 at the judge cells' decode shapes (tools/time_decode_attention)
+    records.extend(decode_records(card))
     torch.cuda.empty_cache()
     return records
 
@@ -2045,25 +2059,40 @@ class ForwardCount:
     """``module``'s forwards since this count began, read as ``.n``: its
     eager calls (a pre-hook, which ignores the calls a CUDA graph capture
     makes: they launch nothing) plus the forwards that graph replays ran
-    (``models/cuda_graph.replayed_forwards``)."""
+    (``models/cuda_graph.replayed_forwards``). ``.narrow``: those of at most
+    ``decode_attention.MAX_QUERIES`` positions (the decoder's decode steps,
+    which K10 attends; the replayed steps are all decode steps)."""
 
     def __init__(self, module):
         from emr2a_tpu_torch.models.cuda_graph import replayed_forwards
-        self.module, self.eager = module, 0
+        self.module, self.eager, self.eager_narrow = module, 0, 0
         self.base = replayed_forwards(module)
         self.hook = module.register_forward_pre_hook(self._seen)
 
-    def _seen(self, *args):
+    def _seen(self, module, args):
         if not torch.cuda.is_current_stream_capturing():
             self.eager += 1
+            self.eager_narrow += int(args[0].dim() > 1
+                                     and args[0].shape[1] <= decode_attention.MAX_QUERIES)
 
     @property
     def n(self) -> int:
         from emr2a_tpu_torch.models.cuda_graph import replayed_forwards
         return self.eager + replayed_forwards(self.module) - self.base
 
+    @property
+    def narrow(self) -> int:
+        return self.n - self.eager + self.eager_narrow
+
     def remove(self) -> None:
         self.hook.remove()
+
+
+def k10_launches(model, n_text: ForwardCount, kv_dtype: str) -> int:
+    """K10's launches over ``n_text``'s forwards of ``model``'s decoder: one
+    a layer each forward of at most MAX_QUERIES positions over a bf16 KV
+    cache, none over the int8 cache (its plain path)."""
+    return len(model.language_model.layers) * n_text.narrow if kv_dtype == "bf16" else 0
 
 
 def nonzero(launches: dict) -> dict:
@@ -2103,7 +2132,7 @@ def judge_bounds(model, prec: str, padded: int, grids, max_len: int) -> dict:
             "decode": bound(nbytes(*lm.values()) + cache)}
 
 
-def decode_timings(gen, state, steps: int, tag: str) -> dict:
+def decode_timings(gen, state, steps: int, tag: str, per_step: dict) -> dict:
     """``steps`` decode steps from ``state`` (a ``DecodeState`` with room
     for 2 * steps + 1), eagerly and replayed from a CUDA graph (the
     generator's path), each timed with CUDA events from the same start
@@ -2140,12 +2169,19 @@ def decode_timings(gen, state, steps: int, tag: str) -> dict:
         for _ in range(steps):
             gen.decode_step(state)
 
+    # ``per_step``: each kernel's launches a step, eager and replayed
+    reset_counts()
     eager_ms = timed(eager)
+    check_launches(f"judge {tag} {steps} eager steps", read_counts(),
+                   {k: n * steps for k, n in per_step.items()})
     eager_tokens = state.out[:, :steps].clone()
     runner = StepGraph(gen.decode_step, state, state.token.device)
     reset()
+    reset_counts()
     runner.run(2)                       # the warm-up, the capture, one replay
     graph_ms = timed(lambda: runner.run(steps))
+    check_launches(f"judge {tag} a warm-up step, a capture and {steps + 1} replays",
+                   read_counts(), {k: n * (steps + 2) for k, n in per_step.items()})
     if not torch.equal(state.out[:, :steps], eager_tokens):
         fail(f"judge {tag}: the graph's tokens differ from the eager steps'")
     diffs = replay_matches_eager(runner)
@@ -2226,7 +2262,8 @@ def judge_request(prec: str, backend, request: dict, card: str, tag: str = None)
     n_vis.remove()
     n_proj = 7 * len(model.language_model.layers)
     kernel = {"int8": "linear_w8a8", "int4": "linear_w4a8"}.get(prec)
-    want = {"frame_flash_attention": len(model.visual.blocks) * n_vis.n}
+    want = {"frame_flash_attention": len(model.visual.blocks) * n_vis.n,
+            "decode_attention": k10_launches(model, n_text, gen.kv_dtype)}
     if kernel:
         want[kernel] = n_proj * n_text.n
     check_launches(f"judge {tag}", launches, want)
@@ -2247,7 +2284,11 @@ def judge_request(prec: str, backend, request: dict, card: str, tag: str = None)
         ev[1].synchronize()
         state = gen.start(np.asarray([ids]), patches, tuple(grids), 2 * DECODE_TOKENS + 2,
                           prompt_bucket=backend.prompt_bucket)
-        decode = decode_timings(gen, state, DECODE_TOKENS, tag)
+        per_step = {"decode_attention": (len(model.language_model.layers)
+                                         if gen.kv_dtype == "bf16" else 0)}
+        if kernel:
+            per_step[kernel] = n_proj
+        decode = decode_timings(gen, state, DECODE_TOKENS, tag, per_step)
         kernels = decode_step_kernels(lambda: gen.decode_step(state))
     if not torch.isfinite(state.logits.float()).all():
         fail(f"judge {tag}: non-finite logits")
@@ -2329,6 +2370,7 @@ def reduced_depth_check(cfg, state: dict, images: list, card: str) -> None:
                     torch.cuda.synchronize()
                     kernel = DECODER_KERNEL.get(prec)
                     want = {"frame_flash_attention": 2,
+                            "decode_attention": k10_launches(be.model, n_text, gen.kv_dtype),
                             **({kernel: 14 * n_text.n} if kernel else {})}
                     check_launches(f"reduced-depth {prec}{opt}", read_counts(), want)
                     if n_text.n != (2 if "prefill_chunk" in kw else 1):
@@ -2620,7 +2662,8 @@ def sampled_phase(backend, request: dict, card: str) -> dict:
     n_vis.remove()
     check_launches("sampled", launches, {
         "frame_flash_attention": len(backend.model.visual.blocks) * n_vis.n,
-        "linear_w4a8": 7 * len(backend.model.language_model.layers) * n_text.n})
+        "linear_w4a8": 7 * len(backend.model.language_model.layers) * n_text.n,
+        "decode_attention": k10_launches(backend.model, n_text, gen.kv_dtype)})
     draws, outside = int(stats["draws"]), int(stats["outside"])
     if draws != 2 * (SAMPLED_TOKENS + 1) or outside:
         fail(f"sampled: {outside} tokens outside their filtered support "
@@ -2703,7 +2746,9 @@ def review_phase(work: Path, manifest_path: Path, backend, card: str) -> dict:
     # one montage a request is one frame, which the vision tower (as JAX's)
     # attends on its flat path, not K8's frame batch
     check_launches("review", launches, {
-        "linear_w4a8": 7 * len(backend.model.language_model.layers) * n_text.n})
+        "linear_w4a8": 7 * len(backend.model.language_model.layers) * n_text.n,
+        "decode_attention": k10_launches(backend.model, n_text,
+                                         backend.generator.kv_dtype)})
     evidence = sorted(p.name for p in (work / "review" / "exp_cohort" / "vlm_review").iterdir())
     if (len(capped.texts) != REVIEW_SAMPLES or n_vis.n != REVIEW_SAMPLES
             or not all(isinstance(t, str) and t.strip() for t in capped.texts)
@@ -2860,13 +2905,16 @@ def serving_run(tag: str, backend, fn, requests: list, prec: str, draft=None) ->
     launches = read_counts()
     n_text.remove()
     n_vis.remove()
-    want = {"frame_flash_attention": len(backend.model.visual.blocks) * n_vis.n}
+    kv = backend.generator.kv_dtype
+    want = {"frame_flash_attention": len(backend.model.visual.blocks) * n_vis.n,
+            "decode_attention": k10_launches(backend.model, n_text, kv)}
     if prec in ("int4", "int4_awq"):
         want["linear_w4a8"] = 7 * len(backend.model.language_model.layers) * n_text.n
     if other:
         d_text.remove()
         d_vis.remove()
         want["frame_flash_attention"] += len(draft.visual.blocks) * d_vis.n
+        want["decode_attention"] += k10_launches(draft, d_text, kv)
         if "linear_w4a8" in want:
             want["linear_w4a8"] += 7 * len(draft.language_model.layers) * d_text.n
     check_launches(f"serving {prec} {tag}", launches, want)
@@ -3467,7 +3515,9 @@ def spec_awq_phase(work: Path, manifest_path: Path, cfg, state: dict, backends: 
         "frame_flash_attention": len(spec.tm.visual.blocks) * n_vis.n
         + len(spec.dm.visual.blocks) * n_dvis.n,
         "linear_w4a8": 7 * (len(spec.tm.language_model.layers) * n_text.n
-                            + len(spec.dm.language_model.layers) * n_draft.n)})
+                            + len(spec.dm.language_model.layers) * n_draft.n),
+        "decode_attention": k10_launches(spec.tm, n_text, spec.kv_dtype)
+        + k10_launches(spec.dm, n_draft, spec.kv_dtype)})
     counts["speculative sampled"] = launches
     emitted, outside = int(acc_stats["emitted"]), int(acc_stats["outside"])
     draws, draws_out = int(draw_stats["draws"]), int(draw_stats["outside"])
@@ -3567,7 +3617,8 @@ def vlm_direct_run(tag: str, be, argv: list, out_dir: Path, fold_key: str,
     n_vis.remove()
     check_launches(f"vlm_direct {tag}", launches, {
         "frame_flash_attention": len(be.model.visual.blocks) * n_vis.n,
-        "linear_w4a8": 7 * len(be.model.language_model.layers) * n_text.n})
+        "linear_w4a8": 7 * len(be.model.language_model.layers) * n_text.n,
+        "decode_attention": k10_launches(be.model, n_text, be.generator.kv_dtype)})
     n_req = n_patients * len(VLM_DIRECT_TEMPS)
     if (len(capped.texts) != n_req or n_vis.n != n_req or len(rows) != n_req
             or not all(isinstance(t, str) and t.strip() for t in capped.texts)):
@@ -3974,10 +4025,12 @@ def bringup_phase(work: Path, card: str) -> dict:
     twice: cold (its converted-params cache, left by the judge phase's
     loads, removed first: one read of the checkpoint, the cache written),
     then cached (no read of the checkpoint). Each: JAX's summary keys, the
-    8B's tap and text widths, text generated, no kernel launched (bf16, one
-    image a forward); the two generate the same text."""
+    8B's tap and text widths, text generated, no kernel launched but K10
+    in the generation's decode steps (bf16, one image a forward); the two
+    generate the same text."""
     import shutil
 
+    from emr2a_tpu_torch.judge.qwen_backend import QwenVLBackend
     from emr2a_tpu_torch.models import checkpoint
     from emr2a_tpu_torch.models.convert import bringup_qwen3_vl
     from emr2a_tpu_torch.tools.stub_tokenizer import WordTokenizer
@@ -3991,19 +4044,35 @@ def bringup_phase(work: Path, card: str) -> dict:
         reads[0] += 1
         return read(path)
 
+    # the backend is built inside the call: count its decoder's forwards
+    # from its generate
+    k10, generate = [], QwenVLBackend.generate
+
+    def counted(self, *args, **kw):
+        n_text = ForwardCount(self.model.language_model)
+        try:
+            return generate(self, *args, **kw)
+        finally:
+            n_text.remove()
+            k10.append(k10_launches(self.model, n_text, self.generator.kv_dtype))
+
     runs = {}
     checkpoint.load_state_dict = counting
+    QwenVLBackend.generate = counted
     try:
         for tag in ("cold", "cached"):
             torch.cuda.synchronize()
             reset_counts()
+            k10.clear()
             before, t0 = reads[0], time.perf_counter()
             summary = bringup_qwen3_vl(ckpt, max_new_tokens=16, tokenizer=WordTokenizer(),
                                        device="cuda")
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
             launches = read_counts()
-            check_launches(f"bringup_qwen3_vl {tag}", launches, {})
+            if len(k10) != 1:
+                fail(f"bringup_qwen3_vl {tag}: {len(k10)} generations, expected 1")
+            check_launches(f"bringup_qwen3_vl {tag}", launches, {"decode_attention": k10[0]})
             if (set(summary) != BRINGUP_KEYS or summary["image_tap_dim"] != 1152
                     or summary["text_dim"] != 4096 or not summary["generated"].strip()):
                 fail(f"bringup_qwen3_vl {tag}: {summary}")
@@ -4017,6 +4086,7 @@ def bringup_phase(work: Path, card: str) -> dict:
             torch.cuda.empty_cache()
     finally:
         checkpoint.load_state_dict = read
+        QwenVLBackend.generate = generate
     caches = sorted(p.name for p in ckpt.glob("emr2a_torch.*"))
     if (runs["cold"]["checkpoint_reads"], runs["cached"]["checkpoint_reads"]) != (1, 0):
         fail(f"bringup_qwen3_vl: checkpoint reads cold {runs['cold']['checkpoint_reads']}, "
@@ -4139,7 +4209,8 @@ def judge_phase(work: Path, manifest_path: Path, card: str, stages) -> dict:
     n_vis.remove()
     check_launches("step4", step4, {
         "frame_flash_attention": len(be.model.visual.blocks) * n_vis.n,
-        "linear_w4a8": 7 * len(be.model.language_model.layers) * n_text.n})
+        "linear_w4a8": 7 * len(be.model.language_model.layers) * n_text.n,
+        "decode_attention": k10_launches(be.model, n_text, be.generator.kv_dtype)})
     summary = json.loads((work / "step4" / "vlm_audit_summary.json").read_text())
     details = (work / "step4" / "vlm_audit_details.jsonl").read_text().splitlines()
     if n_vis.n != STEP4_CASES or len(details) != STEP4_CASES or \

@@ -57,11 +57,12 @@ def replayed_forwards(module: torch.nn.Module) -> int:
 
 def launch_counters() -> list:
     """(module, name) of every kernel wrapper's launch counter."""
-    from emr2a_tpu_torch.ops import (attention, attention_block, linear_int4,
-                                     linear_int8, mlp, quant, topk, vision_flash)
+    from emr2a_tpu_torch.ops import (attention, attention_block, decode_attention,
+                                     linear_int4, linear_int8, mlp, quant, topk,
+                                     vision_flash)
     return [(m, name)
-            for m in (attention, attention_block, linear_int4, linear_int8, mlp,
-                      quant, topk, vision_flash)
+            for m in (attention, attention_block, decode_attention, linear_int4,
+                      linear_int8, mlp, quant, topk, vision_flash)
             for name, value in sorted(vars(m).items())
             if name.endswith("LAUNCHES") and isinstance(value, int)]
 

@@ -19,10 +19,16 @@ version):
 - the decoder projections route on what the params hold: ``kernel_p4`` ->
   K7 (``ops/linear_int4``), ``kernel_q`` -> K5 (``ops/linear_int8``), and
   the fused ``qkv_proj`` / ``gate_up_proj`` layout; an int8 ``lm_head`` ->
-  K5.
+  K5;
+- the decoder's attention at S <= 16 query positions (decode steps, a
+  speculative verify, a short prefill chunk) over a bf16 KV cache -> K10
+  (``ops/decode_attention``), which reads the cache in place through its
+  strides with the caller's additive mask.
 
-Decoder attention is plain PyTorch (XLA einsum in the JAX package, not a
-Pallas kernel), and so are the generator's options, which JAX computes in
+The rest of the decoder attention is plain PyTorch (XLA einsum in the JAX
+package, not a Pallas kernel): the prefill (S > 16) over the repeated KV
+heads, and the S <= 16 branch over an int8 cache (K10's plain version with
+the cache's scales). So are the generator's options, which JAX computes in
 XLA: the int8 KV cache (``quantize_kv``: s8 values with per-(batch,
 position, head) f32 scales, folded into the attention as JAX folds them, K
 scales onto the logits and V scales onto the probabilities), chunked
@@ -83,6 +89,11 @@ from torch import nn
 
 from emr2a_tpu_torch.models.cuda_graph import StepGraph
 from emr2a_tpu_torch.models.layers import ACTIVATIONS, Dense, Int4Dense, Int8Dense
+from emr2a_tpu_torch.ops.decode_attention import (
+    MAX_QUERIES,
+    decode_attention,
+    decode_attention_reference,
+)
 from emr2a_tpu_torch.ops.vision_flash import (
     frame_flash_attention,
     frame_flash_attention_reference,
@@ -780,19 +791,12 @@ class QwenTextDecoderLayer(nn.Module):
         # the repeated heads, as the JAX package lowers the two.
         groups = H // KV
         scale = hd ** -0.5
-        if S <= 16:
-            q_g = q.reshape(B, S, KV, groups, hd)
-            logits = torch.einsum("bqkgd,blkd->bkgql", q_g.float(),
-                                  k_all.float()) * scale
-            if kq_scale is not None:
-                logits = logits * kq_scale.transpose(1, 2)[:, :, None, None, :]
-            logits = logits + attn_mask[:, None, None, :, :]
-            probs = torch.softmax(logits, dim=-1)
-            if vq_scale is not None:
-                probs = probs * vq_scale.transpose(1, 2)[:, :, None, None, :]
-            probs = probs.to(cfg.dtype)
-            attn = torch.einsum("bkgql,blkd->bqkgd", probs.float(),
-                                v_all.float()).to(cfg.dtype)
+        if S <= MAX_QUERIES and kq_scale is None and k_all.dtype == torch.bfloat16:
+            # K10 on a CUDA tensor, its plain version on the CPU
+            attn = decode_attention(q, k_all, v_all, attn_mask, scale)
+        elif S <= MAX_QUERIES:
+            attn = decode_attention_reference(q, k_all, v_all, attn_mask, scale,
+                                              kq_scale, vq_scale)
         else:
             k_rep = torch.repeat_interleave(k_all, groups, dim=2)
             v_rep = torch.repeat_interleave(v_all, groups, dim=2)
