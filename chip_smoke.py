@@ -125,7 +125,17 @@ Phases, each of which fails the run (non-zero exit) if it fails:
     through ``tools/time_decode_attention.py``: against its plain version
     under the same limits, two calls bit for bit, single, chained and
     graph times (one cache, and cycling over caches larger than the L2),
-    the plain version and SDPA with ``enable_gqa`` as the yardstick.
+    the plain version and SDPA with ``enable_gqa`` as the yardstick; K11
+    (the routed experts of Kimi-VL's expert layers) at the Kimi cell's
+    calls (a decode step of 16 slots, 96 pairs, and of one request, 6
+    pairs; a prefill of 16 x 2,510 tokens) through ``tools/time_moe.py``:
+    against its plain version under the same limits, single, chained and
+    graph times, the plain version and a grouped bf16 ``torch.mm`` as the
+    yardstick. Then Kimi-VL-A3B at full width and depth (random weights,
+    ``judge/kimi_backend``): one 7-image request through ``generate`` and
+    four through ``generate_stream`` over 2 slots, each with K11 launched
+    26 times a decoder forward, eager and replayed, and K8 27 times a
+    tower forward, read from its own run.
 12. Judge: Qwen3-VL-8B at full width (random weights, seed 0, on the card)
     in bf16, int8 and int4 (``QwenVLBackend``): one 7-image audit request
     of the cohort each, with every vision block on K8 and every decoder
@@ -323,6 +333,7 @@ from emr2a_tpu_torch.tools.profile_judge import SERVING_BUDGETS
 from emr2a_tpu_torch.tools.time_blocks import bound, close, nbytes
 from emr2a_tpu_torch.tools.time_decode_attention import decode_records
 from emr2a_tpu_torch.tools.time_linears import timing_text, timings
+from emr2a_tpu_torch.tools.time_moe import moe_records
 
 K6_N, K6_DIM, K6_K = 1_000_000, 512, 5
 
@@ -632,8 +643,8 @@ def gelu_epilogue_check() -> None:
 
 def reset_counts() -> None:
     from emr2a_tpu_torch.ops import (attention, attention_block, linear_int4,
-                                     linear_int8, mlp, quant, topk, vision_flash)
-    decode_attention.LAUNCHES = 0
+                                     linear_int8, mlp, moe, quant, topk, vision_flash)
+    decode_attention.LAUNCHES = moe.LAUNCHES = 0
     mlp.LAUNCHES = mlp.INT8_LAUNCHES = 0
     attention_block.LAUNCHES = attention_block.INT8_LAUNCHES = 0
     attention_block.MERGED_LAUNCHES = 0
@@ -644,7 +655,7 @@ def reset_counts() -> None:
 
 def read_counts() -> dict:
     from emr2a_tpu_torch.ops import (attention, attention_block, linear_int4,
-                                     linear_int8, mlp, topk, vision_flash)
+                                     linear_int8, mlp, moe, topk, vision_flash)
     return {"fused_ln_mlp": mlp.LAUNCHES,
             "fused_ln_attention": attention_block.LAUNCHES,
             "fused_ln_attention_merged": attention_block.MERGED_LAUNCHES,
@@ -657,7 +668,8 @@ def read_counts() -> dict:
             "linear_w4a8": linear_int4.LAUNCHES,
             "frame_flash_attention": vision_flash.LAUNCHES,
             "fused_attention": attention.LAUNCHES,
-            "decode_attention": decode_attention.LAUNCHES}
+            "decode_attention": decode_attention.LAUNCHES,
+            "moe_experts": moe.LAUNCHES}
 
 
 def check_full_width(encoder) -> None:
@@ -2051,6 +2063,8 @@ def judge_kernel_phase(card: str) -> list:
                                     "emr2a_tpu/ops/attention.py:61"))
     # K10 at the judge cells' decode shapes (tools/time_decode_attention)
     records.extend(decode_records(card))
+    # K11 at the Kimi cell's shapes (tools/time_moe)
+    records.extend(moe_records(card))
     torch.cuda.empty_cache()
     return records
 
@@ -4244,6 +4258,80 @@ def judge_phase(work: Path, manifest_path: Path, card: str, stages) -> dict:
             "serving": serving, "spec": spec, "vlm_direct": vlm_direct}
 
 
+KIMI_NEW_TOKENS = 32
+KIMI_STREAM_BUDGETS = (8, 24, 16, 12)
+
+
+def kimi_judge_phase(card: str) -> dict:
+    """Kimi-VL-A3B at full width and depth (random weights, seed 0, on the
+    card, ``judge/kimi_backend``): one 7-image audit request through
+    ``generate`` (decode replayed from a CUDA graph) and four through
+    ``generate_stream`` over 2 slots, each run's launches read from its
+    own run: K11 once an expert layer each decoder forward (26), eager and
+    replayed, K8 once a vision block each tower forward, nothing else."""
+    from emr2a_tpu_torch.judge.kimi_backend import KimiVLBackend
+    from emr2a_tpu_torch.models.kimi_vl import KimiVLConfig, random_state
+    from emr2a_tpu_torch.tools.stub_tokenizer import KimiWordTokenizer
+
+    cfg = KimiVLConfig()
+    cfg = dataclasses.replace(cfg, vision=dataclasses.replace(cfg.vision, dtype=torch.bfloat16),
+                              text=dataclasses.replace(cfg.text, dtype=torch.bfloat16))
+    t0 = time.time()
+    state = random_state(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in state.values())
+    print(f"Kimi-VL-A3B random weights (seed 0) on the card in {time.time() - t0:.1f} s: "
+          f"{n_params / 1e9:.3f} B parameters", flush=True)
+    be = KimiVLBackend(config=cfg, params=state, tokenizer=KimiWordTokenizer())
+    del state
+    model = be.model
+    expert_layers = sum(hasattr(layer, "moe") for layer in model.language_model.layers)
+    if (expert_layers, len(model.language_model.layers), len(model.visual.blocks)) != (26, 27, 27):
+        fail(f"Kimi-VL: {expert_layers} expert layers of {len(model.language_model.layers)}, "
+             f"{len(model.visual.blocks)} vision blocks")
+    rng = np.random.default_rng(24)
+    images = [rng.integers(0, 256, (504, 504, 3), dtype=np.uint8) for _ in range(7)]
+    prompt = "Audit the predicted subtype against the neighbours' evidence."
+    out = {}
+
+    def counted(tag, fn):
+        n_text = ForwardCount(model.language_model)
+        n_vis = ForwardCount(model.visual)
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.time()
+        result = fn()
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        launches = read_counts()
+        n_text.remove()
+        n_vis.remove()
+        check_launches(f"kimi {tag}", launches, {
+            "moe_experts": expert_layers * n_text.n,
+            "frame_flash_attention": len(model.visual.blocks) * n_vis.n})
+        replayed = n_text.n - n_text.eager
+        if not replayed:
+            fail(f"kimi {tag}: no decoder forward was replayed from a CUDA graph")
+        print(f"kimi {tag}: {n_text.n} decoder forwards ({replayed} replayed), {n_vis.n} "
+              f"tower forwards in {wall:.2f} s (host clock); launches {nonzero(launches)} "
+              f"({card})", flush=True)
+        out[tag] = {"launches": nonzero(launches), "forwards": n_text.n, "replayed": replayed}
+        return result
+
+    counted("generate", lambda: be.generate(images, prompt, system="Audit carefully.",
+                                            max_new_tokens=KIMI_NEW_TOKENS))
+    requests = [{"images": images, "prompt": f"{prompt} Case {i}.", "system": "Audit carefully.",
+                 "max_new_tokens": n} for i, n in enumerate(KIMI_STREAM_BUDGETS)]
+    counted("generate_stream", lambda: be.generate_stream(
+        requests, max_new_tokens=max(KIMI_STREAM_BUDGETS), n_slots=2))
+    be.generator.release()
+    for batcher in be._batchers.values():
+        batcher.release()
+    del be, model
+    torch.cuda.empty_cache()
+    return out
+
+
 def step1_phase(work: Path) -> Path:
     """The synthetic cohort on disk, then the port's step1 on its raw tree
     (Case_csv + CT_2D_image_core): every patient matched, the cohort's
@@ -4507,8 +4595,14 @@ def main() -> int:
     print(core_occupancy(log), flush=True)
 
     records = kernel_phase(card) + topk_kernel_phase(card) + judge_kernel_phase(card)
+    kimi = kimi_judge_phase(card)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         main_path_phase(Path(tmp), records, card)
+    for rec in records:
+        if rec["name"] == "moe_experts":
+            rec["launches_by_path"] = {f"kimi {tag}": run["launches"].get("moe_experts", 0)
+                                       for tag, run in kimi.items()}
+            rec["launches"] = sum(rec["launches_by_path"].values())
     layer_breakdown_phase(records, card)
 
     print(card)

@@ -59,7 +59,6 @@ from emr2a_tpu_torch.models.convert import params_from_jax, params_to_jax
 from emr2a_tpu_torch.models.qwen3_vl import (
     Qwen3VLGenerator,
     Qwen3VLModel,
-    compute_mrope_position_ids,
     tensor_parallel,
 )
 from emr2a_tpu_torch.utils.profiling import annotate
@@ -331,16 +330,14 @@ class QwenVLBackend:
         ids, and every row's patches and grids in row order."""
         rows = [self._prepare(r["images"], r["prompt"], r.get("system"), i)
                 for i, r in enumerate(requests)]
-        merge = self.config.vision.spatial_merge_size
         true_lens = np.asarray([len(ids) for ids, _, _ in rows], dtype=np.int64)
         B, seq = len(rows), int(true_lens.max())
         input_ids = np.zeros((B, seq), dtype=np.int64)    # 0 is not the image token
-        position_ids = np.zeros((3, B, seq), dtype=np.int64)
+        position_ids = np.zeros((self.model.position_axes, B, seq), dtype=np.int64)
         for b, (ids, _, grids) in enumerate(rows):
             input_ids[b, :len(ids)] = ids
-            position_ids[:, b, :len(ids)] = compute_mrope_position_ids(
-                np.asarray([ids], dtype=np.int64), grids,
-                self.config.image_token_id, merge)[:, 0]
+            position_ids[:, b, :len(ids)] = self.model.position_ids(
+                np.asarray([ids], dtype=np.int64), grids)[:, 0]
         patches = [p for _, p, _ in rows if p is not None]
         return {"input_ids": input_ids,
                 "pixel_patches": np.concatenate(patches, axis=0) if patches else None,

@@ -58,11 +58,11 @@ def replayed_forwards(module: torch.nn.Module) -> int:
 def launch_counters() -> list:
     """(module, name) of every kernel wrapper's launch counter."""
     from emr2a_tpu_torch.ops import (attention, attention_block, decode_attention,
-                                     linear_int4, linear_int8, mlp, quant, topk,
+                                     linear_int4, linear_int8, mlp, moe, quant, topk,
                                      vision_flash)
     return [(m, name)
             for m in (attention, attention_block, decode_attention, linear_int4,
-                      linear_int8, mlp, quant, topk, vision_flash)
+                      linear_int8, mlp, moe, quant, topk, vision_flash)
             for name, value in sorted(vars(m).items())
             if name.endswith("LAUNCHES") and isinstance(value, int)]
 

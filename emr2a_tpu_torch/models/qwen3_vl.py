@@ -135,6 +135,12 @@ class QwenVisionConfig:
     # plain version on the CPU) or "auto" (flash on a CUDA tensor, einsum on
     # the CPU); JAX's "scan" is accepted and takes the einsum path.
     attn_impl: str = "auto"
+    # The blocks' and mergers' LayerNorm eps, and the 2D rotary's layout:
+    # Qwen rotates half against half (``rotate_half``), Kimi-VL's MoonViT
+    # adjacent pairs (``rope_pairs``: pair j of a head's dims as one
+    # complex number)
+    layer_norm_eps: float = 1e-6
+    rope_pairs: bool = False
 
     @property
     def head_dim(self) -> int:
@@ -228,13 +234,22 @@ def _rotate_half(x):
     return torch.cat([-x[..., half:], x[..., :half]], dim=-1)
 
 
-def apply_rope(q, k, cos, sin):
+def _rotate_pairs(x):
+    """(x0, x1, x2, x3, ...) -> (-x1, x0, -x3, x2, ...): adjacent pairs as
+    complex numbers times i."""
+    pairs = x.unflatten(-1, (-1, 2))
+    return torch.stack([-pairs[..., 1], pairs[..., 0]], dim=-1).flatten(-2)
+
+
+def apply_rope(q, k, cos, sin, pairs: bool = False):
     """q/k: (..., S, H, D); cos/sin broadcastable to (..., S, 1, D); in
-    f32."""
+    f32. ``pairs``: the rotation acts on adjacent pairs of dims (cos/sin
+    repeat each angle twice) rather than on the two halves."""
     qf, kf = q.float(), k.float()
     cos, sin = cos.float(), sin.float()
-    q_out = qf * cos + _rotate_half(qf) * sin
-    k_out = kf * cos + _rotate_half(kf) * sin
+    rotate = _rotate_pairs if pairs else _rotate_half
+    q_out = qf * cos + rotate(qf) * sin
+    k_out = kf * cos + rotate(kf) * sin
     return q_out.to(q.dtype), k_out.to(k.dtype)
 
 
@@ -409,8 +424,8 @@ class QwenVisionBlock(nn.Module):
         self.num_heads = cfg.num_heads // n
         d, kw = cfg.hidden_size, dict(dtype=cfg.dtype, device=device)
         w, inter = self.num_heads * cfg.head_dim, cfg.intermediate_size // n
-        self.norm1 = LayerNorm(d, 1e-6, **kw)
-        self.norm2 = LayerNorm(d, 1e-6, **kw)
+        self.norm1 = LayerNorm(d, cfg.layer_norm_eps, **kw)
+        self.norm2 = LayerNorm(d, cfg.layer_norm_eps, **kw)
         self.q_proj = Dense(d, w, **kw)
         self.k_proj = Dense(d, w, **kw)
         self.v_proj = Dense(d, w, **kw)
@@ -430,7 +445,7 @@ class QwenVisionBlock(nn.Module):
         q = self.q_proj(h).reshape(shape)
         k = self.k_proj(h).reshape(shape)
         v = self.v_proj(h).reshape(shape)
-        q, k = apply_rope(q, k, cos[:, None, :], sin[:, None, :])
+        q, k = apply_rope(q, k, cos[:, None, :], sin[:, None, :], cfg.rope_pairs)
         impl = (resolve_vision_attn_impl(cfg, x)
                 if attn_mask is None and len(lead) == 1 else "einsum")
         if impl == "flash":
@@ -469,7 +484,8 @@ class QwenPatchMerger(nn.Module):
         self.use_postshuffle_norm = use_postshuffle_norm
         merged = cfg.hidden_size * cfg.spatial_merge_size ** 2
         kw = dict(dtype=cfg.dtype, device=device)
-        self.norm = LayerNorm(merged if use_postshuffle_norm else cfg.hidden_size, 1e-6, **kw)
+        self.norm = LayerNorm(merged if use_postshuffle_norm else cfg.hidden_size,
+                              cfg.layer_norm_eps, **kw)
         self.fc1 = Dense(merged, merged // shard[1], **kw)
         self.fc2 = Dense(merged // shard[1], cfg.out_hidden_size, **kw)
 
@@ -1032,7 +1048,15 @@ def linear_kinds(state: Mapping[str, torch.Tensor]) -> Dict[str, str]:
 
 
 class Qwen3VLModel(nn.Module):
-    """Multimodal forward: ids + optional image patches -> logits."""
+    """Multimodal forward: ids + optional image patches -> logits.
+
+    What the generator and the batcher ask of a model (``models/kimi_vl``'s
+    has the same): ``position_ids`` (the rope positions of a prompt, on the
+    host: M-RoPE's three axes here), ``position_axes`` (their leading
+    size, which a decode step's positions take), ``empty_cache`` and
+    ``cache_bytes_per_row``."""
+
+    position_axes = 3
 
     def __init__(self, config: Qwen3VLConfig,
                  kinds: Optional[Mapping[str, str]] = None, device=None, shard=(0, 1)):
@@ -1062,6 +1086,22 @@ class Qwen3VLModel(nn.Module):
         """A zeroed KV cache for this model, on its device."""
         return empty_kv_cache(self.config.text, batch, max_len, kv_dtype,
                               self.language_model.final_ln.weight.device)
+
+    def cache_bytes_per_row(self, max_len: int, kv_dtype: str) -> int:
+        """The KV cache's bytes for one row of ``max_len`` positions."""
+        cfg = self.config.text
+        kv = max_len * cfg.num_kv_heads * cfg.head_dim
+        if kv_dtype == "int8":
+            per_layer = 2 * (kv + max_len * cfg.num_kv_heads * 4)
+        else:
+            per_layer = 2 * kv * 2
+        return per_layer * cfg.num_layers
+
+    def position_ids(self, input_ids: np.ndarray, grid_thw) -> np.ndarray:
+        """(3, B, S) M-RoPE positions of ``input_ids`` (B, S)
+        (``compute_mrope_position_ids``)."""
+        return compute_mrope_position_ids(input_ids, grid_thw, self.config.image_token_id,
+                                          self.config.vision.spatial_merge_size)
 
     @classmethod
     def random_init(cls, config: Qwen3VLConfig, seed: int = 0, device="cuda",
@@ -1697,9 +1737,7 @@ class Qwen3VLGenerator:
         if true_lens is None:
             true_lens = np.full((ids.shape[0],), seq_len, dtype=np.int64)
         if position_ids is None:
-            position_ids = compute_mrope_position_ids(
-                ids, grid_thw, self.config.image_token_id,
-                self.config.vision.spatial_merge_size)
+            position_ids = self.model.position_ids(ids, grid_thw)
         padded_len = -(-seq_len // prompt_bucket) * prompt_bucket
         if padded_len > seq_len:
             pad = padded_len - seq_len
@@ -1799,7 +1837,7 @@ class Qwen3VLGenerator:
         token (eos once the row has fed eos) and count the step. It reads
         nothing back to the host, so a CUDA graph can capture it."""
         B, dev, P = s.token.shape[0], s.token.device, s.padded_len
-        pos = (s.pos_base + s.step)[None, :, None].expand(3, B, 1)
+        pos = (s.pos_base + s.step)[None, :, None].expand(self.model.position_axes, B, 1)
         k_idx = torch.arange(s.max_len, device=dev)[None, None, :]
         mask = torch.where((k_idx < s.true_len[:, None, None])
                            | ((k_idx >= P) & (k_idx <= P + s.step)),

@@ -1,4 +1,6 @@
-"""Continuous batching for the Qwen3-VL judge (slot-based serving).
+"""Continuous batching for the judge (slot-based serving): a Qwen3-VL model,
+or any with its interface (``models/kimi_vl.KimiVLModel``), which gives the
+prompt's rope positions and the cache's layout and bytes.
 
 Port of ``emr2a_tpu/models/serving.py`` with its names and its scheduler:
 ``n_slots`` requests decode together in chunks of ``chunk`` steps; between
@@ -95,7 +97,6 @@ from emr2a_tpu_torch.models.qwen3_vl import (
     auto_prefill_chunk,
     cache_tensors,
     chunked_prefill,
-    compute_mrope_position_ids,
     draw_keys,
     map_cache,
     sample_rows,
@@ -195,6 +196,9 @@ class ContinuousBatcher:
         self._wave_lp = 0
         self._wave_prefix = None
         self._wave_draft_prefix = None
+        # request index -> its slot's records (``model.record_rows``), kept
+        # by the latest wave of a model that records
+        self.records: Dict[int, torch.Tensor] = {}
 
     @property
     def device(self) -> torch.device:
@@ -202,14 +206,9 @@ class ContinuousBatcher:
 
     # -- device state -------------------------------------------------------
 
-    def _kv_bytes_per_row(self, text_cfg=None) -> int:
-        cfg = text_cfg or self.config.text
-        kv = self.max_len * cfg.num_kv_heads * cfg.head_dim
-        if self.kv_dtype == "int8":
-            per_layer = 2 * (kv + self.max_len * cfg.num_kv_heads * 4)
-        else:
-            per_layer = 2 * kv * 2
-        return per_layer * cfg.num_layers
+    def _kv_bytes_per_row(self, model=None) -> int:
+        """A slot's cache bytes, as the model lays its cache out."""
+        return (model or self.model).cache_bytes_per_row(self.max_len, self.kv_dtype)
 
     def _fills(self) -> dict:
         """Each slot-state tensor but the cache: (shape, dtype, the value a
@@ -415,7 +414,7 @@ class ContinuousBatcher:
         P, L, eos = self.prompt_bucket, self.max_len, self.eos_token_id
         B, dev = st["cur"].shape[0], st["cur"].device
         s, gen, cur, act = st["step0"], st["gen"], st["cur"], st["act"]
-        pos = (st["pos_base"] + gen)[None, :, None].expand(3, B, 1)
+        pos = (st["pos_base"] + gen)[None, :, None].expand(self.model.position_axes, B, 1)
         k_idx = torch.arange(L, device=dev)[None, None, :]
         visible = k_idx < st["tl"][:, None, None]
         if self.ring_decode:
@@ -494,9 +493,7 @@ class ContinuousBatcher:
             raise ValueError(f"prompt length {seq_len} exceeds the serving bucket "
                              f"{self.prompt_bucket}")
         grid_thw = self._grid_key(req)
-        position_ids = compute_mrope_position_ids(
-            ids, grid_thw, self.config.image_token_id,
-            self.config.vision.spatial_merge_size)
+        position_ids = self.model.position_ids(ids, grid_thw)
         pos_base = int(position_ids.max()) + 1
         if seq_len < self.prompt_bucket:
             pad = self.prompt_bucket - seq_len
@@ -541,8 +538,7 @@ class ContinuousBatcher:
         ids = np.asarray(requests[0]["input_ids"]).reshape(1, -1)[:, :Lp]
         # image-free, so its rope positions are the same alone as inside
         # every request's whole sequence
-        pos = compute_mrope_position_ids(ids, (), self.config.image_token_id,
-                                         self.config.vision.spatial_merge_size)
+        pos = self.model.position_ids(ids, ())
         if Lp not in self._prefix_fns:
             self._prefix_fns[Lp] = self._build_prefix(Lp)
         ids, pos = self._to_device(ids, torch.int64), self._to_device(pos, torch.int64)
@@ -590,7 +586,11 @@ class ContinuousBatcher:
         forward of every slot; k + 1 a speculative cycle),
         ``decode.row_steps`` (slots times steps), ``decode.active_row_steps``
         (those of slots holding a request at dispatch) and
-        ``decode.tokens_kept`` (the tokens the requests were served)."""
+        ``decode.tokens_kept`` (the tokens the requests were served).
+
+        A model with ``record_rows`` (Kimi-VL recording its routes) has
+        each request's slot records copied as the request retires, into
+        ``self.records`` by request index."""
         with annotate("batcher.wave"):
             return self._serve(requests, max_new_tokens)
 
@@ -606,6 +606,10 @@ class ContinuousBatcher:
         active = np.zeros((self.n_slots,), bool)
         queue = list(range(len(requests)))
         eos = self.eos_token_id
+        # a model that keeps records in its cache (``record_rows``) has the
+        # retiring slot's copied, in stream order before a refill reuses it
+        keep = getattr(self.model, "record_rows", None)
+        self.records = {}
 
         def refill():
             # The head-of-queue run with one image layout prefills together,
@@ -711,7 +715,7 @@ class ContinuousBatcher:
             elif self.prompt_bucket - self._wave_lp <= _BATCH_REFILL_MAX_SUFFIX:
                 per_row = self._kv_bytes_per_row()
                 if spec:
-                    per_row += self._kv_bytes_per_row(self.draft_model.config.text)
+                    per_row += self._kv_bytes_per_row(self.draft_model)
                 rb = max(1, _REFILL_KV_BUDGET // per_row)
             else:
                 rb = 1
@@ -760,6 +764,8 @@ class ContinuousBatcher:
                         if done[r] and slot_req[s] == r:
                             slot_req[s] = None
                             active[s] = False
+                            if keep is not None:
+                                self.records[r] = keep(self._state["cache"], s)
                 refill()
         except BaseException:
             # a failed wave may leave a graph or the state half written

@@ -21,6 +21,13 @@ Port of ``emr2a_tpu/utils/profiling.py``, with the port's own tracer:
   never synchronised.
 - ``count(name, n=1)``: adds ``n`` to a counter while a profiler records
   (and returns at once while none does).
+- ``register_tally(tally, read)``: counters that the device keeps itself
+  in the tensor ``tally`` (a kernel adds to it, also inside a replayed
+  CUDA graph, where no Python runs). It is zeroed when a session's store
+  starts and copied when the profiler stops, both enqueued on the device
+  without a wait, and ``read(copy)``'s ``{name: int}`` is added to the
+  counters when ``snapshot`` reads the session: no step waits on it, and
+  work after the session does not count.
 - ``snapshot()``: the spans and counters of the latest profiler session.
   The store keeps one session: the first span or count of a new session
   clears what an earlier one left, so a profiled window holds exactly its
@@ -79,6 +86,22 @@ def _session_hook():
     return counted
 
 
+def _stop_hook() -> None:
+    """The profiler's stop hook, wrapped once per process to copy the
+    device-side tallies as the session ends."""
+    stop = getattr(_profiler, "_run_on_profiler_stop", None)
+    if stop is None or hasattr(stop, "tallies"):
+        return
+
+    def frozen():
+        for t in _tallies:
+            t[2] = t[0].clone()
+        stop()
+
+    frozen.tallies = True
+    _profiler._run_on_profiler_stop = frozen
+
+
 _HOOK = _session_hook()
 
 
@@ -95,16 +118,29 @@ class _Store:
 _store = _Store(-1)
 _lock = threading.Lock()
 _local = threading.local()
+_tallies: list = []     # [tally, read, its copy at the session's end]
+
+
+def register_tally(tally: torch.Tensor, read) -> None:
+    """Device-side counters (see the module docstring)."""
+    _stop_hook()
+    _tallies.append([tally, read, None])
 
 
 def _current() -> _Store:
-    """The store of the latest session, emptied at its first use."""
+    """The store of the latest session, emptied at its first use (the
+    device-side tallies are reset then too)."""
     global _store
     session = _HOOK.sessions if _HOOK is not None else 0
     with _lock:
-        if _store.session != session:
-            _store = _Store(session)
-        return _store
+        if _store.session == session:
+            return _store
+        _store = _Store(session)
+        store = _store
+    for t in list(_tallies):
+        t[0].zero_()
+        t[2] = None
+    return store
 
 
 def _stream(device):
@@ -185,6 +221,9 @@ def snapshot() -> dict:
     store = _current()
     with _lock:
         records, counters = list(store.spans), dict(store.counters)
+    for tally, read, copy in list(_tallies):
+        for name, n in read(tally if copy is None else copy).items():
+            counters[name] = counters.get(name, 0) + n
     out = []
     for r in records:
         if r.events is not None and r.end_ns is not None:
